@@ -18,7 +18,21 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     encode is recorded call by call, and each kernel's launches of it are
     replayed on their own inputs: checked against the plain version, and
     timed back to back as the kernel, the plain version and library calls;
- 5. prints one JSON line of the kernels and, last, the device line.
+ 5. holds the backward kernel relpos_attention_backward (K4) against its plain
+    backward at the window (25, 12, 196, 64) and global (1, 12, 4096, 64)
+    shapes, f32 (rel 1e-4) and bf16 (rel 3e-2 of the f32 plain result on the
+    same bf16 inputs), with timings, bounds and an SDPA-backward yardstick;
+ 6. finetuning at full vit_b width: train_sam("vit_b", with_segmentation_decoder
+    =False, n_iterations=2) on 512^2 synthetic patches, its best.pkl loaded
+    into the predictor for one predict; then SamTrainer steps at train_sam's
+    defaults (batch 2, 25 objects, 8 rounds, lr 1e-5, bf16 compute with f32
+    weights), 3 warm-up and 5 timed, with the attention launches per step
+    counted (24 forward, 48 backward); one step's K4 calls are recorded and
+    replayed as the kernel, the plain version and SDPA backward; one f32 step
+    on the card (batch 1, 4 objects, one round) against the same step on the
+    CPU (gradients within rel 1e-3 of each tensor's max);
+ 7. prints one JSON line of the kernels, the training numbers and, last, the
+    device line.
 """
 import json
 import os
@@ -36,7 +50,9 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 C, NH, HD, HIDDEN = 768, 12, 64, 3072
 WIN_ROWS, GLOB_ROWS = 25 * 196, 4096   # rows of one 1024^2 image in the two block kinds
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+BWD_BF16_TOL = 3e-2   # K4 in bf16 against the f32 plain backward on the same inputs
 ENCODE_BATCH, ENCODE_REPS, DECODE_REPS = 8, 5, 30
+TRAIN_WARMUP, TRAIN_REPS = 3, 5
 
 
 def log(*a):
@@ -59,14 +75,20 @@ def time_ms(fn, iters=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def check(name, got, ref, dtype_name, quiet=False):
-    """f32: relative error <= 1e-4; bf16: abs error <= 2e-2 * max|ref|."""
+def check(name, got, ref, dtype_name, quiet=False, tol=None):
+    """f32: relative error <= 1e-4; bf16: abs error <= 2e-2 * max|ref| (or
+    ``tol``). A tuple of outputs is checked output by output; returns the
+    largest absolute error."""
+    if isinstance(got, tuple):
+        return max(check(f"{name} [{i}]", g, r, dtype_name, quiet, tol)
+                   for i, (g, r) in enumerate(zip(got, ref)))
     got, ref = got.float(), ref.float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite values in the kernel output")
     a = float((got - ref).abs().max())
     rel = a / (float(ref.abs().max()) + 1e-30)
-    tol = F32_TOL if dtype_name == "float32" else BF16_TOL
+    if tol is None:
+        tol = F32_TOL if dtype_name == "float32" else BF16_TOL
     ok = rel <= tol
     if not quiet or not ok:
         log(f"  {name:<44s} {dtype_name:<8s} max_abs_err {a:.3e}  rel {rel:.3e}  "
@@ -95,11 +117,16 @@ def work(name, a):
         residual = len(a) > 3 and a[3] == "residual"
         ops = 2 * M * N * K
         nbytes = (M * K + N * K + M * N * (2 if residual else 1)) * s + N * 4
-    else:
+    elif name == "relpos_attention":
         B, nH, N, hd = x.shape
         H, W = a[5]
         ops = B * nH * (4 * N * N * hd + 2 * N * (H + W) * hd)
         nbytes = 4 * B * nH * N * hd * s + (H * H + W * W) * hd * s
+    else:  # relpos_attention_backward: S again, dP, dv, dk, dq; the tables' terms
+        B, nH, N, hd = x.shape
+        H, W = a[7]
+        ops = B * nH * (10 * N * N * hd + 6 * N * (H + W) * hd)
+        nbytes = 8 * B * nH * N * hd * s + (H * H + W * W) * hd * (s + 4)
     return ops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -111,6 +138,34 @@ def bound_of(calls):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
+def materialized_bias(q, rh, rw, hw, dt):
+    """The rel-pos bias as an (B, nH, N, N) tensor in ``dt`` (for SDPA)."""
+    B, nH, N, hd = q.shape
+    H, W = hw
+    r_q = q.float().reshape(B, nH, H, W, hd)
+    return (torch.einsum("bnijc,ikc->bnijk", r_q, rh.float())[..., :, None]
+            + torch.einsum("bnijc,jkc->bnijk", r_q, rw.float())[..., None, :]
+            ).reshape(B, nH, N, N).to(dt)
+
+
+def sdpa_backward(q, k, v, rh, rw, hw, dout):
+    """A closure running only the backward of SDPA with the rel-pos bias
+    materialized as a float tensor that requires grad: the yardstick of the
+    backward kernel (gradients of q, k, v and the N x N bias). The forward and
+    the bias build run here, outside any timing."""
+    import torch.nn.functional as F
+    leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+    bias = materialized_bias(q, rh, rw, hw, q.dtype).requires_grad_()
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+    g = dout.contiguous()
+
+    def run():
+        with torch.enable_grad():
+            return torch.autograd.grad(out, leaves + [bias], g, retain_graph=True)
+    return run
+
+
 def counterparts(name, a, kw):
     """(kernel, plain, library, f32 reference) closures of one kernel call.
     The library one is a PyTorch call computing the same function, its inputs
@@ -118,8 +173,9 @@ def counterparts(name, a, kw):
     import torch.nn.functional as F
     from micro_sam_tpu_torch.ops.gemm import gemm, gemm_plain
     from micro_sam_tpu_torch.ops.layernorm import layernorm, layernorm_plain
-    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
-                                                          relpos_attention_plain)
+    from micro_sam_tpu_torch.ops.relpos_attention import (
+        relpos_attention, relpos_attention_backward, relpos_attention_backward_plain,
+        relpos_attention_plain)
     x = a[0]
     dt = x.dtype
     f32 = lambda t: None if t is None or not torch.is_tensor(t) else t.float()
@@ -140,13 +196,14 @@ def counterparts(name, a, kw):
         lib = {"none": lin, "gelu": lambda: F.gelu(lin()), "residual": lambda: r + lin()}[epi]
         return (lambda: gemm(*a), lambda: gemm_plain(*a), lib,
                 lambda: gemm_plain(x.float(), w.float(), b, epi, f32(r)))
+    if name == "relpos_attention_backward":
+        q, k, v, out, dout, rh, rw, hw = a
+        return (lambda: relpos_attention_backward(*a, **kw),
+                lambda: relpos_attention_backward_plain(*a),
+                sdpa_backward(q, k, v, rh, rw, hw, dout),
+                lambda: relpos_attention_backward_plain(*(t.float() for t in a[:7]), hw))
     q, k, v, rh, rw, hw = a
-    B, nH, N, hd = q.shape
-    H, W = hw
-    r_q = q.float().reshape(B, nH, H, W, hd)
-    bias = (torch.einsum("bnijc,ikc->bnijk", r_q, rh.float())[..., :, None]
-            + torch.einsum("bnijc,jkc->bnijk", r_q, rw.float())[..., None, :]
-            ).reshape(B, nH, N, N).to(dt)
+    bias = materialized_bias(q, rh, rw, hw, dt)
     return (lambda: relpos_attention(*a, **kw), lambda: relpos_attention_plain(*a),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
             lambda: relpos_attention_plain(q.float(), k.float(), v.float(), rh.float(),
@@ -311,11 +368,14 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images):
     return out
 
 
-def summarize(shapes, launches, per_encode):
-    """One entry per kernel. launches: the main path's count; ms, plain_ms,
-    library_ms, bound_ms: all of the kernel's launches of one batch-1 bf16
-    1024^2 encode, replayed back to back on that encode's inputs; shapes: the
-    per-shape checks and timings of phase 3."""
+def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4):
+    """One entry per kernel. launches: the count of the path the kernel is on
+    (serving for the forward kernels, whose training-path count is
+    ``launches_training_path``; training for the backward). ms, plain_ms,
+    library_ms, bound_ms: the forward kernels' launches of one batch-1 bf16
+    1024^2 encode, and the backward's calls of one training step, replayed back
+    to back on their own inputs; shapes: the per-shape checks and timings of
+    phases 3 and 5."""
     sources = {"layernorm": "micro_sam_tpu_torch/csrc/layernorm.cu",
                "gemm": "micro_sam_tpu_torch/csrc/gemm.cu",
                "relpos_attention": "micro_sam_tpu_torch/csrc/relpos_attention.cu"}
@@ -337,6 +397,21 @@ def summarize(shapes, launches, per_encode):
             "per": "all launches of one 1024x1024 vit_b bf16 encode at batch 1, back to back",
             "shapes": rows,
         })
+        if name == "relpos_attention":
+            out[-1]["launches_training_path"] = train_launches[name]
+    out.append({
+        "name": "relpos_attention_backward", "route": "cuda",
+        "source": "micro_sam_tpu_torch/csrc/relpos_attention_bwd.cu",
+        "replaces": "micro_sam_tpu/ops/flash_attention.py:619 (_flash_backward_qkv; kernel "
+                    "_flash_bwd_kernel :409)",
+        "launches": train_launches["relpos_attention_backward"],
+        "max_abs_err": max([k4["max_abs_err"]] + [r["max_abs_err"] for r in bwd_rows]),
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+        "calls_per_step": k4["calls_per_step"],
+        "per": "all calls of one vit_b bf16 training step (batch 2 of 1024^2), back to back",
+        "shapes": bwd_rows,
+    })
     return out
 
 
@@ -446,6 +521,287 @@ def main_path_phase(counters):
                       "tiles_per_s_b8": 1e3 / t_enc[ENCODE_BATCH], "decode_p50_ms": dec_p50}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def backward_phase():
+    """K4 at the window and global shapes, q / k / v read from the qkv rows'
+    strides, dout the transposed view of the proj product's rows, as the
+    training path gives them."""
+    from micro_sam_tpu_torch.models.image_encoder import get_rel_pos
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(4321)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    rows = []
+    for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for B, H in ((25, 14), (1, 64)):
+            N = H * H
+            q5 = rnd(B * N, 3, NH, HD).to(dt).view(B, N, 3, NH, HD)
+            q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
+            rh = get_rel_pos(H, H, rnd(2 * H - 1, HD, scale=0.3)).to(dt)
+            rw = get_rel_pos(H, H, rnd(2 * H - 1, HD, scale=0.3)).to(dt)
+            out = relpos_attention(q, k, v, rh, rw, (H, H))
+            dout = rnd(B, N, NH, HD).to(dt).transpose(1, 2)
+            a = (q, k, v, out, dout, rh, rw, (H, H))
+            kern, plain, lib, ref = counterparts("relpos_attention_backward", a, {})
+            tol = F32_TOL if dt == torch.float32 else BWD_BF16_TOL
+            label = f"relpos_attention_backward ({B}, {NH}, {N}, {HD}) dq dk dv drh drw"
+            err = check(label, kern(), ref(), dname, tol=tol)
+            k_ms = time_ms(kern)
+            p_ms = time_ms(plain, iters=5)
+            l_ms = time_ms(lib, iters=10)
+            b_ms, b_by = bound_of([("relpos_attention_backward", a, {})])
+            rows.append(dict(shape=f"({B}, {NH}, {N}, {HD})", dtype=dname, max_abs_err=err,
+                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+            log(f"    ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms (SDPA backward, bias "
+                f"grad) {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+            del a, kern, plain, lib, ref, q5, q, k, v, out, dout
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: finetuning
+# ---------------------------------------------------------------------------
+
+class CallRecorder:
+    """Records every call of one module-level function, (name, args, kwargs),
+    by patching the module attribute its callers look up; each call still
+    runs (and counts) as before."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+
+        def call(*a, **kw):
+            self.calls.append((self.name, a, kw))
+            return self.saved(*a, **kw)
+        # the wrapped function counts its launches on the object its module
+        # name points to, which is now this wrapper
+        call.launches = 0
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+PROFILE_GROUPS = (  # kernel-name patterns -> the layer they belong to
+    ("K4 relpos_attention_backward", ("prep_bf16_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel",
+                                      "relgrad_kernel")),
+    ("K1 relpos_attention", ("relpos_attention_bf16_kernel",)),
+    ("matrix products and convolutions (cuBLAS / cuDNN)", ("gemm", "sm90", "xmma", "cutlass",
+                                                           "conv")),
+)
+
+
+def profile_step(step):
+    """One step under torch.profiler: device time by layer and the top
+    kernels, and the device's busy share of the step's host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        log("  profiled step: the profiler saw no device time (not measured)")
+        return None
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["other (elementwise, reductions, copies)"] = 0.0
+    for e in kernels:
+        for name, pats in PROFILE_GROUPS:
+            if any(p in e.key for p in pats):
+                groups[name] += e.self_device_time_total / 1e3
+                break
+        else:
+            groups["other (elementwise, reductions, copies)"] += e.self_device_time_total / 1e3
+    log(f"  profiled step (torch.profiler): host clock {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle share {1 - busy / wall:.3f})")
+    for name, ms in groups.items():
+        log(f"    {name}: {ms:.3f} ms")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    for e in top:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    return {"host_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "by_layer_ms": groups,
+            "top_kernels": [[e.key[:110], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def f32_step_grads(device, x, y):
+    """(loss, {name: grad}) of one f32 point step (one round, 4 objects) of
+    the randomly initialized vit_b on ``device``."""
+    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
+    model = get_trainable_sam_model("vit_b", device=device, compute_dtype="float32")
+    trainer = SamTrainer("f32", None, None, model, n_sub_iteration=1, n_objects_per_batch=4,
+                         logger=False)
+    batch = trainer._prepare_batch(x, y, True, False, 1, 0)
+    with torch.enable_grad():
+        loss, _ = trainer._loss(*batch, True, False, True)
+        loss.backward()
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+             for n, p in model.sam.named_parameters()}
+    return float(loss), grads
+
+
+def training_phase(counters, root):
+    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model, train_sam
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    from micro_sam_tpu_torch.util import _to_image, get_sam_model
+    import pickle
+
+    data = [synthetic_data((512, 512), seed=s) for s in range(6)]
+    n_obj = [int(seg.max()) for _, seg in data]
+    log(f"  512^2 synthetic patches, objects per patch {n_obj}")
+    if min(n_obj) < 25:
+        raise AssertionError("a training patch holds fewer than 25 objects")
+    imgs, segs = [d[0] for d in data], [d[1] for d in data]
+    train_loader = SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4), batch_size=2)
+    val_loader = SamLoader(SamDataset(imgs[4:], segs[4:], (512, 512), n_samples=2, seed=1),
+                           batch_size=2)
+    save_root = os.path.join(root, "build", "chip_smoke_training")
+
+    # the training path, counted from train_sam to the last timed step
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        train_sam("smoke", "vit_b", train_loader, val_loader, with_segmentation_decoder=False,
+                  n_iterations=2, device="cuda", save_root=save_root)
+    torch.cuda.synchronize()
+    train_sam_s = time.perf_counter() - t0
+    best = os.path.join(save_root, "smoke", "best.pkl")
+    with open(best, "rb") as f:
+        ck = pickle.load(f)
+    log(f"  train_sam: {train_sam_s:.1f} s for 2 steps and validation; best.pkl iteration "
+        f"{ck['iteration']}, metrics {ck['metrics']}")
+    if ck["iteration"] != 2 or not np.isfinite(ck["metrics"][0]["train_loss"]):
+        raise AssertionError("train_sam did not take its two steps")
+
+    model = get_trainable_sam_model("vit_b", device="cuda")
+    trainer = SamTrainer("timing", train_loader, val_loader, model, n_sub_iteration=8,
+                         n_objects_per_batch=25, lr=1e-5, logger=False, save_root=save_root)
+    batches = list(train_loader)
+
+    def step(i):
+        x, y = batches[i % len(batches)]
+        use_points, use_box, multimask, n_pos, n_neg = \
+            trainer._get_prompt_and_multimasking_choices(trainer._iteration)
+        b = trainer._prepare_batch(x, y, use_points, use_box, n_pos, n_neg, batch_idx=i)
+        with torch.enable_grad():
+            loss, miou = trainer.train_step(b, use_points, use_box, multimask)
+        torch.cuda.synchronize()
+        return loss, miou
+
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    before = {n: p.detach().clone() for n, p in model.sam.named_parameters()}
+    counts0 = {k: c.launches for k, c in counters.items()}
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(TRAIN_REPS):
+        t0 = time.perf_counter()
+        loss, miou = step(TRAIN_WARMUP + i)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.launches for k, c in counters.items()}
+    per_step = {k: (launches[k] - counts0[k]) / TRAIN_REPS for k in counters}
+    depth = model.config.depth
+    expect = {"relpos_attention": 2 * depth, "relpos_attention_backward": 4 * depth}
+    log(f"  launches in the training path (train_sam, {TRAIN_WARMUP} + {TRAIN_REPS} steps): "
+        f"{launches}")
+    log(f"  launches per timed step: {per_step} (expected {expect}: {depth} blocks x 2 forward "
+        f"with the recompute, x 4 backward stages)")
+    if any(per_step[k] != v for k, v in expect.items()) or any(
+            per_step[k] for k in counters if k not in expect):
+        raise AssertionError("a training step did not go through the attention kernels as expected")
+    grads_ok = all(torch.isfinite(p.grad).all() for p in model.sam.parameters() if p.grad is not None)
+    moved = sum(not torch.equal(before[n], p.detach()) for n, p in model.sam.named_parameters())
+    n_params = len(before)
+    log(f"  bf16 steps: losses {losses}; grads finite {grads_ok}; {moved} of {n_params} "
+        f"parameter tensors moved")
+    if not (np.isfinite(losses).all() and grads_ok and moved >= 0.9 * n_params):
+        raise AssertionError("the bf16 training steps are not finite or did not move the weights")
+    step_ms = statistics.median(times)
+    log(f"  step ms (host clock incl. prompt sampling, median of {TRAIN_REPS}): {step_ms:.3f} "
+        f"(all {[round(t, 3) for t in times]}); images/s {2e3 / step_ms:.3f}; "
+        f"peak memory {peak / 2**30:.3f} GiB")
+
+    prof = profile_step(lambda: step(TRAIN_WARMUP + TRAIN_REPS))
+
+    # one step's backward calls, replayed
+    with CallRecorder(rpa, "relpos_attention_backward") as rec:
+        step(TRAIN_WARMUP + TRAIN_REPS + 1)
+    calls = rec.calls
+    err = 0.0
+    for name, a, kw in calls:
+        kern, _, _, ref = counterparts(name, a, kw)
+        err = max(err, check(f"{name} on training-step inputs", kern(), ref(), "bfloat16",
+                             quiet=True, tol=BWD_BF16_TOL))
+    k_ms, p_ms, l_ms = replay(calls, iters=5)
+    b_ms, b_by = bound_of(calls)
+    k4 = dict(calls_per_step=len(calls), max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+              bound_ms=b_ms, bound_by=b_by)
+    log(f"  relpos_attention_backward: {len(calls)} calls of one step, max_abs_err {err:.3e}; "
+        f"ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+    del calls, rec, trainer, model, before
+    torch.cuda.empty_cache()
+
+    # the checkpoint predicts on the card
+    predictor = get_sam_model("vit_b", checkpoint_path=best)
+    predictor.set_image(_to_image(imgs[0]))
+    m, iou, lo = predictor.predict(np.array([[256., 256.]]), np.array([1]))
+    log(f"  best.pkl -> get_sam_model -> predict: masks {m.shape} iou {np.round(iou, 4).tolist()}")
+    if m.shape != (3, 512, 512) or not np.isfinite(iou).all() or not np.isfinite(lo).all():
+        raise AssertionError("the finetuned checkpoint does not predict")
+    del predictor
+    torch.cuda.empty_cache()
+
+    # one f32 step on the card against the same step on the CPU
+    x, y = batches[0][0][:1], batches[0][1][:1]
+    t0 = time.perf_counter()
+    loss_gpu, g_gpu = f32_step_grads("cuda", x, y)
+    loss_cpu, g_cpu = f32_step_grads("cpu", x, y)
+    g_max = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_name, n_held = 0.0, "", 0
+    for name, ref in g_cpu.items():
+        got = g_gpu[name]
+        if float(ref.abs().max()) <= 1e-7 * g_max:  # zero by symmetry (key biases) or unused
+            if float(got.abs().max()) > 1e-6 * g_max:
+                raise AssertionError(f"f32 step: {name} should have no gradient")
+            continue
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        n_held += 1
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    log(f"  f32 step card vs CPU ({time.perf_counter() - t0:.1f} s): loss {loss_gpu:.6f} vs "
+        f"{loss_cpu:.6f} (rel {loss_rel:.2e}); worst gradient rel {worst:.3e} ({worst_name}) "
+        f"over {n_held} tensors (tol 1e-3) {'ok' if worst <= 1e-3 else 'FAIL'}")
+    if worst > 1e-3 or loss_rel > 1e-4:
+        raise AssertionError("the f32 training step on the card disagrees with the CPU")
+
+    training = {"model": "vit_b", "batch": 2, "objects_per_image": 25, "n_sub_iteration": 8,
+                "patch": 512, "compute_dtype": "bfloat16", "step_ms": step_ms, "step_ms_all": times,
+                "images_per_s": 2e3 / step_ms, "peak_memory_bytes": peak,
+                "launches_per_step": per_step, "train_sam_s": train_sam_s,
+                "f32_step_grad_rel": worst, "f32_step_loss_rel": loss_rel, "losses": losses,
+                "profiled_step": prof}
+    return launches, k4, training
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
@@ -456,7 +812,8 @@ def main():
     from micro_sam_tpu_torch.ops import _cuda
     from micro_sam_tpu_torch.ops.gemm import gemm
     from micro_sam_tpu_torch.ops.layernorm import layernorm
-    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                          relpos_attention_backward)
 
     # phase 1: the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -491,9 +848,18 @@ def main():
     shapes, chains = kernel_phase(counters)
     log("main path: vit_b, 1024^2, random weights (seed 0), bf16")
     launches, per_encode, e2e = main_path_phase(counters)
-    log(json.dumps({"kernels": summarize(shapes, launches, per_encode), "chains": chains,
-                    "card": card,
-                    "end_to_end": e2e}))
+    torch.cuda.empty_cache()
+
+    # phase 5: the backward kernel vs plain
+    log("backward kernel vs plain backward (bf16: within 3e-2 of the f32 plain result)")
+    with torch.enable_grad():
+        bwd_rows = backward_phase()
+    # phase 6: finetuning
+    log("training path: train_sam / SamTrainer, vit_b, 512^2 patches -> 1024^2, bf16 compute")
+    counters["relpos_attention_backward"] = relpos_attention_backward
+    train_launches, k4, training = training_phase(counters, root)
+    log(json.dumps({"kernels": summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4),
+                    "chains": chains, "card": card, "end_to_end": e2e, "training": training}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

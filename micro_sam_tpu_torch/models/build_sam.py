@@ -42,12 +42,12 @@ def default_compute_dtype(device: torch.device) -> str:
 
 
 def build_sam(model_type: str, seed: int = 0, compute_dtype: Optional[str] = None,
-              device: Optional[str] = None) -> Sam:
+              device: Optional[str] = None, weight_dtype: Optional[torch.dtype] = None) -> Sam:
     """Random-init SAM (weights drawn on the CPU from ``seed``, then moved).
 
     ``device=None`` means the GPU; ``compute_dtype=None`` is bfloat16 there and
-    float32 on the CPU."""
+    float32 on the CPU; ``weight_dtype`` as in ``Sam``."""
     dev = resolve_device(device)
-    sam = Sam(get_config(model_type, compute_dtype or default_compute_dtype(dev)))
+    sam = Sam(get_config(model_type, compute_dtype or default_compute_dtype(dev)), weight_dtype)
     sam.init_(torch.Generator().manual_seed(seed))
     return sam.to(dev).eval()

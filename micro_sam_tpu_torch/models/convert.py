@@ -5,7 +5,8 @@ The port's modules use the segment_anything key layout, so a zoo ``.pt`` /
 ``model_state`` with a ``sam.`` prefix) loads with ``load_state_dict``.
 ``params_from_jax`` maps the JAX package's parameter tree (nested dicts and
 lists of numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives them) to
-the same layout:
+the same layout, and ``params_to_jax`` maps it back (the trainer's checkpoints
+hold the JAX tree, so they load in either package):
 
 - Linear ``w`` (in, out)              -> ``weight`` (out, in)
 - Conv ``w`` (kh, kw, I, O)           -> ``weight`` (O, I, kh, kw)
@@ -14,7 +15,7 @@ the same layout:
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,87 +51,145 @@ def load_torch_checkpoint(path: str, model_type: Optional[str] = None):
     return config, sam_state, decoder_state
 
 
-def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
-    """JAX package parameter tree (numpy leaves) -> the port's state dict."""
-    sd: Dict[str, np.ndarray] = {}
+def _layers(n_blocks: int, n_decoder_layers: int, n_hyper: int, n_hyper_layers: int,
+            n_iou_layers: int) -> List[Tuple[str, tuple, str]]:
+    """(port key prefix, JAX tree path, kind) of every parameter of the vit SAM.
+    kind: "lin", "conv" (either conv layout), "ln", "emb" (a ``w`` table) or
+    "array" (a bare leaf)."""
+    L: List[Tuple[str, tuple, str]] = []
+    enc = ("image_encoder",)
+    L += [("image_encoder.patch_embed.proj", enc + ("patch_embed",), "conv"),
+          ("image_encoder.pos_embed", enc + ("pos_embed",), "array")]
+    for i in range(n_blocks):
+        pre, bp = f"image_encoder.blocks.{i}", enc + ("blocks", i)
+        L += [(f"{pre}.norm1", bp + ("norm1",), "ln"),
+              (f"{pre}.attn.qkv", bp + ("attn", "qkv"), "lin"),
+              (f"{pre}.attn.proj", bp + ("attn", "proj"), "lin"),
+              (f"{pre}.attn.rel_pos_h", bp + ("attn", "rel_pos_h"), "array"),
+              (f"{pre}.attn.rel_pos_w", bp + ("attn", "rel_pos_w"), "array"),
+              (f"{pre}.norm2", bp + ("norm2",), "ln"),
+              (f"{pre}.mlp.lin1", bp + ("mlp", "lin1"), "lin"),
+              (f"{pre}.mlp.lin2", bp + ("mlp", "lin2"), "lin")]
+    for port, jax_name, kind in (("0", "conv1", "conv"), ("1", "ln1", "ln"),
+                                 ("2", "conv2", "conv"), ("3", "ln2", "ln")):
+        L.append((f"image_encoder.neck.{port}", enc + ("neck", jax_name), kind))
 
-    def lin(name, p):
-        sd[f"{name}.weight"] = np.asarray(p["w"]).T
-        if "b" in p:
-            sd[f"{name}.bias"] = np.asarray(p["b"])
+    pr = ("prompt_encoder",)
+    L.append(("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+              pr + ("pe_gaussian",), "array"))
+    L += [(f"prompt_encoder.point_embeddings.{i}", pr + ("point_embeddings", i), "emb")
+          for i in range(4)]
+    L += [("prompt_encoder.not_a_point_embed", pr + ("not_a_point_embed",), "emb"),
+          ("prompt_encoder.no_mask_embed", pr + ("no_mask_embed",), "emb")]
+    for port, jax_name, kind in (("0", "conv1", "conv"), ("1", "ln1", "ln"), ("3", "conv2", "conv"),
+                                 ("4", "ln2", "ln"), ("6", "conv3", "conv")):
+        L.append((f"prompt_encoder.mask_downscaling.{port}", pr + ("mask_downscaling", jax_name),
+                  kind))
 
-    def conv(name, p):  # both conv layouts map by the same transpose
-        sd[f"{name}.weight"] = np.asarray(p["w"]).transpose(3, 2, 0, 1)
-        if "b" in p:
-            sd[f"{name}.bias"] = np.asarray(p["b"])
+    de = ("mask_decoder",)
+    attn_parts = (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "out"))
 
-    def ln(name, p):
-        sd[f"{name}.weight"] = np.asarray(p["scale"])
-        sd[f"{name}.bias"] = np.asarray(p["bias"])
+    def attn_ds(port, path):
+        return [(f"{port}.{a}", path + (b,), "lin") for a, b in attn_parts]
 
-    def attn_ds(name, p):
-        for part, key in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "out_proj")):
-            lin(f"{name}.{key}", p[part])
+    for i in range(n_decoder_layers):
+        pre, lp = f"mask_decoder.transformer.layers.{i}", de + ("transformer", "layers", i)
+        L += attn_ds(f"{pre}.self_attn", lp + ("self_attn",))
+        L.append((f"{pre}.norm1", lp + ("norm1",), "ln"))
+        L += attn_ds(f"{pre}.cross_attn_token_to_image", lp + ("cross_attn_t2i",))
+        L += [(f"{pre}.norm2", lp + ("norm2",), "ln"),
+              (f"{pre}.mlp.lin1", lp + ("mlp", "lin1"), "lin"),
+              (f"{pre}.mlp.lin2", lp + ("mlp", "lin2"), "lin"),
+              (f"{pre}.norm3", lp + ("norm3",), "ln")]
+        L += attn_ds(f"{pre}.cross_attn_image_to_token", lp + ("cross_attn_i2t",))
+        L.append((f"{pre}.norm4", lp + ("norm4",), "ln"))
+    L += attn_ds("mask_decoder.transformer.final_attn_token_to_image",
+                 de + ("transformer", "final_attn"))
+    L += [("mask_decoder.transformer.norm_final_attn", de + ("transformer", "norm_final"), "ln"),
+          ("mask_decoder.iou_token", de + ("iou_token",), "emb"),
+          ("mask_decoder.mask_tokens", de + ("mask_tokens",), "emb"),
+          ("mask_decoder.output_upscaling.0", de + ("upscale_conv1",), "conv"),
+          ("mask_decoder.output_upscaling.1", de + ("upscale_ln",), "ln"),
+          ("mask_decoder.output_upscaling.3", de + ("upscale_conv2",), "conv")]
+    for i in range(n_hyper):
+        L += [(f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}",
+               de + ("hyper_mlps", i, "layers", j), "lin") for j in range(n_hyper_layers)]
+    L += [(f"mask_decoder.iou_prediction_head.layers.{j}", de + ("iou_head", "layers", j), "lin")
+          for j in range(n_iou_layers)]
+    return L
 
+
+def _check_vit(config: SamConfig) -> None:
     if config.encoder != "vit":
         raise NotImplementedError("the TinyViT encoder is not ported yet")
-    enc = params["image_encoder"]
-    conv("image_encoder.patch_embed.proj", enc["patch_embed"])
-    if "pos_embed" in enc:
-        sd["image_encoder.pos_embed"] = np.asarray(enc["pos_embed"])
-    for i, b in enumerate(enc["blocks"]):
-        pre = f"image_encoder.blocks.{i}"
-        ln(f"{pre}.norm1", b["norm1"])
-        lin(f"{pre}.attn.qkv", b["attn"]["qkv"])
-        lin(f"{pre}.attn.proj", b["attn"]["proj"])
-        sd[f"{pre}.attn.rel_pos_h"] = np.asarray(b["attn"]["rel_pos_h"])
-        sd[f"{pre}.attn.rel_pos_w"] = np.asarray(b["attn"]["rel_pos_w"])
-        ln(f"{pre}.norm2", b["norm2"])
-        lin(f"{pre}.mlp.lin1", b["mlp"]["lin1"])
-        lin(f"{pre}.mlp.lin2", b["mlp"]["lin2"])
-    conv("image_encoder.neck.0", enc["neck"]["conv1"])
-    ln("image_encoder.neck.1", enc["neck"]["ln1"])
-    conv("image_encoder.neck.2", enc["neck"]["conv2"])
-    ln("image_encoder.neck.3", enc["neck"]["ln2"])
 
-    pr = params["prompt_encoder"]
-    sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = np.asarray(pr["pe_gaussian"])
-    for i, p in enumerate(pr["point_embeddings"]):
-        sd[f"prompt_encoder.point_embeddings.{i}.weight"] = np.asarray(p["w"])
-    sd["prompt_encoder.not_a_point_embed.weight"] = np.asarray(pr["not_a_point_embed"]["w"])
-    sd["prompt_encoder.no_mask_embed.weight"] = np.asarray(pr["no_mask_embed"]["w"])
-    mdn = pr["mask_downscaling"]
-    conv("prompt_encoder.mask_downscaling.0", mdn["conv1"])
-    ln("prompt_encoder.mask_downscaling.1", mdn["ln1"])
-    conv("prompt_encoder.mask_downscaling.3", mdn["conv2"])
-    ln("prompt_encoder.mask_downscaling.4", mdn["ln2"])
-    conv("prompt_encoder.mask_downscaling.6", mdn["conv3"])
 
+def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
+    """JAX package parameter tree (numpy leaves) -> the port's state dict."""
+    _check_vit(config)
     de = params["mask_decoder"]
-    for i, lp in enumerate(de["transformer"]["layers"]):
-        pre = f"mask_decoder.transformer.layers.{i}"
-        attn_ds(f"{pre}.self_attn", lp["self_attn"])
-        ln(f"{pre}.norm1", lp["norm1"])
-        attn_ds(f"{pre}.cross_attn_token_to_image", lp["cross_attn_t2i"])
-        ln(f"{pre}.norm2", lp["norm2"])
-        lin(f"{pre}.mlp.lin1", lp["mlp"]["lin1"])
-        lin(f"{pre}.mlp.lin2", lp["mlp"]["lin2"])
-        ln(f"{pre}.norm3", lp["norm3"])
-        attn_ds(f"{pre}.cross_attn_image_to_token", lp["cross_attn_i2t"])
-        ln(f"{pre}.norm4", lp["norm4"])
-    attn_ds("mask_decoder.transformer.final_attn_token_to_image", de["transformer"]["final_attn"])
-    ln("mask_decoder.transformer.norm_final_attn", de["transformer"]["norm_final"])
-    sd["mask_decoder.iou_token.weight"] = np.asarray(de["iou_token"]["w"])
-    sd["mask_decoder.mask_tokens.weight"] = np.asarray(de["mask_tokens"]["w"])
-    conv("mask_decoder.output_upscaling.0", de["upscale_conv1"])
-    ln("mask_decoder.output_upscaling.1", de["upscale_ln"])
-    conv("mask_decoder.output_upscaling.3", de["upscale_conv2"])
-    for i, hp in enumerate(de["hyper_mlps"]):
-        for j, lp in enumerate(hp["layers"]):
-            lin(f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}", lp)
-    for j, lp in enumerate(de["iou_head"]["layers"]):
-        lin(f"mask_decoder.iou_prediction_head.layers.{j}", lp)
+    layers = _layers(len(params["image_encoder"]["blocks"]), len(de["transformer"]["layers"]),
+                     len(de["hyper_mlps"]), len(de["hyper_mlps"][0]["layers"]),
+                     len(de["iou_head"]["layers"]))
+    sd: Dict[str, np.ndarray] = {}
+    for key, path, kind in layers:
+        node = params
+        for part in path[:-1]:
+            node = node[part]
+        if isinstance(path[-1], str) and path[-1] not in node:
+            continue  # pos_embed of a model without one
+        node = node[path[-1]]
+        if kind == "array":
+            sd[key] = np.asarray(node)
+        elif kind == "emb":
+            sd[f"{key}.weight"] = np.asarray(node["w"])
+        elif kind == "ln":
+            sd[f"{key}.weight"] = np.asarray(node["scale"])
+            sd[f"{key}.bias"] = np.asarray(node["bias"])
+        else:  # lin / conv: both conv layouts map by the same transpose
+            w = np.asarray(node["w"])
+            sd[f"{key}.weight"] = w.T if kind == "lin" else w.transpose(3, 2, 0, 1)
+            if "b" in node:
+                sd[f"{key}.bias"] = np.asarray(node["b"])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor], config: SamConfig) -> dict:
+    """The port's state dict -> the JAX package's parameter tree (nested dicts
+    and lists of float32 numpy arrays): the inverse of ``params_from_jax``."""
+    _check_vit(config)
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    n_dec = 1 + max(int(k.split(".")[3]) for k in sd if k.startswith("mask_decoder.transformer.layers."))
+    layers = _layers(config.depth, n_dec, 4, 3, 3)
+    tree: dict = {}
+    for key, path, kind in layers:
+        if kind == "array":
+            if key not in sd:
+                continue
+            leaf = sd[key]
+        elif kind == "emb":
+            leaf = {"w": sd[f"{key}.weight"]}
+        elif kind == "ln":
+            leaf = {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+        else:
+            w = sd[f"{key}.weight"]
+            leaf = {"w": w.T if kind == "lin" else w.transpose(2, 3, 1, 0)}
+            if f"{key}.bias" in sd:
+                leaf["b"] = sd[f"{key}.bias"]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return listify(tree)
 
 
 def load_native_checkpoint(path: str, model_type: Optional[str] = None,

@@ -18,10 +18,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import common as cm
 from ..ops.fused_window_block import (fused_global_block, fused_global_block_plain,
                                       fused_window_block, fused_window_block_plain)
+from ..ops.relpos_attention import RelPosAttentionFn
 
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
@@ -151,6 +153,27 @@ def apply_block(block: Block, x: torch.Tensor) -> torch.Tensor:
     return fused_global_block_plain(x.reshape(B, H * W, C), block, (H, W), nH).reshape(x.shape)
 
 
+def train_block(block: Block, x: torch.Tensor, valid, hw: Tuple[int, int]) -> torch.Tensor:
+    """One block for training, in autograd: x (Bn, N, C) tokens in the compute
+    dtype (windows or whole images); ``valid`` the (Bn, N, 1) pad mask of
+    windows, or None. LN and the products are ``F.layer_norm`` / ``F.linear``
+    (the JAX package leaves them to XLA in training); the attention is
+    ``RelPosAttentionFn`` on the qkv product's rows, the tables' gradient
+    flowing back through ``get_rel_pos``."""
+    Bn, N, C = x.shape
+    attn = block.attn
+    nH = attn.num_heads
+    a = block.norm1(x)
+    if valid is not None:
+        a = a * valid.to(a.dtype)
+    qkv = attn.qkv(a).view(Bn, N, 3, nH, C // nH).permute(0, 2, 3, 1, 4)
+    rel_h = get_rel_pos(hw[0], hw[0], attn.rel_pos_h)
+    rel_w = get_rel_pos(hw[1], hw[1], attn.rel_pos_w)
+    o = RelPosAttentionFn.apply(qkv, rel_h, rel_w, tuple(hw))  # (Bn, nH, N, hd) view
+    x = x + attn.proj(o.transpose(1, 2).reshape(Bn, N, C))
+    return x + block.mlp(block.norm2(x))
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int, embed_dim: int):
         super().__init__()
@@ -163,8 +186,8 @@ class ImageEncoderViT(nn.Module):
                  out_chans: int = 256, window_size: int = 14,
                  global_attn_indexes: Sequence[int] = (2, 5, 8, 11),
                  dtype: torch.dtype = torch.float32):
-        """``dtype``: the compute dtype, in which the blocks' product weights
-        are held."""
+        """``dtype``: the dtype the blocks' product weights are held in (the
+        compute dtype for serving, float32 for training)."""
         super().__init__()
         grid = img_size // patch_size
         self.patch_size = patch_size
@@ -189,9 +212,7 @@ class ImageEncoderViT(nn.Module):
         with torch.no_grad():
             self.pos_embed.normal_(0.0, 0.02, generator=g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, 3) preprocessed pixels in the compute dtype ->
-        (B, H / 16, W / 16, 256) embeddings."""
+    def _patch_embed(self, x: torch.Tensor) -> torch.Tensor:
         # patch embed as space-to-depth + one product (the stride-16 conv on
         # non-overlapping patches)
         B, H, W, _ = x.shape
@@ -202,8 +223,12 @@ class ImageEncoderViT(nn.Module):
         xp = xp.reshape(B, H // ps, W // ps, ps * ps * 3)
         x = xp @ w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(dt)
         x = x + self.patch_embed.proj.bias.to(dt)
-        x = x + self.pos_embed.to(dt)
+        return x + self.pos_embed.to(dt)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, 3) preprocessed pixels in the compute dtype ->
+        (B, H / 16, W / 16, 256) embeddings."""
+        x = self._patch_embed(x)
         glob = set(self.global_attn_indexes)
         depth = len(self.blocks)
         nH, ws = self.num_heads, self.window_size
@@ -221,6 +246,36 @@ class ImageEncoderViT(nn.Module):
             xw, valid, pad_hw = partition_tokens(x, ws)
             for k in range(i, j):
                 xw = fused_window_block(xw, valid, self.blocks[k], (ws, ws), nH)
+            x = window_unpartition(xw.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
+            i = j
+        return self.neck(x)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward (``apply_image_encoder(..., remat=True)``):
+        x (B, H, W, 3) preprocessed pixels in the compute dtype -> (B, H / 16,
+        W / 16, 256). Each block is checkpointed (its activations recomputed in
+        backward); runs of windowed blocks stay in window layout, with the LN1
+        output zeroed at the pad positions."""
+        x = self._patch_embed(x)
+        glob = set(self.global_attn_indexes)
+        depth = len(self.blocks)
+        ws = self.window_size
+        B, H, W, C = x.shape
+        i = 0
+        while i < depth:
+            if i in glob or ws <= 0:
+                t = checkpoint(train_block, self.blocks[i], x.reshape(B, H * W, C), None, (H, W),
+                               use_reentrant=False)
+                x = t.reshape(B, H, W, C)
+                i += 1
+                continue
+            j = i
+            while j < depth and j not in glob:
+                j += 1
+            xw, valid, pad_hw = partition_tokens(x, ws)
+            for k in range(i, j):
+                xw = checkpoint(train_block, self.blocks[k], xw, valid, (ws, ws),
+                                use_reentrant=False)
             x = window_unpartition(xw.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
             i = j
         return self.neck(x)

@@ -2,8 +2,13 @@
 
 Counterpart of ``micro_sam_tpu/models/sam.py``. ``Sam`` is an ``nn.Module``
 whose state dict has the segment_anything key layout. ``config.compute_dtype``
-is the dtype activations run in (bfloat16 on the card); the encoder blocks'
-product weights are held in it, every other parameter is float32.
+is the dtype activations run in (bfloat16 on the card). For serving, the
+encoder blocks' product weights are held in it and every other parameter is
+float32; a model built to train (``weight_dtype=torch.float32``) holds every
+parameter in float32 and casts at use, inside autograd, as the JAX trainer
+does (an AdamW step of 1e-5 on a weight of 0.02 is below bfloat16's
+resolution). ``encode_image`` / ``decode_masks`` run without autograd;
+``encode_image_train`` / ``decode`` are the same modules with it.
 """
 from __future__ import annotations
 
@@ -76,7 +81,9 @@ def postprocess_masks(masks: torch.Tensor, input_size: Tuple[int, int],
 
 
 class Sam(nn.Module):
-    def __init__(self, config: SamConfig):
+    def __init__(self, config: SamConfig, weight_dtype: Optional[torch.dtype] = None):
+        """``weight_dtype``: the dtype of the encoder blocks' product weights
+        (default: the compute dtype, for the serving kernel chain)."""
         super().__init__()
         if config.encoder != "vit":
             raise NotImplementedError(
@@ -88,7 +95,7 @@ class Sam(nn.Module):
             embed_dim=config.embed_dim, depth=config.depth, num_heads=config.num_heads,
             mlp_ratio=config.mlp_ratio, out_chans=config.prompt_embed_dim,
             window_size=config.window_size, global_attn_indexes=config.global_attn_indexes,
-            dtype=config.dtype)
+            dtype=weight_dtype or config.dtype)
         self.prompt_encoder = PromptEncoder(config.prompt_embed_dim, (e, e),
                                             (config.img_size, config.img_size))
         self.mask_decoder = MaskDecoder(config.prompt_embed_dim)
@@ -102,6 +109,11 @@ class Sam(nn.Module):
         """pixels: (B, S, S, 3) preprocessed -> (B, S/16, S/16, 256) in the compute dtype."""
         return self.image_encoder(pixels.to(self.config.dtype))
 
+    def encode_image_train(self, pixels: torch.Tensor) -> torch.Tensor:
+        """``encode_image`` in autograd, every block checkpointed
+        (``ImageEncoderViT.forward_train``)."""
+        return self.image_encoder.forward_train(pixels.to(self.config.dtype))
+
     @torch.no_grad()
     def decode_masks(self, image_embeddings: torch.Tensor, points: torch.Tensor,
                      labels: torch.Tensor, mask_input: Optional[torch.Tensor] = None,
@@ -109,6 +121,12 @@ class Sam(nn.Module):
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image_embeddings (B or 1, 64, 64, 256); points (B, P, 2); labels (B, P);
         mask_input (B, 256, 256, 1) -> (low_res_masks (B, 4, 256, 256), iou (B, 4)), f32."""
+        return self.decode(image_embeddings, points, labels, mask_input, has_mask)
+
+    def decode(self, image_embeddings: torch.Tensor, points: torch.Tensor, labels: torch.Tensor,
+               mask_input: Optional[torch.Tensor] = None, has_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``decode_masks`` in autograd."""
         dt = self.config.dtype
         sparse, dense = self.prompt_encoder(points, labels, mask_input, has_mask)
         image_pe = self.prompt_encoder.get_dense_pe()

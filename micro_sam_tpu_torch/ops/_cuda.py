@@ -23,7 +23,7 @@ from typing import Dict
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("layernorm", "gemm", "relpos_attention")
+SOURCES = ("layernorm", "gemm", "relpos_attention", "relpos_attention_bwd")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -33,6 +33,9 @@ _SIGNATURES = {
     "relpos_attention": ("msam_relpos_attention",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           ctypes.POINTER(_LL), _F, _I, _P]),
+    "relpos_attention_bwd": ("msam_relpos_attention_bwd",
+                             [_I] + [_P] * 13 + [_LL] + [_I] * 6
+                             + [ctypes.POINTER(_LL), _F, _I, _P]),
 }
 
 _lock = threading.Lock()

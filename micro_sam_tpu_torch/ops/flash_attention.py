@@ -1,9 +1,10 @@
-"""Rel-pos flash attention over a fused qkv tensor (forward only).
+"""Rel-pos flash attention over a fused qkv tensor.
 
 Counterpart of ``micro_sam_tpu/ops/flash_attention.py::flash_attention_qkv``:
 the ``relpos_attention`` kernel reads q/k/v as strided views of the fused
-(B, 3, nH, N, hd) tensor, with no copies. The backward (TPU kernel
-``_flash_bwd_kernel``) belongs to the training slice.
+(B, 3, nH, N, hd) tensor, with no copies, and ``RelPosAttentionFn`` makes it
+differentiable, its backward the ``relpos_attention_backward`` kernel (the
+TPU's ``_flash_bwd_kernel``), as the JAX function's custom_vjp does.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .relpos_attention import relpos_attention
+from .relpos_attention import RelPosAttentionFn
 
 
 def flash_attention_qkv(qkv: torch.Tensor, hw: Tuple[int, int],
@@ -25,5 +26,4 @@ def flash_attention_qkv(qkv: torch.Tensor, hw: Tuple[int, int],
     if rel_h is None:
         rel_h = torch.zeros((H, H, hd), dtype=qkv.dtype, device=qkv.device)
         rel_w = torch.zeros((W, W, hd), dtype=qkv.dtype, device=qkv.device)
-    return relpos_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2],
-                            rel_h.to(qkv.dtype), rel_w.to(qkv.dtype), hw)
+    return RelPosAttentionFn.apply(qkv, rel_h, rel_w, tuple(hw))

@@ -1,0 +1,385 @@
+"""SAM trainer with iterative prompting (counterpart of
+``micro_sam_tpu/training/sam_trainer.py``, upstream micro_sam's SamTrainer).
+
+One step: the encoder runs once over the batch of images (blocks checkpointed,
+attention through the K1 / K4 kernels), then ``n_sub_iteration`` rounds decode
+every sampled object. The first round of a point step is multimask (the best
+of the three masks by dice counts); each later round adds one positive point
+from the false-negative region and one negative point from the false-positive
+region, drawn on the device by a Gumbel argmax from an explicit
+``torch.Generator``, and with probability ``mask_prob`` (one coin for the
+batch) feeds the last low-resolution logits back as a mask prompt. The loss
+is dice + ``mse_loss_weight`` * (predicted IoU - actual IoU)^2, averaged over
+the rounds. Each round is checkpointed, as the JAX trainer remats it.
+
+Prompts grow as upstream micro-sam grows them: the initial points (or the box
+corners), then two points per round, and the one padding point upstream SAM
+appends when there is no box. The JAX trainer instead gives every object a
+fixed-capacity array whose unused slots carry label -1; each such token takes
+part in the decoder's attention, so its rounds differ from these.
+"""
+from __future__ import annotations
+
+import csv
+import dataclasses
+import os
+import pickle
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..models.convert import params_from_jax, params_to_jax
+from ..ops.amg_utils import batched_mask_to_box
+from .trainable_sam import TrainableSAM, resize_bilinear
+from .util import ConvertToSamInputs
+
+
+def dice_score(pred_sigmoid: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Soft dice over the trailing two axes; the sums accumulate in float32."""
+    f32 = torch.float32
+    num = 2.0 * (pred_sigmoid * target).sum(dim=(-2, -1), dtype=f32)
+    den = (pred_sigmoid ** 2).sum(dim=(-2, -1), dtype=f32) + (target ** 2).sum(dim=(-2, -1), dtype=f32)
+    return num / (den + eps)
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel noise, -log(E) with E ~ Exp(1), on the generator's device."""
+    e = torch.empty(shape, device=generator.device).exponential_(generator=generator)
+    return -torch.log(e)
+
+
+def _gumbel_pick2(gumbel: torch.Tensor, region_a: torch.Tensor, region_b: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One uniform pick from each of two DISJOINT (N, H, W) regions sharing one
+    (N, H * W) Gumbel field: argmaxes over disjoint subsets of an iid field
+    are independent. Returns xy (N, 2) float32 each; (0, 0) for an empty row."""
+    N, H, W = region_a.shape
+
+    def pick(region):
+        flat = region.reshape(N, H * W)
+        idx = torch.where(flat, gumbel, float("-inf")).argmax(dim=-1)
+        idx = torch.where(flat.any(dim=-1), idx, torch.zeros_like(idx))
+        return torch.stack([(idx % W).float(), (idx // W).float()], dim=-1)
+
+    return pick(region_a > 0), pick(region_b > 0)
+
+
+def _bbox_ring(gt: torch.Tensor, df: int = 3) -> torch.Tensor:
+    """(N, H, W) masks -> the part of each df-dilated bounding box outside the
+    object (the negative points' fallback region)."""
+    N, H, W = gt.shape
+    boxes = batched_mask_to_box(gt > 0).long()
+    ys = torch.arange(H, device=gt.device)[None, :, None]
+    xs = torch.arange(W, device=gt.device)[None, None, :]
+    x0 = (boxes[:, 0] - df).clamp_min(0)[:, None, None]
+    y0 = (boxes[:, 1] - df).clamp_min(0)[:, None, None]
+    x1 = (boxes[:, 2] + df).clamp_max(W)[:, None, None]
+    y1 = (boxes[:, 3] + df).clamp_max(H)[:, None, None]
+    in_box = (ys >= y0) & (ys < y1) & (xs >= x0) & (xs < x1)
+    return in_box & (gt <= 0)
+
+
+def make_optimizer(model: TrainableSAM, lr: float = 1e-5) -> torch.optim.AdamW:
+    """AdamW with optax.adamw's defaults (torch's own weight decay is 1e-2);
+    frozen parameters are left out, so they get no update and no decay."""
+    params = [p for p in model.sam.parameters() if p.requires_grad]
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+class SamTrainer:
+    """Iterative-prompting trainer.
+
+    Args:
+        name: Checkpoint / run name.
+        train_loader / val_loader: Iterables of (image, labels) numpy batches:
+            image (B, H, W, C) raw, labels (B, H, W) instance masks.
+        model: TrainableSAM.
+        optimizer: a torch optimizer over the model's trainable parameters
+            (default ``make_optimizer(model, lr)``).
+        n_sub_iteration: Prompting rounds per step.
+        n_objects_per_batch: Objects sampled per image.
+        convert_inputs: Ground truth -> prompts converter.
+        mse_loss_weight: Weight of the IoU-regression loss.
+        mask_prob: Probability of feeding the predicted logits back as a mask
+            prompt in the later rounds.
+        save_root: Directory for checkpoints.
+        seed: Seeds the object / prompt sampling and the device generator of
+            the corrective points and the mask coin.
+        logger: "tensorboard" or None (TensorBoard when
+            ``torch.utils.tensorboard`` imports), or False for none.
+    """
+
+    def __init__(self, name: str, train_loader, val_loader, model: TrainableSAM, optimizer=None,
+                 n_sub_iteration: int = 8, n_objects_per_batch: Optional[int] = 25,
+                 convert_inputs: Optional[ConvertToSamInputs] = None,
+                 mse_loss_weight: float = 1.0, mask_prob: float = 0.5,
+                 save_root: Optional[str] = None, lr: float = 1e-5, seed: int = 0, logger=None):
+        if n_sub_iteration < 1:
+            raise ValueError(f"n_sub_iteration must be >= 1, got {n_sub_iteration}")
+        self.name = name
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.model = model
+        self.optimizer = optimizer or make_optimizer(model, lr)
+        self.n_sub_iteration = n_sub_iteration
+        self.n_objects_per_batch = n_objects_per_batch or 25
+        self.convert_inputs = convert_inputs or ConvertToSamInputs(box_distortion_factor=0.025)
+        self.mse_loss_weight = mse_loss_weight
+        self.mask_prob = mask_prob
+        self.save_root = save_root or "./checkpoints"
+        self.seed = int(seed)
+        self.device = model.device
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._iteration = 0
+        self._epoch = 0
+        self._best_metric = np.inf
+        self.train_metrics: list = []
+        self._tb = None
+        if logger in ("tensorboard", None):
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self._tb = SummaryWriter(os.path.join(self.save_root, self.name, "logs"))
+
+    # ------------------------------------------------------------------
+    # prompt schedule (upstream sam_trainer.py)
+    # ------------------------------------------------------------------
+    def _get_prompt_and_multimasking_choices(self, iteration: int):
+        """(use_points, use_box, multimask, n_pos, n_neg)."""
+        if iteration % 2 == 0:
+            return True, False, True, 1, 0  # one positive point, multimask
+        return False, True, False, 0, 0     # box
+
+    _VAL_POINT_BUCKETS = ((1, 1), (2, 2), (4, 4))
+
+    def _get_prompt_and_multimasking_choices_for_val(self, iteration: int):
+        """%4 == 0 one point, 1 box, 2 several points without box, 3 box and a point."""
+        if iteration % 4 == 0:
+            return True, False, True, 1, 0
+        if iteration % 4 == 1:
+            return False, True, False, 0, 0
+        if iteration % 4 == 2:
+            n_pos, n_neg = self._VAL_POINT_BUCKETS[(iteration // 4) % len(self._VAL_POINT_BUCKETS)]
+            return True, False, False, n_pos, n_neg
+        return True, True, False, 1, 0
+
+    # ------------------------------------------------------------------
+    # one step
+    # ------------------------------------------------------------------
+    def _round(self, feats, points, labels, mask_input, has_mask, gt_c, gt_bin, valid,
+               first_multimask: bool):
+        """Decode, upscale and score one round. Returns (round loss, mean
+        predicted IoU, selected upscaled logits, selected low-res logits); the
+        last three carry no gradient."""
+        model = self.model
+        dt = model.config.dtype
+        N = gt_c.shape[0]
+        hw = tuple(gt_c.shape[-2:])
+        rows = torch.arange(N, device=gt_c.device)
+        low_res, iou_pred = model.forward_decoder(feats, points, labels, mask_input, has_mask)
+        if first_multimask:  # only the first round of a point step reads all four masks
+            up = model.upscale_masks(low_res.to(dt), hw)
+            d3 = (1.0 - dice_score(torch.sigmoid(up), gt_c[:, None]))[:, 1:]
+            sel = d3.argmin(dim=1)
+            mask_loss = d3.gather(1, sel[:, None])[:, 0]
+            sel = sel + 1
+            up_sel = up[rows, sel]
+        else:
+            up_sel = model.upscale_masks(low_res[:, :1].to(dt), hw)[:, 0]
+            mask_loss = 1.0 - dice_score(torch.sigmoid(up_sel), gt_c)
+            sel = torch.zeros(N, dtype=torch.long, device=gt_c.device)
+        with torch.no_grad():
+            pred = up_sel > 0
+            inter = (pred & gt_bin).sum(dim=(-2, -1), dtype=torch.float32)
+            union = (pred | gt_bin).sum(dim=(-2, -1), dtype=torch.float32)
+            actual_iou = inter / union.clamp_min(1e-7)
+        iou_sel = iou_pred[rows, sel]
+        iou_loss = (iou_sel - actual_iou) ** 2
+        denom = valid.sum().clamp_min(1.0)
+        loss = ((mask_loss + self.mse_loss_weight * iou_loss) * valid).sum() / denom
+        miou = (iou_sel.detach() * valid).sum() / denom
+        return loss, miou, up_sel.detach(), low_res[rows, sel].detach()
+
+    def _loss(self, images, gt, obj_valid, points0, labels0, boxes0, use_points: bool,
+              use_box: bool, multimask: bool):
+        """The step's loss (with autograd when enabled) and mean predicted IoU."""
+        model = self.model
+        cfg = model.config
+        dt = cfg.dtype
+        B, O, S1, S2 = gt.shape
+        N = B * O
+        dev = gt.device
+        scale = cfg.img_size / max(S1, S2)
+        gt_flat = gt.reshape(N, S1, S2)
+        valid = obj_valid.reshape(N).float()
+        gt_c = gt_flat.to(dt)
+        gt_bin = gt_c > 0.5
+        mask_hw = cfg.embedding_size * 4
+
+        feats = model.image_embeddings_oft(images).repeat_interleave(O, dim=0)
+        pts, lbls = [], []
+        if use_points:
+            P0 = points0.shape[2]
+            pts.append(points0.reshape(N, P0, 2) * scale)
+            lbls.append(labels0.reshape(N, P0).to(torch.int64))
+        if use_box:
+            pts.append(boxes0.reshape(N, 2, 2) * scale)
+            lbls.append(torch.tensor([[2, 3]], device=dev).expand(N, 2))
+        points, labels = torch.cat(pts, dim=1), torch.cat(lbls, dim=1)
+        pad_pt = torch.zeros((N, 1, 2), device=dev)
+        pad_lbl = torch.full((N, 1), -1, dtype=torch.int64, device=dev)
+        new_lbl = torch.tensor([[1, 0]], device=dev).expand(N, 2)
+        ring = _bbox_ring(gt_flat)
+        neg_fallback = torch.where(ring.any(dim=(1, 2))[:, None, None], ring, ~gt_bin)
+
+        mask_input = has_mask = None
+        losses, ious = [], []
+        for r in range(self.n_sub_iteration):
+            p_in, l_in = points, labels
+            if not use_box:  # upstream SAM's one padding point
+                p_in, l_in = torch.cat([p_in, pad_pt], 1), torch.cat([l_in, pad_lbl], 1)
+            loss, miou, up_sel, low_sel = checkpoint(
+                self._round, feats, p_in, l_in, mask_input, has_mask, gt_c, gt_bin, valid,
+                multimask and r == 0, use_reentrant=False)
+            losses.append(loss)
+            ious.append(miou)
+            if r + 1 == self.n_sub_iteration:
+                break
+            with torch.no_grad():  # corrective prompts for the next round
+                pred = up_sel > 0
+                pos_region = gt_bin & ~pred
+                neg_region = pred & ~gt_bin
+                pos_src = torch.where(pos_region.any(dim=(1, 2))[:, None, None], pos_region,
+                                      gt_bin & pred)
+                neg_src = torch.where(neg_region.any(dim=(1, 2))[:, None, None], neg_region,
+                                      neg_fallback)
+                pos_xy, neg_xy = _gumbel_pick2(gumbel_noise((N, S1 * S2), self.generator),
+                                               pos_src, neg_src)
+                points = torch.cat([points, torch.stack([pos_xy, neg_xy], dim=1) * scale], 1)
+                labels = torch.cat([labels, new_lbl], 1)
+                use_mask = torch.rand((), generator=self.generator, device=dev) < self.mask_prob
+                mask_input = resize_bilinear(low_sel[:, None], (mask_hw, mask_hw)).permute(0, 2, 3, 1)
+                has_mask = use_mask.expand(N)
+        return torch.stack(losses).sum() / self.n_sub_iteration, \
+            torch.stack(ious).sum() / self.n_sub_iteration
+
+    def _prepare_batch(self, image, labels, use_points, use_box, n_pos=1, n_neg=0,
+                       train=True, batch_idx=0):
+        """Objects and initial prompts of a numpy batch, each image keyed by
+        (seed, train / val, epoch, batch, sample) as in the JAX trainer; the
+        tensors moved to the model's device."""
+        kwargs = {}
+        if getattr(self.convert_inputs, "supports_sample_seeds", False):
+            base = (self.seed, 0 if train else 1, self._epoch, batch_idx)
+            kwargs["sample_seeds"] = [np.random.SeedSequence(base + (b,)).generate_state(1)[0]
+                                      for b in range(np.asarray(labels).shape[0])]
+        batch = self.convert_inputs(image, labels, n_objects=self.n_objects_per_batch, n_pos=n_pos,
+                                    n_neg=n_neg, get_points=use_points, get_boxes=use_box, **kwargs)
+        if batch is None:
+            return None
+        return tuple(t.to(self.device) for t in batch)
+
+    def train_step(self, batch, use_points: bool, use_box: bool, multimask: bool):
+        """One optimizer step on a prepared batch; returns (loss, mean IoU) tensors."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, miou = self._loss(*batch, use_points, use_box, multimask)
+        loss.backward()
+        self.optimizer.step()
+        self._iteration += 1
+        return loss.detach(), miou
+
+    # ------------------------------------------------------------------
+    # training loop
+    # ------------------------------------------------------------------
+    def _run_epoch(self, train: bool = True):
+        loader = self.train_loader if train else self.val_loader
+        losses, ious = [], []
+        for batch_idx, (image, labels) in enumerate(loader):
+            choose = (self._get_prompt_and_multimasking_choices if train
+                      else self._get_prompt_and_multimasking_choices_for_val)
+            use_points, use_box, multimask, n_pos, n_neg = choose(self._iteration)
+            batch = self._prepare_batch(image, labels, use_points, use_box, n_pos, n_neg,
+                                        train=train, batch_idx=batch_idx)
+            if batch is None:
+                continue
+            if train:
+                loss, miou = self.train_step(batch, use_points, use_box, multimask)
+            else:
+                with torch.no_grad():
+                    loss, miou = self._loss(*batch, use_points, use_box, multimask)
+            losses.append(float(loss))
+            ious.append(float(miou))
+        return (float(np.mean(losses)) if losses else np.inf,
+                float(np.mean(ious)) if ious else 0.0)
+
+    def fit(self, epochs: Optional[int] = None, iterations: Optional[int] = None,
+            save_every_kth_epoch: Optional[int] = None, verbose: bool = True):
+        """Train for ``epochs`` (or enough epochs for ``iterations`` steps),
+        validating and checkpointing (latest, best) after each epoch."""
+        if epochs is None and iterations is None:
+            raise ValueError("Pass epochs or iterations")
+        if epochs is None:
+            try:
+                steps_per_epoch = len(self.train_loader)
+            except TypeError:
+                steps_per_epoch = 1
+            epochs = max(1, int(np.ceil(iterations / max(steps_per_epoch, 1))))
+        os.makedirs(os.path.join(self.save_root, self.name), exist_ok=True)
+        for epoch in range(epochs):
+            t0 = time.time()
+            self.model.sam.train()
+            train_loss, train_iou = self._run_epoch(train=True)
+            self.model.sam.eval()
+            val_loss, val_iou = self._run_epoch(train=False)
+            self._epoch = epoch + 1
+            self.train_metrics.append({"epoch": epoch, "train_loss": train_loss,
+                                       "val_loss": val_loss, "train_model_iou": train_iou,
+                                       "val_model_iou": val_iou})
+            if self._tb is not None:
+                for tag, val in (("train/loss", train_loss), ("validation/loss", val_loss),
+                                 ("train/model_iou", train_iou), ("validation/model_iou", val_iou)):
+                    self._tb.add_scalar(tag, val, self._iteration)
+            with open(os.path.join(self.save_root, self.name, "metrics.csv"), "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(self.train_metrics[0]))
+                w.writeheader()
+                w.writerows(self.train_metrics)
+            if verbose:
+                print(f"[{self.name}] epoch {epoch + 1}/{epochs}: train_loss={train_loss:.4f} "
+                      f"val_loss={val_loss:.4f} model_iou={val_iou:.3f} ({time.time() - t0:.1f}s)")
+            self.save_checkpoint("latest")
+            if val_loss < self._best_metric:
+                self._best_metric = val_loss
+                self.save_checkpoint("best")
+            if save_every_kth_epoch and (epoch + 1) % save_every_kth_epoch == 0:
+                self.save_checkpoint(f"epoch-{epoch + 1}")
+
+    # ------------------------------------------------------------------
+    # checkpoints: the JAX trainer's pickle, the parameters as its tree
+    # ------------------------------------------------------------------
+    def _checkpoint_path(self, name: str) -> str:
+        return os.path.join(self.save_root, self.name, f"{name}.pkl")
+
+    def _checkpoint_state(self) -> Dict:
+        cfg = self.model.config
+        return {"model_state": params_to_jax(self.model.sam.state_dict(), cfg),
+                "model_type": cfg.model_type, "model_config": dataclasses.asdict(cfg),
+                "iteration": self._iteration, "epoch": self._epoch,
+                "metrics": self.train_metrics}
+
+    def save_checkpoint(self, name: str) -> None:
+        with open(self._checkpoint_path(name), "wb") as f:
+            pickle.dump(self._checkpoint_state(), f)
+
+    def load_checkpoint(self, name: str = "latest") -> Dict:
+        """Load one of this run's own checkpoints (a trusted pickle)."""
+        with open(self._checkpoint_path(name), "rb") as f:
+            state = pickle.load(f)
+        self.model.sam.load_state_dict(params_from_jax(state["model_state"], self.model.config))
+        self._iteration = state.get("iteration", 0)
+        self._epoch = state.get("epoch", 0)
+        return state

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import hashlib
 import os
+import pickle
 import warnings
+from dataclasses import replace
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -17,8 +19,8 @@ import torch
 
 from . import __version__
 from .models.build_sam import build_sam, default_compute_dtype, get_config, resolve_device
-from .models.convert import load_native_checkpoint, load_torch_checkpoint
-from .models.sam import Sam
+from .models.convert import load_native_checkpoint, load_torch_checkpoint, params_from_jax
+from .models.sam import Sam, SamConfig
 from .predictor import SamPredictor
 from .utils import zarr_lite
 from .utils.transforms import get_preprocess_shape
@@ -40,6 +42,66 @@ def _compute_hash(path: str) -> str:
     return h.hexdigest()
 
 
+def _try_load_native_pickle(path: str) -> Optional[Dict[str, Any]]:
+    """A trainer checkpoint (a plain pickle holding the JAX-layout parameter
+    tree under ``model_state``, as ``SamTrainer`` of either package writes it),
+    or None for a torch checkpoint (zip ``PK`` magic) or anything else. Like
+    any checkpoint, load only files you trust: unpickling runs code."""
+    with open(path, "rb") as f:
+        if f.read(2) == b"PK":  # torch.save zip container
+            return None
+        f.seek(0)
+        try:
+            state = pickle.load(f)
+        except (pickle.UnpicklingError, EOFError, AttributeError, ImportError, IndexError):
+            return None
+    if (isinstance(state, dict) and isinstance(state.get("model_state"), dict)
+            and "image_encoder" in state["model_state"]):
+        return state
+    return None
+
+
+def load_sam(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
+             checkpoint_path: Optional[str] = None, compute_dtype: Optional[str] = None,
+             seed: int = 0, weight_dtype: Optional[torch.dtype] = None):
+    """(Sam on the device in eval mode, state, model hash) for ``get_sam_model``
+    and the trainer. Weights come from ``checkpoint_path`` (a zoo ``.pt`` /
+    ``.pth``, the JAX package's ``.npz`` / ``.msam``, or a trainer's ``.pkl``),
+    else are drawn at random from ``seed``. ``weight_dtype`` as in ``Sam``."""
+    dev = resolve_device(device)
+    if compute_dtype is None:
+        compute_dtype = default_compute_dtype(dev)
+    state: Dict[str, Any] = {}
+    if checkpoint_path is None:
+        get_config(model_type)  # validates the name
+        sam = build_sam(model_type, seed=seed, compute_dtype=compute_dtype, device=dev,
+                        weight_dtype=weight_dtype)
+        return sam, state, None
+    path = str(checkpoint_path)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"Checkpoint {path} does not exist.")
+    if path.endswith((".npz", ".msam")):
+        cfg, sd = load_native_checkpoint(path, model_type)
+    elif (native := _try_load_native_pickle(path)) is not None:
+        if "model_config" in native:
+            mc = dict(native["model_config"])
+            mc["global_attn_indexes"] = tuple(mc["global_attn_indexes"])
+            cfg = SamConfig(**mc)
+        else:
+            cfg = get_config(native.get("model_type") or model_type)
+        sd = params_from_jax(native["model_state"], cfg)
+        if native.get("decoder_state") is not None:
+            state["decoder_state"] = native["decoder_state"]
+    else:
+        cfg, sd, decoder_state = load_torch_checkpoint(path, model_type)
+        if decoder_state is not None:
+            state["decoder_state"] = decoder_state
+    sam = Sam(replace(cfg, compute_dtype=compute_dtype), weight_dtype)
+    sam.load_state_dict(sd)
+    state["checkpoint_path"] = path
+    return sam.to(dev).eval(), state, f"sha256:{_compute_hash(path)}"
+
+
 def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
                   checkpoint_path: Optional[str] = None, return_sam: bool = False,
                   return_state: bool = False, compute_dtype: Optional[str] = None,
@@ -47,39 +109,16 @@ def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None
     """Build a SamPredictor.
 
     ``device=None`` means the GPU (``"cuda"``); without one this raises. Weights
-    come from ``checkpoint_path`` (a zoo ``.pt`` / ``.pth``, or the JAX
-    package's ``.npz`` / ``.msam``), else are drawn at random from ``seed``.
-    ``compute_dtype=None`` is bfloat16 on the GPU and float32 on the CPU."""
-    dev = resolve_device(device)
-    if compute_dtype is None:
-        compute_dtype = default_compute_dtype(dev)
-    state: Dict[str, Any] = {}
-    decoder_state = None
-    model_hash = None
-    if checkpoint_path is not None:
-        path = str(checkpoint_path)
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"Checkpoint {path} does not exist.")
-        if path.endswith((".npz", ".msam")):
-            cfg, sd = load_native_checkpoint(path, model_type)
-        else:
-            cfg, sd, decoder_state = load_torch_checkpoint(path, model_type)
-        from dataclasses import replace
-        sam = Sam(replace(cfg, compute_dtype=compute_dtype))
-        sam.load_state_dict(sd)
-        sam = sam.to(dev).eval()
-        state["checkpoint_path"] = path
-        model_hash = f"sha256:{_compute_hash(path)}"
-    else:
-        get_config(model_type)  # validates the name
-        sam = build_sam(model_type, seed=seed, compute_dtype=compute_dtype, device=dev)
+    come from ``checkpoint_path`` (a zoo ``.pt`` / ``.pth``, the JAX
+    package's ``.npz`` / ``.msam``, or a trainer checkpoint ``.pkl`` of either
+    package), else are drawn at random from ``seed``. ``compute_dtype=None`` is
+    bfloat16 on the GPU and float32 on the CPU."""
+    sam, state, model_hash = load_sam(model_type, device, checkpoint_path, compute_dtype, seed)
     predictor = SamPredictor(sam)
     predictor.model_type = model_type
     predictor.model_name = model_type
     predictor._hash = model_hash  # rides the embedding-cache signature
     state["model_state"] = sam.state_dict()
-    if decoder_state is not None:
-        state["decoder_state"] = decoder_state
     if return_sam and return_state:
         return predictor, sam, state
     if return_sam:
@@ -291,3 +330,26 @@ def set_precomputed(predictor: SamPredictor, image_embeddings: ImageEmbeddings,
     predictor.set_features(np.asarray(features), image_embeddings["original_size"],
                            image_embeddings["input_size"])
     return predictor
+
+
+# -----------------------------------------------------------------------------
+# Object centers and boxes
+# -----------------------------------------------------------------------------
+
+def get_centers_and_bounding_boxes(segmentation: np.ndarray
+                                   ) -> Tuple[Dict[int, Tuple], Dict[int, Tuple]]:
+    """Center of mass and bounding box ((y0, y1), (x0, x1)) of every object of
+    a 2d instance segmentation, keyed by id."""
+    from scipy import ndimage
+    if segmentation.ndim != 2:
+        raise ValueError(f"expected a 2d segmentation, got shape {segmentation.shape}")
+    ids = np.unique(segmentation)
+    ids = ids[ids != 0]
+    centers = ndimage.center_of_mass(np.ones_like(segmentation), segmentation, ids) \
+        if len(ids) else []
+    center_coordinates = {int(i): tuple(c) for i, c in zip(ids, centers)}
+    bbox_coordinates = {}
+    for i, sl in enumerate(ndimage.find_objects(segmentation), start=1):
+        if sl is not None:
+            bbox_coordinates[i] = tuple((s.start, s.stop) for s in sl)
+    return center_coordinates, bbox_coordinates

@@ -55,6 +55,11 @@ def test_importing_every_port_module_loads_no_jax():
         "             or m == 'micro_sam_tpu' or m.startswith('micro_sam_tpu.'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
+        "new = {'micro_sam_tpu_torch.training', 'micro_sam_tpu_torch.training.sam_trainer',\n"
+        "       'micro_sam_tpu_torch.training.trainable_sam', 'micro_sam_tpu_torch.training.util',\n"
+        "       'micro_sam_tpu_torch.training.training', 'micro_sam_tpu_torch.prompt_generators',\n"
+        "       'micro_sam_tpu_torch.sample_data', 'micro_sam_tpu_torch.ops.amg_utils'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
