@@ -31,8 +31,19 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     replayed as the kernel, the plain version and SDPA backward; one f32 step
     on the card (batch 1, 4 objects, one round) against the same step on the
     CPU (gradients within rel 1e-3 of each tensor's max);
- 7. prints one JSON line of the kernels, the training numbers and, last, the
-    device line.
+ 7. vit_t (TinyViT / MobileSAM): holds the new kernels (tiny_attention at the
+    three stage geometries, dwconv at the MBConv and the three tail shapes,
+    the gemm's residual_gelu epilogue) and the K6 / K7 / K8 chains against
+    their plain versions, bf16 and f32, with launches per chain call checked;
+    then the same serving path as phase 4 with get_sam_model("vit_t"): launch
+    counts per encode (12 dwconv, 10 tiny_attention, 20 layernorm, 44 gemm),
+    encode / decode times, one encode replayed per kernel and per chain (the
+    chains' library yardsticks: cuDNN convolutions, F.layer_norm, F.linear,
+    SDPA with the gathered bias), the embedding against the CPU's plain f32 run;
+ 8. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers), then the kernels line (one entry per kernel and vit_t
+    chain: launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms) and, last, the device line.
 """
 import json
 import os
@@ -53,6 +64,7 @@ F32_TOL, BF16_TOL = 1e-4, 2e-2
 BWD_BF16_TOL = 3e-2   # K4 in bf16 against the f32 plain backward on the same inputs
 ENCODE_BATCH, ENCODE_REPS, DECODE_REPS = 8, 5, 30
 TRAIN_WARMUP, TRAIN_REPS = 3, 5
+PROFILER_SESSIONS = 10
 
 
 def log(*a):
@@ -60,10 +72,37 @@ def log(*a):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Median over ``iters`` launches of ``fn``, each between two CUDA events."""
+    """Device time of one run of ``fn``: the summed durations of the kernels
+    and copies it puts on the card, from torch.profiler (CUPTI), averaged over
+    ``iters`` runs after ``warmup``. The host's gaps between launches are not
+    in it: small kernels launched from Python leave the card idle between
+    them, which a pair of CUDA events around the run would count. A profiler
+    session now and then records no activity at all (a few in some 300
+    sessions of a run on the H100 machines, most of them early); it is run
+    again, up to ten times, and should the profiler record nothing in all of
+    them, the run is timed with CUDA events instead (``event_ms``) and says
+    so."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    for attempt in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / iters
+        log(f"  (the profiler recorded no device activity, session {attempt + 1} of "
+            f"{PROFILER_SESSIONS})")
+    log("  (timed with CUDA events instead: host launch gaps included)")
+    return event_ms(fn, iters)
+
+
+def event_ms(fn, iters=20):
+    """Median over ``iters`` runs of ``fn``, each between two CUDA events."""
     pairs = []
     for _ in range(iters):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -122,6 +161,13 @@ def work(name, a):
         H, W = a[5]
         ops = B * nH * (4 * N * N * hd + 2 * N * (H + W) * hd)
         nbytes = 4 * B * nH * N * hd * s + (H * H + W * W) * hd * s
+    elif name == "dwconv":  # SIMT multiply-adds, no tensor cores
+        ops, nbytes, rate = 18 * x.numel(), 2 * x.numel() * s + 11 * x.shape[-1] * 4, PEAK_F32
+    elif name == "tiny_attention":
+        M, C3 = x.shape
+        nH, N = a[1].shape
+        ops = 4 * M * N * (C3 // 3)  # (M / N) windows x nH heads x 4 N^2 hd
+        nbytes = M * C3 * s + M * (C3 // 3) * s + nH * N * 4
     else:  # relpos_attention_backward: S again, dP, dv, dk, dq; the tables' terms
         B, nH, N, hd = x.shape
         H, W = a[7]
@@ -171,11 +217,14 @@ def counterparts(name, a, kw):
     The library one is a PyTorch call computing the same function, its inputs
     made here, outside any timing (the rel-pos bias is materialized)."""
     import torch.nn.functional as F
+    from micro_sam_tpu_torch.ops.dwconv import dwconv, dwconv_plain
     from micro_sam_tpu_torch.ops.gemm import gemm, gemm_plain
     from micro_sam_tpu_torch.ops.layernorm import layernorm, layernorm_plain
     from micro_sam_tpu_torch.ops.relpos_attention import (
         relpos_attention, relpos_attention_backward, relpos_attention_backward_plain,
         relpos_attention_plain)
+    from micro_sam_tpu_torch.ops.tiny_attention import (bias_offset_index, tiny_attention,
+                                                        tiny_attention_plain)
     x = a[0]
     dt = x.dtype
     f32 = lambda t: None if t is None or not torch.is_tensor(t) else t.float()
@@ -193,9 +242,30 @@ def counterparts(name, a, kw):
         epi, r = (a[3] if len(a) > 3 else "none"), (a[4] if len(a) > 4 else None)
         bd = b.to(dt)
         lin = lambda: F.linear(x, w, bd)
-        lib = {"none": lin, "gelu": lambda: F.gelu(lin()), "residual": lambda: r + lin()}[epi]
+        lib = {"none": lin, "gelu": lambda: F.gelu(lin()), "residual": lambda: r + lin(),
+               "residual_gelu": lambda: F.gelu(r + lin())}[epi]
         return (lambda: gemm(*a), lambda: gemm_plain(*a), lib,
                 lambda: gemm_plain(x.float(), w.float(), b, epi, f32(r)))
+    if name == "dwconv":  # cuDNN's depthwise conv, the BN folded into its weight and bias
+        _, w, sc, sh = a[:4]
+        gelu = a[4] if len(a) > 4 else kw.get("gelu", False)
+        xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view
+        wf, bf = (w.float() * sc.float().view(-1, 1, 1, 1)).to(dt), sh.to(dt)
+        conv = lambda: F.conv2d(xc, wf, bf, padding=1, groups=x.shape[-1])
+        return (lambda: dwconv(*a, **kw), lambda: dwconv_plain(*a, **kw),
+                (lambda: F.gelu(conv())) if gelu else conv,
+                lambda: dwconv_plain(x.float(), w, sc, sh, gelu))
+    if name == "tiny_attention":  # SDPA on (windows, nH, N, hd) with the bias gathered
+        _, table, shape, w = a
+        nH, N = table.shape
+        hd = x.shape[1] // (3 * nH)
+        B, Hp, Wp = shape
+        t = x.view(B, Hp // w, w, Wp // w, w, nH, 3, hd).permute(6, 0, 1, 3, 5, 2, 4, 7)
+        q, k, v = t.reshape(3, -1, nH, N, hd).contiguous().unbind(0)
+        bias = table.float()[:, bias_offset_index(w, x.device)].to(dt)
+        return (lambda: tiny_attention(*a), lambda: tiny_attention_plain(*a),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+                lambda: tiny_attention_plain(x.float(), table, shape, w))
     if name == "relpos_attention_backward":
         q, k, v, out, dout, rh, rw, hw = a
         return (lambda: relpos_attention_backward(*a, **kw),
@@ -212,28 +282,35 @@ def counterparts(name, a, kw):
 
 class Recorder:
     """Records every kernel call the block chains make, (name, args, kwargs),
-    by wrapping the chain's kernel table; each call still launches its kernel
-    and counts as before. The recorded tensors stay alive for replay."""
+    by wrapping the kernel table of each chain module (``ops/fused_*.py``,
+    default the ViT blocks'); each call still launches its kernel and counts
+    as before. The recorded tensors stay alive for replay."""
+
+    def __init__(self, *names):
+        import importlib
+        self.modules = [importlib.import_module(f"micro_sam_tpu_torch.ops.{n}")
+                        for n in (names or ("fused_window_block",))]
 
     def __enter__(self):
-        from micro_sam_tpu_torch.ops import fused_window_block as fwb
-        self.module, self.saved, self.calls = fwb, fwb._KERNELS, []
+        self.saved, self.calls = [m._KERNELS for m in self.modules], []
 
         def wrap(fn):
             def call(*a, **kw):
                 self.calls.append((fn.__name__, a, kw))
                 return fn(*a, **kw)
             return call
-        fwb._KERNELS = tuple(wrap(f) for f in self.saved)
+        for m, kernels in zip(self.modules, self.saved):
+            m._KERNELS = tuple(wrap(f) for f in kernels)
         return self
 
     def __exit__(self, *exc):
-        self.module._KERNELS = self.saved
+        for m, kernels in zip(self.modules, self.saved):
+            m._KERNELS = kernels
 
 
 def replay(calls, iters=10):
-    """(kernel ms, plain ms, library ms) of the calls run back to back, each
-    time a median over ``iters`` runs of the whole sequence."""
+    """(kernel ms, plain ms, library ms) of the calls run back to back: the
+    device time of one run of the whole sequence (``time_ms``)."""
     fns = [counterparts(*c) for c in calls]
     return tuple(time_ms(lambda: [f[i]() for f in fns], iters=iters, warmup=2)
                  for i in range(3))
@@ -242,6 +319,23 @@ def replay(calls, iters=10):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def measure_calls(calls, dname, shapes):
+    """Each (name, args, kwargs, label) call against its f32 reference, then
+    timed as the kernel, the plain version and the library call; one row per
+    call into ``shapes[name]``."""
+    for name, a, kw, label in calls:
+        kern, plain, lib, ref = counterparts(name, a, kw)
+        err = check(f"{name} {label}", kern(), ref(), dname)
+        k_ms = time_ms(kern)
+        p_ms = time_ms(plain, iters=5 if name == "relpos_attention" else 20)
+        l_ms = time_ms(lib)
+        b_ms, b_by = bound_of([(name, a, kw)])
+        shapes[name].append(dict(shape=label, dtype=dname, max_abs_err=err, ms=k_ms,
+                                 plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"    ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  "
+            f"bound_ms {b_ms:.4f} ({b_by})")
+
 
 def kernel_phase(counters):
     from micro_sam_tpu_torch.models.image_encoder import Block, get_rel_pos, partition_tokens
@@ -285,17 +379,7 @@ def kernel_phase(counters):
             out = torch.empty(B, N, NH, HD, device=dev, dtype=dt).transpose(1, 2)
             calls.append(("relpos_attention", (q, k, v, rh, rw, (H, H)), {"out": out},
                           f"({B}, {NH}, {N}, {HD})"))
-        for name, a, kw, label in calls:
-            kern, plain, lib, ref = counterparts(name, a, kw)
-            err = check(f"{name} {label}", kern(), ref(), dname)
-            k_ms = time_ms(kern)
-            p_ms = time_ms(plain, iters=5 if name == "relpos_attention" else 20)
-            l_ms = time_ms(lib)
-            b_ms, b_by = bound_of([(name, a, kw)])
-            shapes[name].append(dict(shape=label, dtype=dname, max_abs_err=err, ms=k_ms,
-                                     plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
-            log(f"    ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  "
-                f"bound_ms {b_ms:.4f} ({b_by})")
+        measure_calls(calls, dname, shapes)
         del calls
 
         # the block chains at batch 1: launches counted, work and library
@@ -306,7 +390,8 @@ def kernel_phase(counters):
             before = {k: c.launches for k, c in counters.items()}
             with Recorder() as rec:
                 run(x)
-            launches = {k: c.launches - before[k] for k, c in counters.items()}
+            launches = {k: c.launches - before[k] for k, c in counters.items()
+                        if c.launches != before[k]}
             if launches != {"layernorm": 2, "gemm": 4, "relpos_attention": 1}:
                 raise AssertionError(f"{name}: launches {launches}, not the chain's seven")
             k_ms = time_ms(lambda: run(x))
@@ -338,14 +423,24 @@ def kernel_phase(counters):
     return shapes, chains
 
 
-def encode_replay_phase(predictor, x1, counters, launches, n_images):
+def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None):
     """Records one batch-1 encode of the main path's model and image, then
     replays each kernel's launches of it on their own inputs: against the f32
     plain version (the check), and timed, back to back, as the kernel, as the
-    plain version and as library calls."""
+    plain version and as library calls. ``chains``: the chain modules whose
+    kernel tables are recorded (default the ViT blocks'); for vit_t the chain
+    calls themselves are recorded too and replayed by ``chain_replay``."""
+    from micro_sam_tpu_torch.models import tiny_vit
     before = {k: c.launches for k, c in counters.items()}
-    with Recorder() as rec:
-        predictor.encode_batch(x1)
+    chain_recs = [CallRecorder(tiny_vit, n) for n in (TINY_CHAINS if chains else ())]
+    with Recorder(*(chains or ())) as rec:
+        for r in chain_recs:
+            r.__enter__()
+        try:
+            predictor.encode_batch(x1)
+        finally:
+            for r in chain_recs:
+                r.__exit__()
     torch.cuda.synchronize()
     per_encode = {k: c.launches - before[k] for k, c in counters.items()}
     log(f"  launches in one recorded encode: {per_encode}")
@@ -354,6 +449,8 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images):
     out = {}
     for name in counters:
         calls = [c for c in rec.calls if c[0] == name]
+        if not calls:
+            continue
         err = 0.0
         for c in calls:
             kern, _, _, ref = counterparts(*c)
@@ -365,17 +462,25 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images):
                          plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"  {name}: {len(calls)} launches of one encode, max_abs_err {err:.3e}; ms {k_ms:.4f}"
             f"  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+    if chains:
+        out["chains"] = {r.name: chain_replay(r.calls, n_images) for r in chain_recs}
     return out
 
 
-def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4):
-    """One entry per kernel. launches: the count of the path the kernel is on
-    (serving for the forward kernels, whose training-path count is
-    ``launches_training_path``; training for the backward). ms, plain_ms,
-    library_ms, bound_ms: the forward kernels' launches of one batch-1 bf16
-    1024^2 encode, and the backward's calls of one training step, replayed back
-    to back on their own inputs; shapes: the per-shape checks and timings of
-    phases 3 and 5."""
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
+
+
+def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny):
+    """One entry per kernel and per vit_t chain. launches: the count of the
+    path the kernel is on (vit_b serving for layernorm, gemm and
+    relpos_attention, whose vit_t and training counts are
+    ``launches_vit_t_path`` / ``launches_training_path``; training for the
+    backward; vit_t serving for dwconv, tiny_attention and the chains). ms,
+    plain_ms, library_ms, bound_ms: the kernel's launches (a chain's calls) of
+    one batch-1 bf16 1024^2 encode of its model, and the backward's calls of
+    one training step, replayed back to back on their own inputs; shapes: the
+    per-shape checks and timings of phases 3, 5 and 7."""
     sources = {"layernorm": "micro_sam_tpu_torch/csrc/layernorm.cu",
                "gemm": "micro_sam_tpu_torch/csrc/gemm.cu",
                "relpos_attention": "micro_sam_tpu_torch/csrc/relpos_attention.cu"}
@@ -395,10 +500,13 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4):
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "launches_per_encode": e["launches_per_encode"],
             "per": "all launches of one 1024x1024 vit_b bf16 encode at batch 1, back to back",
-            "shapes": rows,
+            "shapes": rows + tiny["shapes"].get(name, []),
         })
         if name == "relpos_attention":
             out[-1]["launches_training_path"] = train_launches[name]
+        else:
+            out[-1]["launches_vit_t_path"] = tiny["launches"][name]
+            out[-1]["vit_t"] = tiny["per_encode"][name]
     out.append({
         "name": "relpos_attention_backward", "route": "cuda",
         "source": "micro_sam_tpu_torch/csrc/relpos_attention_bwd.cu",
@@ -412,6 +520,42 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4):
         "per": "all calls of one vit_b bf16 training step (batch 2 of 1024^2), back to back",
         "shapes": bwd_rows,
     })
+    vit_t = "all {} of one 1024x1024 vit_t bf16 encode at batch 1, back to back"
+    for name, source, replaces in (
+            ("dwconv", "micro_sam_tpu_torch/csrc/dwconv.cu",
+             "micro_sam_tpu/ops/fused_mbconv.py:57 (_mbconv_kernel depthwise); "
+             "ops/fused_tiny_tail.py:31 (_tiny_tail_kernel local conv)"),
+            ("tiny_attention", "micro_sam_tpu_torch/csrc/tiny_attention.cu",
+             "micro_sam_tpu/ops/fused_tiny_attention.py:60 (_tiny_attn_kernel attention core)")):
+        e = tiny["per_encode"][name]
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": tiny["launches"][name], "max_abs_err": max(
+                [e["max_abs_err"]] + [r["max_abs_err"] for r in tiny["shapes"][name]]),
+            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            "launches_per_encode": e["launches_per_encode"], "per": vit_t.format("launches"),
+            "shapes": tiny["shapes"][name],
+        })
+    for name, tag, replaces in (
+            ("fused_mbconv", "K7", "micro_sam_tpu/ops/fused_mbconv.py:120 (_mbconv_fused_forward "
+             ":106 -> fused_mbconv :147, kernel _mbconv_kernel :57)"),
+            ("fused_tiny_attention", "K6", "micro_sam_tpu/ops/fused_tiny_attention.py:174 "
+             "(_tiny_fused_forward :145 -> fused_tiny_attention :224, kernel _tiny_attn_kernel :60)"),
+            ("fused_tiny_tail", "K8", "micro_sam_tpu/ops/fused_tiny_tail.py:94 (_tail_fused_forward "
+             ":69 -> fused_tiny_tail :128, kernel _tiny_tail_kernel :31)")):
+        e = tiny["per_encode"]["chains"][name]
+        rows = [r for r in tiny["chains"] if r["name"] == name]
+        out.append({
+            "name": f"{name} chain ({tag})", "route": "cuda",
+            "source": f"micro_sam_tpu_torch/ops/{name}.py", "replaces": replaces,
+            "launches": e["launches"],
+            "max_abs_err": max([e["max_abs_err"]] + [r["max_abs_err"] for r in rows]),
+            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            "calls_per_encode": e["calls_per_encode"], "per": vit_t.format("calls"),
+            "shapes": rows,
+        })
     return out
 
 
@@ -419,7 +563,10 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path_phase(counters):
+def main_path_phase(counters, model_type="vit_b", chains=None):
+    """``model_type``'s serving path: precompute, seven predicts, launch counts
+    (``expected_launches``), encode / decode times, the encode replay and the
+    embedding against the CPU's plain f32 run."""
     from micro_sam_tpu_torch.util import (_to_image, get_sam_model,
                                           precompute_image_embeddings, set_precomputed)
     from micro_sam_tpu_torch.models.sam import preprocess
@@ -430,7 +577,7 @@ def main_path_phase(counters):
 
     for c in counters.values():
         c.launches = 0
-    predictor = get_sam_model("vit_b", seed=0)
+    predictor = get_sam_model(model_type, seed=0)
     emb = precompute_image_embeddings(predictor, image, verbose=False)
     emb3 = precompute_image_embeddings(predictor, volume, verbose=False)
     set_precomputed(predictor, emb)
@@ -453,9 +600,8 @@ def main_path_phase(counters):
     launches = {k: c.launches for k, c in counters.items()}
 
     n_images = 1 + volume.shape[0]
-    depth = predictor.model.config.depth  # per block: 2 layernorm, 4 gemm, 1 relpos_attention
-    expect = {"layernorm": 2 * depth * n_images, "gemm": 4 * depth * n_images,
-              "relpos_attention": depth * n_images}
+    per_image = expected_launches(predictor.model.config)
+    expect = {k: per_image.get(k, 0) * n_images for k in counters}
     log(f"  launches in the main path: {launches} (expected {expect} for {n_images} images)")
     if launches != expect:
         raise AssertionError("the main path did not go through the kernels as expected")
@@ -499,16 +645,19 @@ def main_path_phase(counters):
         f"batch 1 {t_enc[1]:.3f}, batch {ENCODE_BATCH} {t_enc[ENCODE_BATCH]:.3f}; "
         f"tiles/s at batch {ENCODE_BATCH} {1e3 / t_enc[ENCODE_BATCH]:.3f}")
     log(f"  decode p50 ms (1 point, host clock incl. mask upscale and transfer): {dec_p50:.3f}")
-    per_encode = encode_replay_phase(predictor, x1, counters, launches, n_images)
+    log("  one batch-1 encode under torch.profiler:")
+    prof = profile_step(lambda: (predictor.encode_batch(x1), torch.cuda.synchronize()),
+                        SERVE_PROFILE_GROUPS)
+    per_encode = encode_replay_phase(predictor, x1, counters, launches, n_images, chains)
 
     # the embedding against the same model's plain f32 run on the CPU
     px = preprocess(torch.from_numpy(x1))
-    cpu = get_sam_model("vit_b", seed=0, device="cpu")
+    cpu = get_sam_model(model_type, seed=0, device="cpu")
     t0 = time.perf_counter()
     ref = cpu.model.encode_image(px).float()
     log(f"  CPU f32 reference encode: {time.perf_counter() - t0:.1f} s")
     ref_nchw = ref.permute(0, 3, 1, 2).numpy()
-    f32 = get_sam_model("vit_b", seed=0, compute_dtype="float32")
+    f32 = get_sam_model(model_type, seed=0, compute_dtype="float32")
     got32 = f32.model.encode_image(px.cuda()).float().cpu()
     for name, got, tol in (("f32 kernel path", got32.permute(0, 3, 1, 2).numpy(), 1e-3),
                            ("bf16 kernel path", feats, 3e-2)):
@@ -517,8 +666,227 @@ def main_path_phase(counters):
             f"{'ok' if rel <= tol else 'FAIL'}")
         if not rel <= tol:
             raise AssertionError(f"{name} embedding disagrees with the CPU reference")
-    return launches, per_encode, {"encode_ms_b1": t_enc[1], "encode_ms_b8": t_enc[ENCODE_BATCH],
-                      "tiles_per_s_b8": 1e3 / t_enc[ENCODE_BATCH], "decode_p50_ms": dec_p50}
+    del predictor, cpu, f32
+    torch.cuda.empty_cache()
+    return launches, per_encode, {"model": model_type, "encode_ms_b1": t_enc[1],
+                                  "encode_ms_b8": t_enc[ENCODE_BATCH],
+                                  "tiles_per_s_b8": 1e3 / t_enc[ENCODE_BATCH],
+                                  "decode_p50_ms": dec_p50, "profiled_encode_b1": prof}
+
+
+def expected_launches(cfg):
+    """Kernel launches of one encode. vit_b: per block 2 layernorm, 4 gemm, 1
+    relpos_attention. vit_t: 2 MBConvs x (2 gemm + 1 dwconv); 10 attention
+    blocks x (K6: layernorm, 2 gemm, tiny_attention; K8: dwconv, layernorm,
+    2 gemm)."""
+    if cfg.encoder == "tiny_vit":
+        from micro_sam_tpu_torch.models.tiny_vit import DEPTHS
+        n_mb, n_blk = DEPTHS[0], sum(DEPTHS[1:])
+        return {"gemm": 2 * n_mb + 4 * n_blk, "dwconv": n_mb + n_blk, "layernorm": 2 * n_blk,
+                "tiny_attention": n_blk}
+    return {"layernorm": 2 * cfg.depth, "gemm": 4 * cfg.depth, "relpos_attention": cfg.depth}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: vit_t, its kernels and chains (K6, K7, K8)
+# ---------------------------------------------------------------------------
+
+TINY_CHAINS = ("fused_mbconv", "fused_tiny_attention", "fused_tiny_tail")
+CHAIN_LAUNCHES = {"fused_mbconv": {"gemm": 2, "dwconv": 1},
+                  "fused_tiny_attention": {"layernorm": 1, "gemm": 2, "tiny_attention": 1},
+                  "fused_tiny_tail": {"dwconv": 1, "layernorm": 1, "gemm": 2}}
+
+
+def chain_work(name, a):
+    """(operations ms, bytes ms) of one vit_t chain call, counting only the
+    block's own input and output and its weights (what a single fused pass
+    would move); operations at the tensor-core rate of the working type."""
+    x = a[0]
+    s = x.element_size()
+    rate = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_F32
+    C = x.shape[-1]
+    M = x.numel() // C
+    if name == "fused_mbconv":
+        hid = 4 * C
+        ops, weights = 4 * M * C * hid + 18 * M * hid, 2 * C * hid * s + 13 * hid * 4
+    elif name == "fused_tiny_attention":
+        attn = a[1]
+        N = attn.window ** 2
+        ops = 8 * M * C * C + 4 * M * N * C
+        weights = 4 * C * C * s + attn.num_heads * N * 4 + 6 * C * 4
+    else:
+        hid = 4 * C
+        ops, weights = 4 * M * C * hid + 18 * M * C, 2 * C * hid * s + 16 * C * 4
+    return ops / rate * 1e3, (2 * M * C * s + weights) / PEAK_BYTES * 1e3
+
+
+def chain_counterparts(name, a, kw):
+    """(kernel, plain, library, f32 reference) closures of one vit_t chain call.
+    Library: K7 the cuDNN conv chain (1 x 1, depthwise, 1 x 1, BN folded,
+    F.gelu); K6 F.layer_norm + F.linear + SDPA with the gathered float bias +
+    F.linear; K8 cuDNN depthwise + F.layer_norm + two F.linear. Folds and the
+    gathered bias are made here, outside any timing."""
+    import torch.nn.functional as F
+    from micro_sam_tpu_torch.ops import fused_mbconv as k7
+    from micro_sam_tpu_torch.ops import fused_tiny_attention as k6
+    from micro_sam_tpu_torch.ops import fused_tiny_tail as k8
+    from micro_sam_tpu_torch.ops.tiny_attention import bias_offset_index
+    x = a[0]
+    dt = x.dtype
+    B, H, W, C = x.shape
+    xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view for cuDNN
+    if name == "fused_mbconv":
+        blk = a[1]
+        (w1, _, b1), (w2, _, b2), (w3, _, b3) = (c.folded(dt) for c in (blk.conv1, blk.conv2,
+                                                                        blk.conv3))
+        b1, b2, b3 = (b.to(dt) for b in (b1, b2, b3))
+
+        def lib():
+            h = F.gelu(F.conv2d(xc, w1, b1))
+            h = F.gelu(F.conv2d(h, w2, b2, padding=1, groups=h.shape[1]))
+            return F.gelu(xc + F.conv2d(h, w3, b3))
+        return (lambda: k7.fused_mbconv(x, blk), lambda: k7.fused_mbconv_plain(x, blk), lib,
+                lambda: k7.fused_mbconv_plain(x.float(), blk))
+    if name == "fused_tiny_attention":
+        attn = a[1]
+        w, nH = attn.window, attn.num_heads
+        N, hd = w * w, C // nH
+        bias = attn.attention_biases.float()[:, bias_offset_index(w, x.device)].to(dt)
+        lnw, lnb, bq, bp = (t.to(dt) for t in (attn.norm.weight, attn.norm.bias, attn.qkv.bias,
+                                               attn.proj.bias))
+
+        def lib():
+            qkv = F.linear(F.layer_norm(x, (C,), lnw, lnb, attn.norm.eps), attn.qkv.weight, bq)
+            t = qkv.view(B, H // w, w, W // w, w, nH, 3, hd).permute(6, 0, 1, 3, 5, 2, 4, 7)
+            t = t.reshape(3, -1, nH, N, hd)
+            o = F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=bias)
+            o = o.view(B, H // w, W // w, nH, w, w, hd).permute(0, 1, 4, 2, 5, 3, 6)
+            return x + F.linear(o.reshape(B, H, W, C), attn.proj.weight, bp)
+        return (lambda: k6.fused_tiny_attention(x, attn),
+                lambda: k6.fused_tiny_attention_plain(x, attn), lib,
+                lambda: k6.fused_tiny_attention_plain(x.float(), attn))
+    lc, mlp = a[1], a[2]
+    wf, _, shift = lc.folded(dt)
+    shift = shift.to(dt)
+    lnw, lnb, b1, b2 = (t.to(dt) for t in (mlp.norm.weight, mlp.norm.bias, mlp.fc1.bias,
+                                           mlp.fc2.bias))
+
+    def lib():
+        t = F.conv2d(xc, wf, shift, padding=1, groups=C).permute(0, 2, 3, 1)
+        h = F.gelu(F.linear(F.layer_norm(t, (C,), lnw, lnb, mlp.norm.eps), mlp.fc1.weight, b1))
+        return t + F.linear(h, mlp.fc2.weight, b2)
+    return (lambda: k8.fused_tiny_tail(x, lc, mlp), lambda: k8.fused_tiny_tail_plain(x, lc, mlp),
+            lib, lambda: k8.fused_tiny_tail_plain(x.float(), lc, mlp))
+
+
+def chain_bound(calls):
+    ops_ms = sum(chain_work(n, a)[0] for n, a, _ in calls)
+    bytes_ms = sum(chain_work(n, a)[1] for n, a, _ in calls)
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def chain_replay(calls, n_images):
+    """One encode's calls of one vit_t chain, replayed: checked against the f32
+    plain chain, then timed back to back as the kernel chain, the plain chain
+    and the library calls (device time, ``time_ms``)."""
+    fns = [chain_counterparts(*c) for c in calls]
+    name = calls[0][0]
+    err = max(check(f"{name} on main-path inputs", f[0](), f[3](), "bfloat16", quiet=True)
+              for f in fns)
+    k_ms, p_ms, l_ms = (time_ms(lambda: [f[i]() for f in fns], iters=10, warmup=2)
+                        for i in range(3))
+    b_ms, b_by = chain_bound(calls)
+    per_call = sum(CHAIN_LAUNCHES[name].values())
+    row = dict(calls_per_encode=len(calls), launches=len(calls) * per_call * n_images,
+               max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    log(f"  {name} chain: {len(calls)} calls of one encode ({per_call} launches each), max_abs_err "
+        f"{err:.3e}; ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms "
+        f"{b_ms:.4f} ({b_by})")
+    return row
+
+
+def random_tiny_vit(dt, dev, g):
+    """A random vit_t encoder with non-trivial BatchNorm statistics."""
+    from micro_sam_tpu_torch.models.common import BatchNorm, init_module_
+    from micro_sam_tpu_torch.models.tiny_vit import TinyViT
+    enc = TinyViT(dtype=dt)
+    init_module_(enc, g)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+                m.weight.copy_(1 + torch.randn(m.weight.shape, generator=g) * 0.2)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.2)
+    return enc.to(dev).eval()
+
+
+TINY_ATTN_SHAPES = ((133, 128, 4, 7, 1), (70, 160, 5, 14, 2), (70, 320, 10, 7, 3))  # Hp, C, nH, w, stage
+TINY_TAIL_SHAPES = ((128, 128, 1), (64, 160, 2), (64, 320, 3))  # H, C, stage
+
+
+def tiny_kernel_phase(counters):
+    """The vit_t kernels (tiny_attention, dwconv, the gemm's residual_gelu
+    epilogue) and chains (K6, K7, K8) against their plain versions at the
+    shapes of one 1024^2 encode, bf16 and f32, timed with bounds and yardsticks."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(5678)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    shapes = {"tiny_attention": [], "dwconv": [], "gemm": []}
+    chains = []
+    for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        log(f"-- {dname}")
+        calls = []
+        for Hp, Cc, nH, w, _ in TINY_ATTN_SHAPES:
+            calls.append(("tiny_attention", (rnd(Hp * Hp, 3 * Cc).to(dt), rnd(nH, w * w, scale=0.5),
+                                             (1, Hp, Hp), w), {},
+                          f"(1, {Hp}, {Hp}, {Cc}) {nH} heads, window {w}"))
+        for H, Cc, gelu in ((256, 256, True),) + tuple((h, c, False) for h, c, _ in TINY_TAIL_SHAPES):
+            calls.append(("dwconv", (rnd(1, H, H, Cc).to(dt), rnd(Cc, 1, 3, 3, scale=1 / 3),
+                                     rnd(Cc, scale=0.2) + 1, rnd(Cc, scale=0.1), gelu), {},
+                          f"(1, {H}, {H}, {Cc}){' gelu' if gelu else ''}"))
+        M, K, N = 256 * 256, 256, 64
+        calls.append(("gemm", (rnd(M, K).to(dt), rnd(N, K, scale=K ** -0.5).to(dt),
+                               rnd(N, scale=0.1), "residual_gelu", rnd(M, N).to(dt)), {},
+                      f"MBConv shrink ({M}x{K})({K}x{N}) residual_gelu"))
+        measure_calls(calls, dname, shapes)
+        del calls
+
+        enc = random_tiny_vit(dt, dev, g)
+        runs = [("fused_mbconv", (rnd(1, 256, 256, 64).to(dt), enc.layers[0].blocks[0]),
+                 "K7 (1, 256, 256, 64)")]
+        for Hp, Cc, nH, w, st in TINY_ATTN_SHAPES:
+            runs.append(("fused_tiny_attention", (rnd(1, Hp, Hp, Cc).to(dt),
+                                                  enc.layers[st].blocks[0].attn),
+                         f"K6 (1, {Hp}, {Hp}, {Cc}) window {w}"))
+        for H, Cc, st in TINY_TAIL_SHAPES:
+            blk = enc.layers[st].blocks[0]
+            runs.append(("fused_tiny_tail", (rnd(1, H, H, Cc).to(dt), blk.local_conv, blk.mlp),
+                         f"K8 (1, {H}, {H}, {Cc})"))
+        for name, a, label in runs:
+            kern, plain, lib, ref = chain_counterparts(name, a, {})
+            err = check(f"{name} chain {label}", kern(), ref(), dname)
+            before = {k: c.launches for k, c in counters.items()}
+            kern()
+            torch.cuda.synchronize()
+            launches = {k: c.launches - before[k] for k, c in counters.items()
+                        if c.launches != before[k]}
+            if launches != CHAIN_LAUNCHES[name]:
+                raise AssertionError(f"{name}: launches {launches}, not {CHAIN_LAUNCHES[name]}")
+            k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain, iters=5), time_ms(lib)
+            b_ms, b_by = chain_bound([(name, a, {})])
+            chains.append(dict(name=name, shape=label, dtype=dname, max_abs_err=err, ms=k_ms,
+                               plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                               launches=launches))
+            log(f"    launches {launches}  ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms "
+                f"{l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+        del enc, runs
+        torch.cuda.empty_cache()
+    return shapes, chains
 
 
 # ---------------------------------------------------------------------------
@@ -602,7 +970,17 @@ PROFILE_GROUPS = (  # kernel-name patterns -> the layer they belong to
 )
 
 
-def profile_step(step):
+SERVE_PROFILE_GROUPS = (  # the port's kernels first: cuBLAS names contain "gemm" too
+    ("gemm (port kernel)", ("gemm_bf16_kernel", "gemm_f32_kernel")),
+    ("layernorm (port kernel)", ("layernorm_kernel",)),
+    ("relpos_attention (port kernel)", ("relpos_attention_bf16_kernel",)),
+    ("dwconv (port kernel)", ("dwconv3x3_kernel",)),
+    ("tiny_attention (port kernel)", ("tiny_attention_bf16_kernel",)),
+    ("convolutions and products (cuDNN / cuBLAS)", ("conv", "sm90", "xmma", "cutlass", "gemm")),
+)
+
+
+def profile_step(step, groups_of=PROFILE_GROUPS):
     """One step under torch.profiler: device time by layer and the top
     kernels, and the device's busy share of the step's host-clock time."""
     from torch.profiler import ProfilerActivity, profile
@@ -616,10 +994,10 @@ def profile_step(step):
     if busy == 0:
         log("  profiled step: the profiler saw no device time (not measured)")
         return None
-    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups = {name: 0.0 for name, _ in groups_of}
     groups["other (elementwise, reductions, copies)"] = 0.0
     for e in kernels:
-        for name, pats in PROFILE_GROUPS:
+        for name, pats in groups_of:
             if any(p in e.key for p in pats):
                 groups[name] += e.self_device_time_total / 1e3
                 break
@@ -810,10 +1188,12 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from micro_sam_tpu_torch.ops import _cuda
+    from micro_sam_tpu_torch.ops.dwconv import dwconv
     from micro_sam_tpu_torch.ops.gemm import gemm
     from micro_sam_tpu_torch.ops.layernorm import layernorm
     from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
                                                           relpos_attention_backward)
+    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention
 
     # phase 1: the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -842,9 +1222,14 @@ def main():
                     if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
                         log(f"  ptxas {n}: {line.strip()}")
 
+    # the profiler's first sessions in a process are the ones seen to record
+    # nothing: take them on a throwaway measurement
+    time_ms(lambda: torch.ones(1024, device="cuda").add_(1), iters=2, warmup=1)
+
     # phase 3: kernels vs plain
     log("kernels vs plain versions (bf16: plain in f32 on the same bf16 inputs)")
-    counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention}
+    counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention,
+                "dwconv": dwconv, "tiny_attention": tiny_attention}
     shapes, chains = kernel_phase(counters)
     log("main path: vit_b, 1024^2, random weights (seed 0), bf16")
     launches, per_encode, e2e = main_path_phase(counters)
@@ -858,8 +1243,21 @@ def main():
     log("training path: train_sam / SamTrainer, vit_b, 512^2 patches -> 1024^2, bf16 compute")
     counters["relpos_attention_backward"] = relpos_attention_backward
     train_launches, k4, training = training_phase(counters, root)
-    log(json.dumps({"kernels": summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4),
-                    "chains": chains, "card": card, "end_to_end": e2e, "training": training}))
+    torch.cuda.empty_cache()
+    # phase 7: vit_t
+    log("vit_t kernels and chains vs plain versions (bf16: plain in f32 on the same bf16 inputs)")
+    tiny_shapes, tiny_chains = tiny_kernel_phase(counters)
+    log("main path: vit_t, 1024^2, random weights (seed 0), bf16")
+    t_launches, t_per_encode, t_e2e = main_path_phase(counters, "vit_t", chains=TINY_CHAINS)
+    tiny = dict(shapes=tiny_shapes, chains=tiny_chains, launches=t_launches,
+                per_encode=t_per_encode)
+    rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny)
+    # the details first, then the kernels line, short: one entry per kernel
+    # and chain with the keys of the contract
+    log(json.dumps({"details": {"kernels": rows, "chains": chains, "card": card,
+                                "end_to_end": e2e, "end_to_end_vit_t": t_e2e,
+                                "training": training}}))
+    log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,17 @@
-// Y = X W^T + b with a fused epilogue (none, exact-erf GELU, + residual).
+// Y = X W^T + b with a fused epilogue (none, exact-erf GELU, + residual,
+// GELU of the sum with the residual).
 //
 // Replaces the qkv, proj, lin1 and lin2 products computed inside the TPU
 // kernels micro_sam_tpu/ops/fused_window_block.py::_fused_block_kernel and
-// ::_fused_global_kernel. X is (M, K) row-major, W is (N, K) row-major (the
-// nn.Linear / zoo layout), b is f32 (N), the residual R and Y are (M, N) in the
-// working type. The epilogue rounds where the plain composition stores in the
-// working type: v = round(acc + b); gelu: v = round(gelu(v)); residual:
-// v = round(R + v).
+// ::_fused_global_kernel, and the 1 x 1 convolutions (BatchNorm folded) and
+// MLP products of the TinyViT kernels ops/fused_mbconv.py::_mbconv_kernel,
+// ops/fused_tiny_attention.py::_tiny_attn_kernel and
+// ops/fused_tiny_tail.py::_tiny_tail_kernel. X is (M, K) row-major, W is
+// (N, K) row-major (the nn.Linear / zoo layout), b is f32 (N), the residual R
+// and Y are (M, N) in the working type. The epilogue rounds where the plain
+// composition stores in the working type: v = round(acc + b); gelu:
+// v = round(gelu(v)); residual: v = round(R + v); residual_gelu (the MBConv's
+// last step): v = round(gelu(round(R + v))).
 //
 // Bound on the H100: operations. At vit_b the lin1 product is
 // 4900 x 768 x 3072 (23 GFLOP, 23 us at 989 TFLOP/s) against 14 MB of traffic
@@ -28,12 +33,14 @@ using namespace nvcuda;
 #define EPI_NONE 0
 #define EPI_GELU 1
 #define EPI_RESIDUAL 2
+#define EPI_RESIDUAL_GELU 3
 
 template <typename T, int EPI>
 __device__ __forceinline__ float epilogue(float acc, float b, const T* R, size_t idx) {
   float v = round_to<T>(acc + b);
   if (EPI == EPI_GELU) v = round_to<T>(gelu_erf(v));
-  if (EPI == EPI_RESIDUAL) v = round_to<T>(to_f32(R[idx]) + v);
+  if (EPI == EPI_RESIDUAL || EPI == EPI_RESIDUAL_GELU) v = round_to<T>(to_f32(R[idx]) + v);
+  if (EPI == EPI_RESIDUAL_GELU) v = round_to<T>(gelu_erf(v));
   return v;
 }
 
@@ -134,7 +141,8 @@ __global__ void __launch_bounds__(256) gemm_bf16_kernel(
         size_t idx = (size_t)gm * N + gnb;
         __align__(16) __nv_bfloat16 out[8];
         __align__(16) __nv_bfloat16 res[8];
-        if (EPI == EPI_RESIDUAL) *reinterpret_cast<uint4*>(res) = *reinterpret_cast<const uint4*>(R + idx);
+        if (EPI == EPI_RESIDUAL || EPI == EPI_RESIDUAL_GELU)
+          *reinterpret_cast<uint4*>(res) = *reinterpret_cast<const uint4*>(R + idx);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           out[e] = __float2bfloat16(epilogue<__nv_bfloat16, EPI>(scratch[er * 16 + ec + e],
@@ -237,6 +245,9 @@ MSAM_EXPORT int msam_gemm(const void* x, const void* w, const void* b, const voi
     case EPI_NONE: e = launch<EPI_NONE>(x, w, b, r, y, M, N, K, dtype, s); break;
     case EPI_GELU: e = launch<EPI_GELU>(x, w, b, r, y, M, N, K, dtype, s); break;
     case EPI_RESIDUAL: e = launch<EPI_RESIDUAL>(x, w, b, r, y, M, N, K, dtype, s); break;
+    case EPI_RESIDUAL_GELU:
+      e = launch<EPI_RESIDUAL_GELU>(x, w, b, r, y, M, N, K, dtype, s);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;

@@ -1,4 +1,4 @@
-"""SAM model configurations (vit_b / vit_l / vit_h; vit_t awaits its slice)."""
+"""SAM model configurations (vit_b / vit_l / vit_h, and vit_t with the TinyViT encoder)."""
 from __future__ import annotations
 
 from dataclasses import replace
@@ -15,7 +15,7 @@ SAM_CONFIGS = {
                        global_attn_indexes=(5, 11, 17, 23)),
     "vit_h": SamConfig(model_type="vit_h", embed_dim=1280, depth=32, num_heads=16,
                        global_attn_indexes=(7, 15, 23, 31)),
-    # TinyViT (MobileSAM): Sam() raises until the encoder is ported
+    # TinyViT (MobileSAM); its widths are models/tiny_vit.py's constants
     "vit_t": SamConfig(model_type="vit_t", encoder="tiny_vit", embed_dim=320, depth=12,
                        num_heads=10),
 }

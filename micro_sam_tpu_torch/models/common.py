@@ -36,10 +36,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-           stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """NHWC convolution with an (O, I, kh, kw) kernel."""
+           stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """NHWC convolution with an (O, I / groups, kh, kw) kernel."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                 None if bias is None else bias.to(x.dtype), stride=stride, padding=padding)
+                 None if bias is None else bias.to(x.dtype), stride=stride, padding=padding,
+                 groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -67,6 +68,12 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias)
 
+    def hold_weight_in_(self, dtype: torch.dtype) -> None:
+        """Keep the weight in ``dtype`` (a kernel chain's working type); the
+        bias stays float32."""
+        self.weight = nn.Parameter(self.weight.detach().to(dtype),
+                                   requires_grad=self.weight.requires_grad)
+
     def init_(self, g: torch.Generator) -> None:
         kaiming_uniform_(self.weight, self.in_features, g)
         if self.bias is not None:
@@ -93,10 +100,10 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pad = self.padding[0] if isinstance(self.padding, tuple) else self.padding
-        return conv2d(x, self.weight, self.bias, self.stride[0], pad)
+        return conv2d(x, self.weight, self.bias, self.stride[0], pad, self.groups)
 
     def init_(self, g: torch.Generator) -> None:
-        fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
+        fan_in = self.in_channels // self.groups * self.kernel_size[0] * self.kernel_size[1]
         kaiming_uniform_(self.weight, fan_in, g)
         if self.bias is not None:
             b = 1.0 / math.sqrt(fan_in)
@@ -117,6 +124,74 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             b = 1.0 / math.sqrt(fan_in)
             with torch.no_grad():
                 self.bias.uniform_(-b, b, generator=g)
+
+
+class BatchNorm(nn.Module):
+    """Frozen-statistics BatchNorm over the channel (last) axis, eps 1e-5: the
+    running statistics are buffers used as they are, never updated (the
+    frozen-BN finetuning regime of ``micro_sam_tpu/models/common.py::batch_norm``).
+    Keys as ``nn.BatchNorm2d``'s: weight, bias, running_mean, running_var. It
+    is applied as the per-channel scale and shift of ``fold_bn``, folded into
+    the convolution before it (``Conv2d_BN``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.eps = eps
+
+
+def fold_bn(bn: BatchNorm):
+    """The BN as a per-channel (scale, shift) in float32: bn(x) = x * scale + shift."""
+    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return scale, bn.bias.float() - bn.running_mean.float() * scale
+
+
+class Conv2d_BN(nn.Module):
+    """A bias-free convolution followed by a frozen BatchNorm (TinyViT's
+    ``Conv2d_BN``; keys ``c.weight`` and ``bn.*``), over channel-last input.
+
+    ``folded(dtype)`` gives the BN folded into the convolution: the weight
+    times the BN scale over its output channels, computed in float32 and then
+    cast to ``dtype``, with the BN scale and shift in float32. Without
+    autograd it is kept per dtype until a parameter or statistic changes (an
+    in-place write, a state-dict load or a move), so the module and the
+    kernel chains fold once, not per call. ``forward`` is the convolution
+    with the folded weight and the shift as its bias."""
+
+    def __init__(self, in_ch: int, out_ch: int, ks: int = 1, stride: int = 1, pad: int = 0,
+                 groups: int = 1):
+        super().__init__()
+        self.c = Conv2d(in_ch, out_ch, ks, stride=stride, padding=pad, groups=groups, bias=False)
+        self.bn = BatchNorm(out_ch)
+        self._folded = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, _, shift = self.folded(x.dtype)
+        c = self.c
+        return conv2d(x, w, shift, c.stride[0], c.padding[0], c.groups)
+
+    def folded(self, dtype: torch.dtype):
+        """(weight * scale in ``dtype`` (O, I / groups, kh, kw), scale f32, shift f32)."""
+        tensors = (self.c.weight, self.bn.weight, self.bn.bias, self.bn.running_mean,
+                   self.bn.running_var)
+        key = tuple((t._version, t.data_ptr()) for t in tensors)
+        keep = not torch.is_grad_enabled()
+        hit = self._folded.get(dtype)
+        if keep and hit is not None and hit[0] == key:
+            return hit[1]
+        scale, shift = fold_bn(self.bn)
+        w = (self.c.weight.float() * scale.view(-1, 1, 1, 1)).to(dtype)
+        out = (w, scale, shift)
+        if keep:
+            self._folded[dtype] = (key, out)
+        return out
+
+    def _apply(self, fn, *args, **kwargs):
+        self._folded = {}
+        return super()._apply(fn, *args, **kwargs)
 
 
 class Embedding(nn.Module):

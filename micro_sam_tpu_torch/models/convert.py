@@ -12,16 +12,28 @@ hold the JAX tree, so they load in either package):
 - Conv ``w`` (kh, kw, I, O)           -> ``weight`` (O, I, kh, kw)
 - ConvTranspose ``w`` (kh, kw, O, I)  -> ``weight`` (I, O, kh, kw)
 - LayerNorm ``scale`` / ``bias``      -> ``weight`` / ``bias``
+- conv + BatchNorm ``{conv: {w}, bn: {scale, bias, mean, var}}``
+                                      -> ``c.weight``, ``bn.{weight, bias, running_mean, running_var}``
+
+The TinyViT (vit_t) qkv product is the one place where the layouts differ
+by more than a transpose: the JAX package splits its 3C output channels into
+global thirds [q | k | v], upstream TinyViT (and the port) per head, [q_h |
+k_h | v_h] for h = 0..nH-1. Row h * 3hd + p * hd + d of the port's weight is
+column p * C + h * hd + d of the JAX weight; ``params_from_jax`` /
+``params_to_jax`` permute, so both packages compute the same function on one
+JAX tree. A MobileSAM-layout state dict (``load_torch_checkpoint``) is
+upstream's order already and loads unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .build_sam import get_config
 from .sam import SamConfig
+from .tiny_vit import NUM_HEADS as TINY_NUM_HEADS
 
 
 def normalize_state_dict(state) -> Tuple[Dict, Optional[Dict]]:
@@ -43,23 +55,32 @@ def infer_model_type(sam_state: Dict) -> str:
     return {768: "vit_b", 1024: "vit_l", 1280: "vit_h"}[int(embed_dim)]
 
 
+# keys of a MobileSAM TinyViT state dict that the encoder does not use: the
+# ImageNet classifier head, BatchNorm's batch counters, the derived bias index
+_TINY_UNUSED_PREFIXES = ("image_encoder.norm_head.", "image_encoder.head.")
+_TINY_UNUSED_SUFFIXES = (".num_batches_tracked", ".attention_bias_idxs")
+
+
 def load_torch_checkpoint(path: str, model_type: Optional[str] = None):
-    """Read a zoo ``.pt`` / ``.pth``. Returns (config, state_dict, decoder_state)."""
+    """Read a zoo ``.pt`` / ``.pth`` (for vit_t, MobileSAM's layout, as it is).
+    Returns (config, state_dict, decoder_state)."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     sam_state, decoder_state = normalize_state_dict(state)
     config = get_config(model_type or infer_model_type(sam_state))
+    if config.encoder == "tiny_vit":
+        sam_state = {k: v for k, v in sam_state.items()
+                     if not k.startswith(_TINY_UNUSED_PREFIXES)
+                     and not k.endswith(_TINY_UNUSED_SUFFIXES)}
     return config, sam_state, decoder_state
 
 
-def _layers(n_blocks: int, n_decoder_layers: int, n_hyper: int, n_hyper_layers: int,
-            n_iou_layers: int) -> List[Tuple[str, tuple, str]]:
-    """(port key prefix, JAX tree path, kind) of every parameter of the vit SAM.
-    kind: "lin", "conv" (either conv layout), "ln", "emb" (a ``w`` table) or
-    "array" (a bare leaf)."""
-    L: List[Tuple[str, tuple, str]] = []
+Layer = Tuple  # (port key prefix, JAX tree path, kind[, heads])
+
+
+def _vit_encoder_layers(n_blocks: int) -> List[Layer]:
     enc = ("image_encoder",)
-    L += [("image_encoder.patch_embed.proj", enc + ("patch_embed",), "conv"),
-          ("image_encoder.pos_embed", enc + ("pos_embed",), "array")]
+    L: List[Layer] = [("image_encoder.patch_embed.proj", enc + ("patch_embed",), "conv"),
+                      ("image_encoder.pos_embed", enc + ("pos_embed",), "array")]
     for i in range(n_blocks):
         pre, bp = f"image_encoder.blocks.{i}", enc + ("blocks", i)
         L += [(f"{pre}.norm1", bp + ("norm1",), "ln"),
@@ -70,10 +91,63 @@ def _layers(n_blocks: int, n_decoder_layers: int, n_hyper: int, n_hyper_layers: 
               (f"{pre}.norm2", bp + ("norm2",), "ln"),
               (f"{pre}.mlp.lin1", bp + ("mlp", "lin1"), "lin"),
               (f"{pre}.mlp.lin2", bp + ("mlp", "lin2"), "lin")]
-    for port, jax_name, kind in (("0", "conv1", "conv"), ("1", "ln1", "ln"),
-                                 ("2", "conv2", "conv"), ("3", "ln2", "ln")):
-        L.append((f"image_encoder.neck.{port}", enc + ("neck", jax_name), kind))
+    return L + _neck_layers()
 
+
+def _tiny_vit_encoder_layers(depths: Sequence[int]) -> List[Layer]:
+    """MobileSAM's TinyViT keys against the JAX package's tiny_vit tree:
+    ``layers.0`` is the MBConv stage (``stage0``), ``layers.1..3`` the
+    attention stages; ``layers.i.downsample`` is ``merge{i}``."""
+    enc = ("image_encoder",)
+    L: List[Layer] = [("image_encoder.patch_embed.seq.0", enc + ("patch_embed", "conv1"), "conv_bn"),
+                      ("image_encoder.patch_embed.seq.2", enc + ("patch_embed", "conv2"), "conv_bn")]
+
+    def merge(stage):
+        return [(f"image_encoder.layers.{stage}.downsample.{c}", enc + (f"merge{stage}", c),
+                 "conv_bn") for c in ("conv1", "conv2", "conv3")]
+
+    for i in range(depths[0]):
+        L += [(f"image_encoder.layers.0.blocks.{i}.{c}", enc + ("stage0", i, c), "conv_bn")
+              for c in ("conv1", "conv2", "conv3")]
+    L += merge(0)
+    for stage in (1, 2, 3):
+        for i in range(depths[stage]):
+            pre, bp = f"image_encoder.layers.{stage}.blocks.{i}", enc + (f"stage{stage}", i)
+            L += [(f"{pre}.attn.norm", bp + ("attn", "norm"), "ln"),
+                  (f"{pre}.attn.qkv", bp + ("attn", "qkv"), "qkv", TINY_NUM_HEADS[stage]),
+                  (f"{pre}.attn.proj", bp + ("attn", "proj"), "lin"),
+                  (f"{pre}.attn.attention_biases", bp + ("attn", "attention_biases"), "array"),
+                  (f"{pre}.local_conv", bp + ("local_conv",), "conv_bn"),
+                  (f"{pre}.mlp.norm", bp + ("mlp", "norm"), "ln"),
+                  (f"{pre}.mlp.fc1", bp + ("mlp", "lin1"), "lin"),
+                  (f"{pre}.mlp.fc2", bp + ("mlp", "lin2"), "lin")]
+        if stage < 3:
+            L += merge(stage)
+    return L + _neck_layers()
+
+
+def _neck_layers() -> List[Layer]:
+    return [(f"image_encoder.neck.{port}", ("image_encoder", "neck", jax_name), kind)
+            for port, jax_name, kind in (("0", "conv1", "conv"), ("1", "ln1", "ln"),
+                                         ("2", "conv2", "conv"), ("3", "ln2", "ln"))]
+
+
+def _qkv_thirds_to_heads(a: np.ndarray, heads: int) -> np.ndarray:
+    """(3C, ...) rows in the JAX package's [q | k | v] order -> per head [q_h | k_h | v_h]."""
+    return a.reshape(3, heads, -1, *a.shape[1:]).swapaxes(0, 1).reshape(a.shape)
+
+
+def _qkv_heads_to_thirds(a: np.ndarray, heads: int) -> np.ndarray:
+    return a.reshape(heads, 3, -1, *a.shape[1:]).swapaxes(0, 1).reshape(a.shape)
+
+
+def _layers(encoder: List[Layer], n_decoder_layers: int, n_hyper: int, n_hyper_layers: int,
+            n_iou_layers: int) -> List[Layer]:
+    """(port key prefix, JAX tree path, kind[, heads]) of every parameter of
+    the SAM, the encoder's first. kind: "lin", "qkv" (a linear whose output
+    rows are permuted, see the module docstring), "conv" (either conv
+    layout), "conv_bn", "ln", "emb" (a ``w`` table) or "array" (a bare leaf)."""
+    L: List[Layer] = list(encoder)
     pr = ("prompt_encoder",)
     L.append(("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
               pr + ("pe_gaussian",), "array"))
@@ -119,20 +193,20 @@ def _layers(n_blocks: int, n_decoder_layers: int, n_hyper: int, n_hyper_layers: 
     return L
 
 
-def _check_vit(config: SamConfig) -> None:
-    if config.encoder != "vit":
-        raise NotImplementedError("the TinyViT encoder is not ported yet")
+_BN = (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"), ("running_var", "var"))
 
 
 def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
     """JAX package parameter tree (numpy leaves) -> the port's state dict."""
-    _check_vit(config)
-    de = params["mask_decoder"]
-    layers = _layers(len(params["image_encoder"]["blocks"]), len(de["transformer"]["layers"]),
-                     len(de["hyper_mlps"]), len(de["hyper_mlps"][0]["layers"]),
-                     len(de["iou_head"]["layers"]))
+    de, enc = params["mask_decoder"], params["image_encoder"]
+    if config.encoder == "tiny_vit":
+        encoder = _tiny_vit_encoder_layers([len(enc[f"stage{i}"]) for i in range(4)])
+    else:
+        encoder = _vit_encoder_layers(len(enc["blocks"]))
+    layers = _layers(encoder, len(de["transformer"]["layers"]), len(de["hyper_mlps"]),
+                     len(de["hyper_mlps"][0]["layers"]), len(de["iou_head"]["layers"]))
     sd: Dict[str, np.ndarray] = {}
-    for key, path, kind in layers:
+    for key, path, kind, *heads in layers:
         node = params
         for part in path[:-1]:
             node = node[part]
@@ -146,23 +220,35 @@ def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
         elif kind == "ln":
             sd[f"{key}.weight"] = np.asarray(node["scale"])
             sd[f"{key}.bias"] = np.asarray(node["bias"])
-        else:  # lin / conv: both conv layouts map by the same transpose
+        elif kind == "conv_bn":
+            sd[f"{key}.c.weight"] = np.asarray(node["conv"]["w"]).transpose(3, 2, 0, 1)
+            for port, jax_name in _BN:
+                sd[f"{key}.bn.{port}"] = np.asarray(node["bn"][jax_name])
+        else:  # lin / qkv / conv: both conv layouts map by the same transpose
             w = np.asarray(node["w"])
-            sd[f"{key}.weight"] = w.T if kind == "lin" else w.transpose(3, 2, 0, 1)
+            sd[f"{key}.weight"] = w.transpose(3, 2, 0, 1) if kind == "conv" else w.T
             if "b" in node:
                 sd[f"{key}.bias"] = np.asarray(node["b"])
+            if kind == "qkv":
+                for name in ("weight", "bias"):
+                    sd[f"{key}.{name}"] = _qkv_thirds_to_heads(sd[f"{key}.{name}"], heads[0])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor], config: SamConfig) -> dict:
     """The port's state dict -> the JAX package's parameter tree (nested dicts
     and lists of float32 numpy arrays): the inverse of ``params_from_jax``."""
-    _check_vit(config)
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
     n_dec = 1 + max(int(k.split(".")[3]) for k in sd if k.startswith("mask_decoder.transformer.layers."))
-    layers = _layers(config.depth, n_dec, 4, 3, 3)
+    if config.encoder == "tiny_vit":
+        depths = [1 + max(int(k.split(".")[4]) for k in sd
+                          if k.startswith(f"image_encoder.layers.{i}.blocks.")) for i in range(4)]
+        encoder = _tiny_vit_encoder_layers(depths)
+    else:
+        encoder = _vit_encoder_layers(config.depth)
+    layers = _layers(encoder, n_dec, 4, 3, 3)
     tree: dict = {}
-    for key, path, kind in layers:
+    for key, path, kind, *heads in layers:
         if kind == "array":
             if key not in sd:
                 continue
@@ -171,11 +257,17 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], config: SamConfig) -> dic
             leaf = {"w": sd[f"{key}.weight"]}
         elif kind == "ln":
             leaf = {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+        elif kind == "conv_bn":
+            leaf = {"conv": {"w": sd[f"{key}.c.weight"].transpose(2, 3, 1, 0)},
+                    "bn": {jax_name: sd[f"{key}.bn.{port}"] for port, jax_name in _BN}}
         else:
             w = sd[f"{key}.weight"]
-            leaf = {"w": w.T if kind == "lin" else w.transpose(2, 3, 1, 0)}
+            if kind == "qkv":
+                w = _qkv_heads_to_thirds(w, heads[0])
+            leaf = {"w": w.transpose(2, 3, 1, 0) if kind == "conv" else w.T}
             if f"{key}.bias" in sd:
-                leaf["b"] = sd[f"{key}.bias"]
+                b = sd[f"{key}.bias"]
+                leaf["b"] = _qkv_heads_to_thirds(b, heads[0]) if kind == "qkv" else b
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})

@@ -135,8 +135,7 @@ class Block(nn.Module):
         """Keep the qkv, proj, lin1 and lin2 weights in ``dtype``, the dtype
         the kernel chain runs in (their biases stay float32)."""
         for lin in (self.attn.qkv, self.attn.proj, self.mlp.lin1, self.mlp.lin2):
-            lin.weight = nn.Parameter(lin.weight.detach().to(dtype),
-                                      requires_grad=lin.weight.requires_grad)
+            lin.hold_weight_in_(dtype)
         return self
 
 

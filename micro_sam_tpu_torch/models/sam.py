@@ -23,6 +23,7 @@ from . import common as cm
 from .image_encoder import ImageEncoderViT
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
+from .tiny_vit import TinyViT
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
@@ -85,17 +86,19 @@ class Sam(nn.Module):
         """``weight_dtype``: the dtype of the encoder blocks' product weights
         (default: the compute dtype, for the serving kernel chain)."""
         super().__init__()
-        if config.encoder != "vit":
-            raise NotImplementedError(
-                f"{config.model_type}: the TinyViT encoder is not ported yet")
         self.config = config
         e = config.embedding_size
-        self.image_encoder = ImageEncoderViT(
-            img_size=config.img_size, patch_size=config.patch_size,
-            embed_dim=config.embed_dim, depth=config.depth, num_heads=config.num_heads,
-            mlp_ratio=config.mlp_ratio, out_chans=config.prompt_embed_dim,
-            window_size=config.window_size, global_attn_indexes=config.global_attn_indexes,
-            dtype=weight_dtype or config.dtype)
+        if config.encoder == "tiny_vit":
+            self.image_encoder = TinyViT(config.prompt_embed_dim, dtype=weight_dtype or config.dtype)
+        elif config.encoder == "vit":
+            self.image_encoder = ImageEncoderViT(
+                img_size=config.img_size, patch_size=config.patch_size,
+                embed_dim=config.embed_dim, depth=config.depth, num_heads=config.num_heads,
+                mlp_ratio=config.mlp_ratio, out_chans=config.prompt_embed_dim,
+                window_size=config.window_size, global_attn_indexes=config.global_attn_indexes,
+                dtype=weight_dtype or config.dtype)
+        else:
+            raise ValueError(f"unknown encoder {config.encoder!r}")
         self.prompt_encoder = PromptEncoder(config.prompt_embed_dim, (e, e),
                                             (config.img_size, config.img_size))
         self.mask_decoder = MaskDecoder(config.prompt_embed_dim)
@@ -111,7 +114,7 @@ class Sam(nn.Module):
 
     def encode_image_train(self, pixels: torch.Tensor) -> torch.Tensor:
         """``encode_image`` in autograd, every block checkpointed
-        (``ImageEncoderViT.forward_train``)."""
+        (``ImageEncoderViT.forward_train``; the ViT encoders only)."""
         return self.image_encoder.forward_train(pixels.to(self.config.dtype))
 
     @torch.no_grad()

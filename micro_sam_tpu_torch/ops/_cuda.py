@@ -23,7 +23,8 @@ from typing import Dict
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("layernorm", "gemm", "relpos_attention", "relpos_attention_bwd")
+SOURCES = ("layernorm", "gemm", "relpos_attention", "relpos_attention_bwd", "dwconv",
+           "tiny_attention")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -36,6 +37,8 @@ _SIGNATURES = {
     "relpos_attention_bwd": ("msam_relpos_attention_bwd",
                              [_I] + [_P] * 13 + [_LL] + [_I] * 6
                              + [ctypes.POINTER(_LL), _F, _I, _P]),
+    "dwconv": ("msam_dwconv", [_P] * 5 + [_I] * 6 + [_P]),
+    "tiny_attention": ("msam_tiny_attention", [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

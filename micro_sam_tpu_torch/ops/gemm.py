@@ -3,10 +3,13 @@
 
 Replaces the qkv, proj, lin1 and lin2 products computed inside the TPU kernels
 ``micro_sam_tpu/ops/fused_window_block.py::_fused_block_kernel`` and
-``::_fused_global_kernel``. Epilogues: ``"none"``, ``"gelu"`` (exact erf) and
-``"residual"`` (adds R). Rounding follows the plain composition, which stores
-every intermediate in the working type: v = round(acc + b), then
-round(gelu(v)) or round(R + v).
+``::_fused_global_kernel``, and the 1 x 1 convolutions and MLP products of the
+TinyViT kernels (``ops/fused_mbconv.py``, ``ops/fused_tiny_attention.py``,
+``ops/fused_tiny_tail.py``). Epilogues: ``"none"``, ``"gelu"`` (exact erf),
+``"residual"`` (adds R) and ``"residual_gelu"`` (gelu(R + v), the MBConv's
+last step). Rounding follows the plain composition, which stores every
+intermediate in the working type: v = round(acc + b), then round(gelu(v)),
+round(R + v) or round(gelu(round(R + v))).
 
 Bound on the H100: operations (every encoder block product has over 130
 flops per byte). The bf16 path runs WMMA tensor-core fragments fed by a
@@ -23,7 +26,8 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-EPILOGUES = {"none": 0, "gelu": 1, "residual": 2}
+EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "residual_gelu": 3}
+RESIDUAL_EPILOGUES = ("residual", "residual_gelu")
 
 
 def gemm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -34,6 +38,8 @@ def gemm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         y = F.gelu(y)
     elif epilogue == "residual":
         y = residual + y
+    elif epilogue == "residual_gelu":
+        y = F.gelu(residual + y)
     elif epilogue != "none":
         raise ValueError(f"unknown epilogue {epilogue!r}")
     return y
@@ -45,8 +51,9 @@ def gemm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     a CUDA tensor launches the kernel."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    if (epilogue == "residual") != (residual is not None):
-        raise ValueError("a residual is given exactly when epilogue='residual'")
+    if (epilogue in RESIDUAL_EPILOGUES) != (residual is not None):
+        raise ValueError(f"a residual is given exactly when the epilogue is one of "
+                         f"{RESIDUAL_EPILOGUES}")
     if x.device.type == "cpu":
         return gemm_plain(x, weight, bias, epilogue, residual)
     if x.device.type != "cuda":

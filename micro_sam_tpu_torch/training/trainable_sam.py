@@ -27,6 +27,10 @@ class TrainableSAM:
     """Bundles a ``Sam`` with the training-forward functions."""
 
     def __init__(self, sam: Sam):
+        if sam.config.encoder != "vit":
+            raise NotImplementedError(
+                f"{sam.config.model_type}: finetuning the TinyViT encoder is not ported yet "
+                "(it has no training forward; see ROADMAP.md, Queue 1 item 14)")
         self.sam = sam
         self.config = sam.config
 

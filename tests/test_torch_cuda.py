@@ -50,7 +50,7 @@ def test_layernorm_matches_plain(dev, dtype, masked):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual"])
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "residual_gelu"])
 @pytest.mark.parametrize("M,K,N", [(4900, 768, 2304), (37, 72, 40), (130, 3072, 768)],
                          ids=["vit_b_qkv", "ragged", "vit_b_lin2"])
 def test_gemm_matches_plain(dev, dtype, epilogue, M, K, N):
@@ -59,7 +59,7 @@ def test_gemm_matches_plain(dev, dtype, epilogue, M, K, N):
     x = torch.randn(M, K, generator=g).to(dev, dtype)
     w = (torch.randn(N, K, generator=g) * K ** -0.5).to(dev, dtype)
     b = (torch.randn(N, generator=g) * 0.1).to(dev)
-    r = torch.randn(M, N, generator=g).to(dev, dtype) if epilogue == "residual" else None
+    r = torch.randn(M, N, generator=g).to(dev, dtype) if epilogue.startswith("residual") else None
     got = gemm(x, w, b, epilogue, r)
     torch.cuda.synchronize()
     _held(got, gemm_plain(x.float(), w.float(), b, epilogue, None if r is None else r.float()),
@@ -184,7 +184,99 @@ def test_encoder_on_card_matches_cpu(dev):
     assert rel <= 1e-4, rel
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,gelu", [(2, 64, 48, 256, True), (1, 128, 128, 128, False),
+                                          (2, 13, 11, 160, False), (1, 9, 7, 12, True)],
+                         ids=["mbconv", "tail", "odd", "narrow"])
+def test_dwconv_matches_plain(dev, dtype, B, H, W, C, gelu):
+    """Any H, W and C: 12 channels take the kernel's one-channel path."""
+    from micro_sam_tpu_torch.ops.dwconv import dwconv, dwconv_plain
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    w = (torch.randn(C, 1, 3, 3, generator=g) / 3).to(dev)
+    s, t = (torch.rand(C, generator=g) + 0.5).to(dev), (torch.randn(C, generator=g) * 0.1).to(dev)
+    n = dwconv.launches
+    got = dwconv(x, w, s, t, gelu)
+    torch.cuda.synchronize()
+    assert dwconv.launches == n + 1
+    _held(got, dwconv_plain(x.float(), w, s, t, gelu), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hp,Wp,C,nH,w", [(1, 133, 133, 128, 4, 7), (1, 70, 70, 160, 5, 14),
+                                            (2, 14, 21, 320, 10, 7)],
+                         ids=["stage1", "stage2", "stage3"])
+def test_tiny_attention_matches_plain(dev, dtype, B, Hp, Wp, C, nH, w):
+    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention, tiny_attention_plain
+    g = torch.Generator().manual_seed(9)
+    qkv = torch.randn(B * Hp * Wp, 3 * C, generator=g).to(dev, dtype)
+    table = (torch.randn(nH, w * w, generator=g) * 0.5).to(dev)
+    n = tiny_attention.launches
+    got = tiny_attention(qkv, table, (B, Hp, Wp), w)
+    torch.cuda.synchronize()
+    assert tiny_attention.launches == n + 1
+    _held(got, tiny_attention_plain(qkv.float(), table, (B, Hp, Wp), w), dtype)
+
+
+def _tiny_vit(dtype, dev):
+    """A random vit_t encoder with non-trivial BN statistics."""
+    from micro_sam_tpu_torch.models.common import BatchNorm, init_module_
+    from micro_sam_tpu_torch.models.tiny_vit import TinyViT
+    g = torch.Generator().manual_seed(10)
+    enc = TinyViT(dtype=dtype)
+    init_module_(enc, g)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    return enc.to(dev).eval()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("chain", ["K6", "K7", "K8"])
+def test_tiny_chains_match_plain(dev, dtype, chain):
+    """The vit_t kernel chains against the same chains through the plain
+    versions (f32, on the same inputs), stage 1's attention and tail."""
+    from micro_sam_tpu_torch.ops import fused_mbconv as k7, fused_tiny_attention as k6
+    from micro_sam_tpu_torch.ops import fused_tiny_tail as k8
+    enc = _tiny_vit(dtype, dev)
+    g = torch.Generator().manual_seed(11)
+    blk = enc.layers[1].blocks[0]
+    with torch.no_grad():
+        if chain == "K7":
+            x = torch.randn(2, 32, 40, 64, generator=g).to(dev, dtype)
+            mb = enc.layers[0].blocks[0]
+            got, ref = k7.fused_mbconv(x, mb), k7.fused_mbconv_plain(x.float(), mb)
+        elif chain == "K6":
+            x = torch.randn(2, 21, 28, 128, generator=g).to(dev, dtype)
+            got = k6.fused_tiny_attention(x, blk.attn)
+            ref = k6.fused_tiny_attention_plain(x.float(), blk.attn)
+        else:
+            x = torch.randn(2, 20, 24, 128, generator=g).to(dev, dtype)
+            got = k8.fused_tiny_tail(x, blk.local_conv, blk.mlp)
+            ref = k8.fused_tiny_tail_plain(x.float(), blk.local_conv, blk.mlp)
+    torch.cuda.synchronize()
+    _held(got, ref, dtype)
+
+
+def test_vit_t_encoder_on_card_matches_cpu(dev):
+    """vit_t through the whole encoder at 128 px: card f32 against CPU f32."""
+    from dataclasses import replace
+    from micro_sam_tpu_torch.models.build_sam import get_config
+    from micro_sam_tpu_torch.models.sam import Sam, preprocess
+    cfg = replace(get_config("vit_t", "float32"), img_size=128)
+    sam = Sam(cfg).init_(torch.Generator().manual_seed(12)).eval()
+    img = torch.rand(1, 128, 128, 3, generator=torch.Generator().manual_seed(13)) * 255
+    ref = sam.encode_image(preprocess(img, 128))
+    got = sam.to(dev).encode_image(preprocess(img.to(dev), 128))
+    torch.cuda.synchronize()
+    rel = float((got.cpu() - ref).abs().max() / ref.abs().max())
+    assert rel <= 1e-4, rel
+
+
 def test_get_sam_model_defaults_to_the_card(dev):
     from micro_sam_tpu_torch.util import get_sam_model
-    p = get_sam_model("vit_b")
-    assert p.device.type == "cuda" and p.model.config.compute_dtype == "bfloat16"
+    for model_type in ("vit_b", "vit_t"):
+        p = get_sam_model(model_type)
+        assert p.device.type == "cuda" and p.model.config.compute_dtype == "bfloat16"

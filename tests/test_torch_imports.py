@@ -58,7 +58,11 @@ def test_importing_every_port_module_loads_no_jax():
         "new = {'micro_sam_tpu_torch.training', 'micro_sam_tpu_torch.training.sam_trainer',\n"
         "       'micro_sam_tpu_torch.training.trainable_sam', 'micro_sam_tpu_torch.training.util',\n"
         "       'micro_sam_tpu_torch.training.training', 'micro_sam_tpu_torch.prompt_generators',\n"
-        "       'micro_sam_tpu_torch.sample_data', 'micro_sam_tpu_torch.ops.amg_utils'}\n"
+        "       'micro_sam_tpu_torch.sample_data', 'micro_sam_tpu_torch.ops.amg_utils',\n"
+        "       'micro_sam_tpu_torch.models.tiny_vit', 'micro_sam_tpu_torch.ops.dwconv',\n"
+        "       'micro_sam_tpu_torch.ops.tiny_attention', 'micro_sam_tpu_torch.ops.fused_mbconv',\n"
+        "       'micro_sam_tpu_torch.ops.fused_tiny_attention',\n"
+        "       'micro_sam_tpu_torch.ops.fused_tiny_tail'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )
