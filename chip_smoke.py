@@ -37,6 +37,8 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     their plain versions, bf16 and f32, with launches per chain call checked;
     then the same serving path as phase 4 with get_sam_model("vit_t"): launch
     counts per encode (12 dwconv, 10 tiny_attention, 20 layernorm, 44 gemm),
+    each chain call's launches counted around it on that path (a chain's
+    launches in the kernels line),
     encode / decode times, one encode replayed per kernel and per chain (the
     chains' library yardsticks: cuDNN convolutions, F.layer_norm, F.linear,
     SDPA with the gathered bias), the embedding against the CPU's plain f32 run;
@@ -80,8 +82,7 @@ def time_ms(fn, iters=20, warmup=3):
     session now and then records no activity at all (a few in some 300
     sessions of a run on the H100 machines, most of them early); it is run
     again, up to ten times, and should the profiler record nothing in all of
-    them, the run is timed with CUDA events instead (``event_ms``) and says
-    so."""
+    them, the run fails: there is no other timer."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -97,21 +98,7 @@ def time_ms(fn, iters=20, warmup=3):
             return busy / 1e3 / iters
         log(f"  (the profiler recorded no device activity, session {attempt + 1} of "
             f"{PROFILER_SESSIONS})")
-    log("  (timed with CUDA events instead: host launch gaps included)")
-    return event_ms(fn, iters)
-
-
-def event_ms(fn, iters=20):
-    """Median over ``iters`` runs of ``fn``, each between two CUDA events."""
-    pairs = []
-    for _ in range(iters):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    raise RuntimeError(f"torch.profiler recorded no device time in {PROFILER_SESSIONS} sessions")
 
 
 def check(name, got, ref, dtype_name, quiet=False, tol=None):
@@ -152,8 +139,9 @@ def work(name, a):
         masked = len(a) > 4 and a[4] is not None
         ops, nbytes, rate = 8 * M * Cc, 2 * M * Cc * s + 2 * Cc * 4 + (M * 4 if masked else 0), PEAK_F32
     elif name == "gemm":
+        from micro_sam_tpu_torch.ops.gemm import RESIDUAL_EPILOGUES
         (M, K), N = x.shape, a[1].shape[0]
-        residual = len(a) > 3 and a[3] == "residual"
+        residual = len(a) > 3 and a[3] in RESIDUAL_EPILOGUES
         ops = 2 * M * N * K
         nbytes = (M * K + N * K + M * N * (2 if residual else 1)) * s + N * 4
     elif name == "relpos_attention":
@@ -423,17 +411,19 @@ def kernel_phase(counters):
     return shapes, chains
 
 
-def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None):
+def encode_replay_phase(predictor, x1, counters, launches, n_images, chain_launches=None):
     """Records one batch-1 encode of the main path's model and image, then
     replays each kernel's launches of it on their own inputs: against the f32
     plain version (the check), and timed, back to back, as the kernel, as the
-    plain version and as library calls. ``chains``: the chain modules whose
-    kernel tables are recorded (default the ViT blocks'); for vit_t the chain
-    calls themselves are recorded too and replayed by ``chain_replay``."""
+    plain version and as library calls. ``chain_launches``: for vit_t, each
+    chain's launches in the main path (``ChainLaunches``); then the chains'
+    kernel tables are recorded (default the ViT blocks'), and the chain calls
+    themselves too, replayed by ``chain_replay``."""
     from micro_sam_tpu_torch.models import tiny_vit
+    chains = tuple(chain_launches or ())
     before = {k: c.launches for k, c in counters.items()}
-    chain_recs = [CallRecorder(tiny_vit, n) for n in (TINY_CHAINS if chains else ())]
-    with Recorder(*(chains or ())) as rec:
+    chain_recs = [CallRecorder(tiny_vit, n) for n in chains]
+    with Recorder(*chains) as rec:
         for r in chain_recs:
             r.__enter__()
         try:
@@ -463,7 +453,8 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None
         log(f"  {name}: {len(calls)} launches of one encode, max_abs_err {err:.3e}; ms {k_ms:.4f}"
             f"  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
     if chains:
-        out["chains"] = {r.name: chain_replay(r.calls, n_images) for r in chain_recs}
+        out["chains"] = {r.name: chain_replay(r.calls, chain_launches[r.name])
+                         for r in chain_recs}
     return out
 
 
@@ -577,26 +568,28 @@ def main_path_phase(counters, model_type="vit_b", chains=None):
 
     for c in counters.values():
         c.launches = 0
-    predictor = get_sam_model(model_type, seed=0)
-    emb = precompute_image_embeddings(predictor, image, verbose=False)
-    emb3 = precompute_image_embeddings(predictor, volume, verbose=False)
-    set_precomputed(predictor, emb)
-    outs = {
-        "1 point": predictor.predict(np.array([[500., 400.]]), np.array([1])),
-        "3 points": predictor.predict(np.array([[500., 400.], [300., 700.], [800., 100.]]),
-                                      np.array([1, 0, 1])),
-        "box": predictor.predict(box=np.array([200., 150., 700., 650.])),
-        "box + point": predictor.predict(np.array([[450., 400.]]), np.array([1]),
-                                         box=np.array([200., 150., 700., 650.])),
-    }
-    low = outs["box"][2]
-    outs["mask input"] = predictor.predict(np.array([[450., 400.]]), np.array([1]),
-                                           mask_input=low[np.argmax(outs["box"][1])][None])
-    boxes = np.stack([[50. + 100 * i, 60., 150. + 100 * i, 300.] for i in range(8)])
-    outs["8 boxes"] = predictor.predict_batched(boxes=boxes)
-    set_precomputed(predictor, emb3, i=1)
-    outs["volume slice 1, 1 point"] = predictor.predict(np.array([[500., 300.]]), np.array([1]))
-    torch.cuda.synchronize()
+    with ChainLaunches(counters, chains or ()) as chain_counts:
+        predictor = get_sam_model(model_type, seed=0)
+        emb = precompute_image_embeddings(predictor, image, verbose=False)
+        emb3 = precompute_image_embeddings(predictor, volume, verbose=False)
+        set_precomputed(predictor, emb)
+        outs = {
+            "1 point": predictor.predict(np.array([[500., 400.]]), np.array([1])),
+            "3 points": predictor.predict(np.array([[500., 400.], [300., 700.], [800., 100.]]),
+                                          np.array([1, 0, 1])),
+            "box": predictor.predict(box=np.array([200., 150., 700., 650.])),
+            "box + point": predictor.predict(np.array([[450., 400.]]), np.array([1]),
+                                             box=np.array([200., 150., 700., 650.])),
+        }
+        low = outs["box"][2]
+        outs["mask input"] = predictor.predict(np.array([[450., 400.]]), np.array([1]),
+                                               mask_input=low[np.argmax(outs["box"][1])][None])
+        boxes = np.stack([[50. + 100 * i, 60., 150. + 100 * i, 300.] for i in range(8)])
+        outs["8 boxes"] = predictor.predict_batched(boxes=boxes)
+        set_precomputed(predictor, emb3, i=1)
+        outs["volume slice 1, 1 point"] = predictor.predict(np.array([[500., 300.]]),
+                                                            np.array([1]))
+        torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
 
     n_images = 1 + volume.shape[0]
@@ -605,6 +598,11 @@ def main_path_phase(counters, model_type="vit_b", chains=None):
     log(f"  launches in the main path: {launches} (expected {expect} for {n_images} images)")
     if launches != expect:
         raise AssertionError("the main path did not go through the kernels as expected")
+    if chains:
+        log(f"  chain launches in the main path, counted around each call: "
+            f"{chain_counts.launches} in {chain_counts.calls} calls")
+        if sum(chain_counts.launches.values()) != sum(launches.values()):
+            raise AssertionError("the main path launched kernels outside its chains")
 
     feats = emb["features"]
     assert feats.shape == (1, 256, 64, 64) and np.isfinite(feats).all(), feats.shape
@@ -648,7 +646,8 @@ def main_path_phase(counters, model_type="vit_b", chains=None):
     log("  one batch-1 encode under torch.profiler:")
     prof = profile_step(lambda: (predictor.encode_batch(x1), torch.cuda.synchronize()),
                         SERVE_PROFILE_GROUPS)
-    per_encode = encode_replay_phase(predictor, x1, counters, launches, n_images, chains)
+    per_encode = encode_replay_phase(predictor, x1, counters, launches, n_images,
+                                     chain_counts.launches if chains else None)
 
     # the embedding against the same model's plain f32 run on the CPU
     px = preprocess(torch.from_numpy(x1))
@@ -785,10 +784,11 @@ def chain_bound(calls):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def chain_replay(calls, n_images):
+def chain_replay(calls, launches):
     """One encode's calls of one vit_t chain, replayed: checked against the f32
     plain chain, then timed back to back as the kernel chain, the plain chain
-    and the library calls (device time, ``time_ms``)."""
+    and the library calls (device time, ``time_ms``). ``launches``: the
+    chain's launches in the main path, as ``ChainLaunches`` counted them."""
     fns = [chain_counterparts(*c) for c in calls]
     name = calls[0][0]
     err = max(check(f"{name} on main-path inputs", f[0](), f[3](), "bfloat16", quiet=True)
@@ -796,14 +796,50 @@ def chain_replay(calls, n_images):
     k_ms, p_ms, l_ms = (time_ms(lambda: [f[i]() for f in fns], iters=10, warmup=2)
                         for i in range(3))
     b_ms, b_by = chain_bound(calls)
-    per_call = sum(CHAIN_LAUNCHES[name].values())
-    row = dict(calls_per_encode=len(calls), launches=len(calls) * per_call * n_images,
-               max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-               bound_by=b_by)
-    log(f"  {name} chain: {len(calls)} calls of one encode ({per_call} launches each), max_abs_err "
-        f"{err:.3e}; ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms "
-        f"{b_ms:.4f} ({b_by})")
+    row = dict(calls_per_encode=len(calls), launches=launches, max_abs_err=err, ms=k_ms,
+               plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  {name} chain: {len(calls)} calls of one encode, max_abs_err {err:.3e}; ms {k_ms:.4f}"
+        f"  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
     return row
+
+
+class ChainLaunches:
+    """Counts the kernel launches of each vit_t chain call while the main path
+    runs: patches the chain names of ``models/tiny_vit.py`` (``chains``) with
+    wrappers that take the counters' deltas around each call and hold them
+    against ``CHAIN_LAUNCHES``. ``launches`` / ``calls``: per chain, summed
+    over the run. With no chains it patches nothing."""
+
+    def __init__(self, counters, chains):
+        self.counters, self.chains = counters, chains
+        self.launches = {n: 0 for n in chains}
+        self.calls = {n: 0 for n in chains}
+
+    def __enter__(self):
+        from micro_sam_tpu_torch.models import tiny_vit
+        self.module = tiny_vit
+        self.saved = {n: getattr(tiny_vit, n) for n in self.chains}
+
+        def wrap(name, fn):
+            def call(*a, **kw):
+                before = {k: c.launches for k, c in self.counters.items()}
+                out = fn(*a, **kw)
+                delta = {k: c.launches - before[k] for k, c in self.counters.items()
+                         if c.launches != before[k]}
+                if delta != CHAIN_LAUNCHES[name]:
+                    raise AssertionError(f"{name} on the main path: launches {delta}, not "
+                                         f"{CHAIN_LAUNCHES[name]}")
+                self.launches[name] += sum(delta.values())
+                self.calls[name] += 1
+                return out
+            return call
+        for n, fn in self.saved.items():
+            setattr(tiny_vit, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
 
 
 def random_tiny_vit(dt, dev, g):

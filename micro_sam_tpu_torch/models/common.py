@@ -149,24 +149,49 @@ def fold_bn(bn: BatchNorm):
     return scale, bn.bias.float() - bn.running_mean.float() * scale
 
 
-class Conv2d_BN(nn.Module):
+class KeepsDerived(nn.Module):
+    """A module that keeps what it derives from its parameters (a folded
+    weight, gathered tables) while autograd is off, so that a forward without
+    gradients derives it once, not per call. Each result is kept under a key
+    with the version and storage of every tensor it was made from: an
+    in-place write, a state-dict load or a move makes it anew."""
+
+    def __init__(self):
+        super().__init__()
+        self._derived = {}
+
+    def derived(self, key, sources, make):
+        """``make()``, or what it gave for ``key`` while ``sources`` were as now."""
+        stamp = tuple((t._version, t.data_ptr()) for t in sources)
+        keep = not torch.is_grad_enabled()
+        hit = self._derived.get(key)
+        if keep and hit is not None and hit[0] == stamp:
+            return hit[1]
+        out = make()
+        if keep:
+            self._derived[key] = (stamp, out)
+        return out
+
+    def _apply(self, fn, *args, **kwargs):
+        self._derived = {}
+        return super()._apply(fn, *args, **kwargs)
+
+
+class Conv2d_BN(KeepsDerived):
     """A bias-free convolution followed by a frozen BatchNorm (TinyViT's
     ``Conv2d_BN``; keys ``c.weight`` and ``bn.*``), over channel-last input.
 
     ``folded(dtype)`` gives the BN folded into the convolution: the weight
     times the BN scale over its output channels, computed in float32 and then
-    cast to ``dtype``, with the BN scale and shift in float32. Without
-    autograd it is kept per dtype until a parameter or statistic changes (an
-    in-place write, a state-dict load or a move), so the module and the
-    kernel chains fold once, not per call. ``forward`` is the convolution
-    with the folded weight and the shift as its bias."""
+    cast to ``dtype``, with the BN scale and shift in float32; kept per dtype
+    (``KeepsDerived``). ``forward`` is the convolution with the folded weight
+    and the shift as its bias."""
 
     def __init__(self, in_ch: int, out_ch: int, ks: int = 1, stride: int = 1, pad: int = 0,
                  groups: int = 1):
         super().__init__()
         self.c = Conv2d(in_ch, out_ch, ks, stride=stride, padding=pad, groups=groups, bias=False)
         self.bn = BatchNorm(out_ch)
-        self._folded = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, _, shift = self.folded(x.dtype)
@@ -175,23 +200,12 @@ class Conv2d_BN(nn.Module):
 
     def folded(self, dtype: torch.dtype):
         """(weight * scale in ``dtype`` (O, I / groups, kh, kw), scale f32, shift f32)."""
-        tensors = (self.c.weight, self.bn.weight, self.bn.bias, self.bn.running_mean,
-                   self.bn.running_var)
-        key = tuple((t._version, t.data_ptr()) for t in tensors)
-        keep = not torch.is_grad_enabled()
-        hit = self._folded.get(dtype)
-        if keep and hit is not None and hit[0] == key:
-            return hit[1]
-        scale, shift = fold_bn(self.bn)
-        w = (self.c.weight.float() * scale.view(-1, 1, 1, 1)).to(dtype)
-        out = (w, scale, shift)
-        if keep:
-            self._folded[dtype] = (key, out)
-        return out
-
-    def _apply(self, fn, *args, **kwargs):
-        self._folded = {}
-        return super()._apply(fn, *args, **kwargs)
+        def fold():
+            scale, shift = fold_bn(self.bn)
+            return (self.c.weight.float() * scale.view(-1, 1, 1, 1)).to(dtype), scale, shift
+        bn = self.bn
+        return self.derived(dtype, (self.c.weight, bn.weight, bn.bias, bn.running_mean,
+                                    bn.running_var), fold)
 
 
 class Embedding(nn.Module):

@@ -75,7 +75,7 @@ def partition_tokens(x: torch.Tensor, window: int):
     return xw.reshape(-1, window * window, C), valid, pad_hw
 
 
-class Attention(nn.Module):
+class Attention(cm.KeepsDerived):
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int]):
         super().__init__()
         self.num_heads = num_heads
@@ -84,27 +84,17 @@ class Attention(nn.Module):
         self.proj = cm.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
-        self._rel_cache = None
 
     def rel_tables(self, hw: Tuple[int, int], dtype: torch.dtype):
-        """``get_rel_pos`` over H and over W, in ``dtype``. Without autograd the
-        pair is kept until the tables change (an in-place write, a state-dict
-        load or a move), so the encoder gathers them once, not per call."""
+        """``get_rel_pos`` over H and over W, in ``dtype``; kept per (H, W,
+        dtype) until the tables change (``KeepsDerived``)."""
         H, W = hw
-        key = (H, W, dtype, self.rel_pos_h._version, self.rel_pos_w._version)
-        if self._rel_cache is not None and self._rel_cache[0] == key:
-            return self._rel_cache[1]
-        pair = (get_rel_pos(H, H, self.rel_pos_h).to(dtype),
-                get_rel_pos(W, W, self.rel_pos_w).to(dtype))
-        self._rel_cache = None if torch.is_grad_enabled() else (key, pair)
-        return pair
-
-    def _apply(self, fn, *args, **kwargs):
-        self._rel_cache = None
-        return super()._apply(fn, *args, **kwargs)
+        return self.derived((H, W, dtype), (self.rel_pos_h, self.rel_pos_w),
+                            lambda: (get_rel_pos(H, H, self.rel_pos_h).to(dtype),
+                                     get_rel_pos(W, W, self.rel_pos_w).to(dtype)))
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        self._rel_cache = None
+        self._derived = {}
         # a rel-pos table of another length loads as it is: get_rel_pos
         # interpolates it to the token grid at use
         for name in ("rel_pos_h", "rel_pos_w"):
