@@ -42,10 +42,25 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     encode / decode times, one encode replayed per kernel and per chain (the
     chains' library yardsticks: cuDNN convolutions, F.layer_norm, F.linear,
     SDPA with the gathered bias), the embedding against the CPU's plain f32 run;
- 8. prints one JSON line of details (per-shape rows, chains, end-to-end and
-    training numbers), then the kernels line (one entry per kernel and vit_t
-    chain: launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms) and, last, the device line.
+ 8. vit_h / vit_l: holds relpos_attention at head dim 80 ((25, 16, 196, 80)
+    and (1, 16, 4096, 80)) and at vit_l's 16 heads of 64, layernorm and gemm
+    at vit_h's widths (C 1280, N 3840 / 1280 / 5120, K 5120) and the
+    attention halves K10 (25, 196, 1280, masked) and K5 (1, 4096, 1280)
+    against their plain versions, bf16 and f32, four launches a call; then the serving path of phase 4 with
+    get_sam_model("vit_h") and get_sam_model("vit_l"): launches per encode
+    (64 / 128 / 32 and 48 / 96 / 24 layernorm / gemm / relpos_attention),
+    each chain call's launches counted around it on the path by patching
+    fused_window_attn, fused_global_attn and mlp_half of
+    ops/fused_window_block (vit_h: 4 K5, 28 K10, 32 MLP halves per encode),
+    encode / decode times, one encode replayed per kernel and per chain, and
+    the embedding against the same weights' plain f32 run on the card (block
+    by block through the plain versions: a full-width f32 encode on the CPU
+    takes minutes); the bf16 path is held to max(3e-2, 1.5x the plain bf16
+    chain's drift on the card), both printed. Prints the phase's wall time;
+ 9. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers), then the kernels line (one entry per kernel, vit_t
+    chain and ViT attention half: launches, max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms) and, last, the device line.
 """
 import json
 import os
@@ -325,15 +340,21 @@ def measure_calls(calls, dname, shapes):
             f"bound_ms {b_ms:.4f} ({b_by})")
 
 
-def kernel_phase(counters):
+def kernel_phase(counters, width=C, heads=NH, halves=False, attn_heads=()):
+    """The three ViT kernels and a block's chains against their plain versions
+    at the shapes of one 1024^2 encode of a model ``width`` wide with ``heads``
+    heads, bf16 and f32. The chains are the whole blocks (K2, K3: 7 launches
+    a call) or, with ``halves``, the attention halves (K10, K5: 4).
+    ``attn_heads``: more (heads, head dim) pairs to hold relpos_attention at,
+    at the same window and global shapes."""
     from micro_sam_tpu_torch.models.image_encoder import Block, get_rel_pos, partition_tokens
     from micro_sam_tpu_torch.models.common import init_module_
-    from micro_sam_tpu_torch.ops.fused_window_block import (
-        fused_global_block, fused_global_block_plain, fused_window_block,
-        fused_window_block_plain)
+    from micro_sam_tpu_torch.ops import fused_window_block as fwb
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(1234)
+    Cw, nH = width, heads
+    hd, hidden = Cw // nH, 4 * Cw
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
@@ -346,84 +367,99 @@ def kernel_phase(counters):
         log(f"-- {dname}")
         calls = []  # (name, args, kwargs, label) at the main path's shapes
         for M in (WIN_ROWS, GLOB_ROWS):  # LN1 (masked on window rows) and LN2
-            x = rnd(M, C, scale=3.0).to(dt)
-            w, b = rnd(C, scale=0.5) + 1, rnd(C, scale=0.1)
+            x = rnd(M, Cw, scale=3.0).to(dt)
+            w, b = rnd(Cw, scale=0.5) + 1, rnd(Cw, scale=0.1)
             for v in ((valid_win, None) if M == WIN_ROWS else (None,)):
                 calls.append(("layernorm", (x, w, b, 1e-6, v), {},
-                              f"({M}, {C}){' masked' if v is not None else ''}"))
+                              f"({M}, {Cw}){' masked' if v is not None else ''}"))
         for M in (WIN_ROWS, GLOB_ROWS):  # the four products of a block
-            for pname, K, N, epi in (("qkv", C, 3 * C, "none"), ("proj", C, C, "residual"),
-                                     ("lin1", C, HIDDEN, "gelu"), ("lin2", HIDDEN, C, "residual")):
+            for pname, K, N, epi in (("qkv", Cw, 3 * Cw, "none"), ("proj", Cw, Cw, "residual"),
+                                     ("lin1", Cw, hidden, "gelu"), ("lin2", hidden, Cw, "residual")):
                 r = rnd(M, N).to(dt) if epi == "residual" else None
                 a = (rnd(M, K).to(dt), rnd(N, K, scale=K ** -0.5).to(dt), rnd(N, scale=0.1), epi)
                 calls.append(("gemm", a + ((r,) if r is not None else ()), {},
                               f"{pname} ({M}x{K})({K}x{N}) {epi}"))
-        for B, H in ((25, 14), (1, 64)):  # straight from the qkv rows, into the proj rows
-            N = H * H
-            q5 = rnd(B * N, 3, NH, HD).to(dt).view(B, N, 3, NH, HD)
+        for (h, d), (B, H) in ((hh, bh) for hh in ((nH, hd),) + tuple(attn_heads)
+                               for bh in ((25, 14), (1, 64))):
+            N = H * H  # straight from the qkv rows, into the proj rows
+            q5 = rnd(B * N, 3, h, d).to(dt).view(B, N, 3, h, d)
             q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
-            rh = get_rel_pos(H, H, rnd(2 * H - 1, HD, scale=0.3)).to(dt)
-            rw = get_rel_pos(H, H, rnd(2 * H - 1, HD, scale=0.3)).to(dt)
-            out = torch.empty(B, N, NH, HD, device=dev, dtype=dt).transpose(1, 2)
+            rh = get_rel_pos(H, H, rnd(2 * H - 1, d, scale=0.3)).to(dt)
+            rw = get_rel_pos(H, H, rnd(2 * H - 1, d, scale=0.3)).to(dt)
+            out = torch.empty(B, N, h, d, device=dev, dtype=dt).transpose(1, 2)
             calls.append(("relpos_attention", (q, k, v, rh, rw, (H, H)), {"out": out},
-                          f"({B}, {NH}, {N}, {HD})"))
+                          f"({B}, {h}, {N}, {d})"))
         measure_calls(calls, dname, shapes)
         del calls
 
-        # the block chains at batch 1: launches counted, work and library
-        # time from the calls recorded in one chain run
-        def chain(name, run, run_plain, x):
+        # the chains at batch 1: launches counted, work and library time
+        # from the calls recorded in one chain run
+        def chain(name, label, run, run_plain, x, expect):
             got = run(x)
-            err = check(name, got, run_plain(x.float()), dname)
+            err = check(label, got, run_plain(x.float()), dname)
             before = {k: c.launches for k, c in counters.items()}
             with Recorder() as rec:
                 run(x)
             launches = {k: c.launches - before[k] for k, c in counters.items()
                         if c.launches != before[k]}
-            if launches != {"layernorm": 2, "gemm": 4, "relpos_attention": 1}:
-                raise AssertionError(f"{name}: launches {launches}, not the chain's seven")
+            if launches != expect:
+                raise AssertionError(f"{label}: launches {launches}, not {expect}")
             k_ms = time_ms(lambda: run(x))
             p_ms = time_ms(lambda: run_plain(x), iters=5)
             l_ms = replay(rec.calls)[2]
             b_ms, b_by = bound_of(rec.calls)
-            chains.append(dict(name=name, dtype=dname, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                               library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, launches=launches))
+            chains.append(dict(name=name, shape=label, dtype=dname, max_abs_err=err, ms=k_ms,
+                               plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                               launches=launches))
             log(f"    launches {launches}  ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms "
                 f"(its calls, each as a library call) {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
 
-        blk = Block(C, NH, 4.0, 14, (14, 14))
+        blk = Block(Cw, nH, 4.0, 14, (14, 14))
         init_module_(blk, g)
         blk = blk.hold_weights_in_(dt).to(dev)
-        valid = valid_win.reshape(25, 196, 1)
-        chain("fused_window_block chain (K2) (25, 196, 768) masked",
-              lambda x: fused_window_block(x, valid, blk, (14, 14), NH),
-              lambda x: fused_window_block_plain(x, valid, blk, (14, 14), NH),
-              rnd(25, 196, C).to(dt))
-        gblk = Block(C, NH, 4.0, 0, (64, 64))
+        gblk = Block(Cw, nH, 4.0, 0, (64, 64))
         init_module_(gblk, g)
         gblk = gblk.hold_weights_in_(dt).to(dev)
-        chain("fused_global_block chain (K3) (1, 4096, 768)",
-              lambda x: fused_global_block(x, gblk, (64, 64), NH),
-              lambda x: fused_global_block_plain(x, gblk, (64, 64), NH),
-              rnd(1, 4096, C).to(dt))
-        del blk, gblk
+        valid = valid_win.reshape(25, 196, 1)
+        xw, xg = rnd(25, 196, Cw).to(dt), rnd(1, 4096, Cw).to(dt)
+        if halves:
+            chain("fused_window_attn", f"fused_window_attn chain (K10) (25, 196, {Cw}) masked",
+                  lambda x: fwb.fused_window_attn(x, valid, blk, (14, 14), nH),
+                  lambda x: fwb.fused_window_attn_plain(x, valid, blk, (14, 14), nH), xw,
+                  CHAIN_LAUNCHES["fused_window_attn"])
+            chain("fused_global_attn", f"fused_global_attn chain (K5) (1, 4096, {Cw})",
+                  lambda x: fwb.fused_global_attn(x, gblk, (64, 64), nH),
+                  lambda x: fwb.fused_global_attn_plain(x, gblk, (64, 64), nH), xg,
+                  CHAIN_LAUNCHES["fused_global_attn"])
+        else:
+            seven = {"layernorm": 2, "gemm": 4, "relpos_attention": 1}
+            chain("fused_window_block", f"fused_window_block chain (K2) (25, 196, {Cw}) masked",
+                  lambda x: fwb.fused_window_block(x, valid, blk, (14, 14), nH),
+                  lambda x: fwb.fused_window_block_plain(x, valid, blk, (14, 14), nH), xw, seven)
+            chain("fused_global_block", f"fused_global_block chain (K3) (1, 4096, {Cw})",
+                  lambda x: fwb.fused_global_block(x, gblk, (64, 64), nH),
+                  lambda x: fwb.fused_global_block_plain(x, gblk, (64, 64), nH), xg, seven)
+        del blk, gblk, xw, xg
         torch.cuda.empty_cache()
     return shapes, chains
 
 
-def encode_replay_phase(predictor, x1, counters, launches, n_images, chain_launches=None):
+def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None,
+                        chain_launches=None):
     """Records one batch-1 encode of the main path's model and image, then
     replays each kernel's launches of it on their own inputs: against the f32
     plain version (the check), and timed, back to back, as the kernel, as the
-    plain version and as library calls. ``chain_launches``: for vit_t, each
-    chain's launches in the main path (``ChainLaunches``); then the chains'
-    kernel tables are recorded (default the ViT blocks'), and the chain calls
-    themselves too, replayed by ``chain_replay``."""
-    from micro_sam_tpu_torch.models import tiny_vit
-    chains = tuple(chain_launches or ())
+    plain version and as library calls. ``chains`` (``TINY_CHAINS`` or
+    ``VIT_CHAINS``) with ``chain_launches``, each chain's launches in the main
+    path (``ChainLaunches``): the chain calls are recorded too, and replayed
+    by ``chain_replay``."""
+    import importlib
+    chains = chains or ()
     before = {k: c.launches for k, c in counters.items()}
-    chain_recs = [CallRecorder(tiny_vit, n) for n in chains]
-    with Recorder(*chains) as rec:
+    home, tables = CHAIN_HOME[chains] if chains else (None, ())
+    module = importlib.import_module(f"micro_sam_tpu_torch.{home}") if chains else None
+    chain_recs = [CallRecorder(module, n) for n in chains]
+    with Recorder(*tables) as rec:
         for r in chain_recs:
             r.__enter__()
         try:
@@ -452,9 +488,13 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images, chain_launc
                          plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"  {name}: {len(calls)} launches of one encode, max_abs_err {err:.3e}; ms {k_ms:.4f}"
             f"  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+    del rec
     if chains:
-        out["chains"] = {r.name: chain_replay(r.calls, chain_launches[r.name])
-                         for r in chain_recs}
+        out["chains"] = {}
+        for r in chain_recs:
+            out["chains"][r.name] = chain_replay(r.calls, chain_launches[r.name])
+            r.calls.clear()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -462,16 +502,18 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "bound_ms", "bound_by", "library_ms")
 
 
-def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny):
-    """One entry per kernel and per vit_t chain. launches: the count of the
-    path the kernel is on (vit_b serving for layernorm, gemm and
-    relpos_attention, whose vit_t and training counts are
-    ``launches_vit_t_path`` / ``launches_training_path``; training for the
-    backward; vit_t serving for dwconv, tiny_attention and the chains). ms,
-    plain_ms, library_ms, bound_ms: the kernel's launches (a chain's calls) of
-    one batch-1 bf16 1024^2 encode of its model, and the backward's calls of
-    one training step, replayed back to back on their own inputs; shapes: the
-    per-shape checks and timings of phases 3, 5 and 7."""
+def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh):
+    """One entry per kernel, per vit_t chain and per ViT attention half (K5,
+    K10). launches: the count of the path the kernel is on (vit_b serving for
+    layernorm, gemm and relpos_attention, whose vit_t, training, vit_h and
+    vit_l counts are ``launches_vit_t_path`` / ``launches_training_path`` /
+    ``launches_vit_h_path`` / ``launches_vit_l_path``; training for the
+    backward; vit_t serving for dwconv, tiny_attention and the vit_t chains;
+    vit_h serving for K5 and K10). ms, plain_ms, library_ms, bound_ms: the
+    kernel's launches (a chain's calls) of one batch-1 bf16 1024^2 encode of
+    its model, and the backward's calls of one training step, replayed back
+    to back on their own inputs; shapes: the per-shape checks and timings of
+    phases 3, 5, 7 and 8 (the vit_h widths, head dim 80)."""
     sources = {"layernorm": "micro_sam_tpu_torch/csrc/layernorm.cu",
                "gemm": "micro_sam_tpu_torch/csrc/gemm.cu",
                "relpos_attention": "micro_sam_tpu_torch/csrc/relpos_attention.cu"}
@@ -491,8 +533,13 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny):
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "launches_per_encode": e["launches_per_encode"],
             "per": "all launches of one 1024x1024 vit_b bf16 encode at batch 1, back to back",
-            "shapes": rows + tiny["shapes"].get(name, []),
+            "shapes": rows + tiny["shapes"].get(name, []) + lh["shapes"][name],
         })
+        for m in ("vit_h", "vit_l"):
+            out[-1][f"launches_{m}_path"] = lh[m]["launches"][name]
+            out[-1][m] = lh[m]["per_encode"][name]
+        out[-1]["max_abs_err"] = max([out[-1]["max_abs_err"]] + [
+            r["max_abs_err"] for r in lh["shapes"][name]])
         if name == "relpos_attention":
             out[-1]["launches_training_path"] = train_launches[name]
         else:
@@ -547,6 +594,27 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny):
             "calls_per_encode": e["calls_per_encode"], "per": vit_t.format("calls"),
             "shapes": rows,
         })
+    vit_h = "all calls of one 1024x1024 vit_h bf16 encode at batch 1, back to back"
+    for name, tag, replaces in (
+            ("fused_global_attn", "K5", "micro_sam_tpu/ops/fused_window_block.py:976 "
+             "(fused_global_attn :1114 -> _fused_global_forward :891, kernel "
+             "_fused_global_kernel :681 with mlp=False)"),
+            ("fused_window_attn", "K10", "micro_sam_tpu/ops/fused_window_block.py:527 "
+             "(fused_window_attn :636 -> _fused_forward :346, kernel _fused_block_kernel :76 "
+             "with mlp=False)")):
+        e = lh["vit_h"]["per_encode"]["chains"][name]
+        rows = [r for r in lh["chains"] if r["name"] == name]
+        out.append({
+            "name": f"{name} chain ({tag})", "route": "cuda",
+            "source": "micro_sam_tpu_torch/ops/fused_window_block.py (csrc/layernorm.cu, "
+                      "csrc/gemm.cu, csrc/relpos_attention.cu)", "replaces": replaces,
+            "launches": e["launches"],
+            "max_abs_err": max([e["max_abs_err"]] + [r["max_abs_err"] for r in rows]),
+            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            "calls_per_encode": e["calls_per_encode"], "per": vit_h,
+            "vit_l": lh["vit_l"]["per_encode"]["chains"][name], "shapes": rows,
+        })
     return out
 
 
@@ -554,10 +622,13 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path_phase(counters, model_type="vit_b", chains=None):
+def main_path_phase(counters, model_type="vit_b", chains=None, reference="cpu"):
     """``model_type``'s serving path: precompute, seven predicts, launch counts
-    (``expected_launches``), encode / decode times, the encode replay and the
-    embedding against the CPU's plain f32 run."""
+    (``expected_launches``), each chain call's launches (``chains``), encode /
+    decode times, the encode replay and the embedding against the plain f32
+    run of the same weights: on the CPU (``reference="cpu"``), or on the card
+    (``"card"``, for vit_l / vit_h, whose f32 encode takes minutes on the
+    CPU)."""
     from micro_sam_tpu_torch.util import (_to_image, get_sam_model,
                                           precompute_image_embeddings, set_precomputed)
     from micro_sam_tpu_torch.models.sam import preprocess
@@ -599,10 +670,13 @@ def main_path_phase(counters, model_type="vit_b", chains=None):
     if launches != expect:
         raise AssertionError("the main path did not go through the kernels as expected")
     if chains:
+        calls = {k: v * n_images for k, v in expected_chain_calls(predictor.model.config).items()}
         log(f"  chain launches in the main path, counted around each call: "
-            f"{chain_counts.launches} in {chain_counts.calls} calls")
+            f"{chain_counts.launches} in {chain_counts.calls} calls (expected {calls} calls)")
         if sum(chain_counts.launches.values()) != sum(launches.values()):
             raise AssertionError("the main path launched kernels outside its chains")
+        if chain_counts.calls != calls:
+            raise AssertionError("the main path did not call its chains as expected")
 
     feats = emb["features"]
     assert feats.shape == (1, 256, 64, 64) and np.isfinite(feats).all(), feats.shape
@@ -646,31 +720,68 @@ def main_path_phase(counters, model_type="vit_b", chains=None):
     log("  one batch-1 encode under torch.profiler:")
     prof = profile_step(lambda: (predictor.encode_batch(x1), torch.cuda.synchronize()),
                         SERVE_PROFILE_GROUPS)
-    per_encode = encode_replay_phase(predictor, x1, counters, launches, n_images,
-                                     chain_counts.launches if chains else None)
+    per_encode = encode_replay_phase(predictor, x1, counters, launches, n_images, chains,
+                                     chain_counts.launches)
 
-    # the embedding against the same model's plain f32 run on the CPU
+    # the embedding against the same weights' plain f32 run
     px = preprocess(torch.from_numpy(x1))
-    cpu = get_sam_model(model_type, seed=0, device="cpu")
-    t0 = time.perf_counter()
-    ref = cpu.model.encode_image(px).float()
-    log(f"  CPU f32 reference encode: {time.perf_counter() - t0:.1f} s")
-    ref_nchw = ref.permute(0, 3, 1, 2).numpy()
     f32 = get_sam_model(model_type, seed=0, compute_dtype="float32")
     got32 = f32.model.encode_image(px.cuda()).float().cpu()
+    t0 = time.perf_counter()
+    if reference == "cpu":
+        ref = get_sam_model(model_type, seed=0, device="cpu").model.encode_image(px).float()
+        where, tol16, drift = "CPU", 3e-2, {}
+    else:  # block by block through the plain versions on the card, f32 and bf16
+        ref = plain_encode(f32.model, px.cuda()).float().cpu()
+        plain16 = plain_encode(predictor.model, px.cuda()).float().cpu()
+        bf16_drift = float((plain16 - ref).abs().max() / ref.abs().max())
+        where, tol16 = "the card's", max(3e-2, 1.5 * bf16_drift)
+        drift = {"plain_bf16_rel": bf16_drift}
+        log(f"  plain bf16 chain on the card vs plain f32: rel {bf16_drift:.3e}; the bf16 "
+            f"kernel path is held to max(3e-2, 1.5 x that) = {tol16:.3e}")
+    torch.cuda.synchronize()
+    log(f"  {where} f32 reference encode: {time.perf_counter() - t0:.1f} s")
+    ref_nchw = ref.permute(0, 3, 1, 2).numpy()
+    rels = {}
     for name, got, tol in (("f32 kernel path", got32.permute(0, 3, 1, 2).numpy(), 1e-3),
-                           ("bf16 kernel path", feats, 3e-2)):
-        rel = float(np.abs(got - ref_nchw).max() / np.abs(ref_nchw).max())
-        log(f"  embedding {name} vs CPU plain f32: rel {rel:.3e} (tol {tol:g}) "
+                           ("bf16 kernel path", feats, tol16)):
+        rel = rels[name] = float(np.abs(got - ref_nchw).max() / np.abs(ref_nchw).max())
+        log(f"  embedding {name} vs {where} plain f32: rel {rel:.3e} (tol {tol:g}) "
             f"{'ok' if rel <= tol else 'FAIL'}")
         if not rel <= tol:
-            raise AssertionError(f"{name} embedding disagrees with the CPU reference")
-    del predictor, cpu, f32
+            raise AssertionError(f"{name} embedding disagrees with the plain f32 reference")
+    del predictor, f32
     torch.cuda.empty_cache()
     return launches, per_encode, {"model": model_type, "encode_ms_b1": t_enc[1],
                                   "encode_ms_b8": t_enc[ENCODE_BATCH],
                                   "tiles_per_s_b8": 1e3 / t_enc[ENCODE_BATCH],
-                                  "decode_p50_ms": dec_p50, "profiled_encode_b1": prof}
+                                  "decode_p50_ms": dec_p50, "profiled_encode_b1": prof,
+                                  "embedding_rel": {**rels, **drift, "tol_bf16": tol16,
+                                                    "reference": f"{where} plain f32"}}
+
+
+def plain_encode(model, px):
+    """The encoder block by block through the plain versions
+    (``image_encoder.apply_block``), in the model's compute dtype."""
+    from micro_sam_tpu_torch.models.image_encoder import apply_block
+    enc = model.image_encoder
+    x = enc._patch_embed(px.to(model.config.dtype))
+    for blk in enc.blocks:
+        x = apply_block(blk, x)
+    return enc.neck(x)
+
+
+def expected_chain_calls(cfg):
+    """Chain calls of one encode: vit_t one K7 per MBConv, one K6 and one K8
+    per attention block; a ViT one attention half (K5 global, K10 windowed)
+    and one MLP half per block."""
+    if cfg.encoder == "tiny_vit":
+        from micro_sam_tpu_torch.models.tiny_vit import DEPTHS
+        return {"fused_mbconv": DEPTHS[0], "fused_tiny_attention": sum(DEPTHS[1:]),
+                "fused_tiny_tail": sum(DEPTHS[1:])}
+    n_glob = len(cfg.global_attn_indexes)
+    return {"fused_window_attn": cfg.depth - n_glob, "fused_global_attn": n_glob,
+            "mlp_half": cfg.depth}
 
 
 def expected_launches(cfg):
@@ -691,13 +802,21 @@ def expected_launches(cfg):
 # ---------------------------------------------------------------------------
 
 TINY_CHAINS = ("fused_mbconv", "fused_tiny_attention", "fused_tiny_tail")
+VIT_CHAINS = ("fused_window_attn", "fused_global_attn", "mlp_half")
+# a chain set -> (the module whose names the encoder calls its chains by, the
+# ops modules whose kernel tables the chains launch through)
+CHAIN_HOME = {TINY_CHAINS: ("models.tiny_vit", TINY_CHAINS),
+              VIT_CHAINS: ("ops.fused_window_block", ("fused_window_block",))}
 CHAIN_LAUNCHES = {"fused_mbconv": {"gemm": 2, "dwconv": 1},
                   "fused_tiny_attention": {"layernorm": 1, "gemm": 2, "tiny_attention": 1},
-                  "fused_tiny_tail": {"dwconv": 1, "layernorm": 1, "gemm": 2}}
+                  "fused_tiny_tail": {"dwconv": 1, "layernorm": 1, "gemm": 2},
+                  "fused_window_attn": {"layernorm": 1, "gemm": 2, "relpos_attention": 1},
+                  "fused_global_attn": {"layernorm": 1, "gemm": 2, "relpos_attention": 1},
+                  "mlp_half": {"layernorm": 1, "gemm": 2}}
 
 
 def chain_work(name, a):
-    """(operations ms, bytes ms) of one vit_t chain call, counting only the
+    """(operations ms, bytes ms) of one chain call, counting only the
     block's own input and output and its weights (what a single fused pass
     would move); operations at the tensor-core rate of the working type."""
     x = a[0]
@@ -705,7 +824,16 @@ def chain_work(name, a):
     rate = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_F32
     C = x.shape[-1]
     M = x.numel() // C
-    if name == "fused_mbconv":
+    if name in ("fused_window_attn", "fused_global_attn"):  # LN1, qkv, attention, proj
+        valid, blk, (H, W), nH = (a[1], a[2], a[3], a[4]) if len(a) == 5 else (None, *a[1:])
+        Bn, N = x.shape[0], x.shape[1]
+        hd = C // nH
+        ops = 8 * M * C * C + Bn * nH * (4 * N * N * hd + 2 * N * (H + W) * hd)
+        weights = 4 * C * C * s + (H * H + W * W) * hd * s + 6 * C * 4
+        weights += 0 if valid is None else M * 4
+    elif name == "mlp_half":  # LN2, lin1 + GELU, lin2 + residual
+        ops, weights = 16 * M * C * C, 8 * C * C * s + 7 * C * 4
+    elif name == "fused_mbconv":
         hid = 4 * C
         ops, weights = 4 * M * C * hid + 18 * M * hid, 2 * C * hid * s + 13 * hid * 4
     elif name == "fused_tiny_attention":
@@ -720,18 +848,55 @@ def chain_work(name, a):
 
 
 def chain_counterparts(name, a, kw):
-    """(kernel, plain, library, f32 reference) closures of one vit_t chain call.
+    """(kernel, plain, library, f32 reference) closures of one chain call.
     Library: K7 the cuDNN conv chain (1 x 1, depthwise, 1 x 1, BN folded,
     F.gelu); K6 F.layer_norm + F.linear + SDPA with the gathered float bias +
-    F.linear; K8 cuDNN depthwise + F.layer_norm + two F.linear. Folds and the
-    gathered bias are made here, outside any timing."""
+    F.linear; K8 cuDNN depthwise + F.layer_norm + two F.linear; K10 / K5
+    F.layer_norm (* valid) + F.linear + SDPA with the rel-pos bias
+    materialized + F.linear; the MLP half F.layer_norm + F.linear + F.gelu +
+    F.linear. Folds and biases are made here, outside any timing."""
     import torch.nn.functional as F
     from micro_sam_tpu_torch.ops import fused_mbconv as k7
     from micro_sam_tpu_torch.ops import fused_tiny_attention as k6
     from micro_sam_tpu_torch.ops import fused_tiny_tail as k8
+    from micro_sam_tpu_torch.ops import fused_window_block as fwb
     from micro_sam_tpu_torch.ops.tiny_attention import bias_offset_index
     x = a[0]
     dt = x.dtype
+    if name in VIT_CHAINS:
+        kern, plain = getattr(fwb, name), getattr(fwb, f"{name}_plain")
+        blk = a[-1] if name == "mlp_half" else a[-3]
+        Cx = x.shape[-1]
+        f32_args = (x.float(),) + tuple(a[1:])
+        if name == "mlp_half":
+            w1, w2 = blk.mlp.lin1.weight, blk.mlp.lin2.weight
+            n2w, n2b, b1, b2 = (t.to(dt) for t in (blk.norm2.weight, blk.norm2.bias,
+                                                   blk.mlp.lin1.bias, blk.mlp.lin2.bias))
+
+            def lib():
+                h = F.layer_norm(x, (Cx,), n2w, n2b, blk.norm2.eps)
+                return x + F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2)
+        else:
+            valid = a[1] if name == "fused_window_attn" else None
+            hw, nH = a[-2], a[-1]
+            Bn, N = x.shape[0], x.shape[1]
+            attn = blk.attn
+            n1w, n1b, bq, bp = (t.to(dt) for t in (blk.norm1.weight, blk.norm1.bias,
+                                                   attn.qkv.bias, attn.proj.bias))
+            vd = None if valid is None else valid.to(dt)
+
+            def qkv():
+                h = F.layer_norm(x, (Cx,), n1w, n1b, blk.norm1.eps)
+                h = h if vd is None else h * vd
+                t = F.linear(h, attn.qkv.weight, bq).view(Bn, N, 3, nH, Cx // nH)
+                return t.permute(2, 0, 3, 1, 4).unbind(0)
+            rh, rw = attn.rel_tables(hw, dt)
+            bias = materialized_bias(qkv()[0], rh, rw, hw, dt)
+
+            def lib():
+                o = F.scaled_dot_product_attention(*qkv(), attn_mask=bias)
+                return x + F.linear(o.transpose(1, 2).reshape(Bn, N, Cx), attn.proj.weight, bp)
+        return (lambda: kern(*a), lambda: plain(*a), lib, lambda: plain(*f32_args))
     B, H, W, C = x.shape
     xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view for cuDNN
     if name == "fused_mbconv":
@@ -785,7 +950,7 @@ def chain_bound(calls):
 
 
 def chain_replay(calls, launches):
-    """One encode's calls of one vit_t chain, replayed: checked against the f32
+    """One encode's calls of one chain, replayed: checked against the f32
     plain chain, then timed back to back as the kernel chain, the plain chain
     and the library calls (device time, ``time_ms``). ``launches``: the
     chain's launches in the main path, as ``ChainLaunches`` counted them."""
@@ -804,11 +969,13 @@ def chain_replay(calls, launches):
 
 
 class ChainLaunches:
-    """Counts the kernel launches of each vit_t chain call while the main path
-    runs: patches the chain names of ``models/tiny_vit.py`` (``chains``) with
-    wrappers that take the counters' deltas around each call and hold them
-    against ``CHAIN_LAUNCHES``. ``launches`` / ``calls``: per chain, summed
-    over the run. With no chains it patches nothing."""
+    """Counts the kernel launches of each chain call while the main path
+    runs: patches the names the encoder calls its chains by (``chains``,
+    ``TINY_CHAINS`` in ``models/tiny_vit.py`` or ``VIT_CHAINS`` in
+    ``ops/fused_window_block.py``) with wrappers that take the counters'
+    deltas around each call and hold them against ``CHAIN_LAUNCHES``.
+    ``launches`` / ``calls``: per chain, summed over the run. With no chains
+    it patches nothing."""
 
     def __init__(self, counters, chains):
         self.counters, self.chains = counters, chains
@@ -816,9 +983,13 @@ class ChainLaunches:
         self.calls = {n: 0 for n in chains}
 
     def __enter__(self):
-        from micro_sam_tpu_torch.models import tiny_vit
-        self.module = tiny_vit
-        self.saved = {n: getattr(tiny_vit, n) for n in self.chains}
+        import importlib
+        self.saved = {}
+        if not self.chains:
+            return self
+        self.module = importlib.import_module(
+            f"micro_sam_tpu_torch.{CHAIN_HOME[self.chains][0]}")
+        self.saved = {n: getattr(self.module, n) for n in self.chains}
 
         def wrap(name, fn):
             def call(*a, **kw):
@@ -834,7 +1005,7 @@ class ChainLaunches:
                 return out
             return call
         for n, fn in self.saved.items():
-            setattr(tiny_vit, n, wrap(n, fn))
+            setattr(self.module, n, wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
@@ -1287,11 +1458,31 @@ def main():
     t_launches, t_per_encode, t_e2e = main_path_phase(counters, "vit_t", chains=TINY_CHAINS)
     tiny = dict(shapes=tiny_shapes, chains=tiny_chains, launches=t_launches,
                 per_encode=t_per_encode)
-    rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny)
+    torch.cuda.empty_cache()
+    # phase 8: vit_h / vit_l
+    t8 = time.perf_counter()
+    log(f"vit_h kernels (head dim {1280 // 16}; relpos_attention also at vit_l's 16 heads of "
+        f"64) and attention halves (K10, K5) vs plain versions (bf16: plain in f32 on the "
+        f"same bf16 inputs)")
+    lh_shapes, lh_chains = kernel_phase(counters, width=1280, heads=16, halves=True,
+                                        attn_heads=((16, 64),))
+    lh = dict(shapes=lh_shapes, chains=lh_chains)
+    for model_type in ("vit_h", "vit_l"):
+        log(f"main path: {model_type}, 1024^2, random weights (seed 0), bf16")
+        m_launches, m_per_encode, m_e2e = main_path_phase(counters, model_type,
+                                                          chains=VIT_CHAINS, reference="card")
+        lh[model_type] = dict(launches=m_launches, per_encode=m_per_encode, end_to_end=m_e2e)
+        torch.cuda.empty_cache()
+    log(f"phase 8 (vit_h / vit_l): {time.perf_counter() - t8:.1f} s")
+    rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh)
     # the details first, then the kernels line, short: one entry per kernel
     # and chain with the keys of the contract
-    log(json.dumps({"details": {"kernels": rows, "chains": chains, "card": card,
+    log(json.dumps({"details": {"kernels": rows, "chains": chains + lh_chains, "card": card,
                                 "end_to_end": e2e, "end_to_end_vit_t": t_e2e,
+                                "end_to_end_vit_h": lh["vit_h"]["end_to_end"],
+                                "end_to_end_vit_l": lh["vit_l"]["end_to_end"],
+                                "vit_h_chains": lh["vit_h"]["per_encode"]["chains"],
+                                "vit_l_chains": lh["vit_l"]["per_encode"]["chains"],
                                 "training": training}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,13 @@
 // ring, the next tile in flight while the current one is multiplied. The f32
 // kernel is a plain SIMT version of the same loop, kept for holding the kernel
 // path against the plain one at a tight tolerance.
+//
+// Both are instantiated for head dims 64 (vit_b, vit_l) and 80 (vit_h). Every
+// size follows from HD (HD / 16 k steps of q k^T, HD / 8 output n8 tiles, a
+// padded row of HD + 8, HD * sizeof(T) / 16 cp.async chunks a row), so any
+// multiple of 16 would do; at 80 the bf16 kernel holds 40 output, 32 logit
+// and 20 q-fragment registers and takes 89 KB of shared memory at the global
+// grid, two blocks an SM as at 64.
 #include "relpos_common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -344,10 +351,12 @@ MSAM_EXPORT int msam_relpos_attention(const void* q, const void* k, const void* 
   if (dtype == MSAM_BF16) {
     switch (hd) {
       case 64: return launch<bf>(relpos_attention_bf16_kernel<64>, bf16_smem<64>(H, W), MSAM_ARGS);
+      case 80: return launch<bf>(relpos_attention_bf16_kernel<80>, bf16_smem<80>(H, W), MSAM_ARGS);
     }
   } else if (dtype == MSAM_F32) {
     switch (hd) {
       case 64: return launch<float>(relpos_attention_f32_kernel<64>, f32_smem<64>(H, W), MSAM_ARGS);
+      case 80: return launch<float>(relpos_attention_f32_kernel<80>, f32_smem<80>(H, W), MSAM_ARGS);
     }
   }
 #undef MSAM_ARGS

@@ -21,8 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import common as cm
-from ..ops.fused_window_block import (fused_global_block, fused_global_block_plain,
-                                      fused_window_block, fused_window_block_plain)
+from ..ops import fused_window_block as fwb
 from ..ops.relpos_attention import RelPosAttentionFn
 
 
@@ -137,9 +136,10 @@ def apply_block(block: Block, x: torch.Tensor) -> torch.Tensor:
     ws = block.window_size
     if ws > 0:
         xw, valid, pad_hw = partition_tokens(x, ws)
-        out = fused_window_block_plain(xw, valid, block, (ws, ws), nH)
+        out = fwb.fused_window_block_plain(xw, valid, block, (ws, ws), nH)
         return window_unpartition(out.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
-    return fused_global_block_plain(x.reshape(B, H * W, C), block, (H, W), nH).reshape(x.shape)
+    return fwb.fused_global_block_plain(x.reshape(B, H * W, C), block, (H, W),
+                                        nH).reshape(x.shape)
 
 
 def train_block(block: Block, x: torch.Tensor, valid, hw: Tuple[int, int]) -> torch.Tensor:
@@ -216,7 +216,10 @@ class ImageEncoderViT(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) preprocessed pixels in the compute dtype ->
-        (B, H / 16, W / 16, 256) embeddings."""
+        (B, H / 16, W / 16, 256) embeddings. Each block is its attention half
+        (``fused_window_attn``, K10, or ``fused_global_attn``, K5) and then its
+        MLP half (``mlp_half``), called through the module
+        ``ops/fused_window_block``."""
         x = self._patch_embed(x)
         glob = set(self.global_attn_indexes)
         depth = len(self.blocks)
@@ -225,7 +228,9 @@ class ImageEncoderViT(nn.Module):
         i = 0
         while i < depth:
             if i in glob or ws <= 0:
-                x = fused_global_block(x.reshape(B, H * W, C), self.blocks[i], (H, W), nH)
+                blk = self.blocks[i]
+                x = fwb.mlp_half(fwb.fused_global_attn(x.reshape(B, H * W, C), blk, (H, W), nH),
+                                 blk)
                 x = x.reshape(B, H, W, C)
                 i += 1
                 continue
@@ -233,8 +238,8 @@ class ImageEncoderViT(nn.Module):
             while j < depth and j not in glob:
                 j += 1
             xw, valid, pad_hw = partition_tokens(x, ws)
-            for k in range(i, j):
-                xw = fused_window_block(xw, valid, self.blocks[k], (ws, ws), nH)
+            for blk in self.blocks[i:j]:
+                xw = fwb.mlp_half(fwb.fused_window_attn(xw, valid, blk, (ws, ws), nH), blk)
             x = window_unpartition(xw.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
             i = j
         return self.neck(x)

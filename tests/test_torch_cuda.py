@@ -67,8 +67,10 @@ def test_gemm_matches_plain(dev, dtype, epilogue, M, K, N):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H,W,hd", [(25, 14, 14, 64), (1, 64, 64, 64), (3, 10, 7, 64)],
-                         ids=["window", "global", "ragged"])
+@pytest.mark.parametrize("B,H,W,hd", [(25, 14, 14, 64), (1, 64, 64, 64), (3, 10, 7, 64),
+                                      (25, 14, 14, 80), (1, 64, 64, 80), (3, 10, 7, 80)],
+                         ids=["window", "global", "ragged", "window_hd80", "global_hd80",
+                              "ragged_hd80"])
 def test_relpos_attention_matches_plain(dev, dtype, B, H, W, hd):
     from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention, relpos_attention_plain
     nH, N = 12, H * W
@@ -169,6 +171,69 @@ def test_block_chain_matches_plain(dev, dtype, kind):
     _held(got, ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["window", "global"])
+def test_attn_half_chains_match_plain(dev, dtype, kind):
+    """K10 / K5, the attention halves, at head dim 80 (vit_h's) against the
+    same halves through the plain versions: four launches a call."""
+    from micro_sam_tpu_torch.models.common import init_module_
+    from micro_sam_tpu_torch.models.image_encoder import Block, window_partition
+    from micro_sam_tpu_torch.ops import fused_window_block as fwb
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    from micro_sam_tpu_torch.ops.layernorm import layernorm
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    C, nH = 160, 2
+    g = torch.Generator().manual_seed(14)
+    if kind == "window":
+        blk = Block(C, nH, 4.0, 7, (7, 7))
+        x = torch.randn(2, 10, 10, C, generator=g)  # pads to 14: masked windows
+        xw, _ = window_partition(x, 7)
+        valid, _ = window_partition(torch.ones(2, 10, 10, 1), 7)
+        xw, valid = xw.reshape(-1, 49, C).to(dev, dtype), valid.reshape(-1, 49, 1).to(dev)
+        hw = (7, 7)
+    else:
+        blk = Block(C, nH, 4.0, 0, (16, 16))
+        xw, valid, hw = torch.randn(2, 256, C, generator=g).to(dev, dtype), None, (16, 16)
+    init_module_(blk, g)
+    blk = blk.hold_weights_in_(dtype).to(dev)
+    counters = (layernorm, gemm, relpos_attention)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        if kind == "window":
+            got = fwb.fused_window_attn(xw, valid, blk, hw, nH)
+            launched = [c.launches - b for c, b in zip(counters, before)]
+            ref = fwb.fused_window_attn_plain(xw.float(), valid, blk, hw, nH)
+        else:
+            got = fwb.fused_global_attn(xw, blk, hw, nH)
+            launched = [c.launches - b for c, b in zip(counters, before)]
+            ref = fwb.fused_global_attn_plain(xw.float(), blk, hw, nH)
+    torch.cuda.synchronize()
+    assert launched == [1, 2, 1]
+    _held(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_relpos_attention_backward_refuses_hd80(dev, dtype):
+    """The backward kernel is built for head dim 64: at 80 (vit_h) the wrapper
+    and the autograd function raise before any launch."""
+    from micro_sam_tpu_torch.ops.relpos_attention import (RelPosAttentionFn,
+                                                          relpos_attention_backward)
+    B, nH, H, hd = 2, 2, 7, 80
+    g = torch.Generator().manual_seed(15)
+    rows = torch.randn(B, H * H, 3, nH, hd, generator=g).to(dev, dtype)
+    q, k, v = (rows[:, :, i].transpose(1, 2) for i in range(3))
+    rh, rw = ((torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dtype) for _ in range(2))
+    n = relpos_attention_backward.launches
+    with pytest.raises(ValueError, match="not ported"):
+        relpos_attention_backward(q, k, v, q, v, rh, rw, (H, H))
+    qkv = rows.requires_grad_().permute(0, 2, 3, 1, 4)
+    out = RelPosAttentionFn.apply(qkv, rh, rw, (H, H))  # the forward runs at hd 80
+    with pytest.raises(ValueError, match="not ported"):
+        out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert relpos_attention_backward.launches == n
+
+
 def test_encoder_on_card_matches_cpu(dev):
     """A small ViT (2 blocks, 128 wide, 16 x 16 tokens padded to 21 for 7 x 7
     windows) through the whole encoder: card f32 against CPU f32."""
@@ -177,6 +242,22 @@ def test_encoder_on_card_matches_cpu(dev):
                     global_attn_indexes=(1,), img_size=256)
     sam = Sam(cfg).init_(torch.Generator().manual_seed(4)).eval()
     img = torch.rand(1, 256, 256, 3, generator=torch.Generator().manual_seed(5)) * 255
+    ref = sam.encode_image(preprocess(img, 256))
+    got = sam.to(dev).encode_image(preprocess(img.to(dev), 256))
+    torch.cuda.synchronize()
+    rel = float((got.cpu() - ref).abs().max() / ref.abs().max())
+    assert rel <= 1e-4, rel
+
+
+def test_vit_h_class_encoder_on_card_matches_cpu(dev):
+    """Head dim 80 through the whole encoder (160 wide, 2 heads, 4 blocks,
+    the last global, 16 x 16 tokens padded to 28 for 14 x 14 windows): card
+    f32 against CPU f32."""
+    from micro_sam_tpu_torch.models.sam import Sam, SamConfig, preprocess
+    cfg = SamConfig(model_type="vit_h", embed_dim=160, depth=4, num_heads=2,
+                    global_attn_indexes=(3,), img_size=256)
+    sam = Sam(cfg).init_(torch.Generator().manual_seed(16)).eval()
+    img = torch.rand(1, 256, 256, 3, generator=torch.Generator().manual_seed(17)) * 255
     ref = sam.encode_image(preprocess(img, 256))
     got = sam.to(dev).encode_image(preprocess(img.to(dev), 256))
     torch.cuda.synchronize()

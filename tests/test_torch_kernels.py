@@ -25,12 +25,14 @@ def _qkv_and_tables(B, nH, H, W, hd, seed=0):
     return qkv, rh, rw
 
 
-@pytest.mark.parametrize("B,H", [(3, 7), (1, 16)], ids=["window7", "global16"])
-def test_relpos_attention_matches_jax_flash(B, H):
+@pytest.mark.parametrize("B,H,hd", [(3, 7, 32), (1, 16, 32), (3, 7, 80), (1, 16, 80)],
+                         ids=["window7", "global16", "window7_hd80", "global16_hd80"])
+def test_relpos_attention_matches_jax_flash(B, H, hd):
+    """hd 80 is vit_h's head dim (the CUDA kernel's second instantiation)."""
     from micro_sam_tpu.ops.flash_attention import flash_attention_qkv as jax_flash
     from micro_sam_tpu_torch.ops.flash_attention import flash_attention_qkv
 
-    nH, hd = 2, 32
+    nH = 2
     qkv, rh, rw = _qkv_and_tables(B, nH, H, H, hd)
     ref = np.asarray(jax_flash(jnp.asarray(qkv), (H, H), jnp.asarray(rh), jnp.asarray(rw), nH))
     got = flash_attention_qkv(torch.from_numpy(qkv), (H, H), torch.from_numpy(rh),
