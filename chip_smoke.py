@@ -57,10 +57,26 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     by block through the plain versions: a full-width f32 encode on the CPU
     takes minutes); the bf16 path is held to max(3e-2, 1.5x the plain bf16
     chain's drift on the card), both printed. Prints the phase's wall time;
- 9. prints one JSON line of details (per-shape rows, chains, end-to-end and
+ 9. vit_h / vit_l finetuning: holds the backward kernel at head dim 80
+    ((50, 16, 196, 80) and (2, 16, 4096, 80), vit_h's training shapes at batch
+    2) and flash_attention_rel_pos (K12: (B, N, nH, hd) q, k, v, forward and
+    backward, at (1, 4096, 12, 64) and (25, 196, 16, 80)) against their plain
+    versions, bf16 and f32, with timings, bounds and SDPA yardsticks, and
+    counts K12's launches on its own path (two calls through
+    attention_with_rel_pos); then the GPU preset's path,
+    train_sam_for_configuration("smoke_h", "A100", ...) on default_sam_loader
+    over phase 6's patches (vit_h and 25 objects per image asserted, launches
+    2 x 32 x (2 + 4) and a validation forward), its best.pkl predicting;
+    timed SamTrainer steps of vit_h (5) and vit_l (3) at train_sam's
+    defaults, launches per step 64 / 128 and 48 / 96, one profiled step and
+    one step's K4 calls replayed each; and one f32 step of a full-width vit_h
+    cut to 4 blocks (global at 3) on the card against the CPU. Prints the
+    phase's wall time;
+10. prints one JSON line of details (per-shape rows, chains, end-to-end and
     training numbers), then the kernels line (one entry per kernel, vit_t
-    chain and ViT attention half: launches, max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, library_ms) and, last, the device line.
+    chain and ViT attention half, the backward at head dim 80 and K12:
+    launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)
+    and, last, the device line.
 """
 import json
 import os
@@ -81,6 +97,7 @@ F32_TOL, BF16_TOL = 1e-4, 2e-2
 BWD_BF16_TOL = 3e-2   # K4 in bf16 against the f32 plain backward on the same inputs
 ENCODE_BATCH, ENCODE_REPS, DECODE_REPS = 8, 5, 30
 TRAIN_WARMUP, TRAIN_REPS = 3, 5
+TRAIN_REPS_VIT_L = 3
 PROFILER_SESSIONS = 10
 
 
@@ -502,7 +519,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "bound_ms", "bound_by", "library_ms")
 
 
-def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh):
+def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft):
     """One entry per kernel, per vit_t chain and per ViT attention half (K5,
     K10). launches: the count of the path the kernel is on (vit_b serving for
     layernorm, gemm and relpos_attention, whose vit_t, training, vit_h and
@@ -513,7 +530,10 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
     kernel's launches (a chain's calls) of one batch-1 bf16 1024^2 encode of
     its model, and the backward's calls of one training step, replayed back
     to back on their own inputs; shapes: the per-shape checks and timings of
-    phases 3, 5, 7 and 8 (the vit_h widths, head dim 80)."""
+    phases 3, 5, 7 and 8 (the vit_h widths, head dim 80). Phase 9 adds the
+    backward at head dim 80 (launches and times of the vit_h training path,
+    one vit_h step's calls) and K12 (launches and times of its own path:
+    two calls through attention_with_rel_pos, forward and backward)."""
     sources = {"layernorm": "micro_sam_tpu_torch/csrc/layernorm.cu",
                "gemm": "micro_sam_tpu_torch/csrc/gemm.cu",
                "relpos_attention": "micro_sam_tpu_torch/csrc/relpos_attention.cu"}
@@ -542,6 +562,8 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
             r["max_abs_err"] for r in lh["shapes"][name]])
         if name == "relpos_attention":
             out[-1]["launches_training_path"] = train_launches[name]
+            for m in ("vit_h", "vit_l"):
+                out[-1][f"launches_{m}_training_path"] = ft[m]["launches"][name]
         else:
             out[-1]["launches_vit_t_path"] = tiny["launches"][name]
             out[-1]["vit_t"] = tiny["per_encode"][name]
@@ -556,7 +578,37 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
         "calls_per_step": k4["calls_per_step"],
         "per": "all calls of one vit_b bf16 training step (batch 2 of 1024^2), back to back",
-        "shapes": bwd_rows,
+        "shapes": bwd_rows, "launches_vit_l_training_path":
+            ft["vit_l"]["launches"]["relpos_attention_backward"], "vit_l": ft["vit_l"]["k4"],
+    })
+    k4h = ft["vit_h"]["k4"]
+    out.append({
+        "name": "relpos_attention_backward (head dim 80)", "route": "cuda",
+        "source": "micro_sam_tpu_torch/csrc/relpos_attention_bwd.cu",
+        "replaces": "micro_sam_tpu/ops/flash_attention.py:619 (_flash_backward_qkv; kernel "
+                    "_flash_bwd_kernel :409)",
+        "launches": ft["vit_h"]["launches"]["relpos_attention_backward"],
+        "max_abs_err": max([k4h["max_abs_err"]] + [r["max_abs_err"] for r in ft["bwd_rows"]]),
+        "ms": k4h["ms"], "plain_ms": k4h["plain_ms"], "bound_ms": k4h["bound_ms"],
+        "bound_by": k4h["bound_by"], "library_ms": k4h["library_ms"],
+        "calls_per_step": k4h["calls_per_step"],
+        "per": "all calls of one vit_h bf16 training step (batch 2 of 1024^2), back to back",
+        "shapes": ft["bwd_rows"],
+    })
+    k12 = ft["k12"]
+    out.append({
+        "name": "flash_attention_rel_pos (K12)", "route": "cuda",
+        "source": "micro_sam_tpu_torch/ops/flash_attention.py (csrc/relpos_attention.cu, "
+                  "csrc/relpos_attention_bwd.cu)",
+        "replaces": "micro_sam_tpu/ops/flash_attention.py:151 (_flash_forward -> "
+                    "flash_attention_rel_pos :204, kernel _flash_kernel :41)",
+        "launches": k12["launches"], "max_abs_err": max(r["max_abs_err"] for r in ft["k12_rows"]),
+        "ms": k12["ms"], "plain_ms": k12["plain_ms"], "bound_ms": k12["bound_ms"],
+        "bound_by": k12["bound_by"], "library_ms": k12["library_ms"],
+        "launches_by_kernel": k12["by_kernel"],
+        "per": "forward and backward of (1, 4096, 12, 64) and (25, 196, 16, 80) in bf16 through "
+               "attention_with_rel_pos, back to back",
+        "shapes": ft["k12_rows"],
     })
     vit_t = "all {} of one 1024x1024 vit_t bf16 encode at batch 1, back to back"
     for name, source, replaces in (
@@ -1100,21 +1152,23 @@ def tiny_kernel_phase(counters):
 # phase 5: the backward kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def backward_phase():
-    """K4 at the window and global shapes, q / k / v read from the qkv rows'
-    strides, dout the transposed view of the proj product's rows, as the
-    training path gives them."""
+def backward_phase(grids=((25, 14), (1, 64)), nH=NH, hd=HD, seed=4321):
+    """K4 at the window and global shapes ((batch, grid side) pairs: vit_b's
+    by default), q / k / v read from the qkv rows' strides, dout the
+    transposed view of the proj product's rows, as the training path gives
+    them."""
     from micro_sam_tpu_torch.models.image_encoder import get_rel_pos
     from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
     dev = torch.device("cuda")
-    g = torch.Generator(device="cpu").manual_seed(4321)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    NH, HD = nH, hd
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
     rows = []
     for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
-        for B, H in ((25, 14), (1, 64)):
+        for B, H in grids:
             N = H * H
             q5 = rnd(B * N, 3, NH, HD).to(dt).view(B, N, 3, NH, HD)
             q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
@@ -1172,8 +1226,10 @@ PROFILE_GROUPS = (  # kernel-name patterns -> the layer they belong to
     ("K4 relpos_attention_backward", ("prep_bf16_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel",
                                       "relgrad_kernel")),
     ("K1 relpos_attention", ("relpos_attention_bf16_kernel",)),
-    ("matrix products and convolutions (cuBLAS / cuDNN)", ("gemm", "sm90", "xmma", "cutlass",
-                                                           "conv")),
+    ("matrix products and convolutions (cuBLAS / cuDNN)", ("gemm", "nvjet", "sm90", "xmma",
+                                                           "cutlass", "conv")),
+    ("LayerNorm (PyTorch)", ("layer_norm",)),
+    ("dtype casts and copies", ("copy_kernel",)),
 )
 
 
@@ -1183,7 +1239,8 @@ SERVE_PROFILE_GROUPS = (  # the port's kernels first: cuBLAS names contain "gemm
     ("relpos_attention (port kernel)", ("relpos_attention_bf16_kernel",)),
     ("dwconv (port kernel)", ("dwconv3x3_kernel",)),
     ("tiny_attention (port kernel)", ("tiny_attention_bf16_kernel",)),
-    ("convolutions and products (cuDNN / cuBLAS)", ("conv", "sm90", "xmma", "cutlass", "gemm")),
+    ("convolutions and products (cuDNN / cuBLAS)", ("conv", "nvjet", "sm90", "xmma", "cutlass",
+                                                    "gemm")),
 )
 
 
@@ -1222,11 +1279,11 @@ def profile_step(step, groups_of=PROFILE_GROUPS):
             "top_kernels": [[e.key[:110], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
-def f32_step_grads(device, x, y):
+def f32_step_grads(device, x, y, model_type="vit_b"):
     """(loss, {name: grad}) of one f32 point step (one round, 4 objects) of
-    the randomly initialized vit_b on ``device``."""
+    the randomly initialized ``model_type`` on ``device``."""
     from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
-    model = get_trainable_sam_model("vit_b", device=device, compute_dtype="float32")
+    model = get_trainable_sam_model(model_type, device=device, compute_dtype="float32")
     trainer = SamTrainer("f32", None, None, model, n_sub_iteration=1, n_objects_per_batch=4,
                          logger=False)
     batch = trainer._prepare_batch(x, y, True, False, 1, 0)
@@ -1238,52 +1295,63 @@ def f32_step_grads(device, x, y):
     return float(loss), grads
 
 
-def training_phase(counters, root):
-    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+def training_data():
+    """Six 512^2 synthetic patches (88-94 disks each) and their segmentations."""
     from micro_sam_tpu_torch.sample_data import synthetic_data
-    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model, train_sam
-    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
-    from micro_sam_tpu_torch.util import _to_image, get_sam_model
-    import pickle
-
     data = [synthetic_data((512, 512), seed=s) for s in range(6)]
     n_obj = [int(seg.max()) for _, seg in data]
     log(f"  512^2 synthetic patches, objects per patch {n_obj}")
     if min(n_obj) < 25:
         raise AssertionError("a training patch holds fewer than 25 objects")
-    imgs, segs = [d[0] for d in data], [d[1] for d in data]
-    train_loader = SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4), batch_size=2)
-    val_loader = SamLoader(SamDataset(imgs[4:], segs[4:], (512, 512), n_samples=2, seed=1),
-                           batch_size=2)
-    save_root = os.path.join(root, "build", "chip_smoke_training")
+    return [d[0] for d in data], [d[1] for d in data]
 
-    # the training path, counted from train_sam to the last timed step
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    with torch.enable_grad():
-        train_sam("smoke", "vit_b", train_loader, val_loader, with_segmentation_decoder=False,
-                  n_iterations=2, device="cuda", save_root=save_root)
-    torch.cuda.synchronize()
-    train_sam_s = time.perf_counter() - t0
-    best = os.path.join(save_root, "smoke", "best.pkl")
-    with open(best, "rb") as f:
+
+def check_checkpoint(path, model_type, image, steps=2):
+    """A trainer's best.pkl: ``steps`` iterations with a finite loss, and it
+    loads into ``get_sam_model(model_type)`` for one predict on the card."""
+    import pickle
+    from micro_sam_tpu_torch.util import _to_image, get_sam_model
+    with open(path, "rb") as f:
         ck = pickle.load(f)
-    log(f"  train_sam: {train_sam_s:.1f} s for 2 steps and validation; best.pkl iteration "
-        f"{ck['iteration']}, metrics {ck['metrics']}")
-    if ck["iteration"] != 2 or not np.isfinite(ck["metrics"][0]["train_loss"]):
-        raise AssertionError("train_sam did not take its two steps")
+    log(f"  best.pkl iteration {ck['iteration']}, metrics {ck['metrics']}")
+    if ck["iteration"] != steps or not np.isfinite(ck["metrics"][0]["train_loss"]):
+        raise AssertionError(f"the trainer did not take its {steps} steps")
+    del ck
+    predictor = get_sam_model(model_type, checkpoint_path=path)
+    predictor.set_image(_to_image(image))
+    m, iou, lo = predictor.predict(np.array([[256., 256.]]), np.array([1]))
+    log(f"  best.pkl -> get_sam_model({model_type!r}) -> predict: masks {m.shape} "
+        f"iou {np.round(iou, 4).tolist()}")
+    if m.shape != (3, 512, 512) or not np.isfinite(iou).all() or not np.isfinite(lo).all():
+        raise AssertionError("the finetuned checkpoint does not predict")
+    del predictor
+    torch.cuda.empty_cache()
 
-    model = get_trainable_sam_model("vit_b", device="cuda")
+
+def timed_steps(counters, model_type, train_loader, val_loader, batches, save_root,
+                reps=TRAIN_REPS):
+    """SamTrainer steps of ``model_type`` at train_sam's defaults (batch 2, 25
+    objects, 8 rounds, lr 1e-5, bf16 compute, f32 weights): TRAIN_WARMUP
+    warm-up and ``reps`` timed steps, the attention launches per step held to
+    2 forward (with the recompute) and 4 backward per block, one profiled
+    step, and one step's K4 calls recorded and replayed as the kernel, the
+    plain version and SDPA backward; ``batches`` are the loader's, drawn
+    once. Returns (k4, stats, the counters just after the timed steps)."""
+    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
+    t_build = time.perf_counter()
+    model = get_trainable_sam_model(model_type, device="cuda")
+    log(f"  {model_type}: trainable model built in {time.perf_counter() - t_build:.1f} s")
     trainer = SamTrainer("timing", train_loader, val_loader, model, n_sub_iteration=8,
                          n_objects_per_batch=25, lr=1e-5, logger=False, save_root=save_root)
-    batches = list(train_loader)
 
     def step(i):
         x, y = batches[i % len(batches)]
         use_points, use_box, multimask, n_pos, n_neg = \
             trainer._get_prompt_and_multimasking_choices(trainer._iteration)
         b = trainer._prepare_batch(x, y, use_points, use_box, n_pos, n_neg, batch_idx=i)
+        if b[1].shape[:2] != (2, 25):
+            raise AssertionError(f"the trainer sampled {tuple(b[1].shape[:2])} objects, not (2, 25)")
         with torch.enable_grad():
             loss, miou = trainer.train_step(b, use_points, use_box, multimask)
         torch.cuda.synchronize()
@@ -1295,18 +1363,16 @@ def training_phase(counters, root):
     counts0 = {k: c.launches for k, c in counters.items()}
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    for i in range(TRAIN_REPS):
+    for i in range(reps):
         t0 = time.perf_counter()
         loss, miou = step(TRAIN_WARMUP + i)
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     launches = {k: c.launches for k, c in counters.items()}
-    per_step = {k: (launches[k] - counts0[k]) / TRAIN_REPS for k in counters}
+    per_step = {k: (launches[k] - counts0[k]) / reps for k in counters}
     depth = model.config.depth
     expect = {"relpos_attention": 2 * depth, "relpos_attention_backward": 4 * depth}
-    log(f"  launches in the training path (train_sam, {TRAIN_WARMUP} + {TRAIN_REPS} steps): "
-        f"{launches}")
     log(f"  launches per timed step: {per_step} (expected {expect}: {depth} blocks x 2 forward "
         f"with the recompute, x 4 backward stages)")
     if any(per_step[k] != v for k, v in expect.items()) or any(
@@ -1315,20 +1381,21 @@ def training_phase(counters, root):
     grads_ok = all(torch.isfinite(p.grad).all() for p in model.sam.parameters() if p.grad is not None)
     moved = sum(not torch.equal(before[n], p.detach()) for n, p in model.sam.named_parameters())
     n_params = len(before)
+    del before
     log(f"  bf16 steps: losses {losses}; grads finite {grads_ok}; {moved} of {n_params} "
         f"parameter tensors moved")
     if not (np.isfinite(losses).all() and grads_ok and moved >= 0.9 * n_params):
         raise AssertionError("the bf16 training steps are not finite or did not move the weights")
     step_ms = statistics.median(times)
-    log(f"  step ms (host clock incl. prompt sampling, median of {TRAIN_REPS}): {step_ms:.3f} "
+    log(f"  step ms (host clock incl. prompt sampling, median of {reps}): {step_ms:.3f} "
         f"(all {[round(t, 3) for t in times]}); images/s {2e3 / step_ms:.3f}; "
         f"peak memory {peak / 2**30:.3f} GiB")
 
-    prof = profile_step(lambda: step(TRAIN_WARMUP + TRAIN_REPS))
+    prof = profile_step(lambda: step(TRAIN_WARMUP + reps))
 
     # one step's backward calls, replayed
     with CallRecorder(rpa, "relpos_attention_backward") as rec:
-        step(TRAIN_WARMUP + TRAIN_REPS + 1)
+        step(TRAIN_WARMUP + reps + 1)
     calls = rec.calls
     err = 0.0
     for name, a, kw in calls:
@@ -1341,24 +1408,22 @@ def training_phase(counters, root):
               bound_ms=b_ms, bound_by=b_by)
     log(f"  relpos_attention_backward: {len(calls)} calls of one step, max_abs_err {err:.3e}; "
         f"ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
-    del calls, rec, trainer, model, before
+    del calls, rec, trainer, model
     torch.cuda.empty_cache()
+    stats = {"model": model_type, "batch": 2, "objects_per_image": 25, "n_sub_iteration": 8,
+             "patch": 512, "compute_dtype": "bfloat16", "step_ms": step_ms, "step_ms_all": times,
+             "images_per_s": 2e3 / step_ms, "peak_memory_bytes": peak,
+             "launches_per_step": per_step, "losses": losses, "profiled_step": prof}
+    return k4, stats, launches
 
-    # the checkpoint predicts on the card
-    predictor = get_sam_model("vit_b", checkpoint_path=best)
-    predictor.set_image(_to_image(imgs[0]))
-    m, iou, lo = predictor.predict(np.array([[256., 256.]]), np.array([1]))
-    log(f"  best.pkl -> get_sam_model -> predict: masks {m.shape} iou {np.round(iou, 4).tolist()}")
-    if m.shape != (3, 512, 512) or not np.isfinite(iou).all() or not np.isfinite(lo).all():
-        raise AssertionError("the finetuned checkpoint does not predict")
-    del predictor
-    torch.cuda.empty_cache()
 
-    # one f32 step on the card against the same step on the CPU
-    x, y = batches[0][0][:1], batches[0][1][:1]
+def f32_step_check(x, y, model_type="vit_b"):
+    """One f32 step of ``model_type`` on the card against the same step on the
+    CPU: every gradient within rel 1e-3 of its max, the loss within 1e-4.
+    Returns (worst gradient rel, loss rel)."""
     t0 = time.perf_counter()
-    loss_gpu, g_gpu = f32_step_grads("cuda", x, y)
-    loss_cpu, g_cpu = f32_step_grads("cpu", x, y)
+    loss_gpu, g_gpu = f32_step_grads("cuda", x, y, model_type)
+    loss_cpu, g_cpu = f32_step_grads("cpu", x, y, model_type)
     g_max = max(float(g.abs().max()) for g in g_cpu.values())
     worst, worst_name, n_held = 0.0, "", 0
     for name, ref in g_cpu.items():
@@ -1377,14 +1442,257 @@ def training_phase(counters, root):
         f"over {n_held} tensors (tol 1e-3) {'ok' if worst <= 1e-3 else 'FAIL'}")
     if worst > 1e-3 or loss_rel > 1e-4:
         raise AssertionError("the f32 training step on the card disagrees with the CPU")
+    return worst, loss_rel
 
-    training = {"model": "vit_b", "batch": 2, "objects_per_image": 25, "n_sub_iteration": 8,
-                "patch": 512, "compute_dtype": "bfloat16", "step_ms": step_ms, "step_ms_all": times,
-                "images_per_s": 2e3 / step_ms, "peak_memory_bytes": peak,
-                "launches_per_step": per_step, "train_sam_s": train_sam_s,
-                "f32_step_grad_rel": worst, "f32_step_loss_rel": loss_rel, "losses": losses,
-                "profiled_step": prof}
+
+def training_phase(counters, root):
+    from micro_sam_tpu_torch.training import train_sam
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+
+    imgs, segs = training_data()
+    train_loader = SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4), batch_size=2)
+    val_loader = SamLoader(SamDataset(imgs[4:], segs[4:], (512, 512), n_samples=2, seed=1),
+                           batch_size=2)
+    save_root = os.path.join(root, "build", "chip_smoke_training")
+
+    # the training path, counted from train_sam to the last timed step
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        train_sam("smoke", "vit_b", train_loader, val_loader, with_segmentation_decoder=False,
+                  n_iterations=2, device="cuda", save_root=save_root)
+    torch.cuda.synchronize()
+    train_sam_s = time.perf_counter() - t0
+    log(f"  train_sam: {train_sam_s:.1f} s for 2 steps and validation")
+    best = os.path.join(save_root, "smoke", "best.pkl")
+
+    batches = list(train_loader)
+    k4, stats, launches = timed_steps(counters, "vit_b", train_loader, val_loader, batches,
+                                      save_root)
+    log(f"  launches in the training path (train_sam, {TRAIN_WARMUP} + {TRAIN_REPS} steps): "
+        f"{launches}")
+
+    # the checkpoint predicts on the card
+    check_checkpoint(best, "vit_b", imgs[0])
+
+    # one f32 step on the card against the same step on the CPU
+    worst, loss_rel = f32_step_check(batches[0][0][:1], batches[0][1][:1])
+    training = {**stats, "train_sam_s": train_sam_s, "f32_step_grad_rel": worst,
+                "f32_step_loss_rel": loss_rel}
     return launches, k4, training
+
+
+# ---------------------------------------------------------------------------
+# phase 9: vit_h / vit_l finetuning, K4 at head dim 80, K12
+# ---------------------------------------------------------------------------
+
+K12_SHAPES = ((1, 64, 12, 64), (25, 14, 16, 80))  # (B, grid side, nH, hd): N = side^2
+
+
+def k12_phase(counters):
+    """``flash_attention_rel_pos`` (K12): (B, N, nH, hd) q, k, v through
+    ``attention_with_rel_pos``, forward and backward, against the plain
+    versions on the (B, nH, N, hd) views at ``K12_SHAPES``, bf16 and f32 (the
+    backward to BWD_BF16_TOL in bf16), each shape's calls recorded and
+    replayed. Then its path: both shapes in bf16 through the entry point,
+    counted from zero (one forward and four backward launches a call), and
+    that run's calls replayed. Returns (rows, the path's entry)."""
+    from micro_sam_tpu_torch.models.image_encoder import get_rel_pos
+    from micro_sam_tpu_torch.ops import attention_with_rel_pos
+    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(9876)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    def case(B, H, nH, hd, dt):
+        q, k, v, dout = (rnd(B, H * H, nH, hd).to(dt) for _ in range(4))
+        rh, rw = (get_rel_pos(H, H, rnd(2 * H - 1, hd, scale=0.3)).to(dt) for _ in range(2))
+        return (q, k, v, rh, rw, dout), (H, H)
+
+    def run(c, hw):
+        leaves = [t.detach().requires_grad_() for t in c[:5]]
+        with torch.enable_grad():
+            out = attention_with_rel_pos(*leaves[:3], hw, *leaves[3:])
+            out.backward(c[5])
+        return out.detach(), tuple(t.grad for t in leaves)
+
+    def recorded(c, hw):
+        with CallRecorder(rpa, "relpos_attention") as fwd, \
+                CallRecorder(rpa, "relpos_attention_backward") as bwd:
+            run(c, hw)
+        return fwd.calls + bwd.calls
+
+    heads = lambda t: t.float().transpose(1, 2)
+    rows = []
+    for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for B, H, nH, hd in K12_SHAPES:
+            c, hw = case(B, H, nH, hd, dt)
+            label = f"flash_attention_rel_pos ({B}, {H * H}, {nH}, {hd})"
+            out, grads = run(c, hw)
+            q, k, v, rh, rw, dout = c
+            ref = rpa.relpos_attention_plain(heads(q), heads(k), heads(v), rh.float(), rw.float(),
+                                             hw)
+            err = check(f"{label} out", out, ref.transpose(1, 2), dname)
+            refs = rpa.relpos_attention_backward_plain(heads(q), heads(k), heads(v), ref,
+                                                       heads(dout), rh.float(), rw.float(), hw)
+            refs = tuple(r.transpose(1, 2) if r.dim() == 4 else r for r in refs)
+            err = max(err, check(f"{label} dq dk dv drh drw", grads, refs, dname,
+                                 tol=F32_TOL if dt == torch.float32 else BWD_BF16_TOL))
+            calls = recorded(c, hw)
+            k_ms, p_ms, l_ms = replay(calls, iters=5)
+            b_ms, b_by = bound_of(calls)
+            rows.append(dict(shape=f"({B}, {H * H}, {nH}, {hd})", dtype=dname, max_abs_err=err,
+                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+            log(f"    forward + backward: ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms (SDPA "
+                f"forward + backward, bias materialized) {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+            del c, out, grads, ref, refs, calls
+            torch.cuda.empty_cache()
+
+    cases = [case(B, H, nH, hd, torch.bfloat16) for B, H, nH, hd in K12_SHAPES]
+    for c in counters.values():
+        c.launches = 0
+    for c, hw in cases:
+        run(c, hw)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    expect = {"relpos_attention": len(cases), "relpos_attention_backward": 4 * len(cases)}
+    log(f"  K12 path ({len(cases)} calls through attention_with_rel_pos, forward and backward): "
+        f"launches {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError("flash_attention_rel_pos did not go through the kernels as expected")
+    calls = [call for c, hw in cases for call in recorded(c, hw)]
+    k_ms, p_ms, l_ms = replay(calls, iters=5)
+    b_ms, b_by = bound_of(calls)
+    err = max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+    entry = dict(launches=sum(launches.values()), by_kernel=launches, max_abs_err=err, ms=k_ms,
+                 plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  K12 path replayed: ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  "
+        f"bound_ms {b_ms:.4f} ({b_by})")
+    del cases, calls
+    torch.cuda.empty_cache()
+    return rows, entry
+
+
+class TrainerSeen:
+    """Patches the ``SamTrainer`` that ``training/training.py`` builds with a
+    subclass that notes each trainer's model (type, width, depth, heads) and
+    the (images, objects) of every batch it prepares."""
+
+    def __enter__(self):
+        from micro_sam_tpu_torch.training import training as tr
+        self.tr, self.saved = tr, tr.SamTrainer
+        self.models, self.objects = set(), set()
+        seen = self
+
+        class Seen(self.saved):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                cfg = self.model.config
+                seen.models.add((cfg.model_type, cfg.embed_dim, cfg.depth, cfg.num_heads))
+
+            def _prepare_batch(self, *a, **kw):
+                b = super()._prepare_batch(*a, **kw)
+                if b is not None:
+                    seen.objects.add(tuple(b[1].shape[:2]))
+                return b
+        tr.SamTrainer = Seen
+        return self
+
+    def __exit__(self, *exc):
+        self.tr.SamTrainer = self.saved
+
+
+def finetuning_phase(counters, root):
+    """vit_h / vit_l finetuning: K4 at head dim 80 and K12 against their plain
+    versions; the GPU preset's path (train_sam_for_configuration(..., "A100"):
+    vit_h, 25 objects) on default_sam_loader over phase 6's patches, counted
+    from zero to the last timed vit_h step, its best.pkl predicting; timed
+    vit_h and vit_l steps; one f32 step of a full-width vit_h cut to 4 blocks
+    on the card against the CPU."""
+    import dataclasses
+    import gc
+    from micro_sam_tpu_torch.models import build_sam
+    from micro_sam_tpu_torch.training import default_sam_loader, train_sam_for_configuration
+
+    log("  K4 at head dim 80 (vit_h's training shapes, batch 2) vs plain backward "
+        "(bf16: within 3e-2 of the f32 plain result)")
+    with torch.enable_grad():
+        bwd_rows = backward_phase(grids=((50, 14), (2, 64)), nH=16, hd=80, seed=4322)
+    log("  K12 flash_attention_rel_pos vs plain versions")
+    k12_rows, k12 = k12_phase(counters)
+
+    imgs, segs = training_data()
+
+    def loader(train):
+        return default_sam_loader(
+            raw_paths=imgs[:4] if train else imgs[4:], raw_key=None,
+            label_paths=segs[:4] if train else segs[4:], label_key=None, patch_shape=(512, 512),
+            with_segmentation_decoder=False, n_samples=4 if train else 2, is_train=train,
+            batch_size=2)
+    train_loader, val_loader = loader(True), loader(False)
+    save_root = os.path.join(root, "build", "chip_smoke_training")
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with TrainerSeen() as seen, torch.enable_grad():
+        train_sam_for_configuration("smoke_h", "A100", train_loader, val_loader,
+                                    with_segmentation_decoder=False, n_iterations=2,
+                                    device="cuda", save_root=save_root)
+    torch.cuda.synchronize()
+    preset_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    preset = {k: c.launches for k, c in counters.items() if c.launches}
+    depth = build_sam.SAM_CONFIGS["vit_h"].depth
+    expect = {"relpos_attention": 2 * 2 * depth + depth,
+              "relpos_attention_backward": 2 * 4 * depth}
+    log(f"  train_sam_for_configuration('A100'): {preset_s:.1f} s for 2 steps, validation and "
+        f"checkpoints; trainer models {seen.models}, (images, objects) per batch {seen.objects}; "
+        f"launches {preset} (expected {expect}: 2 steps x {depth} blocks x (2 forward + 4 "
+        f"backward), one validation forward)")
+    cfg = build_sam.SAM_CONFIGS["vit_h"]
+    if seen.models != {(cfg.model_type, cfg.embed_dim, cfg.depth, cfg.num_heads)} or \
+            seen.objects != {(2, 25)}:
+        raise AssertionError("the A100 preset did not train vit_h on 25 objects per image")
+    if preset != expect:
+        raise AssertionError("the preset's training path did not go through the kernels as "
+                             "expected")
+
+    batches = list(train_loader)
+    k4_h, stats_h, launches_h = timed_steps(counters, "vit_h", train_loader, val_loader, batches,
+                                            save_root)
+    log(f"  launches in the vit_h training path (the preset's run and {TRAIN_WARMUP} + "
+        f"{TRAIN_REPS} steps): {launches_h}")
+    check_checkpoint(os.path.join(save_root, "smoke_h", "best.pkl"), "vit_h", imgs[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for c in counters.values():
+        c.launches = 0
+    k4_l, stats_l, launches_l = timed_steps(counters, "vit_l", train_loader, val_loader, batches,
+                                            save_root, reps=TRAIN_REPS_VIT_L)
+    log(f"  launches in the vit_l training path ({TRAIN_WARMUP} + {TRAIN_REPS_VIT_L} steps): "
+        f"{launches_l}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(build_sam.SAM_CONFIGS["vit_h"], depth=4, global_attn_indexes=(3,))
+    saved = build_sam.SAM_CONFIGS["vit_h"]
+    build_sam.SAM_CONFIGS["vit_h"] = cut
+    try:
+        log("  f32 step of vit_h at full width (1280, 16 heads of 80), 4 blocks (global at 3)")
+        worst, loss_rel = f32_step_check(batches[0][0][:1], batches[0][1][:1], "vit_h")
+    finally:
+        build_sam.SAM_CONFIGS["vit_h"] = saved
+    stats_h.update(preset_s=preset_s, preset_launches=preset, f32_step_cut_to_4_blocks_grad_rel=worst,
+                   f32_step_cut_to_4_blocks_loss_rel=loss_rel)
+    return dict(bwd_rows=bwd_rows, k12_rows=k12_rows, k12=k12,
+                vit_h=dict(k4=k4_h, training=stats_h, launches=launches_h),
+                vit_l=dict(k4=k4_l, training=stats_l, launches=launches_l))
 
 
 def main():
@@ -1474,7 +1782,13 @@ def main():
         lh[model_type] = dict(launches=m_launches, per_encode=m_per_encode, end_to_end=m_e2e)
         torch.cuda.empty_cache()
     log(f"phase 8 (vit_h / vit_l): {time.perf_counter() - t8:.1f} s")
-    rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh)
+    # phase 9: vit_h / vit_l finetuning
+    t9 = time.perf_counter()
+    log("finetuning at vit_h / vit_l width: K4 at head dim 80, K12, the A100 preset (vit_h), "
+        "timed vit_h and vit_l steps, bf16 compute")
+    ft = finetuning_phase(counters, root)
+    log(f"phase 9 (vit_h / vit_l finetuning): {time.perf_counter() - t9:.1f} s")
+    rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft)
     # the details first, then the kernels line, short: one entry per kernel
     # and chain with the keys of the contract
     log(json.dumps({"details": {"kernels": rows, "chains": chains + lh_chains, "card": card,
@@ -1483,7 +1797,9 @@ def main():
                                 "end_to_end_vit_l": lh["vit_l"]["end_to_end"],
                                 "vit_h_chains": lh["vit_h"]["per_encode"]["chains"],
                                 "vit_l_chains": lh["vit_l"]["per_encode"]["chains"],
-                                "training": training}}))
+                                "training": training,
+                                "training_vit_h": ft["vit_h"]["training"],
+                                "training_vit_l": ft["vit_l"]["training"]}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

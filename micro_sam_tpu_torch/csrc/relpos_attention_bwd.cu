@@ -38,8 +38,16 @@
 // probabilities and dS in registers; f32 is a plain SIMT version of the same
 // walks. q, k, v, O, dO and the three gradients are strided (batch, head,
 // token) views with a contiguous head dim, so dq / dk / dv land straight in
-// the rows of the qkv product's gradient. A first, simple design: scratch
-// (u, lse, D, dSr, dSc) goes through device memory.
+// the rows of the qkv product's gradient (or of a (B, N, nH, hd) tensor, for
+// flash_attention_rel_pos). A first, simple design: scratch (u, lse, D, dSr,
+// dSc) goes through device memory.
+//
+// Instantiated for head dims 64 (vit_b, vit_l) and 80 (vit_h). Every size
+// follows from HD: HD / 16 k steps and HD / 8 n8 tiles in bf16, ceil(HD / 32)
+// dims a lane in f32. The finished dq (64 x HD f32) is staged for the table
+// terms of finish_dq in the k tile(s), free after the walk, at row pitch
+// HD + 4. At 80 the largest launch, the f32 dq stage, takes 170 KB of shared
+// memory at the 64 x 64 global grid, the bf16 dq stage 148 KB.
 #include "relpos_common.cuh"
 
 constexpr int LDSS = KT + 4;  // f32 row pitch of an S / dS tile
@@ -117,11 +125,12 @@ __device__ __forceinline__ void accumulate_rel(float* Acc, int up, const float* 
   }
 }
 
-// stage 2 tail: dq = Dq (s dS k, staged f32) + the tables' terms, and the
-// block's dSr / dSc rows to scratch
+// stage 2 tail: dq = Dq (s dS k, staged f32 at row pitch HD + 4) + the
+// tables' terms, and the block's dSr / dSc rows to scratch
 template <typename T, int HD>
 __device__ void finish_dq(const BwdArgs& a, const float* Dq, const float* Acc, int up, int q0,
                           int b, int h) {
+  constexpr int LDQ = HD + 4;
   const int N = a.N, H = a.H, W = a.W, bh = b * a.nH + h;
   const T* rh = reinterpret_cast<const T*>(a.rh);
   const T* rw = reinterpret_cast<const T*>(a.rw);
@@ -131,7 +140,7 @@ __device__ void finish_dq(const BwdArgs& a, const float* Dq, const float* Acc, i
     if (qi >= N) continue;
     const int y = qi / W, x = qi - y * W;
     const float* ar = Acc + r * up;
-    float acc = Dq[r * LDSS + d];
+    float acc = Dq[r * LDQ + d];
     const T* th = rh + (size_t)y * H * HD + d;
     for (int j = 0; j < H; ++j) acc = fmaf(ar[j], to_f32(th[(size_t)j * HD]), acc);
     const T* tw = rw + (size_t)x * W * HD + d;
@@ -415,8 +424,9 @@ __host__ __device__ constexpr size_t dq_bf16_smem(int H, int W) {
 
 template <int HD>
 __global__ void __launch_bounds__(128) dq_bf16_kernel(const BwdArgs a) {
-  constexpr int LDT = HD + 8, KS = HD / 16, NT = HD / 8;
-  static_assert(HD <= KT, "dq is staged in the dS tile");
+  constexpr int LDT = HD + 8, KS = HD / 16, NT = HD / 8, LDQ = HD + 4;
+  static_assert(QT * LDQ * sizeof(float) <= 2 * 64 * LDT * sizeof(bf16),
+                "the finished dq is staged in the k ring");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Gs = Qs + 64 * LDT;
@@ -519,21 +529,24 @@ __global__ void __launch_bounds__(128) dq_bf16_kernel(const BwdArgs a) {
     if (it + 1 < ntiles) cp_async_wait<0>();
     __syncthreads();
   }
+  // the walk is over (its last __syncthreads): the k ring takes the finished dq
+  float* Dq = reinterpret_cast<float*>(Kb);
+  float* Dw = Dq + warp * 16 * LDQ;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int d = n * 8 + t * 2;
-    Sw[g * LDSS + d] = dq[n][0] * a.scale;
-    Sw[g * LDSS + d + 1] = dq[n][1] * a.scale;
-    Sw[(g + 8) * LDSS + d] = dq[n][2] * a.scale;
-    Sw[(g + 8) * LDSS + d + 1] = dq[n][3] * a.scale;
+    Dw[g * LDQ + d] = dq[n][0] * a.scale;
+    Dw[g * LDQ + d + 1] = dq[n][1] * a.scale;
+    Dw[(g + 8) * LDQ + d] = dq[n][2] * a.scale;
+    Dw[(g + 8) * LDQ + d + 1] = dq[n][3] * a.scale;
   }
   __syncthreads();
-  finish_dq<bf16, HD>(a, Sd, Acc, UP, q0, b, h);
+  finish_dq<bf16, HD>(a, Dq, Acc, UP, q0, b, h);
 }
 
 // ---------------------------------------------------------------------------
 // f32 kernels: the same walks as plain SIMT loops (a warp owns 16 rows; a
-// lane owns keys / q rows (lane, lane + 32) and dims (lane, lane + 32))
+// lane owns keys / q rows (lane, lane + 32) and dims lane + 32 e, e < DE)
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -619,7 +632,7 @@ __host__ __device__ constexpr size_t dkdv_f32_smem(int H, int W) {
 
 template <int HD>
 __global__ void __launch_bounds__(128) dkdv_f32_kernel(const BwdArgs a) {
-  constexpr int LDT = HD + 8;
+  constexpr int LDT = HD + 8, DE = (HD + 31) / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + 64 * LDT;
@@ -644,9 +657,11 @@ __global__ void __launch_bounds__(128) dkdv_f32_kernel(const BwdArgs a) {
   const float* Vw = Vs + warp * 16 * LDT;
   float* Pw = Ps + warp * 16 * LDSS;
   float* Dw = DSs + warp * 16 * LDSS;
-  float dk[16][2], dv[16][2];
+  float dk[16][DE], dv[16][DE];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) dk[r][0] = dk[r][1] = dv[r][0] = dv[r][1] = 0.f;
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int e = 0; e < DE; ++e) dk[r][e] = dv[r][e] = 0.f;
 
   for (int q0 = 0; q0 < N; q0 += QT) {
     __syncthreads();  // the previous q tile is consumed
@@ -688,8 +703,9 @@ __global__ void __launch_bounds__(128) dkdv_f32_kernel(const BwdArgs a) {
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int e = 0; e < DE; ++e) {
         const int d = lane + 32 * e;
+        if (d >= HD) continue;
         float av = dv[r][e], ak = dk[r][e];
         for (int c = 0; c < QT; ++c) {
           av = fmaf(Pw[r * LDSS + c], Gs[c * LDT + d], av);
@@ -708,8 +724,9 @@ __global__ void __launch_bounds__(128) dkdv_f32_kernel(const BwdArgs a) {
     const int key = k0 + warp * 16 + r;
     if (key >= N) continue;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
+    for (int e = 0; e < DE; ++e) {
       const int d = lane + 32 * e;
+      if (d >= HD) continue;
       dkb[(long long)key * a.st[6][2] + d] = dk[r][e] * a.scale;
       dvb[(long long)key * a.st[7][2] + d] = dv[r][e];
     }
@@ -724,8 +741,7 @@ __host__ __device__ constexpr size_t dq_f32_smem(int H, int W) {
 
 template <int HD>
 __global__ void __launch_bounds__(128) dq_f32_kernel(const BwdArgs a) {
-  constexpr int LDT = HD + 8;
-  static_assert(HD <= KT, "dq is staged in the dS tile");
+  constexpr int LDT = HD + 8, DE = (HD + 31) / 32, LDQ = HD + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Gs = Qs + 64 * LDT;
@@ -759,9 +775,11 @@ __global__ void __launch_bounds__(128) dq_f32_kernel(const BwdArgs a) {
   const float* Qw = Qs + warp * 16 * LDT;
   const float* Gw = Gs + warp * 16 * LDT;
   float* Sw = Sd + warp * 16 * LDSS;
-  float dq[16][2];
+  float dq[16][DE];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) dq[r][0] = dq[r][1] = 0.f;
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int e = 0; e < DE; ++e) dq[r][e] = 0.f;
 
   for (int k0 = 0; k0 < N; k0 += KT) {
     __syncthreads();  // the previous k/v tile is consumed (and U, Acc are set on entry)
@@ -793,8 +811,9 @@ __global__ void __launch_bounds__(128) dq_f32_kernel(const BwdArgs a) {
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int e = 0; e < DE; ++e) {
         const int d = lane + 32 * e;
+        if (d >= HD) continue;
         float acc = dq[r][e];
         for (int c = 0; c < KT; ++c) acc = fmaf(Sw[r * LDSS + c], Ks[c * LDT + d], acc);
         dq[r][e] = acc;
@@ -803,13 +822,18 @@ __global__ void __launch_bounds__(128) dq_f32_kernel(const BwdArgs a) {
     accumulate_rel(Acc + warp * 16 * UP, UP, Sw, k0, N, H, W, lane);
     __syncwarp();
   }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    Sw[r * LDSS + lane] = dq[r][0] * a.scale;
-    Sw[r * LDSS + lane + 32] = dq[r][1] * a.scale;
-  }
+  // every warp is done with the last k tile: it takes the finished dq
   __syncthreads();
-  finish_dq<float, HD>(a, Sd, Acc, UP, q0, b, h);
+  float* Dw = Ks + warp * 16 * LDQ;
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int e = 0; e < DE; ++e) {
+      const int d = lane + 32 * e;
+      if (d < HD) Dw[r * LDQ + d] = dq[r][e] * a.scale;
+    }
+  __syncthreads();
+  finish_dq<float, HD>(a, Ks, Acc, UP, q0, b, h);
 }
 
 // ---------------------------------------------------------------------------
@@ -929,9 +953,18 @@ MSAM_EXPORT int msam_relpos_attention_bwd(int stage, const void* q, const void* 
   for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  if (dtype == MSAM_BF16) return launch_stage<__nv_bfloat16, 64>(stage, a, s);
-  if (dtype == MSAM_F32) return launch_stage<float, 64>(stage, a, s);
+  using bf = __nv_bfloat16;
+  if (dtype == MSAM_BF16) {
+    switch (hd) {
+      case 64: return launch_stage<bf, 64>(stage, a, s);
+      case 80: return launch_stage<bf, 80>(stage, a, s);
+    }
+  } else if (dtype == MSAM_F32) {
+    switch (hd) {
+      case 64: return launch_stage<float, 64>(stage, a, s);
+      case 80: return launch_stage<float, 80>(stage, a, s);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import flash_attention_qkv
+from .flash_attention import flash_attention_qkv, flash_attention_rel_pos
 from .relpos_attention import relpos_attention_plain
 
 
@@ -43,3 +43,13 @@ def attention_qkv_with_rel_pos(qkv: torch.Tensor, hw: Tuple[int, int],
     """Fused-qkv entry: (B, 3, nH, N, hd) -> (B, nH, N, hd) through the rel-pos
     flash attention kernel (its plain version for a CPU tensor)."""
     return flash_attention_qkv(qkv, hw, rel_h, rel_w, qkv.shape[2])
+
+
+def attention_with_rel_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           hw: Tuple[int, int], rel_h: Optional[torch.Tensor] = None,
+                           rel_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention over an (H, W) token grid with the decomposed rel-pos
+    bias: q, k, v (B, N, nH, hd) with N == H * W -> (B, N, nH, hd), through
+    ``flash_attention_rel_pos`` (the kernels; their plain versions for CPU
+    tensors). Counterpart of ``micro_sam_tpu.ops.attention_with_rel_pos``."""
+    return flash_attention_rel_pos(q, k, v, hw, rel_h, rel_w)

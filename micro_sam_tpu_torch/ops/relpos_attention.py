@@ -28,9 +28,10 @@ Backward: four launches (row statistics, dk/dv, dq with the per-key-row and
 per-key-column sums of dS, the table gradients), about 10 N^2 hd flops per
 head; see the source for the design.
 
-Head dims: the forward kernel is built for ``HEAD_DIMS``, the backward for
-``BWD_HEAD_DIMS`` (it stages dq in the 64-key dS tile); a CUDA tensor of
-another head dim raises before any launch. The plain versions take any.
+Head dims: both kernels are built for 64 (vit_b, vit_l) and 80 (vit_h),
+``HEAD_DIMS`` for the forward and ``BWD_HEAD_DIMS`` for the backward; a CUDA
+tensor of another head dim raises before any launch. The plain versions take
+any.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 from . import _cuda
 
 HEAD_DIMS = (64, 80)  # the forward: vit_b and vit_l (64), vit_h (80)
-BWD_HEAD_DIMS = (64,)  # the backward kernel: vit_b (vit_l and vit_h finetuning is not ported)
+BWD_HEAD_DIMS = (64, 80)  # the backward kernel: vit_b / vit_l and vit_h finetuning
 
 
 def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -177,8 +178,7 @@ def relpos_attention_backward(q, k, v, out, dout, rel_h, rel_w, hw: Tuple[int, i
         raise RuntimeError(f"relpos_attention_backward: unsupported device {q.device}")
     if hd not in BWD_HEAD_DIMS:
         raise ValueError(f"relpos_attention_backward: the backward kernel takes head dims "
-                         f"{BWD_HEAD_DIMS}, not {hd}: vit_l / vit_h finetuning on the card is "
-                         f"not ported")
+                         f"{BWD_HEAD_DIMS}, not {hd}")
     grads = [torch.empty((B, nH, N, hd), device=q.device, dtype=q.dtype) if t is None else t
              for t in (dq, dk, dv)]
     rh, rw = (t.to(q.dtype).contiguous() for t in (rel_h, rel_w))

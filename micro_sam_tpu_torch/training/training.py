@@ -1,4 +1,5 @@
-"""Training entry points: the patch dataset and loader, and ``train_sam``.
+"""Training entry points: the patch dataset and loaders, ``train_sam`` and
+the hardware presets.
 
 Counterpart of ``micro_sam_tpu/training/training.py`` for SAM finetuning
 without the segmentation decoder. A numpy patch-sampling dataset stands in for
@@ -6,12 +7,14 @@ the torch_em data stack: patches with a minimum number of instances, 8-bit raw.
 """
 from __future__ import annotations
 
+import glob
 import os
 import time
-from typing import List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from .. import util
 from .sam_trainer import SamTrainer
 from .util import ConvertToSamInputs, get_trainable_sam_model, require_8bit
 
@@ -111,6 +114,51 @@ class SamLoader:
             yield np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
 
 
+def _load_stack(paths, key) -> List[np.ndarray]:
+    """Images as a list of arrays: an array or a list of arrays as they are; a
+    directory with a glob pattern as ``key`` (every match, sorted), or file
+    paths with an HDF5 ``key`` or none, through ``util.load_image_data``."""
+    if isinstance(paths, np.ndarray):
+        return [paths]
+    if isinstance(paths, (list, tuple)) and isinstance(paths[0], np.ndarray):
+        return list(paths)
+    if isinstance(paths, (str, os.PathLike)):
+        if os.path.isdir(paths):
+            pattern = key or "*"
+            files = sorted(glob.glob(os.path.join(str(paths), pattern)))
+            if not files:
+                raise ValueError(f"No files matching {pattern!r} in {paths}.")
+            return [util.load_image_data(p) for p in files]
+        paths = [paths]
+    return [util.load_image_data(str(p), key) for p in paths]
+
+
+def default_sam_dataset(raw_paths, raw_key, label_paths, label_key, patch_shape: Tuple[int, ...],
+                        with_segmentation_decoder: bool = True, with_channels: bool = False,
+                        sampler=None, raw_transform=None, n_samples: Optional[int] = None,
+                        is_train: bool = True, min_size: int = 25,
+                        max_sampling_attempts: Optional[int] = None, **kwargs) -> SamDataset:
+    """The dataset for SAM training: patches of the last two dims of
+    ``patch_shape``, at least two objects of ``min_size`` pixels each, drawn
+    from seed 0 for training and 1 for validation. ``with_segmentation_decoder
+    =True`` (distance targets for the UNETR decoder) is not ported and raises."""
+    if with_segmentation_decoder:
+        raise NotImplementedError(
+            "with_segmentation_decoder=True needs the distance targets of the UNETR decoder, "
+            "which is not ported yet; pass with_segmentation_decoder=False")
+    return SamDataset(_load_stack(raw_paths, raw_key), _load_stack(label_paths, label_key),
+                      tuple(patch_shape[-2:]), n_samples=n_samples, raw_transform=raw_transform,
+                      sampler=sampler or MinInstanceSampler(2, min_size=min_size),
+                      max_sampling_attempts=max_sampling_attempts or 50,
+                      seed=0 if is_train else 1)
+
+
+def default_sam_loader(batch_size: int = 1, shuffle: bool = True, **ds_kwargs) -> SamLoader:
+    """A loader over ``default_sam_dataset(**ds_kwargs)``. ``shuffle`` is
+    accepted for the reference's signature: the patches are drawn at random."""
+    return SamLoader(default_sam_dataset(**ds_kwargs), batch_size=batch_size)
+
+
 def _check_loader(loader, name: str) -> None:
     """Look at the first two batches: (raw, labels) pairs of 8-bit raw data
     with instances."""
@@ -168,3 +216,41 @@ def train_sam(name: str, model_type: str, train_loader, val_loader, n_epochs: in
     else:
         trainer.fit(epochs=n_epochs, save_every_kth_epoch=save_every_kth_epoch)
     print(f"Training took {time.time() - t_start:.1f}s")
+
+
+# Hardware presets: the JAX package's table (its TPU entries included, so that
+# a configuration name means the same in both packages).
+CONFIGURATIONS: Dict[str, Dict[str, Any]] = {
+    "Minimal": {"model_type": "vit_t", "n_objects_per_batch": 4, "n_sub_iteration": 4},
+    "CPU": {"model_type": "vit_b", "n_objects_per_batch": 10},
+    "gtx1080": {"model_type": "vit_t", "n_objects_per_batch": 5},
+    "rtx5000": {"model_type": "vit_b", "n_objects_per_batch": 10},
+    "V100": {"model_type": "vit_b", "n_objects_per_batch": 10},
+    "A100": {"model_type": "vit_h", "n_objects_per_batch": 25},
+    "v5e": {"model_type": "vit_b", "n_objects_per_batch": 25},
+    "v5p": {"model_type": "vit_h", "n_objects_per_batch": 25},
+}
+
+
+def _find_best_configuration() -> str:
+    """"A100" where a GPU is available, else "CPU" (the JAX package's choice
+    for those platforms)."""
+    import torch
+    return "A100" if torch.cuda.is_available() else "CPU"
+
+
+def train_sam_for_configuration(name: str, configuration: str, train_loader, val_loader,
+                                checkpoint_path=None, with_segmentation_decoder: bool = True,
+                                model_type: Optional[str] = None, **kwargs) -> None:
+    """``train_sam`` with a hardware preset of ``CONFIGURATIONS``: its model
+    type (unless ``model_type`` is given) and its settings, which ``kwargs``
+    override."""
+    if configuration not in CONFIGURATIONS:
+        raise ValueError(f"Invalid configuration {configuration} expect one of "
+                         f"{list(CONFIGURATIONS)}")
+    train_kwargs = dict(CONFIGURATIONS[configuration])
+    preset_model = train_kwargs.pop("model_type")
+    train_kwargs.update(**kwargs)
+    train_sam(name=name, train_loader=train_loader, val_loader=val_loader,
+              checkpoint_path=checkpoint_path, with_segmentation_decoder=with_segmentation_decoder,
+              model_type=model_type or preset_model, **train_kwargs)

@@ -353,3 +353,19 @@ def get_centers_and_bounding_boxes(segmentation: np.ndarray
         if sl is not None:
             bbox_coordinates[i] = tuple((s.start, s.stop) for s in sl)
     return center_coordinates, bbox_coordinates
+
+
+# -----------------------------------------------------------------------------
+# Image files
+# -----------------------------------------------------------------------------
+
+def load_image_data(path: str, key: Optional[str] = None):
+    """An image from a file: ``imageio`` without ``key``, the dataset ``key``
+    of an HDF5 file with it. Both are imported here, at the call; where one is
+    missing its ImportError is raised."""
+    if key is None:
+        import imageio.v3 as imageio
+        return imageio.imread(path)
+    import h5py
+    with h5py.File(path, "r") as fh:
+        return fh[key][...]

@@ -43,7 +43,7 @@ def _jax_grads(qkv, rh, rw, g, hw):
     return [np.asarray(out)] + [np.asarray(a) for a in grads]
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("H,W,padded", [(14, 14, True), (64, 32, False), (8, 8, False)],
                          ids=["window14_padded", "grid64x32", "grid8"])
 def test_relpos_backward_plain_matches_jax_grad(H, W, padded, hd):

@@ -88,8 +88,10 @@ def test_relpos_attention_matches_plain(dev, dtype, B, H, W, hd):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H,W,hd", [(25, 14, 14, 64), (1, 64, 64, 64), (3, 10, 7, 64)],
-                         ids=["window", "global", "ragged"])
+@pytest.mark.parametrize("B,H,W,hd", [(25, 14, 14, 64), (1, 64, 64, 64), (3, 10, 7, 64),
+                                      (25, 14, 14, 80), (1, 64, 64, 80), (3, 10, 7, 80)],
+                         ids=["window", "global", "ragged", "window_hd80", "global_hd80",
+                              "ragged_hd80"])
 def test_relpos_attention_backward_matches_plain(dev, dtype, B, H, W, hd):
     """K4's four launches against the plain VJP (bf16: within 3e-2 of the f32
     plain result on the same bf16 inputs), gradients written straight into
@@ -120,12 +122,13 @@ def test_relpos_attention_backward_matches_plain(dev, dtype, B, H, W, hd):
         assert err <= tol, err
 
 
-def test_relpos_attention_fn_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("hd", [64, 80])
+def test_relpos_attention_fn_on_card_matches_cpu(dev, hd):
     """RelPosAttentionFn through autograd (K1 forward, K4 backward) on the card
     in f32 against the same function's plain CPU route."""
     from micro_sam_tpu_torch.ops.relpos_attention import RelPosAttentionFn
     g = torch.Generator().manual_seed(7)
-    B, nH, H, W, hd = 2, 4, 14, 14, 64
+    B, nH, H, W = 2, 4, 14, 14
     rows = torch.randn(B, H * W, 3, nH, hd, generator=g)
     tabs = [torch.randn(H, H, hd, generator=g) * 0.3, torch.randn(W, W, hd, generator=g) * 0.3]
     gout = torch.randn(B, nH, H * W, hd, generator=g)
@@ -213,25 +216,60 @@ def test_attn_half_chains_match_plain(dev, dtype, kind):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-def test_relpos_attention_backward_refuses_hd80(dev, dtype):
-    """The backward kernel is built for head dim 64: at 80 (vit_h) the wrapper
-    and the autograd function raise before any launch."""
-    from micro_sam_tpu_torch.ops.relpos_attention import (RelPosAttentionFn,
-                                                          relpos_attention_backward)
-    B, nH, H, hd = 2, 2, 7, 80
+def test_relpos_attention_backward_refuses_hd96(dev, dtype):
+    """The backward kernel is built for head dims 64 and 80: at 96 the wrapper
+    raises before any launch."""
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention_backward
+    B, nH, H, hd = 2, 2, 7, 96
     g = torch.Generator().manual_seed(15)
     rows = torch.randn(B, H * H, 3, nH, hd, generator=g).to(dev, dtype)
     q, k, v = (rows[:, :, i].transpose(1, 2) for i in range(3))
     rh, rw = ((torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dtype) for _ in range(2))
     n = relpos_attention_backward.launches
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="head dims"):
         relpos_attention_backward(q, k, v, q, v, rh, rw, (H, H))
-    qkv = rows.requires_grad_().permute(0, 2, 3, 1, 4)
-    out = RelPosAttentionFn.apply(qkv, rh, rw, (H, H))  # the forward runs at hd 80
-    with pytest.raises(ValueError, match="not ported"):
-        out.float().sum().backward()
     torch.cuda.synchronize()
     assert relpos_attention_backward.launches == n
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,N,nH,hd,hw", [(1, 4096, 12, 64, (64, 64)), (25, 196, 16, 80, (14, 14)),
+                                          (2, 70, 2, 80, (7, 10))],
+                         ids=["global_hd64", "window_hd80", "ragged_hd80"])
+def test_flash_attention_rel_pos_matches_plain(dev, dtype, B, N, nH, hd, hw):
+    """K12: (B, N, nH, hd) q, k, v through the forward kernel (one launch) and
+    the backward kernel (four), against the plain versions on the
+    (B, nH, N, hd) views: f32 rel 1e-4, bf16 (the plain run in f32 on the same
+    inputs) 2e-2 forward and 3e-2 backward."""
+    from micro_sam_tpu_torch.ops.flash_attention import flash_attention_rel_pos
+    from micro_sam_tpu_torch.ops.relpos_attention import (
+        relpos_attention, relpos_attention_backward, relpos_attention_backward_plain,
+        relpos_attention_plain)
+    H, W = hw
+    g = torch.Generator().manual_seed(18)
+    q, k, v, dout = (torch.randn(B, N, nH, hd, generator=g).to(dev, dtype) for _ in range(4))
+    rh = (torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dtype)
+    rw = (torch.randn(W, W, hd, generator=g) * 0.3).to(dev, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, rh, rw)]
+    n_fwd, n_bwd = relpos_attention.launches, relpos_attention_backward.launches
+    with torch.enable_grad():
+        out = flash_attention_rel_pos(*leaves[:3], hw, *leaves[3:])
+        out.backward(dout)
+    torch.cuda.synchronize()
+    assert (relpos_attention.launches - n_fwd, relpos_attention_backward.launches - n_bwd) == (1, 4)
+    assert out.shape == (B, N, nH, hd) and out.is_contiguous()
+    t = lambda a: a.float().transpose(1, 2)
+    ref = relpos_attention_plain(t(q), t(k), t(v), rh.float(), rw.float(), hw)
+    _held(out.detach(), ref.transpose(1, 2), dtype)
+    refs = relpos_attention_backward_plain(t(q), t(k), t(v), ref, t(dout), rh.float(), rw.float(),
+                                           hw)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for leaf, r in zip(leaves, refs):
+        r = r.transpose(1, 2) if r.dim() == 4 else r
+        a, r = leaf.grad.float().cpu(), r.float().cpu()
+        assert a.shape == r.shape
+        err = float((a - r).abs().max()) / (float(r.abs().max()) + 1e-30)
+        assert err <= tol, err
 
 
 def test_encoder_on_card_matches_cpu(dev):

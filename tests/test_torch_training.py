@@ -17,7 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import jax_params, port_sam, rel_err
+from torch_port_util import jax_params, jax_step_loss, port_sam, rel_err
 
 
 def _cfg(img_size=128):
@@ -181,41 +181,6 @@ def test_adamw_matches_optax():
 # one whole step, and the padded prompts of the JAX trainer
 # ---------------------------------------------------------------------------
 
-def _jax_step_loss(cfg, params, batch, prompt_pad: int):
-    """The JAX reference of one point round (multimask, n_sub_iteration 1),
-    composed from TrainableSAM, dice_score and the trainer's loss; the point
-    prompt is followed by ``prompt_pad`` -1 tokens."""
-    from micro_sam_tpu.models.sam import Sam
-    from micro_sam_tpu.training.sam_trainer import dice_score
-    from micro_sam_tpu.training.trainable_sam import TrainableSAM
-    images, gt, valid, points0, labels0, _ = (jnp.asarray(t.numpy()) for t in batch)
-    model = TrainableSAM(Sam(cfg, params))
-    B, O, S1, S2 = gt.shape
-    N = B * O
-    scale = cfg.img_size / max(S1, S2)
-
-    def loss_fn(p):
-        feats = jnp.repeat(model.image_embeddings_oft(p, images), O, axis=0)
-        pts = jnp.concatenate([points0.reshape(N, 1, 2) * scale,
-                               jnp.zeros((N, prompt_pad, 2))], 1)
-        lbl = jnp.concatenate([labels0.reshape(N, 1), -jnp.ones((N, prompt_pad), jnp.int32)], 1)
-        low, iou = model.forward_decoder(p, feats, pts, lbl)
-        gt_c = gt.reshape(N, S1, S2)
-        up = model.upscale_masks(low, (S1, S2))
-        d3 = (1.0 - dice_score(jax.nn.sigmoid(up), gt_c[:, None]))[:, 1:]
-        sel = jnp.argmin(d3, axis=1) + 1
-        rows = jnp.arange(N)
-        up_sel = up[rows, sel]
-        inter = jnp.sum((up_sel > 0) & (gt_c > 0.5), axis=(-2, -1), dtype=jnp.float32)
-        union = jnp.sum((up_sel > 0) | (gt_c > 0.5), axis=(-2, -1), dtype=jnp.float32)
-        actual = jax.lax.stop_gradient(inter / jnp.maximum(union, 1e-7))
-        v = valid.reshape(N).astype(jnp.float32)
-        per = jnp.min(d3, axis=1) + (iou[rows, sel] - actual) ** 2
-        return jnp.sum(per * v) / jnp.maximum(v.sum(), 1), low
-
-    return loss_fn
-
-
 @pytest.fixture(scope="module")
 def step_case():
     """The port's trainer at n_sub_iteration 1 on a 2-image batch, and the JAX
@@ -228,7 +193,7 @@ def step_case():
     trainer = SamTrainer("step", [(x, y)], [(x, y)], model, n_sub_iteration=1,
                          n_objects_per_batch=3, logger=False)
     batch = trainer._prepare_batch(x, y, True, False, 1, 0)
-    (loss, low), grads = jax.jit(jax.value_and_grad(_jax_step_loss(cfg, params, batch, 1),
+    (loss, low), grads = jax.jit(jax.value_and_grad(jax_step_loss(cfg, params, batch, 1),
                                                     has_aux=True))(params)
     return dict(cfg=cfg, params=params, model=model, trainer=trainer, batch=batch,
                 ref_loss=float(loss), ref_grads=jax.tree.map(np.asarray, grads),
@@ -271,7 +236,7 @@ def test_padded_round0_diverges(step_case):
     decode of the unpadded prompts."""
     c = step_case
     batch, model = c["batch"], c["model"]
-    padded = np.asarray(jax.jit(_jax_step_loss(c["cfg"], c["params"], batch, 17))(c["params"])[1])
+    padded = np.asarray(jax.jit(jax_step_loss(c["cfg"], c["params"], batch, 17))(c["params"])[1])
     B, O = batch[1].shape[:2]
     scale = c["cfg"].img_size / batch[1].shape[-1]
     with torch.no_grad():

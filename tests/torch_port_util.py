@@ -83,3 +83,42 @@ def port_block(bp, C, num_heads, window_size, input_size):
     blk = Block(C, num_heads, 4.0, window_size, input_size)
     blk.load_state_dict(sd)
     return blk.eval()
+
+
+def jax_step_loss(cfg, params, batch, prompt_pad: int):
+    """The JAX reference of one point round (multimask, n_sub_iteration 1) of
+    the port's trainer on a prepared ``batch``, as a function of the params
+    (for ``jax.value_and_grad``, the round-0 logits as its aux): composed from
+    TrainableSAM, dice_score and the trainer's loss; the point prompt is
+    followed by ``prompt_pad`` -1 tokens."""
+    import jax
+    import jax.numpy as jnp
+    from micro_sam_tpu.models.sam import Sam
+    from micro_sam_tpu.training.sam_trainer import dice_score
+    from micro_sam_tpu.training.trainable_sam import TrainableSAM
+    images, gt, valid, points0, labels0, _ = (jnp.asarray(t.numpy()) for t in batch)
+    model = TrainableSAM(Sam(cfg, params))
+    B, O, S1, S2 = gt.shape
+    N = B * O
+    scale = cfg.img_size / max(S1, S2)
+
+    def loss_fn(p):
+        feats = jnp.repeat(model.image_embeddings_oft(p, images), O, axis=0)
+        pts = jnp.concatenate([points0.reshape(N, 1, 2) * scale,
+                               jnp.zeros((N, prompt_pad, 2))], 1)
+        lbl = jnp.concatenate([labels0.reshape(N, 1), -jnp.ones((N, prompt_pad), jnp.int32)], 1)
+        low, iou = model.forward_decoder(p, feats, pts, lbl)
+        gt_c = gt.reshape(N, S1, S2)
+        up = model.upscale_masks(low, (S1, S2))
+        d3 = (1.0 - dice_score(jax.nn.sigmoid(up), gt_c[:, None]))[:, 1:]
+        sel = jnp.argmin(d3, axis=1) + 1
+        rows = jnp.arange(N)
+        up_sel = up[rows, sel]
+        inter = jnp.sum((up_sel > 0) & (gt_c > 0.5), axis=(-2, -1), dtype=jnp.float32)
+        union = jnp.sum((up_sel > 0) | (gt_c > 0.5), axis=(-2, -1), dtype=jnp.float32)
+        actual = jax.lax.stop_gradient(inter / jnp.maximum(union, 1e-7))
+        v = valid.reshape(N).astype(jnp.float32)
+        per = jnp.min(d3, axis=1) + (iou[rows, sel] - actual) ** 2
+        return jnp.sum(per * v) / jnp.maximum(v.sum(), 1), low
+
+    return loss_fn
