@@ -72,11 +72,30 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     one step's K4 calls replayed each; and one f32 step of a full-width vit_h
     cut to 4 blocks (global at 3) on the card against the CPU. Prints the
     phase's wall time;
-10. prints one JSON line of details (per-shape rows, chains, end-to-end and
-    training numbers), then the kernels line (one entry per kernel, vit_t
-    chain and ViT attention half, the backward at head dim 80 and K12:
-    launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)
-    and, last, the device line.
+10. tiled precompute, the encoder's K9 / K11 routes and the rel-pos kernels
+    at every head dim: relpos_attention and its backward at head dims 16,
+    32, 40, 64, 80, 96, 100 and 128 (window and global grids, and a
+    misaligned view) against their plain versions, bf16 and f32; K9
+    (fused_window_block_spatial, vit_b and vit_h widths, padded and not) and
+    K11 (fused_window_stack, 4 images) against their plain versions and the
+    partitioned K2 chain; the device time of the partition copies K9 removes
+    and of the spatial addressing; then get_sam_model("vit_b") (bf16, seed 0)
+    precomputing a 2048^2 synthetic_data image and a (4, 1536, 1536) volume
+    in 1024^2 tiles with a 256 halo, 4 tiles (slices) an encode, under the
+    default, K9 (MSAM_TPU_SPATIAL_WINDOW=1) and K11 (MSAM_TPU_WINDOW_STACK=1)
+    routes: launches per 4-tile batch (84; K9: 8 spatial attention launches
+    in 8 calls of 7) and per chain call, every tile against the untiled
+    precompute of its crop (3e-2 of max) and the opt-in routes against the
+    default (2e-2), a tiled prompt, tiles/s; a tiled cache under build/
+    reloaded lazily and a tile_subset call resumed with no launch; one
+    encode of each opt-in route replayed per kernel and per chain; vit_h
+    through K9 against its default route. Prints the phase's wall time;
+11. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers, the tiled routes), then the kernels line (one entry
+    per kernel, vit_t chain and ViT attention half, the backward at head dim
+    80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
+    max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms) and, last,
+    the device line.
 """
 import json
 import os
@@ -181,6 +200,12 @@ def work(name, a):
         H, W = a[5]
         ops = B * nH * (4 * N * N * hd + 2 * N * (H + W) * hd)
         nbytes = 4 * B * nH * N * hd * s + (H * H + W * W) * hd * s
+    elif name == "relpos_attention_spatial":  # (B, Hp, Wp, nH, hd) maps of w x w windows
+        B, Hp, Wp, nH, hd = x.shape
+        w = a[5]
+        n_win, N = B * (Hp // w) * (Wp // w), w * w
+        ops = n_win * nH * (4 * N * N * hd + 4 * N * w * hd)
+        nbytes = 4 * B * Hp * Wp * nH * hd * s + 2 * w * w * hd * s
     elif name == "dwconv":  # SIMT multiply-adds, no tensor cores
         ops, nbytes, rate = 18 * x.numel(), 2 * x.numel() * s + 11 * x.shape[-1] * 4, PEAK_F32
     elif name == "tiny_attention":
@@ -248,15 +273,18 @@ def counterparts(name, a, kw):
     x = a[0]
     dt = x.dtype
     f32 = lambda t: None if t is None or not torch.is_tensor(t) else t.float()
-    if name == "layernorm":
+    if name == "layernorm":  # the mask, given or from the grid (K9), multiplied in
+        from micro_sam_tpu_torch.ops.layernorm import grid_mask
         _, w, b, eps = a[:4]
         v = a[4] if len(a) > 4 else None
+        grid = a[5] if len(a) > 5 else None
         wd, bd = w.to(dt), b.to(dt)
-        vd = None if v is None else v.reshape(-1, 1).to(dt)
+        mask = v if grid is None else grid_mask(x.shape[0], grid, x.device)
+        vd = None if mask is None else mask.reshape(-1, 1).to(dt)
         ln = lambda: F.layer_norm(x, (x.shape[1],), wd, bd, eps)
         return (lambda: layernorm(*a), lambda: layernorm_plain(*a),
                 ln if vd is None else (lambda: ln() * vd),
-                lambda: layernorm_plain(x.float(), w, b, eps, v))
+                lambda: layernorm_plain(x.float(), w, b, eps, v, grid))
     if name == "gemm":
         _, w, b = a[:3]
         epi, r = (a[3] if len(a) > 3 else "none"), (a[4] if len(a) > 4 else None)
@@ -292,6 +320,17 @@ def counterparts(name, a, kw):
                 lambda: relpos_attention_backward_plain(*a),
                 sdpa_backward(q, k, v, rh, rw, hw, dout),
                 lambda: relpos_attention_backward_plain(*(t.float() for t in a[:7]), hw))
+    if name == "relpos_attention_spatial":  # SDPA on the windows, partitioned here
+        from micro_sam_tpu_torch.ops.relpos_attention import (
+            _windows, relpos_attention_spatial, relpos_attention_spatial_plain)
+        q, k, v, rh, rw, w = a
+        qw, kw_, vw = (_windows(t, w) for t in (q, k, v))
+        bias = materialized_bias(qw, rh, rw, (w, w), dt)
+        return (lambda: relpos_attention_spatial(*a, **kw),
+                lambda: relpos_attention_spatial_plain(*a),
+                lambda: F.scaled_dot_product_attention(qw, kw_, vw, attn_mask=bias),
+                lambda: relpos_attention_spatial_plain(q.float(), k.float(), v.float(),
+                                                       rh.float(), rw.float(), w))
     q, k, v, rh, rw, hw = a
     bias = materialized_bias(q, rh, rw, hw, dt)
     return (lambda: relpos_attention(*a, **kw), lambda: relpos_attention_plain(*a),
@@ -855,16 +894,25 @@ def expected_launches(cfg):
 
 TINY_CHAINS = ("fused_mbconv", "fused_tiny_attention", "fused_tiny_tail")
 VIT_CHAINS = ("fused_window_attn", "fused_global_attn", "mlp_half")
+# the encoder's two opt-in routes for windowed blocks (phase 10): K9 and K11
+K9_CHAINS = ("fused_window_block_spatial", "fused_global_attn", "mlp_half")
+K11_CHAINS = ("fused_window_stack", "fused_global_attn", "mlp_half")
+WHOLE_BLOCK_CHAINS = ("fused_window_block_spatial", "fused_window_stack")
 # a chain set -> (the module whose names the encoder calls its chains by, the
 # ops modules whose kernel tables the chains launch through)
 CHAIN_HOME = {TINY_CHAINS: ("models.tiny_vit", TINY_CHAINS),
-              VIT_CHAINS: ("ops.fused_window_block", ("fused_window_block",))}
+              VIT_CHAINS: ("ops.fused_window_block", ("fused_window_block",)),
+              K9_CHAINS: ("ops.fused_window_block", ("fused_window_block",)),
+              K11_CHAINS: ("ops.fused_window_block", ("fused_window_block",))}
 CHAIN_LAUNCHES = {"fused_mbconv": {"gemm": 2, "dwconv": 1},
                   "fused_tiny_attention": {"layernorm": 1, "gemm": 2, "tiny_attention": 1},
                   "fused_tiny_tail": {"dwconv": 1, "layernorm": 1, "gemm": 2},
                   "fused_window_attn": {"layernorm": 1, "gemm": 2, "relpos_attention": 1},
                   "fused_global_attn": {"layernorm": 1, "gemm": 2, "relpos_attention": 1},
-                  "mlp_half": {"layernorm": 1, "gemm": 2}}
+                  "mlp_half": {"layernorm": 1, "gemm": 2},
+                  "fused_window_block_spatial": {"layernorm": 2, "gemm": 4,
+                                                 "relpos_attention_spatial": 1},
+                  "fused_window_stack": {"layernorm": 2, "gemm": 4, "relpos_attention": 1}}
 
 
 def chain_work(name, a):
@@ -876,7 +924,14 @@ def chain_work(name, a):
     rate = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_F32
     C = x.shape[-1]
     M = x.numel() // C
-    if name in ("fused_window_attn", "fused_global_attn"):  # LN1, qkv, attention, proj
+    if name in WHOLE_BLOCK_CHAINS:  # a whole windowed block, K9 on the padded map
+        blk, nH = (a[1], a[4]) if name == "fused_window_block_spatial" else (a[2], a[4])
+        w = a[2] if name == "fused_window_block_spatial" else a[3][0]
+        N, hd = w * w, C // nH
+        ops = 24 * M * C * C + (M // N) * nH * (4 * N * N * hd + 4 * N * w * hd)
+        weights = 12 * C * C * s + 2 * w * w * hd * s + 13 * C * 4
+        weights += M * 4 if name == "fused_window_stack" and a[1] is not None else 0
+    elif name in ("fused_window_attn", "fused_global_attn"):  # LN1, qkv, attention, proj
         valid, blk, (H, W), nH = (a[1], a[2], a[3], a[4]) if len(a) == 5 else (None, *a[1:])
         Bn, N = x.shape[0], x.shape[1]
         hd = C // nH
@@ -915,6 +970,8 @@ def chain_counterparts(name, a, kw):
     from micro_sam_tpu_torch.ops.tiny_attention import bias_offset_index
     x = a[0]
     dt = x.dtype
+    if name in WHOLE_BLOCK_CHAINS:
+        return whole_block_counterparts(name, a)
     if name in VIT_CHAINS:
         kern, plain = getattr(fwb, name), getattr(fwb, f"{name}_plain")
         blk = a[-1] if name == "mlp_half" else a[-3]
@@ -993,6 +1050,64 @@ def chain_counterparts(name, a, kw):
         return t + F.linear(h, mlp.fc2.weight, b2)
     return (lambda: k8.fused_tiny_tail(x, lc, mlp), lambda: k8.fused_tiny_tail_plain(x, lc, mlp),
             lib, lambda: k8.fused_tiny_tail_plain(x.float(), lc, mlp))
+
+
+def window_block_library(xw, vd, blk, w, nH):
+    """A windowed block's seven steps as library calls over (BW, N, C)
+    windows: F.layer_norm (times the pad mask ``vd`` in the working type, or
+    None), F.linear, SDPA with the rel-pos bias materialized (here, from
+    ``xw``, outside any timing), F.linear, F.layer_norm, F.linear + F.gelu,
+    F.linear. Returns the function of the windows."""
+    import torch.nn.functional as F
+    dt, (Bn, N, C) = xw.dtype, xw.shape
+    attn = blk.attn
+    n1w, n1b, bq, bp, n2w, n2b, b1, b2 = (t.to(dt) for t in (
+        blk.norm1.weight, blk.norm1.bias, attn.qkv.bias, attn.proj.bias, blk.norm2.weight,
+        blk.norm2.bias, blk.mlp.lin1.bias, blk.mlp.lin2.bias))
+
+    def qkv(x):
+        h = F.layer_norm(x, (C,), n1w, n1b, blk.norm1.eps)
+        h = h if vd is None else h * vd
+        t = F.linear(h, attn.qkv.weight, bq).view(Bn, N, 3, nH, C // nH)
+        return t.permute(2, 0, 3, 1, 4).unbind(0)
+    rh, rw = attn.rel_tables((w, w), dt)
+    bias = materialized_bias(qkv(xw)[0], rh, rw, (w, w), dt)
+
+    def run(x):
+        o = F.scaled_dot_product_attention(*qkv(x), attn_mask=bias)
+        x1 = x + F.linear(o.transpose(1, 2).reshape(Bn, N, C), attn.proj.weight, bp)
+        h = F.layer_norm(x1, (C,), n2w, n2b, blk.norm2.eps)
+        return x1 + F.linear(F.gelu(F.linear(h, blk.mlp.lin1.weight, b1)), blk.mlp.lin2.weight, b2)
+    return run
+
+
+def whole_block_counterparts(name, a):
+    """(kernel, plain, library, f32 reference) closures of one K9
+    (``fused_window_block_spatial``) or K11 (``fused_window_stack``) call. The
+    library is ``window_block_library`` over the windows; for K9 the
+    partition of the padded map into windows and the way back are part of it
+    (the library calls need them; the kernel chain does not)."""
+    from micro_sam_tpu_torch.models.image_encoder import window_partition, window_unpartition
+    from micro_sam_tpu_torch.ops import fused_window_block as fwb
+    kern, plain = getattr(fwb, name), getattr(fwb, f"{name}_plain")
+    x = a[0]
+    dt = x.dtype
+    if name == "fused_window_block_spatial":
+        _, blk, w, (H, W), nH = a
+        B, Hp, Wp, C = x.shape
+        vmap = torch.zeros(B, Hp, Wp, 1, device=x.device, dtype=dt)
+        vmap[:, :H, :W] = 1
+        vd = window_partition(vmap, w)[0].reshape(-1, w * w, 1)
+        part = lambda: window_partition(x, w)[0].reshape(-1, w * w, C)
+        run = window_block_library(part(), vd, blk, w, nH)
+
+        def lib():
+            return window_unpartition(run(part()).reshape(-1, w, w, C), w, (Hp, Wp), (Hp, Wp))
+    else:
+        _, valid, blk, (w, _), nH, _ = a
+        run = window_block_library(x, None if valid is None else valid.to(dt), blk, w, nH)
+        lib = lambda: run(x)
+    return (lambda: kern(*a), lambda: plain(*a), lib, lambda: plain(x.float(), *a[1:]))
 
 
 def chain_bound(calls):
@@ -1695,6 +1810,478 @@ def finetuning_phase(counters, root):
                 vit_l=dict(k4=k4_l, training=stats_l, launches=launches_l))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rel-pos kernels at every head dim, K9 / K11, and tiled
+# precompute through the three encoder routes
+# ---------------------------------------------------------------------------
+
+HD_SWEEP = (16, 32, 40, 64, 80, 96, 100, 128)
+SWEEP_GRIDS = ((25, 14, False), (25, 14, True), (1, 64, False))  # (batch, grid side, misaligned)
+ROUTE_KNOBS = ("MSAM_TPU_SPATIAL_WINDOW", "MSAM_TPU_WINDOW_STACK")
+ROUTES = {"default": ({}, VIT_CHAINS), "K9": ({"MSAM_TPU_SPATIAL_WINDOW": "1"}, K9_CHAINS),
+          "K11": ({"MSAM_TPU_WINDOW_STACK": "1"}, K11_CHAINS)}
+TILE, HALO, TILE_BATCH = (1024, 1024), (256, 256), 4
+TILE_REPS = 3
+
+
+class Route:
+    """Sets the encoder's route knobs (``ROUTES``) for the duration, and
+    restores them after."""
+
+    def __init__(self, name):
+        self.env = ROUTES[name][0]
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in ROUTE_KNOBS}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def head_dim_sweep():
+    """relpos_attention and its backward at every head dim of ``HD_SWEEP`` on
+    (25, 4, 196, hd) windows and a (1, 4, 4096, hd) global grid, q / k / v
+    strided out of qkv rows, and on the windows once more with every row
+    one element off its 16-byte alignment; against the plain versions, f32
+    rel 1e-4, bf16 2e-2 of max (the backward 3e-2). Head dims the kernels are
+    not built for run staged into the next built one."""
+    from micro_sam_tpu_torch.ops.relpos_attention import (
+        kernel_head_dim, relpos_attention, relpos_attention_backward,
+        relpos_attention_backward_plain, relpos_attention_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(2468)
+    rows = []
+    nH = 4
+    for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for hd in HD_SWEEP:
+            for B, H, misaligned in SWEEP_GRIDS:
+                N = H * H
+                flat = torch.randn(B * N * 3 * nH * hd + 1, generator=g).to(dev, dt)
+                q5 = (flat[1:] if misaligned else flat[:-1]).view(B, N, 3, nH, hd)
+                q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
+                rh, rw = ((torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dt) for _ in range(2))
+                label = f"({B}, {nH}, {N}, {hd}){' misaligned' if misaligned else ''}"
+                out = relpos_attention(q, k, v, rh, rw, (H, H))
+                f32 = [t.float() for t in (q, k, v, out, rh, rw)]
+                ref = relpos_attention_plain(*f32[:3], *f32[4:], (H, H))
+                err = check(f"relpos_attention {label}", out, ref, dname, quiet=True)
+                dout = torch.randn(B, nH, N, hd, generator=g).to(dev, dt)
+                grads = relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, H))
+                ref_b = relpos_attention_backward_plain(*f32[:4], dout.float(), *f32[4:], (H, H))
+                err_b = check(f"relpos_attention_backward {label}", grads, ref_b, dname,
+                              quiet=True, tol=F32_TOL if dt == torch.float32 else BWD_BF16_TOL)
+                torch.cuda.synchronize()
+                rows.append(dict(shape=label, dtype=dname, kernel_head_dim=kernel_head_dim(hd),
+                                 max_abs_err=err, backward_max_abs_err=err_b))
+                log(f"  hd {hd:3d} (kernel {kernel_head_dim(hd):3d}) {label:<32s} {dname:<8s} "
+                    f"forward max_abs_err {err:.3e}, backward {err_b:.3e} ok")
+                del flat, q5, q, k, v, out, f32, ref, grads, ref_b, dout
+        torch.cuda.empty_cache()
+    return rows
+
+
+WINDOW_ROUTE_CASES = (  # (name, width, heads, images, padded map side, valid side)
+    ("fused_window_block_spatial", 768, 12, 1, 70, 64),
+    ("fused_window_block_spatial", 768, 12, 4, 70, 64),  # the tiled path's 4-tile batch
+    ("fused_window_block_spatial", 768, 12, 1, 56, 56),
+    ("fused_window_block_spatial", 1280, 16, 1, 70, 64),
+    ("fused_window_stack", 768, 12, 4, 70, 64),
+)
+
+
+def window_routes_kernel_phase(counters):
+    """K9 and K11 against their plain versions (bf16 and f32) and against the
+    partitioned K2 chain on the same windows (equal to the bit in bf16,
+    within 1e-6 of max in f32, or the run fails), with launches counted
+    around one call, times, bounds and library yardsticks: K9 on (1, 70, 70,
+    768) and the tiled path's (4, 70, 70, 768) maps (12 heads, valid 64 x
+    64), unpadded (1, 56, 56, 768) and vit_h's (1, 70, 70, 1280) (16 heads
+    of 80); K11 on 4 images' 25 windows, (100, 196, 768), masked."""
+    import torch.nn.functional as F
+    from micro_sam_tpu_torch.models.common import init_module_
+    from micro_sam_tpu_torch.models.image_encoder import (Block, partition_tokens,
+                                                          window_unpartition)
+    from micro_sam_tpu_torch.ops import fused_window_block as fwb
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(1357)
+    rows = []
+    for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for name, Cw, nH, n_img, Hp, H in WINDOW_ROUTE_CASES:
+            blk = Block(Cw, nH, 4.0, 14, (14, 14))
+            init_module_(blk, g)
+            blk = blk.hold_weights_in_(dt).to(dev)
+            x = (torch.randn(n_img, H, H, Cw, generator=g) * 1.0).to(dev, dt)
+            xw, valid, pad_hw = partition_tokens(x, 14)
+            if name == "fused_window_block_spatial":
+                a = (F.pad(x, (0, 0, 0, Hp - H, 0, Hp - H)), blk, 14, (H, H), nH)
+                label = f"K9 ({n_img}, {Hp}, {Hp}, {Cw}) valid {H} x {H}"
+            else:
+                a = (xw, valid, blk, (14, 14), nH, n_img)
+                label = f"K11 ({xw.shape[0]}, 196, {Cw}) {n_img} images, masked"
+            kern, plain, lib, ref = chain_counterparts(name, a, {})
+            got = kern()
+            err = check(f"{name} {label}", got, ref(), dname)
+            k2 = fwb.fused_window_block(xw, valid, blk, (14, 14), nH)
+            if name == "fused_window_block_spatial":
+                k2 = window_unpartition(k2.reshape(-1, 14, 14, Cw), 14, pad_hw, pad_hw)
+            k2_diff = float((got.float() - k2.float()).abs().max())
+            log(f"    {label} vs the partitioned K2 chain on the same windows: max abs "
+                f"difference {k2_diff:.3e}")
+            if k2_diff > (1e-6 if dt == torch.float32 else 0.0) * float(k2.float().abs().max()):
+                raise AssertionError(f"{label}: differs from the partitioned K2 chain by "
+                                     f"{k2_diff:.3e}")
+            before = {k: c.launches for k, c in counters.items()}
+            kern()
+            torch.cuda.synchronize()
+            launches = {k: c.launches - before[k] for k, c in counters.items()
+                        if c.launches != before[k]}
+            if launches != CHAIN_LAUNCHES[name]:
+                raise AssertionError(f"{label}: launches {launches}, not {CHAIN_LAUNCHES[name]}")
+            k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain, iters=5), time_ms(lib)
+            b_ms, b_by = chain_bound([(name, a, {})])
+            rows.append(dict(name=name, shape=label, dtype=dname, max_abs_err=err,
+                             k2_max_abs_diff=k2_diff, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                             bound_ms=b_ms, bound_by=b_by, launches=launches))
+            log(f"    launches {launches}  ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms "
+                f"{l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+            del blk, x, xw, valid, a, kern, plain, lib, ref, got, k2
+            torch.cuda.empty_cache()
+    return rows
+
+
+def spatial_costs():
+    """Device time of the copies the spatial route removes (one vit_b encode
+    makes 4 partition / unpartition pairs, one per run of windowed blocks, at
+    (1, 64, 64, 768) bf16) against the pad / crop pairs it makes instead, and
+    of the spatial addressing inside relpos_attention: the spatial mode on
+    (1, 70, 70) and the tiled batch's (4, 70, 70) maps of qkv rows against the
+    plain mode on the same rows in window order."""
+    import torch.nn.functional as F
+    from micro_sam_tpu_torch.models.image_encoder import partition_tokens, window_unpartition
+    from micro_sam_tpu_torch.ops.relpos_attention import (_windows, relpos_attention,
+                                                          relpos_attention_spatial)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(97531)
+    x = torch.randn(1, 64, 64, C, generator=g).to(dev, torch.bfloat16)
+
+    def copies():
+        for _ in range(4):
+            xw, _, pad = partition_tokens(x, 14)
+            window_unpartition(xw.reshape(-1, 14, 14, C), 14, pad, (64, 64))
+
+    def pads():
+        for _ in range(4):
+            F.pad(x, (0, 0, 0, 6, 0, 6))[:, :64, :64].contiguous()
+    part_ms, pad_ms = time_ms(copies, iters=50), time_ms(pads, iters=50)
+    out = dict(partition_unpartition_ms_per_encode=part_ms, pad_crop_ms_per_encode=pad_ms)
+    log(f"  copies per vit_b encode (4 runs of windowed blocks, device time): partition + "
+        f"unpartition {part_ms:.4f} ms on the default route, pad + crop {pad_ms:.4f} ms on "
+        f"the K9 route")
+    rh, rw = ((torch.randn(14, 14, HD, generator=g) * 0.3).to(dev, torch.bfloat16)
+              for _ in range(2))
+    for B in (1, TILE_BATCH):  # one encode's map; the tiled path's batch
+        rows = torch.randn(B * 70 * 70, 3 * C, generator=g).to(dev, torch.bfloat16)
+        q6 = rows.view(B, 70, 70, 3, NH, HD)
+        q, k, v = (q6[:, :, :, i] for i in range(3))
+        o_map = torch.empty(B, 70, 70, NH, HD, device=dev, dtype=torch.bfloat16)
+        wrows = _windows(q6.reshape(B, 70, 70, 3 * NH, HD), 14).transpose(1, 2).contiguous()
+        w5 = wrows.view(25 * B, 196, 3, NH, HD)
+        qw, kw, vw = (w5[:, :, i].transpose(1, 2) for i in range(3))
+        o_win = torch.empty(25 * B, 196, NH, HD, device=dev,
+                            dtype=torch.bfloat16).transpose(1, 2)
+        sp_ms = time_ms(lambda: relpos_attention_spatial(q, k, v, rh, rw, 14, out=o_map),
+                        iters=50)
+        pl_ms = time_ms(lambda: relpos_attention(qw, kw, vw, rh, rw, (14, 14), out=o_win),
+                        iters=50)
+        sfx = "" if B == 1 else f"_batch{B}"
+        out[f"relpos_spatial_ms{sfx}"], out[f"relpos_window_order_ms{sfx}"] = sp_ms, pl_ms
+        log(f"  relpos_attention on ({B}, 70, 70) maps, 12 heads of 64: spatial mode "
+            f"{sp_ms:.4f} ms, plain mode on the same rows in window order {pl_ms:.4f} ms")
+    return out
+
+
+def tiled_data():
+    """A 2048 x 2048 synthetic_data image (seed 0) and a (4, 1536, 1536)
+    volume of its crops, shifted 128 / 96 pixels a slice."""
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    t0 = time.perf_counter()
+    image = synthetic_data((2048, 2048), seed=0)[0]
+    volume = np.stack([image[128 * z:128 * z + 1536, 96 * z:96 * z + 1536] for z in range(4)])
+    log(f"  data: image {image.shape}, volume {volume.shape} ({time.perf_counter() - t0:.1f} s)")
+    return image, volume
+
+
+def rel_max(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def tiled_route_run(predictor, counters, route, image, volume, crops, default=None):
+    """One route's tiled path: ``image`` 2d and ``volume`` 3d at TILE / HALO,
+    TILE_BATCH tiles (slices) an encode, counted from zero (kernels and, by
+    ChainLaunches, each chain call). Checks the launches per 4-tile batch,
+    every tile against its untiled crop (``crops``, within 3e-2 of max) and,
+    off the default route, against the default route's tiles (``default``,
+    within 2e-2 of max). Then a tiled prompt, and tiles/s of the 2d image
+    (host clock, median of TILE_REPS after a warm-up)."""
+    from micro_sam_tpu_torch.util import precompute_image_embeddings, set_precomputed
+    chains = ROUTES[route][1]
+    n_win = 8  # vit_b's windowed blocks
+    per_batch = ({"layernorm": 24, "gemm": 48, "relpos_attention": 12} if route != "K9" else
+                 {"layernorm": 24, "gemm": 48, "relpos_attention": 4,
+                  "relpos_attention_spatial": 8})
+    chain_calls = {chains[0]: n_win, "fused_global_attn": 4,
+                   "mlp_half": 12 if route == "default" else 4}
+    with Route(route):
+        for c in counters.values():
+            c.launches = 0
+        with ChainLaunches(counters, chains) as cc:
+            emb2 = precompute_image_embeddings(predictor, image, tile_shape=TILE, halo=HALO,
+                                               batch_size=TILE_BATCH, verbose=False)
+            torch.cuda.synchronize()
+            l2 = {k: c.launches for k, c in counters.items() if c.launches}
+            calls2 = dict(cc.calls)
+            emb3 = precompute_image_embeddings(predictor, volume, tile_shape=TILE, halo=HALO,
+                                               batch_size=TILE_BATCH, verbose=False)
+            torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        n_b3 = len(emb3["features"])  # one batch of 4 slices a tile
+        log(f"  {route} route: launches {dict((k, v) for k, v in launches.items() if v)} in "
+            f"{1 + n_b3} batches of {TILE_BATCH} (2d: {l2}); chain launches "
+            f"{cc.launches} in {cc.calls} calls")
+        if l2 != per_batch or sum(l2.values()) != 84 or calls2 != chain_calls:
+            raise AssertionError(f"{route} route: a 4-tile batch made {l2} in chain calls "
+                                 f"{calls2}, not {per_batch} in {chain_calls}")
+        if any(launches[k] != (1 + n_b3) * per_batch.get(k, 0) for k in counters) or \
+                any(cc.calls[k] != (1 + n_b3) * v for k, v in chain_calls.items()):
+            raise AssertionError(f"{route} route: the tiled path did not go through the "
+                                 f"kernels and chains as expected")
+        if sum(cc.launches.values()) != sum(launches.values()):
+            raise AssertionError(f"{route} route: kernels launched outside the chains")
+        err_crop, err_default = 0.0, 0.0
+        for ndim, emb in ((2, emb2), (3, emb3)):
+            assert sorted(emb["features"]) == [0, 1, 2, 3], sorted(emb["features"])
+            for t, tile in emb["features"].items():
+                f = tile["features"]
+                if not np.isfinite(f).all():
+                    raise AssertionError(f"{route}: tile {t} of the {ndim}d path is not finite")
+                err_crop = max(err_crop, rel_max(f, crops[ndim][t]))
+                if default is not None:
+                    err_default = max(err_default, rel_max(f, default[ndim][t]))
+        shapes2 = sorted({tuple(t["original_size"]) for t in emb2["features"].values()})
+        shapes3 = sorted({tuple(t["original_size"]) for t in emb3["features"].values()})
+        log(f"  {route}: 2d tiles of {shapes2}, 3d tiles of {shapes3}; every tile vs its "
+            f"untiled crop: rel {err_crop:.3e} (tol 3e-2)"
+            + ("" if default is None else f"; vs the default route: rel {err_default:.3e} "
+               f"(tol 2e-2)"))
+        if err_crop > 3e-2 or err_default > 2e-2:
+            raise AssertionError(f"{route}: tiled features disagree")
+        set_precomputed(predictor, emb2, tile_id=3)
+        m, iou, lo = predictor.predict(np.array([[600., 500.]]), np.array([1]))
+        h, w = emb2["features"][3]["original_size"]
+        set_precomputed(predictor, emb3, tile_id=1, i=2)
+        m3, iou3, _ = predictor.predict(np.array([[300., 500.]]), np.array([1]))
+        h3, w3 = emb3["features"][1]["original_size"]
+        if m.shape != (3, h, w) or m3.shape != (3, h3, w3) or not (
+                np.isfinite(iou).all() and np.isfinite(iou3).all() and np.isfinite(lo).all()):
+            raise AssertionError(f"{route}: a tiled prompt did not predict")
+        log(f"  {route}: set_precomputed(tile_id=3) -> predict: masks {m.shape}, iou "
+            f"{np.round(iou, 4).tolist()}; 3d tile 1 slice 2: masks {m3.shape}")
+        precompute_image_embeddings(predictor, image, tile_shape=TILE, halo=HALO,
+                                    batch_size=TILE_BATCH, verbose=False)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(TILE_REPS):
+            t0 = time.perf_counter()
+            precompute_image_embeddings(predictor, image, tile_shape=TILE, halo=HALO,
+                                        batch_size=TILE_BATCH, verbose=False)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        tps = 4 / statistics.median(ts)
+        log(f"  {route}: tiles/s at batch {TILE_BATCH} (4 tiles of 1280^2 -> 1024^2, host clock "
+            f"incl. resize, median of {TILE_REPS}): {tps:.3f} (all {[round(t, 4) for t in ts]} s)")
+    feats = {2: {t: v["features"] for t, v in emb2["features"].items()},
+             3: {t: v["features"] for t, v in emb3["features"].items()}}
+    return feats, dict(launches=launches, launches_per_batch=l2, chain_launches=dict(cc.launches),
+                       chain_calls=dict(cc.calls), tile_rel_vs_crop=err_crop,
+                       tile_rel_vs_default=err_default if default is not None else None,
+                       tiles_per_s=tps, tiles_s=ts)
+
+
+def tiled_cache_checks(predictor, counters, image, root):
+    """On the default route: a tiled cache written under build/ reloads
+    lazily, with no launch; a second call with a ``tile_subset`` resumes from
+    the first's tiles, with no launch."""
+    import shutil
+    from micro_sam_tpu_torch.util import _get_tile_features, precompute_image_embeddings
+    cache_dir = os.path.join(root, "build", "chip_smoke_tiled")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    kw = dict(tile_shape=TILE, halo=HALO, batch_size=TILE_BATCH, verbose=False)
+    with Route("default"):
+        path = os.path.join(cache_dir, "tiles.zarr")
+        emb = precompute_image_embeddings(predictor, image, save_path=path, **kw)
+        for c in counters.values():
+            c.launches = 0
+        lazy = precompute_image_embeddings(predictor, image, save_path=path, lazy_loading=True,
+                                           **kw)
+        moved = {k: c.launches for k, c in counters.items() if c.launches}
+        tile2 = _get_tile_features(lazy, 2)
+        if moved or isinstance(lazy["features"], dict) or not np.array_equal(
+                tile2["features"], emb["features"][2]["features"]):
+            raise AssertionError(f"the tiled cache did not reload lazily as written ({moved})")
+        path = os.path.join(cache_dir, "resume.zarr")
+        first = precompute_image_embeddings(predictor, image, save_path=path, tile_subset=[0, 3],
+                                            finalize=False, **kw)
+        for c in counters.values():
+            c.launches = 0
+        second = precompute_image_embeddings(predictor, image, save_path=path,
+                                             tile_subset=[0, 3], **kw)
+        moved = {k: c.launches for k, c in counters.items() if c.launches}
+        if moved or sorted(second["features"]) != [0, 3] or not all(
+                np.array_equal(second["features"][t]["features"], first["features"][t]["features"])
+                for t in (0, 3)):
+            raise AssertionError(f"the tile_subset call did not resume from the cache ({moved})")
+    log(f"  tiled cache {cache_dir}: reloads lazily (tile 2 equal, no launch); a second "
+        f"tile_subset [0, 3] call resumes with no launch")
+    return dict(lazy_reload=True, resume_without_launch=True)
+
+
+def vit_h_spatial_check(counters):
+    """One 1024^2 vit_h encode (full width and depth, bf16, seed 0) through the
+    K9 route against the default route's, within the phase-8 bf16 bound
+    (3e-2 of max); 28 spatial attention launches."""
+    import gc
+    from micro_sam_tpu_torch.util import _to_image, get_sam_model
+    rng = np.random.RandomState(0)
+    x1 = _to_image(rng.randint(0, 256, size=(1024, 1024)).astype(np.uint8))[None].astype(
+        np.float32)
+    predictor = get_sam_model("vit_h", seed=0)
+    ref = predictor.encode_batch(x1).float().cpu()
+    with Route("K9"):
+        for c in counters.values():
+            c.launches = 0
+        got = predictor.encode_batch(x1).float().cpu()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log(f"  vit_h 1024^2 encode through the K9 route vs the default route: rel {rel:.3e} "
+        f"(tol 3e-2); launches {launches}")
+    if rel > 3e-2 or launches.get("relpos_attention_spatial") != 28:
+        raise AssertionError("vit_h through the K9 route disagrees or missed the spatial kernel")
+    del predictor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rel_vs_default=rel, launches=launches)
+
+
+def tiled_phase(counters, root):
+    """Phase 10: the head-dim sweep, K9 / K11 against plain and K2, the
+    copies K9 removes, the tiled path at vit_b full width under the three
+    routes, the tiled cache, vit_h through K9, and the tiled path's 4-tile
+    batch encoded through each opt-in route and replayed per kernel and per
+    chain, every launch against its plain version at the shapes the tiled
+    path gives it (the kernels line's K9 / K11 rows)."""
+    from micro_sam_tpu_torch.util import (_resize_for_encoder, get_sam_model,
+                                          precompute_image_embeddings)
+    from micro_sam_tpu_torch.utils.blocking import Blocking
+    log("  rel-pos attention forward and backward at every head dim up to 128 vs plain")
+    sweep = head_dim_sweep()
+    log("  K9 / K11 vs their plain versions and the partitioned K2 chain")
+    window_rows = window_routes_kernel_phase(counters)
+    costs = spatial_costs()
+    image, volume = tiled_data()
+    predictor = get_sam_model("vit_b", seed=0)
+    blocking = Blocking((0, 0), image.shape, TILE)
+    blocking3 = Blocking((0, 0), volume.shape[1:], TILE)
+    t0 = time.perf_counter()
+    with Route("default"):
+        crops = {2: {t: precompute_image_embeddings(
+                     predictor, image[blocking.get_block_with_halo(t, HALO).outer_block.slicing],
+                     verbose=False)["features"] for t in range(len(blocking))},
+                 3: {t: precompute_image_embeddings(
+                     predictor, volume[(slice(None),) + blocking3.get_block_with_halo(
+                         t, HALO).outer_block.slicing], batch_size=TILE_BATCH,
+                     verbose=False)["features"] for t in range(len(blocking3))}}
+    log(f"  untiled crops of every tile encoded ({time.perf_counter() - t0:.1f} s)")
+    feats, runs = {}, {}
+    for route in ROUTES:
+        feats[route], runs[route] = tiled_route_run(predictor, counters, route, image, volume,
+                                                    crops, feats.get("default"))
+    cache = tiled_cache_checks(predictor, counters, image, root)
+    # the 2d path's one batch: its 4 tiles resized to 1024^2, as _compute_tiled_2d encodes them
+    x4 = np.stack([_resize_for_encoder(predictor, image[blocking.get_block_with_halo(
+        t, HALO).outer_block.slicing]) for t in range(len(blocking))]).astype(np.float32)
+    replays = {}
+    for route in ("K9", "K11"):
+        log(f"  the tiled path's 4-tile batch {x4.shape} through the {route} route, replayed "
+            f"per kernel and chain:")
+        with Route(route):
+            for c in counters.values():
+                c.launches = 0
+            with ChainLaunches(counters, ROUTES[route][1]) as cc:
+                predictor.encode_batch(x4)
+                torch.cuda.synchronize()
+            one = {k: c.launches for k, c in counters.items()}
+            replays[route] = encode_replay_phase(predictor, x4, counters, one, 1,
+                                                 ROUTES[route][1], dict(cc.launches))
+    del predictor
+    torch.cuda.empty_cache()
+    vit_h = vit_h_spatial_check(counters)
+    return dict(head_dim_sweep=sweep, window_routes=window_rows, costs=costs, routes=runs,
+                cache=cache, replays=replays, vit_h_k9=vit_h)
+
+
+def summarize_tiled(p10):
+    """The kernels line's rows of phase 10: the spatial mode of
+    relpos_attention, K9 and K11. launches: the count of the route's tiled
+    path (2d and 3d, from zero); ms, plain_ms, library_ms, bound_ms: the
+    launches (a chain's calls) of one vit_b encode of the tiled path's 4-tile
+    batch through the route, replayed back to back."""
+    routes, rp = p10["routes"], p10["replays"]
+    per = ("all {} of one vit_b bf16 encode of the tiled 2d path's batch (4 tiles of 1280^2 "
+           "resized to 1024^2) through the {} route, back to back")
+    sp = rp["K9"]["relpos_attention_spatial"]
+    out = [{
+        "name": "relpos_attention (spatial mode)", "route": "cuda",
+        "source": "micro_sam_tpu_torch/csrc/relpos_attention.cu",
+        "replaces": "micro_sam_tpu/ops/fused_window_block.py:76 (_fused_block_kernel with "
+                    "spatial=, attention stage; pallas_call :484)",
+        "launches": routes["K9"]["launches"]["relpos_attention_spatial"],
+        "max_abs_err": max([sp["max_abs_err"]] + [r["max_abs_err"] for r in
+                                                  p10["head_dim_sweep"]]),
+        "ms": sp["ms"], "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
+        "bound_by": sp["bound_by"], "library_ms": sp["library_ms"],
+        "launches_per_encode": sp["launches_per_encode"], "per": per.format("launches", "K9"),
+        "head_dim_sweep": p10["head_dim_sweep"], "costs": p10["costs"],
+    }]
+    for route, name, replaces in (
+            ("K9", "fused_window_block_spatial", "micro_sam_tpu/ops/fused_window_block.py:600 "
+             "(fused_window_block_spatial -> _fused_forward(spatial_hw=...), pallas_call :484, "
+             "kernel _fused_block_kernel :76 with spatial=)"),
+            ("K11", "fused_window_stack", "micro_sam_tpu/ops/fused_window_block.py:1331 "
+             "(fused_window_stack -> _fused_window_stack_forward :1338, pallas_call :1396, "
+             "kernel _fused_window_stack_kernel :1168)")):
+        e = rp[route]["chains"][name]
+        rows = [r for r in p10["window_routes"] if r["name"] == name]
+        out.append({
+            "name": f"{name} chain ({route})", "route": "cuda",
+            "source": "micro_sam_tpu_torch/ops/fused_window_block.py (csrc/layernorm.cu, "
+                      "csrc/gemm.cu, csrc/relpos_attention.cu)", "replaces": replaces,
+            "launches": routes[route]["chain_launches"][name],
+            "max_abs_err": max([e["max_abs_err"]] + [r["max_abs_err"] for r in rows]),
+            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            "calls_per_encode": e["calls_per_encode"], "per": per.format("calls", route),
+            "shapes": rows,
+        })
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
@@ -1707,7 +2294,8 @@ def main():
     from micro_sam_tpu_torch.ops.gemm import gemm
     from micro_sam_tpu_torch.ops.layernorm import layernorm
     from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
-                                                          relpos_attention_backward)
+                                                          relpos_attention_backward,
+                                                          relpos_attention_spatial)
     from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention
 
     # phase 1: the card
@@ -1788,7 +2376,15 @@ def main():
         "timed vit_h and vit_l steps, bf16 compute")
     ft = finetuning_phase(counters, root)
     log(f"phase 9 (vit_h / vit_l finetuning): {time.perf_counter() - t9:.1f} s")
+    # phase 10: the head-dim sweep, K9 / K11, tiled precompute through the routes
+    t10 = time.perf_counter()
+    log("tiled precompute on vit_b through the default, K9 (spatial window) and K11 (window "
+        "stack) routes; rel-pos attention at head dims 16-128; K9 / K11 vs plain and K2")
+    counters["relpos_attention_spatial"] = relpos_attention_spatial
+    p10 = tiled_phase(counters, root)
+    log(f"phase 10 (tiled precompute, K9 / K11, head dims): {time.perf_counter() - t10:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft)
+    rows += summarize_tiled(p10)
     # the details first, then the kernels line, short: one entry per kernel
     # and chain with the keys of the contract
     log(json.dumps({"details": {"kernels": rows, "chains": chains + lh_chains, "card": card,
@@ -1799,7 +2395,9 @@ def main():
                                 "vit_l_chains": lh["vit_l"]["per_encode"]["chains"],
                                 "training": training,
                                 "training_vit_h": ft["vit_h"]["training"],
-                                "training_vit_l": ft["vit_l"]["training"]}}))
+                                "training_vit_l": ft["vit_l"]["training"],
+                                "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
+                                                             "costs", "replays")}}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,128 @@
+"""Time the ViT kernels of one vit_b encode, replayed back to back, for one or
+more checkouts of this repository, each in its own process and in the order
+given, so that two versions of a kernel are compared on one card:
+
+    python3 kernel_replay.py OLD NEW NEW OLD [--out FILE]
+
+Each argument is the root of a checkout (``.`` for this one). Its process
+imports that checkout's ``micro_sam_tpu_torch``, builds its kernels into that
+checkout's ``build/``, records the ``layernorm`` / ``gemm`` /
+``relpos_attention`` launches of one batch-1 1024 x 1024 vit_b encode (bf16,
+random weights from seed 0, a random image from seed 0) through the
+encoder's default route, and replays each kernel's launches back to back.
+Device time from torch.profiler (CUPTI): the mean of 20 runs after 3 warm-up
+runs, taken ``REPS`` times. Prints the card's name and power limit, one JSON
+line per checkout and the median of each kernel per checkout; ``--out``
+writes all of it to a JSON file. Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+REPS = 5
+KNOBS = ("MSAM_TPU_SPATIAL_WINDOW", "MSAM_TPU_WINDOW_STACK")
+
+
+def device_ms(fn, iters=20, warmup=3):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(10):  # a session now and then records nothing: run it again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
+def child(root: str) -> dict:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    import micro_sam_tpu_torch
+    pkg = os.path.dirname(os.path.abspath(micro_sam_tpu_torch.__file__))
+    if pkg != os.path.join(root, "micro_sam_tpu_torch"):
+        raise RuntimeError(f"imported {pkg}, not the package of {root}")
+    from micro_sam_tpu_torch.ops import _cuda
+    from micro_sam_tpu_torch.ops import fused_window_block as fwb
+    from micro_sam_tpu_torch.util import _to_image, get_sam_model
+    for k in KNOBS:
+        os.environ.pop(k, None)
+    rng = np.random.RandomState(0)
+    x1 = _to_image(rng.randint(0, 256, size=(1024, 1024)).astype(np.uint8))[None]
+    predictor = get_sam_model("vit_b", seed=0)
+    predictor.encode_batch(x1.astype(np.float32))  # builds the kernels
+    torch.cuda.synchronize()
+    calls, saved = [], fwb._KERNELS
+
+    def wrap(fn):
+        def call(*a, **kw):
+            calls.append((fn.__name__, fn, a, kw))
+            return fn(*a, **kw)
+        return call
+    fwb._KERNELS = tuple(wrap(f) for f in saved)
+    try:
+        predictor.encode_batch(x1.astype(np.float32))
+    finally:
+        fwb._KERNELS = saved
+    torch.cuda.synchronize()
+    out = {"root": root, "kernels": _cuda.build_dir(), "launches": {}, "ms": {}}
+    for name in ("layernorm", "gemm", "relpos_attention"):
+        mine = [c for c in calls if c[0] == name]
+        out["launches"][name] = len(mine)
+        out["ms"][name] = [device_ms(lambda: [fn(*a, **kw) for _, fn, a, kw in mine])
+                           for _ in range(REPS)]
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="*")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args.child)), flush=True)
+        return
+    import torch
+    if not torch.cuda.is_available() or not args.roots:
+        sys.exit("kernel_replay.py needs a CUDA card and at least one checkout")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(card.strip().splitlines()[0], flush=True)
+    runs = []
+    for root in args.roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout + proc.stderr)
+            sys.exit(f"{root}: replay failed (rc {proc.returncode})")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(run)
+        print(json.dumps(run), flush=True)
+    summary = {}
+    for root in dict.fromkeys(r["root"] for r in runs):
+        mine = [r for r in runs if r["root"] == root]
+        summary[root] = {k: statistics.median(v for r in mine for v in r["ms"][k])
+                         for k in mine[0]["ms"]}
+        print(f"{root}: median ms per encode {summary[root]}", flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card.strip(), "runs": runs, "median_ms": summary}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,17 @@
 // product reads, with no transposes; the same strides serve the
 // (B, 3, nH, N, hd) -> (B, nH, N, hd) layout of flash_attention_qkv.
 //
+// Spatial mode (Geo, relpos_common.cuh; the counterpart of the spatial
+// window kernel micro_sam_tpu/ops/fused_window_block.py::_fused_block_kernel
+// (spatial=), reached through fused_window_block_spatial): the batch index
+// runs over the windows of a padded (img, Hp, Wp) token map and each window's
+// tokens are gathered from the map's rows by index arithmetic in the tile
+// loads and the output store, so the qkv product's map rows are read and the
+// proj product's map rows written with no partition or unpartition copy.
+// Only the addresses change: the arithmetic is that of the plain mode. The
+// mode is a template parameter (SP), so the plain instantiations, which the
+// default route runs, compile to the plain addressing alone.
+//
 // Bound on the H100: operations. A vit_b global block (N = 4096, 12 heads,
 // hd 64) is 4 N^2 hd nH = 52 GFLOP (53 us at 989 TFLOP/s) against 25 MB of
 // q/k/v/out traffic (7 us); the windowed blocks (N = 196) move 30 MB per image
@@ -31,12 +42,14 @@
 // kernel is a plain SIMT version of the same loop, kept for holding the kernel
 // path against the plain one at a tight tolerance.
 //
-// Both are instantiated for head dims 64 (vit_b, vit_l) and 80 (vit_h). Every
-// size follows from HD (HD / 16 k steps of q k^T, HD / 8 output n8 tiles, a
-// padded row of HD + 8, HD * sizeof(T) / 16 cp.async chunks a row), so any
-// multiple of 16 would do; at 80 the bf16 kernel holds 40 output, 32 logit
-// and 20 q-fragment registers and takes 89 KB of shared memory at the global
-// grid, two blocks an SM as at 64.
+// Both are instantiated for head dims 32 (TinyViT-sized), 64 (vit_b, vit_l),
+// 80 (vit_h), 96 and 128; the wrapper runs any other head dim up to 128 in
+// the next larger one, zero-padded. Every size follows from HD (HD / 16 k
+// steps of q k^T, HD / 8 output n8 tiles, a padded row of HD + 8,
+// HD * sizeof(T) / 16 cp.async chunks a row); at 80 the bf16 kernel holds 40
+// output, 32 logit and 20 q-fragment registers and takes 89 KB of shared
+// memory at the global grid, two blocks an SM as at 64. The largest, f32 at
+// 128, takes 206 KB at the 64 x 64 global grid.
 #include "relpos_common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -48,14 +61,14 @@ __host__ __device__ constexpr size_t bf16_smem(int H, int W) {
   return align128(sizeof(__nv_bfloat16) * 5 * 64 * (HD + 8)) + sizeof(float) * QT * (H + W + 1);
 }
 
-template <int HD>
+template <int HD, bool SP>
 __global__ void __launch_bounds__(128) relpos_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ rh,
     const __nv_bfloat16* __restrict__ rw, __nv_bfloat16* __restrict__ out, int N, int H, int W,
     long long qsb, long long qsh, long long qsn, long long ksb, long long ksh, long long ksn,
     long long vsb, long long vsh, long long vsn, long long osb, long long osh, long long osn,
-    float scale) {
+    float scale, Geo geo) {
   constexpr int LDT = HD + 8;  // padded smem row: conflict-free fragment loads
   constexpr int KS = HD / 16;  // k steps of q k^T
   constexpr int NT = HD / 8;   // n8 tiles of the output
@@ -67,15 +80,15 @@ __global__ void __launch_bounds__(128) relpos_attention_bf16_kernel(
   const int UP = H + W + 1;  // odd row stride: the 8 rows of a fragment hit 8 banks
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-  __nv_bfloat16* ob = out + b * osb + h * osh;
+  const __nv_bfloat16* qb = q + batch_off<SP>(geo, b, qsb, qsn) + h * qsh;
+  const __nv_bfloat16* kb = k + batch_off<SP>(geo, b, ksb, ksn) + h * ksh;
+  const __nv_bfloat16* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh;
+  __nv_bfloat16* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh;
   const int ntiles = (N + KT - 1) / KT;
 
-  load_tile<__nv_bfloat16, HD>(Qs, qb, qsn, q0, N);
-  load_tile<__nv_bfloat16, HD>(Kb, kb, ksn, 0, N);
-  load_tile<__nv_bfloat16, HD>(Vb, vb, vsn, 0, N);
+  load_tile<__nv_bfloat16, HD, 64, SP>(Qs, qb, qsn, q0, N, geo);
+  load_tile<__nv_bfloat16, HD, 64, SP>(Kb, kb, ksn, 0, N, geo);
+  load_tile<__nv_bfloat16, HD, 64, SP>(Vb, vb, vsn, 0, N, geo);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -104,8 +117,8 @@ __global__ void __launch_bounds__(128) relpos_attention_bf16_kernel(
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {  // the next tile flies while this one is multiplied
       const int nxt = (it + 1) & 1;
-      load_tile<__nv_bfloat16, HD>(Kb + nxt * 64 * LDT, kb, ksn, (it + 1) * KT, N);
-      load_tile<__nv_bfloat16, HD>(Vb + nxt * 64 * LDT, vb, vsn, (it + 1) * KT, N);
+      load_tile<__nv_bfloat16, HD, 64, SP>(Kb + nxt * 64 * LDT, kb, ksn, (it + 1) * KT, N, geo);
+      load_tile<__nv_bfloat16, HD, 64, SP>(Vb + nxt * 64 * LDT, vb, vsn, (it + 1) * KT, N, geo);
       cp_async_commit();
     }
     const __nv_bfloat16* Ks = Kb + (it & 1) * 64 * LDT;
@@ -202,9 +215,9 @@ __global__ void __launch_bounds__(128) relpos_attention_bf16_kernel(
   for (int n = 0; n < NT; ++n) {
     const int d = n * 8 + t * 2;
     if (r0 < N)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * osn + d) = pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, r0, osn) + d) = pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
     if (r1 < N)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * osn + d) = pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, r1, osn) + d) = pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
@@ -223,13 +236,15 @@ __host__ __device__ constexpr size_t f32_smem(int H, int W) {
   return f32_head<HD>() + sizeof(float) * QT * (H + W + 1);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(128) relpos_attention_f32_kernel(
+// (128, 1): without the minimum of one block an SM, ptxas holds the kernel
+// to 72-80 registers and spills at head dims 96 and 128
+template <int HD, bool SP>
+__global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ rh, const float* __restrict__ rw, float* __restrict__ out,
     int N, int H, int W, long long qsb, long long qsh, long long qsn, long long ksb,
     long long ksh, long long ksn, long long vsb, long long vsh, long long vsn, long long osb,
-    long long osh, long long osn, float scale) {
+    long long osh, long long osn, float scale, Geo geo) {
   constexpr int LDT = HD + 8, LDO = HD + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -242,12 +257,12 @@ __global__ void __launch_bounds__(128) relpos_attention_f32_kernel(
   const int UP = H + W + 1;
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + h * ksh;
-  const float* vb = v + b * vsb + h * vsh;
-  float* ob = out + b * osb + h * osh;
+  const float* qb = q + batch_off<SP>(geo, b, qsb, qsn) + h * qsh;
+  const float* kb = k + batch_off<SP>(geo, b, ksb, ksn) + h * ksh;
+  const float* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh;
+  float* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh;
 
-  load_tile<float, HD>(Qs, qb, qsn, q0, N);
+  load_tile<float, HD, 64, SP>(Qs, qb, qsn, q0, N, geo);
   cp_async_commit();
   for (int i = threadIdx.x; i < QT * LDO; i += blockDim.x) Os[i] = 0.f;
   cp_async_wait<0>();
@@ -268,8 +283,8 @@ __global__ void __launch_bounds__(128) relpos_attention_f32_kernel(
 
   for (int k0 = 0; k0 < N; k0 += KT) {
     __syncthreads();  // previous tile consumed (and U complete on entry)
-    load_tile<float, HD>(Ks, kb, ksn, k0, N);
-    load_tile<float, HD>(Vs, vb, vsn, k0, N);
+    load_tile<float, HD, 64, SP>(Ks, kb, ksn, k0, N, geo);
+    load_tile<float, HD, 64, SP>(Vs, vb, vsn, k0, N, geo);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -320,7 +335,7 @@ __global__ void __launch_bounds__(128) relpos_attention_f32_kernel(
     const int qi = q0 + warp * 16 + r;
     if (qi < N) {
       const float inv = 1.f / l[r];
-      for (int d = lane; d < HD; d += 32) ob[(long long)qi * osn + d] = Ow[r * LDO + d] * inv;
+      for (int d = lane; d < HD; d += 32) ob[tok_off<SP>(geo, qi, osn) + d] = Ow[r * LDO + d] * inv;
     }
   }
 }
@@ -328,37 +343,53 @@ __global__ void __launch_bounds__(128) relpos_attention_f32_kernel(
 template <typename T, typename Kernel>
 static int launch(Kernel kern, size_t smem, const void* q, const void* k, const void* v,
                   const void* rh, const void* rw, void* out, int B, int nH, int N, int H, int W,
-                  const long long* st, float scale, cudaStream_t s) {
+                  const long long* st, float scale, Geo geo, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((N + QT - 1) / QT, nH, B);
   kern<<<grid, 128, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)rh, (const T*)rw, (T*)out, N, H, W,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
+      geo);
   return (int)cudaGetLastError();
 }
 
 // strides: 12 element strides, (batch, head, token) for q, k, v, out in turn
+// (the batch strides unused in the spatial mode). win > 0: the spatial mode,
+// B windows of win x win tokens (H == W == win) of maps of nwy x nwx windows.
 MSAM_EXPORT int msam_relpos_attention(const void* q, const void* k, const void* v,
                                       const void* rh, const void* rw, void* out, int B,
                                       int nH, int N, int H, int W, int hd,
-                                      const long long* strides, float scale, int dtype,
-                                      void* stream) {
+                                      const long long* strides, float scale, int win, int nwy,
+                                      int nwx, int dtype, void* stream) {
   if (N != H * W || B <= 0 || nH <= 0 || B > 65535 || nH > 65535) return (int)cudaErrorInvalidValue;
+  if (win < 0 || (win > 0 && (H != win || W != win || nwy <= 0 || nwx <= 0 || B % (nwy * nwx))))
+    return (int)cudaErrorInvalidValue;
+  const Geo geo{win, nwy, nwx};
   cudaStream_t s = (cudaStream_t)stream;
   using bf = __nv_bfloat16;
-#define MSAM_ARGS q, k, v, rh, rw, out, B, nH, N, H, W, strides, scale, s
+#define MSAM_ARGS q, k, v, rh, rw, out, B, nH, N, H, W, strides, scale, geo, s
+#define MSAM_BF16_CASE(D)                                                                    \
+  case D:                                                                                    \
+    return launch<bf>(win ? relpos_attention_bf16_kernel<D, true> : relpos_attention_bf16_kernel<D, false>, \
+                      bf16_smem<D>(H, W), MSAM_ARGS);
+#define MSAM_F32_CASE(D)                                                                     \
+  case D:                                                                                    \
+    return launch<float>(win ? relpos_attention_f32_kernel<D, true> : relpos_attention_f32_kernel<D, false>, \
+                         f32_smem<D>(H, W), MSAM_ARGS);
   if (dtype == MSAM_BF16) {
     switch (hd) {
-      case 64: return launch<bf>(relpos_attention_bf16_kernel<64>, bf16_smem<64>(H, W), MSAM_ARGS);
-      case 80: return launch<bf>(relpos_attention_bf16_kernel<80>, bf16_smem<80>(H, W), MSAM_ARGS);
+      MSAM_BF16_CASE(32) MSAM_BF16_CASE(64) MSAM_BF16_CASE(80) MSAM_BF16_CASE(96)
+      MSAM_BF16_CASE(128)
     }
   } else if (dtype == MSAM_F32) {
     switch (hd) {
-      case 64: return launch<float>(relpos_attention_f32_kernel<64>, f32_smem<64>(H, W), MSAM_ARGS);
-      case 80: return launch<float>(relpos_attention_f32_kernel<80>, f32_smem<80>(H, W), MSAM_ARGS);
+      MSAM_F32_CASE(32) MSAM_F32_CASE(64) MSAM_F32_CASE(80) MSAM_F32_CASE(96)
+      MSAM_F32_CASE(128)
     }
   }
+#undef MSAM_F32_CASE
+#undef MSAM_BF16_CASE
 #undef MSAM_ARGS
   return (int)cudaErrorInvalidValue;
 }

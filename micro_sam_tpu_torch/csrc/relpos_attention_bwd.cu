@@ -42,13 +42,27 @@
 // flash_attention_rel_pos). A first, simple design: scratch (u, lse, D, dSr,
 // dSc) goes through device memory.
 //
-// Instantiated for head dims 64 (vit_b, vit_l) and 80 (vit_h). Every size
+// Built once per head dim: the source is compiled with -DMSAM_HD=<hd> into a
+// library of its own for each of 32, 64 (vit_b, vit_l), 80 (vit_h), 96 and
+// 128 (ops/_cuda.py), so the five builds run in parallel; the wrapper runs any
+// other head dim up to 128 in the next larger one, zero-padded. Every size
 // follows from HD: HD / 16 k steps and HD / 8 n8 tiles in bf16, ceil(HD / 32)
 // dims a lane in f32. The finished dq (64 x HD f32) is staged for the table
 // terms of finish_dq in the k tile(s), free after the walk, at row pitch
-// HD + 4. At 80 the largest launch, the f32 dq stage, takes 170 KB of shared
-// memory at the 64 x 64 global grid, the bf16 dq stage 148 KB.
+// HD + 4. Registers: above 96 the bf16 dk/dv walk reads its k / v A
+// fragments from shared memory at each step instead of holding them (64
+// registers at 128); the f32 stages' sums over a tile's 64 keys (q rows) are
+// unrolled 8 deep, not fully (fully unrolled, ptxas hoists 64 k values a dim
+// of the lane and the f32 dq stage spills at 128), and the f32 kernels
+// declare a minimum of one block an SM (without it ptxas holds some of them
+// to 64-72 registers and spills). At 128 the largest launch, the f32 dk/dv
+// stage, takes 203 KB of shared memory at the 64 x 64 global grid (the bf16
+// dq stage 184 KB).
 #include "relpos_common.cuh"
+
+#ifndef MSAM_HD
+#error "build with -DMSAM_HD=<head dim>"
+#endif
 
 constexpr int LDSS = KT + 4;  // f32 row pitch of an S / dS tile
 constexpr int QB = 32;        // q rows per step of the bf16 dk/dv walk
@@ -296,6 +310,7 @@ __device__ __forceinline__ void load_q_step(const BwdArgs& a, bf16* Qd, bf16* Gd
 template <int HD>
 __global__ void __launch_bounds__(128) dkdv_bf16_kernel(const BwdArgs a) {
   constexpr int LDT = HD + 8, KS = HD / 16, NT = HD / 8;
+  constexpr bool kHold = HD <= 96;  // k / v A fragments held in registers across the walk
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + 64 * LDT;
@@ -319,9 +334,13 @@ __global__ void __launch_bounds__(128) dkdv_bf16_kernel(const BwdArgs a) {
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  uint32_t ka[KS][4], va[KS][4];
-  load_a_frags<HD, LDT>(ka, Ks + warp * 16 * LDT, g, t);
-  load_a_frags<HD, LDT>(va, Vs + warp * 16 * LDT, g, t);
+  const bf16* Kw = Ks + warp * 16 * LDT;
+  const bf16* Vw = Vs + warp * 16 * LDT;
+  uint32_t ka[kHold ? KS : 1][4], va[kHold ? KS : 1][4];
+  if constexpr (kHold) {
+    load_a_frags<HD, LDT>(ka, Kw, g, t);
+    load_a_frags<HD, LDT>(va, Vw, g, t);
+  }
   const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
   const bool kv0 = kr0 < N, kv1 = kr1 < N;
   const int ky0 = kv0 ? kr0 / W : 0, kx0 = kv0 ? kr0 - ky0 * W : 0;
@@ -349,15 +368,29 @@ __global__ void __launch_bounds__(128) dkdv_bf16_kernel(const BwdArgs a) {
     // S^T = k q^T and dP^T = v dO^T: n8 tiles over the step's q rows
     float st[QB / 8][4], dp[QB / 8][4];
 #pragma unroll
-    for (int j = 0; j < QB / 8; ++j) {
+    for (int j = 0; j < QB / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kf[4], vf[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kHold) {
+          kf[e] = ka[kk][e];
+          vf[e] = va[kk][e];
+        } else {  // the A fragment layout of load_a_frags, for this k step only
+          const int off = ((e & 1) ? 8 : 0) * LDT + kk * 16 + t * 2 + ((e & 2) ? 8 : 0);
+          kf[e] = lds32(Kw + g * LDT + off);
+          vf[e] = lds32(Vw + g * LDT + off);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QB / 8; ++j) {
         const bf16* qr = Qs + (j * 8 + g) * LDT + kk * 16 + t * 2;
         const bf16* gr = Gs + (j * 8 + g) * LDT + kk * 16 + t * 2;
-        mma16816(st[j], ka[kk], lds32(qr), lds32(qr + 8));
-        mma16816(dp[j], va[kk], lds32(gr), lds32(gr + 8));
+        mma16816(st[j], kf, lds32(qr), lds32(qr + 8));
+        mma16816(dp[j], vf, lds32(gr), lds32(gr + 8));
       }
     }
     // P^T and dS^T, packed into A fragments (rows: keys; k: q rows)
@@ -556,7 +589,7 @@ __host__ __device__ constexpr size_t prep_f32_smem(int H, int W) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) prep_f32_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(128, 1) prep_f32_kernel(const BwdArgs a) {
   constexpr int LDT = HD + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -631,7 +664,7 @@ __host__ __device__ constexpr size_t dkdv_f32_smem(int H, int W) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) dkdv_f32_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(128, 1) dkdv_f32_kernel(const BwdArgs a) {
   constexpr int LDT = HD + 8, DE = (HD + 31) / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
@@ -707,6 +740,7 @@ __global__ void __launch_bounds__(128) dkdv_f32_kernel(const BwdArgs a) {
         const int d = lane + 32 * e;
         if (d >= HD) continue;
         float av = dv[r][e], ak = dk[r][e];
+#pragma unroll 8
         for (int c = 0; c < QT; ++c) {
           av = fmaf(Pw[r * LDSS + c], Gs[c * LDT + d], av);
           ak = fmaf(Dw[r * LDSS + c], Qs[c * LDT + d], ak);
@@ -740,7 +774,7 @@ __host__ __device__ constexpr size_t dq_f32_smem(int H, int W) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) dq_f32_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(128, 1) dq_f32_kernel(const BwdArgs a) {
   constexpr int LDT = HD + 8, DE = (HD + 31) / 32, LDQ = HD + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -815,6 +849,7 @@ __global__ void __launch_bounds__(128) dq_f32_kernel(const BwdArgs a) {
         const int d = lane + 32 * e;
         if (d >= HD) continue;
         float acc = dq[r][e];
+#pragma unroll 8
         for (int c = 0; c < KT; ++c) acc = fmaf(Sw[r * LDSS + c], Ks[c * LDT + d], acc);
         dq[r][e] = acc;
       }
@@ -953,18 +988,9 @@ MSAM_EXPORT int msam_relpos_attention_bwd(int stage, const void* q, const void* 
   for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
   cudaStream_t s = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-  if (dtype == MSAM_BF16) {
-    switch (hd) {
-      case 64: return launch_stage<bf, 64>(stage, a, s);
-      case 80: return launch_stage<bf, 80>(stage, a, s);
-    }
-  } else if (dtype == MSAM_F32) {
-    switch (hd) {
-      case 64: return launch_stage<float, 64>(stage, a, s);
-      case 80: return launch_stage<float, 80>(stage, a, s);
-    }
-  }
+  if (hd != MSAM_HD) return (int)cudaErrorInvalidValue;  // another head dim's library
+  if (dtype == MSAM_BF16) return launch_stage<__nv_bfloat16, MSAM_HD>(stage, a, s);
+  if (dtype == MSAM_F32) return launch_stage<float, MSAM_HD>(stage, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,17 +9,51 @@ constexpr int KT = 64;  // keys per tile
 
 __host__ __device__ constexpr size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
 
+// Where a (batch, token) pair of an operand lies. Plain (SP false): batch b
+// at b * sb, token t at t * sn. Spatial (SP true, the forward's window
+// mode): the operand is the row space of a padded (img, Hp, Wp) map of
+// nwy x nwx windows of w x w tokens, batch b is window (img, wy, wx) in that
+// order, and token t = (ty, tx) of it is map row
+// ((img * nwy + wy) * w + ty) * (nwx * w) + wx * w + tx, at row * sn. The
+// mode is a template parameter, so the plain instantiations carry none of
+// the spatial arithmetic and no branch on it.
+struct Geo {
+  int w, nwy, nwx;
+};
+
+template <bool SP>
+__device__ __forceinline__ long long batch_off(const Geo& g, int b, long long sb, long long sn) {
+  if constexpr (!SP) {
+    return b * sb;
+  } else {
+    const int per = g.nwy * g.nwx, img = b / per, r = b - img * per;
+    const int wy = r / g.nwx, wx = r - wy * g.nwx;
+    return (((long long)img * g.nwy + wy) * g.w * g.nwx * g.w + (long long)wx * g.w) * sn;
+  }
+}
+
+template <bool SP>
+__device__ __forceinline__ long long tok_off(const Geo& g, int t, long long sn) {
+  if constexpr (!SP) {
+    return (long long)t * sn;
+  } else {
+    const int ty = t / g.w;
+    return ((long long)ty * g.nwx * g.w + (t - ty * g.w)) * sn;
+  }
+}
+
 // rows [t0, t0 + ROWS) of a strided (token, HD) source into a padded smem
 // tile, as 16-byte cp.async copies that are all in flight at once; rows past
-// N are zero-filled
-template <typename T, int HD, int ROWS = 64>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long sn, int t0, int N) {
+// N are zero-filled. SP: tokens addressed as in tok_off's spatial mode.
+template <typename T, int HD, int ROWS = 64, bool SP = false>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long sn, int t0, int N,
+                                          Geo geo = Geo{0, 0, 0}) {
   constexpr int LDT = HD + 8;
   constexpr int CH = HD * sizeof(T) / 16;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < ROWS * CH; c += blockDim.x) {
     int r = c / CH, part = c % CH;
     int t = t0 + r;
-    const char* g = t < N ? reinterpret_cast<const char*>(src + (long long)t * sn) + part * 16
+    const char* g = t < N ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, t, sn)) + part * 16
                           : reinterpret_cast<const char*>(src);
     cp_async16(reinterpret_cast<char*>(dst + r * LDT) + part * 16, g, t < N);
   }

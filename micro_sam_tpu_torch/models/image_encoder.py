@@ -9,9 +9,18 @@ windowed blocks stay in window layout, with the pad positions of the LN1
 output zeroed, so only one partition / unpartition is made per run of blocks.
 The blocks' four product weights are held in the compute dtype, the dtype the
 chain runs in; every other parameter is float32.
+
+Two opt-in routes for the runs of windowed blocks, read at each forward under
+the JAX package's knob names: ``MSAM_TPU_SPATIAL_WINDOW=1`` pads the run's
+input once, runs each block as ``fused_window_block_spatial`` (K9) on the
+padded map and crops once; ``MSAM_TPU_WINDOW_STACK=1`` (which takes
+precedence, as in JAX) runs each block as ``fused_window_stack`` (K11) over
+the batch's window stacks. Both compute what the default route computes.
+``forward_train`` always partitions.
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -219,12 +228,15 @@ class ImageEncoderViT(nn.Module):
         (B, H / 16, W / 16, 256) embeddings. Each block is its attention half
         (``fused_window_attn``, K10, or ``fused_global_attn``, K5) and then its
         MLP half (``mlp_half``), called through the module
-        ``ops/fused_window_block``."""
+        ``ops/fused_window_block``; a windowed block is ``fused_window_block_spatial``
+        or ``fused_window_stack`` under the routes' knobs (module docstring)."""
         x = self._patch_embed(x)
         glob = set(self.global_attn_indexes)
         depth = len(self.blocks)
         nH, ws = self.num_heads, self.window_size
         B, H, W, C = x.shape
+        stack = os.environ.get("MSAM_TPU_WINDOW_STACK", "0") == "1"
+        spatial = not stack and os.environ.get("MSAM_TPU_SPATIAL_WINDOW", "0") == "1"
         i = 0
         while i < depth:
             if i in glob or ws <= 0:
@@ -237,9 +249,20 @@ class ImageEncoderViT(nn.Module):
             j = i
             while j < depth and j not in glob:
                 j += 1
+            if spatial:
+                pad_h, pad_w = (-H) % ws, (-W) % ws
+                xp = F.pad(x, (0, 0, 0, pad_w, 0, pad_h)) if pad_h or pad_w else x
+                for blk in self.blocks[i:j]:
+                    xp = fwb.fused_window_block_spatial(xp, blk, ws, (H, W), nH)
+                x = xp[:, :H, :W].contiguous() if pad_h or pad_w else xp
+                i = j
+                continue
             xw, valid, pad_hw = partition_tokens(x, ws)
             for blk in self.blocks[i:j]:
-                xw = fwb.mlp_half(fwb.fused_window_attn(xw, valid, blk, (ws, ws), nH), blk)
+                if stack:
+                    xw = fwb.fused_window_stack(xw, valid, blk, (ws, ws), nH, B)
+                else:
+                    xw = fwb.mlp_half(fwb.fused_window_attn(xw, valid, blk, (ws, ws), nH), blk)
             x = window_unpartition(xw.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
             i = j
         return self.neck(x)

@@ -2,7 +2,9 @@
 
 Each source compiles on its own, with ``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared -Xcompiler -fPIC``, into a shared library with a plain
-C interface that ``ctypes`` loads. All sources build at the first CUDA use, in
+C interface that ``ctypes`` loads; the backward of the rel-pos attention
+compiles once per head dim (``-DMSAM_HD=<hd>``), a library each, so that its
+five builds run side by side. All libraries build at the first CUDA use, in
 parallel (one ``nvcc`` each), into ``build/kernels-<hash>/`` at the root of the
 checkout; the hash covers the sources, so an edited kernel rebuilds and an
 unchanged one loads straight away. Nothing here runs at import time: the
@@ -23,20 +25,30 @@ from typing import Dict
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("layernorm", "gemm", "relpos_attention", "relpos_attention_bwd", "dwconv",
-           "tiny_attention")
+# the head dims the rel-pos attention kernels are built for (forward and
+# backward); ops/relpos_attention.py runs any other head dim up to the largest
+# in the next larger one
+RELPOS_HEAD_DIMS = (32, 64, 80, 96, 128)
+# library name -> (source under csrc/ without .cu, extra nvcc flags)
+_LIBRARIES = {
+    **{n: (n, ()) for n in ("layernorm", "gemm", "relpos_attention", "dwconv",
+                            "tiny_attention")},
+    **{f"relpos_attention_bwd_hd{d}": ("relpos_attention_bwd", (f"-DMSAM_HD={d}",))
+       for d in RELPOS_HEAD_DIMS},
+}
+SOURCES = tuple(_LIBRARIES)  # the libraries, by name
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_BWD_SIGNATURE = ("msam_relpos_attention_bwd",
+                  [_I] + [_P] * 13 + [_LL] + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P])
 _SIGNATURES = {
-    "layernorm": ("msam_layernorm", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    "layernorm": ("msam_layernorm", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
     "gemm": ("msam_gemm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "relpos_attention": ("msam_relpos_attention",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          ctypes.POINTER(_LL), _F, _I, _P]),
-    "relpos_attention_bwd": ("msam_relpos_attention_bwd",
-                             [_I] + [_P] * 13 + [_LL] + [_I] * 6
-                             + [ctypes.POINTER(_LL), _F, _I, _P]),
+                          ctypes.POINTER(_LL), _F, _I, _I, _I, _I, _P]),
+    **{f"relpos_attention_bwd_hd{d}": _BWD_SIGNATURE for d in RELPOS_HEAD_DIMS},
     "dwconv": ("msam_dwconv", [_P] * 5 + [_I] * 6 + [_P]),
     "tiny_attention": ("msam_tiny_attention", [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
 }
@@ -80,9 +92,10 @@ def build() -> Dict[str, str]:
     procs = {}
     for n in todo:
         tmp = f"{paths[n]}.{os.getpid()}.tmp"
+        src, flags = _LIBRARIES[n]
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-               "-I", CSRC, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo", *flags,
+               "-I", CSRC, "-o", tmp, os.path.join(CSRC, f"{src}.cu")]
         log = open(os.path.join(out_dir, f"{n}.log"), "w")
         procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
@@ -98,13 +111,14 @@ def build() -> Dict[str, str]:
         msgs = []
         for n in failed:
             with open(os.path.join(out_dir, f"{n}.log")) as f:
-                msgs.append(f"--- {n}.cu ---\n{f.read()[-4000:]}")
+                msgs.append(f"--- {n} ({_LIBRARIES[n][0]}.cu) ---\n{f.read()[-4000:]}")
         raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
     return paths
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel source, building all of them at first use."""
+    """The loaded library ``name`` (one of ``SOURCES``), building all of them at
+    first use."""
     with _lock:
         if name not in _libs:
             paths = build()

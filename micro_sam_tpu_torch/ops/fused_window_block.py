@@ -29,6 +29,27 @@ chain through the kernels' plain PyTorch versions; it is the oracle the card
 holds the kernel chain against. The JAX oracles are
 ``micro_sam_tpu/ops/fused_window_block.py::_unfused_reference``,
 ``::_unfused_window_attn_half`` and ``::_unfused_attn_half``.
+
+Two more routes of the windowed blocks, the encoder's opt-in knobs (as in the
+JAX package, inference only):
+
+- ``fused_window_block_spatial`` (the TPU's K9, ``MSAM_TPU_SPATIAL_WINDOW=1``):
+  the same seven launches on the padded (B, Hp, Wp, C) map instead of
+  partitioned windows. LN and the products are per row, so they take the
+  map's rows as they are, LN1's pad mask computed from each row's position
+  (``layernorm(grid=...)``); the attention is ``relpos_attention_spatial``,
+  which gathers each window's q / k / v from the qkv product's map rows and
+  writes the proj product's map rows. No partition or unpartition copy is
+  made, and each row and window sees the arithmetic of the partitioned
+  chain.
+- ``fused_window_stack`` (the TPU's K11, ``MSAM_TPU_WINDOW_STACK=1``): K2
+  grouped per image. On the TPU it exists so that the qkv, proj and MLP
+  products run over an image's whole window stack instead of one window's
+  196 rows; here every ``gemm`` launch of the chain already spans all windows
+  of all images, so K11 is the seven-launch chain under K11's per-image
+  interface and needs no kernel of its own. The TPU's VMEM gate
+  (``window_stack_config``) has no counterpart: the chain keeps nothing
+  resident, so it takes every geometry.
 """
 from __future__ import annotations
 
@@ -38,7 +59,8 @@ import torch
 
 from .gemm import gemm, gemm_plain
 from .layernorm import layernorm, layernorm_plain
-from .relpos_attention import relpos_attention, relpos_attention_plain
+from .relpos_attention import (relpos_attention, relpos_attention_plain,
+                               relpos_attention_spatial, relpos_attention_spatial_plain)
 
 
 def _relpos_attention_plain_into(q, k, v, rel_h, rel_w, hw, out):
@@ -46,14 +68,20 @@ def _relpos_attention_plain_into(q, k, v, rel_h, rel_w, hw, out):
     return out
 
 
-_KERNELS = (layernorm, gemm, relpos_attention)
-_PLAIN = (layernorm_plain, gemm_plain, _relpos_attention_plain_into)
+def _relpos_attention_spatial_plain_into(q, k, v, rel_h, rel_w, window, out):
+    out.copy_(relpos_attention_spatial_plain(q, k, v, rel_h, rel_w, window))
+    return out
+
+
+_KERNELS = (layernorm, gemm, relpos_attention, relpos_attention_spatial)
+_PLAIN = (layernorm_plain, gemm_plain, _relpos_attention_plain_into,
+          _relpos_attention_spatial_plain_into)
 
 
 def _attn_half(x: torch.Tensor, valid: Optional[torch.Tensor], block, hw: Tuple[int, int],
                num_heads: int, plain: bool) -> torch.Tensor:
     """Launches 1-4 of a block: x + proj(attn(LN1(x) * valid)), (Bn, N, C)."""
-    ln, mm, att = _PLAIN if plain else _KERNELS
+    ln, mm, att, _ = _PLAIN if plain else _KERNELS
     Bn, N, C = x.shape
     hd = C // num_heads
     M = Bn * N
@@ -73,7 +101,7 @@ def _attn_half(x: torch.Tensor, valid: Optional[torch.Tensor], block, hw: Tuple[
 
 def _mlp_half(x: torch.Tensor, block, plain: bool) -> torch.Tensor:
     """Launches 5-7 of a block: x + lin2(gelu(lin1(LN2(x)))), (Bn, N, C)."""
-    ln, mm, _ = _PLAIN if plain else _KERNELS
+    ln, mm, _, _ = _PLAIN if plain else _KERNELS
     shape = x.shape
     xf = x.reshape(-1, shape[-1]).contiguous()
     b = ln(xf, block.norm2.weight, block.norm2.bias, block.norm2.eps)
@@ -132,3 +160,69 @@ def fused_global_block(x: torch.Tensor, block, hw: Tuple[int, int],
 
 def fused_global_block_plain(x, block, hw, num_heads):
     return mlp_half_plain(fused_global_attn_plain(x, block, hw, num_heads), block)
+
+
+def _spatial_block(xp: torch.Tensor, block, window: int, valid_hw: Tuple[int, int],
+                   num_heads: int, plain: bool) -> torch.Tensor:
+    """The seven launches of a windowed block on the padded map xp
+    (B, Hp, Wp, C) -> (B, Hp, Wp, C)."""
+    ln, mm, _, att = _PLAIN if plain else _KERNELS
+    B, Hp, Wp, C = xp.shape
+    if Hp % window or Wp % window:
+        raise ValueError(f"fused_window_block_spatial: map {(Hp, Wp)} is not whole "
+                         f"{window} x {window} windows")
+    hd = C // num_heads
+    M = B * Hp * Wp
+    attn = block.attn
+    xf = xp.reshape(M, C).contiguous()
+    grid = None if (Hp, Wp) == tuple(valid_hw) else (Hp, Wp, *valid_hw)
+    a = ln(xf, block.norm1.weight, block.norm1.bias, block.norm1.eps, None, grid)
+    qkv = mm(a, attn.qkv.weight, attn.qkv.bias)
+    q6 = qkv.view(B, Hp, Wp, 3, num_heads, hd)
+    q, k, v = (q6[:, :, :, i] for i in range(3))  # (B, Hp, Wp, nH, hd) map views
+    rel_h, rel_w = attn.rel_tables((window, window), xp.dtype)
+    o = torch.empty((B, Hp, Wp, num_heads, hd), device=xp.device, dtype=xp.dtype)
+    att(q, k, v, rel_h, rel_w, window, out=o)
+    x1 = mm(o.view(M, C), attn.proj.weight, attn.proj.bias, "residual", xf)
+    return _mlp_half(x1, block, plain).view(B, Hp, Wp, C)
+
+
+def fused_window_block_spatial(xp: torch.Tensor, block, window: int,
+                               valid_hw: Tuple[int, int], num_heads: int) -> torch.Tensor:
+    """A windowed block (K9) on the padded map: xp (B, Hp, Wp, C), Hp and Wp
+    multiples of ``window``, ``valid_hw`` the true (H, W) before padding ->
+    (B, Hp, Wp, C). LN1 zeroes the pad rows (y >= H or x >= W), as the
+    partitioned chain's mask does. JAX counterpart:
+    ``micro_sam_tpu/ops/fused_window_block.py::fused_window_block_spatial``;
+    oracle ``_unfused_reference`` on the partitioned windows."""
+    return _spatial_block(xp, block, window, valid_hw, num_heads, plain=False)
+
+
+def fused_window_block_spatial_plain(xp, block, window, valid_hw, num_heads):
+    return _spatial_block(xp, block, window, valid_hw, num_heads, plain=True)
+
+
+def _window_stack(x, valid, block, hw, num_heads, n_images, plain):
+    BW = x.shape[0]
+    if n_images <= 0 or BW % n_images:
+        raise ValueError(f"fused_window_stack: {BW} windows are not n_images = {n_images} "
+                         f"equal stacks")
+    if hw[0] != hw[1] or x.shape[1] != hw[0] * hw[1]:
+        raise ValueError(f"fused_window_stack: windows {tuple(x.shape)} over grid {hw}")
+    return _mlp_half(_attn_half(x, valid, block, hw, num_heads, plain), block, plain)
+
+
+def fused_window_stack(x: torch.Tensor, valid: Optional[torch.Tensor], block,
+                       hw: Tuple[int, int], num_heads: int, n_images: int) -> torch.Tensor:
+    """A windowed block over the window stacks of ``n_images`` images (K11):
+    x (n_images * NW, N, C) windows, image by image; valid (.., N, 1) pad mask
+    or None -> (n_images * NW, N, C). The seven launches of
+    ``fused_window_block``, each over every window of every image (see the
+    module's docstring). JAX counterpart:
+    ``micro_sam_tpu/ops/fused_window_block.py::fused_window_stack``; oracle
+    ``_unfused_reference``."""
+    return _window_stack(x, valid, block, hw, num_heads, n_images, plain=False)
+
+
+def fused_window_stack_plain(x, valid, block, hw, num_heads, n_images):
+    return _window_stack(x, valid, block, hw, num_heads, n_images, plain=True)

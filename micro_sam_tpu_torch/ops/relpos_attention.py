@@ -28,21 +28,107 @@ Backward: four launches (row statistics, dk/dv, dq with the per-key-row and
 per-key-column sums of dS, the table gradients), about 10 N^2 hd flops per
 head; see the source for the design.
 
-Head dims: both kernels are built for 64 (vit_b, vit_l) and 80 (vit_h),
-``HEAD_DIMS`` for the forward and ``BWD_HEAD_DIMS`` for the backward; a CUDA
-tensor of another head dim raises before any launch. The plain versions take
-any.
+Head dims: both kernels are built for 32, 64 (vit_b, vit_l), 80 (vit_h), 96
+and 128 (``HEAD_DIMS``). A CUDA tensor of another head dim up to 128 runs in
+the smallest of those at least as large: the wrapper stages q, k, v, the
+tables (and for the backward out and dout) into zero-padded buffers, keeps
+the scale at the true head dim's ``hd ** -0.5`` and writes the first ``hd``
+columns back. Zero columns add nothing to q . k or q . rel, and the extra
+output columns (and those of d rel_h / d rel_w) are dropped, so the result is
+the same function. Views the kernels cannot read in place (rows not 16-byte
+aligned, a strided head dim) go through the same staging. Above 128 the
+wrappers raise. The plain versions take any head dim.
+
+Spatial mode (``relpos_attention_spatial``): the forward over the w x w
+windows of padded (B, Hp, Wp) token maps, reading q, k, v from the map's rows
+and writing the output into them, for ``fused_window_block_spatial`` (the
+TPU's spatial window kernel).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from . import _cuda
 
-HEAD_DIMS = (64, 80)  # the forward: vit_b and vit_l (64), vit_h (80)
-BWD_HEAD_DIMS = (64, 80)  # the backward kernel: vit_b / vit_l and vit_h finetuning
+HEAD_DIMS = _cuda.RELPOS_HEAD_DIMS  # the instantiated head dims, forward and backward
+BWD_HEAD_DIMS = HEAD_DIMS
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The instantiated head dim a head dim ``hd`` runs in: the smallest of
+    ``HEAD_DIMS`` at least as large. Raises above ``MAX_HEAD_DIM``."""
+    for d in HEAD_DIMS:
+        if d >= hd:
+            return d
+    raise ValueError(f"the rel-pos attention kernels take head dims up to {MAX_HEAD_DIM}, "
+                     f"not {hd}")
+
+
+def _in_place(t: torch.Tensor) -> bool:
+    """Whether a kernel reads (or writes) ``t`` where it lies: a contiguous
+    last axis and 16-byte aligned rows."""
+    item = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all((s * item) % 16 == 0 for s in t.stride()[:-1]))
+
+
+def _staged(t: torch.Tensor, hdp: int, ok: Callable[[torch.Tensor], bool] = _in_place,
+            fill: bool = True) -> torch.Tensor:
+    """``t`` itself when its last axis is ``hdp`` long and ``ok(t)``; else a
+    contiguous buffer with ``hdp`` columns, its first ``t.shape[-1]`` columns
+    a copy of ``t`` (with ``fill``) and the rest zero (an output buffer when
+    not ``fill``)."""
+    if t.shape[-1] == hdp and ok(t):
+        return t
+    if not fill:
+        return torch.empty(t.shape[:-1] + (hdp,), device=t.device, dtype=t.dtype)
+    buf = t.new_zeros(t.shape[:-1] + (hdp,))
+    buf[..., :t.shape[-1]].copy_(t)
+    return buf
+
+
+def _tables(rel_h: torch.Tensor, rel_w: torch.Tensor, dt: torch.dtype, hdp: int):
+    """The rel-pos tables as the kernels read them: contiguous (H, H, hdp) /
+    (W, W, hdp) in ``dt``."""
+    return tuple(_staged(t.to(dt).contiguous(), hdp) for t in (rel_h, rel_w))
+
+
+def _launch_forward(q, k, v, rel_h, rel_w, out, dims, geo, ok, strides_of) -> None:
+    """One launch of the forward kernel. ``dims`` = (B, nH, N, H, W) as the
+    kernel sees them, ``geo`` = (window, nwy, nwx) (zeros: the plain mode);
+    ``ok`` / ``strides_of``: whether the kernel takes a tensor where it lies,
+    and its (batch, head, token) element strides."""
+    B, nH, N, H, W = dims
+    hd = q.shape[-1]
+    hdp = kernel_head_dim(hd)
+    for t in (k, v, out):
+        if t.dtype != q.dtype or t.device != q.device or t.shape != q.shape:
+            raise ValueError("relpos_attention: q, k, v, out share shape, dtype and device")
+    if rel_h.shape != (H, H, hd) or rel_w.shape != (W, W, hd):
+        raise ValueError("relpos_attention: rel tables must be (H, H, hd) and (W, W, hd)")
+    rh, rw = _tables(rel_h, rel_w, q.dtype, hdp)
+    qs, ks, vs = (_staged(t, hdp, ok) for t in (q, k, v))
+    os_ = _staged(out, hdp, ok, fill=False)
+    strides = [x for t in (qs, ks, vs, os_) for x in strides_of(t)]
+    _forward_kernel(qs, ks, vs, rh, rw, os_, dims, hdp, float(hd ** -0.5), geo, strides)
+    if os_ is not out:
+        out.copy_(os_[..., :hd])
+
+
+def _forward_kernel(q, k, v, rh, rw, out, dims, hdp, scale, geo, strides) -> None:
+    """One launch of ``csrc/relpos_attention.cu`` on operands it takes as they
+    are (head dim ``hdp``, one of ``HEAD_DIMS``), ``scale`` the true head
+    dim's."""
+    B, nH, N, H, W = dims
+    lib = _cuda.library("relpos_attention")
+    rc = lib.msam_relpos_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
+        B, nH, N, H, W, hdp, (_cuda._LL * 12)(*strides), scale, *geo, _cuda.dtype_code(q),
+        _cuda.stream_ptr(q))
+    _cuda.check("relpos_attention", rc)
 
 
 def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,7 +154,7 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention with the decomposed rel-pos bias over strided (B, nH, N, hd)
     views. ``out``, when given, is a (B, nH, N, hd) view the result is written
     into (and returned). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
+    launches the kernel, for any head dim up to ``MAX_HEAD_DIM`` (128)."""
     B, nH, N, hd = q.shape
     H, W = hw
     if N != H * W or k.shape != q.shape or v.shape != q.shape:
@@ -81,36 +167,75 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if q.device.type != "cuda":
         raise RuntimeError(f"relpos_attention: unsupported device {q.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"relpos_attention: head dim {hd} not in {HEAD_DIMS}")
     if out is None:
         out = torch.empty((B, nH, N, hd), device=q.device, dtype=q.dtype)
-    rh, rw = (t.to(q.dtype).contiguous() for t in (rel_h, rel_w))
-    rh, rw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (rh, rw))
-    if rh.shape != (H, H, hd) or rw.shape != (W, W, hd):
-        raise ValueError("relpos_attention: rel tables must be (H, H, hd) and (W, W, hd)")
-    item = q.element_size()
-    strides = []
-    for t in (q, k, v, out):
-        if t.dtype != q.dtype or t.device != q.device or t.stride(-1) != 1:
-            raise ValueError("relpos_attention: q, k, v, out share dtype and device, "
-                             "with a contiguous head dim")
-        st = t.stride()[:3]
-        if t.data_ptr() % 16 or any((s * item) % 16 for s in st):
-            raise ValueError("relpos_attention: rows must be 16-byte aligned")
-        strides.extend(st)
-    st_arr = (_cuda._LL * 12)(*strides)
-    lib = _cuda.library("relpos_attention")
-    rc = lib.msam_relpos_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-        B, nH, N, H, W, hd, st_arr, float(hd ** -0.5), _cuda.dtype_code(q),
-        _cuda.stream_ptr(q))
-    _cuda.check("relpos_attention", rc)
+    _launch_forward(q, k, v, rel_h, rel_w, out, (B, nH, N, H, W), (0, 0, 0), _in_place,
+                    lambda t: t.stride()[:3])
     relpos_attention.launches += 1
     return out
 
 
 relpos_attention.launches = 0
+
+
+def _windows(m: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, Hp, Wp, nH, hd) maps -> their (B * nW, nH, w * w, hd) windows (a copy)."""
+    B, Hp, Wp, nH, hd = m.shape
+    m = m.reshape(B, Hp // w, w, Wp // w, w, nH, hd).permute(0, 1, 3, 5, 2, 4, 6)
+    return m.reshape(-1, nH, w * w, hd)
+
+
+def _unwindows(o: torch.Tensor, B: int, Hp: int, Wp: int, w: int) -> torch.Tensor:
+    """(B * nW, nH, w * w, hd) windows -> (B, Hp, Wp, nH, hd) maps."""
+    nH, hd = o.shape[1], o.shape[3]
+    o = o.reshape(B, Hp // w, Wp // w, nH, w, w, hd).permute(0, 1, 4, 2, 5, 3, 6)
+    return o.reshape(B, Hp, Wp, nH, hd)
+
+
+def relpos_attention_spatial_plain(q, k, v, rel_h, rel_w, window: int) -> torch.Tensor:
+    """The spatial mode's plain version: partition the (B, Hp, Wp, nH, hd)
+    maps into windows, ``relpos_attention_plain`` over each, and back."""
+    B, Hp, Wp, _, _ = q.shape
+    res = relpos_attention_plain(*(_windows(t, window) for t in (q, k, v)), rel_h, rel_w,
+                                 (window, window))
+    return _unwindows(res, B, Hp, Wp, window)
+
+
+def relpos_attention_spatial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             rel_h: torch.Tensor, rel_w: torch.Tensor, window: int,
+                             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``relpos_attention`` over each ``window`` x ``window`` window of padded
+    token maps, straight from the maps: q, k, v and ``out`` (written into and
+    returned when given) are (B, Hp, Wp, nH, hd) views, Hp and Wp multiples
+    of ``window``, with rel_h / rel_w the (window, window, hd) tables. The
+    kernel's spatial mode reads each window's tokens from the map rows by
+    index arithmetic (the qkv product's rows in, the proj product's rows
+    out), with no partition copy. A CPU tensor takes the plain version."""
+    B, Hp, Wp, nH, hd = q.shape
+    w = window
+    if Hp % w or Wp % w or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"relpos_attention_spatial: shapes {tuple(q.shape)}, window {w}")
+    if q.device.type == "cpu":
+        res = relpos_attention_spatial_plain(q, k, v, rel_h, rel_w, w)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if q.device.type != "cuda":
+        raise RuntimeError(f"relpos_attention_spatial: unsupported device {q.device}")
+    if out is None:
+        out = torch.empty((B, Hp, Wp, nH, hd), device=q.device, dtype=q.dtype)
+    nwy, nwx = Hp // w, Wp // w
+
+    def ok(t):  # map rows: row (y, x) at (y * Wp + x) * token stride
+        return _in_place(t) and t.stride(1) == Wp * t.stride(2) and t.stride(0) == Hp * t.stride(1)
+    _launch_forward(q, k, v, rel_h, rel_w, out, (B * nwy * nwx, nH, w * w, w, w),
+                    (w, nwy, nwx), ok, lambda t: (0, t.stride(3), t.stride(2)))
+    relpos_attention_spatial.launches += 1
+    return out
+
+
+relpos_attention_spatial.launches = 0
 
 
 def relpos_attention_backward_plain(q, k, v, out, dout, rel_h, rel_w, hw):
@@ -159,11 +284,12 @@ def relpos_attention_backward(q, k, v, out, dout, rel_h, rel_w, hw: Tuple[int, i
                               dv: Optional[torch.Tensor] = None):
     """Gradients of ``relpos_attention``: (dq, dk, dv, d rel_h, d rel_w).
 
-    q, k, v, out, dout, and dq / dk / dv when given, are (B, nH, N, hd) views
-    with a contiguous head dim; the gradients are written into the given views
-    (e.g. the rows of the qkv product's gradient). rel_h / rel_w are the
-    tables the forward used. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel's four stages."""
+    q, k, v, out, dout, and dq / dk / dv when given, are (B, nH, N, hd) views;
+    the gradients are written into the given views (e.g. the rows of the qkv
+    product's gradient). rel_h / rel_w are the tables the forward used. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel's four
+    stages, for any head dim up to ``MAX_HEAD_DIM`` (128; staged as the
+    forward's, the table gradients cut back to ``hd``)."""
     B, nH, N, hd = q.shape
     H, W = hw
     if N != H * W or any(t.shape != q.shape for t in (k, v, out, dout)):
@@ -176,43 +302,61 @@ def relpos_attention_backward(q, k, v, out, dout, rel_h, rel_w, hw: Tuple[int, i
         return (*grads, res[3], res[4])
     if q.device.type != "cuda":
         raise RuntimeError(f"relpos_attention_backward: unsupported device {q.device}")
-    if hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"relpos_attention_backward: the backward kernel takes head dims "
-                         f"{BWD_HEAD_DIMS}, not {hd}")
+    return _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv)
+
+
+def _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv):
+    """The kernel path of ``relpos_attention_backward``: operands staged to an
+    instantiated head dim where needed, the four stages, the results cut
+    back to ``hd``."""
+    B, nH, N, hd = q.shape
+    H, W = hw
+    hdp = kernel_head_dim(hd)
     grads = [torch.empty((B, nH, N, hd), device=q.device, dtype=q.dtype) if t is None else t
              for t in (dq, dk, dv)]
-    rh, rw = (t.to(q.dtype).contiguous() for t in (rel_h, rel_w))
-    rh, rw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (rh, rw))
-    if rh.shape != (H, H, hd) or rw.shape != (W, W, hd):
-        raise ValueError("relpos_attention_backward: rel tables must be (H, H, hd) and (W, W, hd)")
-    item = q.element_size()
-    strides = []
-    for t in (q, k, v, out, dout, *grads):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or t.stride(-1) != 1:
+    for t in (k, v, out, dout, *grads):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("relpos_attention_backward: q, k, v, out, dout and the gradients "
-                             "share shape, dtype and device, with a contiguous head dim")
-        st = t.stride()[:3]
-        if t.data_ptr() % 16 or any((x * item) % 16 for x in st):
-            raise ValueError("relpos_attention_backward: rows must be 16-byte aligned")
-        strides.extend(st)
-    st_arr = (_cuda._LL * 24)(*strides)
-    drh = torch.empty((H, H, hd), device=q.device, dtype=torch.float32)
-    drw = torch.empty((W, W, hd), device=q.device, dtype=torch.float32)
-    n_scratch = _bwd_scratch_floats(B, nH, N, H, W)
-    scratch = torch.empty(n_scratch, device=q.device, dtype=torch.float32)
-    lib = _cuda.library("relpos_attention_bwd")
+                             "share shape, dtype and device")
+    if rel_h.shape != (H, H, hd) or rel_w.shape != (W, W, hd):
+        raise ValueError("relpos_attention_backward: rel tables must be (H, H, hd) and (W, W, hd)")
+    rh, rw = _tables(rel_h, rel_w, q.dtype, hdp)
+    ins = [_staged(t, hdp) for t in (q, k, v, out, dout)]
+    outs = [_staged(t, hdp, fill=False) for t in grads]
+    drh = torch.empty((H, H, hdp), device=q.device, dtype=torch.float32)
+    drw = torch.empty((W, W, hdp), device=q.device, dtype=torch.float32)
+    scratch = torch.empty(_bwd_scratch_floats(B, nH, N, H, W), device=q.device,
+                          dtype=torch.float32)
     for stage in range(4):
-        rc = lib.msam_relpos_attention_bwd(
-            stage, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            rh.data_ptr(), rw.data_ptr(), *(g.data_ptr() for g in grads), drh.data_ptr(),
-            drw.data_ptr(), scratch.data_ptr(), n_scratch, B, nH, N, H, W, hd, st_arr,
-            float(hd ** -0.5), _cuda.dtype_code(q), _cuda.stream_ptr(q))
-        _cuda.check("relpos_attention_bwd", rc)
+        _backward_kernel(stage, ins, rh, rw, outs, drh, drw, scratch, (B, nH, N, H, W), hdp,
+                         float(hd ** -0.5))
         relpos_attention_backward.launches += 1
+    for dst, src in zip(grads, outs):
+        if src is not dst:
+            dst.copy_(src[..., :hd])
+    if hdp != hd:
+        drh, drw = drh[..., :hd].contiguous(), drw[..., :hd].contiguous()
     return (*grads, drh, drw)
 
 
 relpos_attention_backward.launches = 0
+
+
+def _backward_kernel(stage, ins, rh, rw, outs, drh, drw, scratch, dims, hdp, scale) -> None:
+    """One stage of ``csrc/relpos_attention_bwd.cu`` (built for head dim
+    ``hdp``) on operands it takes as they are: ``ins`` q, k, v, out, dout,
+    ``outs`` dq, dk, dv; ``scratch`` f32, ``_bwd_scratch_floats`` long, shared
+    by the four stages; ``scale`` the true head dim's."""
+    B, nH, N, H, W = dims
+    q = ins[0]
+    strides = (_cuda._LL * 24)(*(x for t in (*ins, *outs) for x in t.stride()[:3]))
+    name = f"relpos_attention_bwd_hd{hdp}"
+    rc = _cuda.library(name).msam_relpos_attention_bwd(
+        stage, *(t.data_ptr() for t in ins), rh.data_ptr(), rw.data_ptr(),
+        *(g.data_ptr() for g in outs), drh.data_ptr(), drw.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), B, nH, N, H, W, hdp, strides, scale, _cuda.dtype_code(q),
+        _cuda.stream_ptr(q))
+    _cuda.check(name, rc)
 
 
 class RelPosAttentionFn(torch.autograd.Function):

@@ -24,22 +24,24 @@ def synthetic_data(shape: Tuple[int, ...] = (512, 512), radius_range: Tuple[int,
     if n_objects is None:
         n_objects = max(4, int(np.prod([s / 96 for s in shape[-2:]]) * 4))
 
-    coords = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
-    placed = []
+    centers = np.zeros((n_objects, ndim), np.int64)  # of the objects placed so far
+    radii = np.zeros(n_objects, np.int64)
     label = 0
     attempts = 0
     while label < n_objects and attempts < n_objects * 50:
         attempts += 1
         r = int(rng.integers(radius_range[0], radius_range[1] + 1))
         center = [int(rng.integers(r + 2, s - r - 2)) for s in shape]
-        if any(sum((c1 - c2) ** 2 for c1, c2 in zip(center, pc)) < (r + pr + 3) ** 2
-               for pc, pr in placed):
+        d2 = ((centers[:label] - np.array(center)) ** 2).sum(axis=1)
+        if (d2 < (radii[:label] + r + 3) ** 2).any():
             continue
-        disk = sum((c - cc) ** 2 for c, cc in zip(coords, center)) <= r ** 2
+        # the disk within its bounding box (the centre keeps it inside the image)
+        box = tuple(slice(c - r, c + r + 1) for c in center)
+        disk = sum(d ** 2 for d in np.ogrid[tuple(slice(-r, r + 1) for _ in shape)]) <= r ** 2
         label += 1
-        image[disk] = 255
-        segmentation[disk] = label
-        placed.append((center, r))
+        image[box][disk] = 255
+        segmentation[box][disk] = label
+        centers[label - 1], radii[label - 1] = center, r
 
     noise = rng.normal(0, 8, size=shape)
     image = np.clip(image.astype(np.float64) * 0.7 + 40 + noise, 0, 255).astype(np.uint8)

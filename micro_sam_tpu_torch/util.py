@@ -1,9 +1,9 @@
 """Model loading, image normalization and the embedding precompute / cache.
 
-Counterpart of ``micro_sam_tpu/util.py`` for the untiled 2d and 3d paths. The
-cache is a zarr store (``utils/zarr_lite``) with the same layout and signature
-attributes as the JAX package's, so a cache written by either package loads
-in the other.
+Counterpart of ``micro_sam_tpu/util.py`` for the 2d and 3d paths, untiled and
+tiled. The cache is a zarr store (``utils/zarr_lite``) with the same layout
+and signature attributes as the JAX package's, so a cache written by either
+package loads in the other.
 """
 from __future__ import annotations
 
@@ -11,8 +11,9 @@ import hashlib
 import os
 import pickle
 import warnings
+from concurrent import futures
 from dataclasses import replace
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ from .models.convert import load_native_checkpoint, load_torch_checkpoint, param
 from .models.sam import Sam, SamConfig
 from .predictor import SamPredictor
 from .utils import zarr_lite
+from .utils.blocking import Blocking
 from .utils.transforms import get_preprocess_shape
 
 ImageEmbeddings = Dict[str, Any]
@@ -161,8 +163,9 @@ def _compute_data_signature(input_: np.ndarray) -> str:
     return hashlib.sha1(np.ascontiguousarray(input_).tobytes()).hexdigest()
 
 
-def _embedding_signature(predictor: SamPredictor, input_: np.ndarray) -> Dict[str, Any]:
-    return {
+def _embedding_signature(predictor: SamPredictor, input_: np.ndarray,
+                         tile_shape=None, halo=None) -> Dict[str, Any]:
+    sig = {
         "data_signature": _compute_data_signature(input_),
         "model_type": predictor.model_type,
         "model_name": predictor.model_name or predictor.model_type,
@@ -170,6 +173,10 @@ def _embedding_signature(predictor: SamPredictor, input_: np.ndarray) -> Dict[st
         "model_hash": predictor._hash,
         "backend": "torch",
     }
+    if tile_shape is not None:
+        sig["tile_shape"] = list(tile_shape)
+        sig["halo"] = list(halo)
+    return sig
 
 
 def _check_saved_embeddings(f, signature: Dict[str, Any]) -> bool:
@@ -218,44 +225,96 @@ def _resize_for_encoder(predictor: SamPredictor, image: np.ndarray) -> np.ndarra
     return predictor.transform.apply_image(_to_image(image))
 
 
+def get_block_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Default tile shape: up to 2048 a side (per slice for 3d)."""
+    if len(shape) == 2:
+        return tuple(min(s, 2048) for s in shape)
+    return (1,) + tuple(min(s, 2048) for s in shape[1:])
+
+
+def _tile_grid(shape_2d, tile_shape) -> Blocking:
+    return Blocking((0, 0), tuple(shape_2d), tuple(tile_shape))
+
+
+class _EmbeddingWriter:
+    """Writes tiles to the cache on a thread pool while the card encodes."""
+
+    def __init__(self):
+        self._pool = futures.ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 4))
+        self._futures: List[futures.Future] = []
+
+    def submit(self, fn, *args):
+        self._futures.append(self._pool.submit(fn, *args))
+
+    def finish(self):
+        try:
+            for f in self._futures:
+                f.result()
+        finally:
+            self._pool.shutdown()
+
+
 def precompute_image_embeddings(
     predictor: SamPredictor, input_: np.ndarray, save_path: Optional[str] = None,
     lazy_loading: bool = False, ndim: Optional[int] = None,
     tile_shape: Optional[Tuple[int, int]] = None, halo: Optional[Tuple[int, int]] = None,
     verbose: bool = True, batch_size: int = 1, pbar_init=None, pbar_update=None,
+    mask: Optional[np.ndarray] = None, tile_subset: Optional[Sequence[int]] = None,
+    finalize: bool = True,
 ) -> ImageEmbeddings:
-    """Compute (or load cached) image embeddings of a 2d image or a 3d volume.
+    """Compute (or load cached) image embeddings of a 2d image or a 3d volume,
+    whole or in tiles.
 
-    Embeddings are cached at ``save_path`` with the signature attributes of the
-    JAX package (data signature, model type and name, version, model hash).
-    Tiled precompute is not ported yet."""
-    if tile_shape is not None:
-        raise NotImplementedError("tiled precompute is not ported yet")
+    Dispatch by (ndim, tile_shape): 2d, tiled 2d, 3d, tiled 3d. A tiled
+    computation encodes each tile grown by ``halo`` (clipped to the image),
+    resized to the model's input size; same-shape tiles (2d) or slices (3d)
+    go through the encoder ``batch_size`` at a time. ``mask`` restricts it to
+    the tiles the mask touches, ``tile_subset`` to the given tile ids; tiles
+    already in the cache under the same signature are taken as they are
+    (resume), and ``finalize=False`` leaves the cache unmarked as complete.
+    Embeddings are cached at ``save_path`` with the signature attributes of
+    the JAX package (data signature, model type and name, version, model
+    hash; tile shape and halo for tiles)."""
     ndim = input_.ndim if ndim is None else ndim
+    if tile_shape is not None and halo is None:
+        halo = tuple(0 for _ in tile_shape)
+    if tile_subset is not None and tile_shape is None:
+        raise ValueError("tile_subset requires a tiled computation (tile_shape).")
     zarr_format = int(os.environ.get("MICROSAM_ZARR_FORMAT", "2"))
     if save_path is None:
         f = zarr_lite.open(zarr_lite.MemoryStore(), zarr_format=zarr_format)
     else:
         f = zarr_lite.open(str(save_path), mode="a", zarr_format=zarr_format)
 
-    signature = _embedding_signature(predictor, input_)
+    signature = _embedding_signature(predictor, input_, tile_shape, halo)
     if _check_saved_embeddings(f, signature):
-        return _load_cached_embeddings(f, lazy_loading)
+        return _load_cached_embeddings(f, tile_shape, lazy_loading)
 
     pbar_init, pbar_update, pbar_close = handle_pbar(verbose, pbar_init, pbar_update)
-    if ndim == 2:
+    tiled_args = (tile_shape, halo, batch_size, mask, pbar_init, pbar_update, tile_subset,
+                  signature)
+    if ndim == 2 and tile_shape is None:
         embeddings = _compute_2d(predictor, input_, f, pbar_init, pbar_update)
-    elif ndim == 3:
+    elif ndim == 2:
+        embeddings = _compute_tiled_2d(predictor, input_, f, *tiled_args)
+    elif ndim == 3 and tile_shape is None:
         embeddings = _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update)
+    elif ndim == 3:
+        embeddings = _compute_tiled_3d(predictor, input_, f, *tiled_args)
     else:
         raise ValueError(f"Invalid dimensionality {ndim}; expected 2 or 3.")
+    if not finalize:
+        pbar_close()
+        return embeddings
     f.attrs.update(signature)
-    f.attrs["input_size"] = list(embeddings["input_size"])
-    f.attrs["original_size"] = list(embeddings["original_size"])
+    f.attrs["input_size"] = (list(embeddings["input_size"]) if embeddings["input_size"]
+                             else None)
+    f.attrs["original_size"] = (list(embeddings["original_size"])
+                                if embeddings["original_size"] else None)
     f.attrs["done"] = True
     pbar_close()
     if lazy_loading and save_path is not None:
-        return _load_cached_embeddings(f, lazy_loading)
+        return _load_cached_embeddings(f, tile_shape, lazy_loading)
     return embeddings
 
 
@@ -306,10 +365,168 @@ def _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update) -> Ima
     return {"features": out, "input_size": input_size, "original_size": original_size}
 
 
-def _load_cached_embeddings(f, lazy_loading: bool) -> ImageEmbeddings:
+def _get_tiles_in_mask(blocking: Blocking, mask: Optional[np.ndarray]) -> List[int]:
+    if mask is None:
+        return list(range(len(blocking)))
+    mask = np.asarray(mask)
+    return [t for t in range(len(blocking)) if mask[blocking.get_block(t).slicing].any()]
+
+
+def _restrict_tiles(tile_ids: List[int], tile_subset) -> List[int]:
+    if tile_subset is None:
+        return tile_ids
+    keep = {int(t) for t in tile_subset}
+    return [t for t in tile_ids if t in keep]
+
+
+def _update_group_attrs(group, meta: Dict[str, Any]) -> None:
+    """Write group attrs only when they differ (several writers of one cache
+    pass here with the same metadata)."""
+    if any(group.attrs.get(k) != v for k, v in meta.items()):
+        group.attrs.update(meta)
+
+
+def _mark_partial_signature(features, signature) -> bool:
+    """Record which computation the partial (not yet finalized) tiles of this
+    cache belong to. True when the tiles already there carry the same
+    signature and may be taken as they are (resume), False when they are
+    leftovers of another computation and must be recomputed."""
+    marker = dict(signature)
+    if features.attrs.get("partial_signature") == marker:
+        return True
+    features.attrs["partial_signature"] = marker
+    return False
+
+
+def _load_existing_tile(features, tile_id: int):
+    """A tile already written to the cache as an in-memory entry, or None."""
+    key = str(tile_id)
+    try:
+        if key not in features:
+            return None
+        ds = features[key]
+        return {"features": ds[...], "input_size": tuple(ds.attrs["input_size"]),
+                "original_size": tuple(ds.attrs["original_size"])}
+    except (KeyError, OSError, ValueError):
+        return None
+
+
+def _write_tile(features, tile_id, tf, chunks, in_size, orig_size) -> None:
+    ds = features.create_dataset(str(tile_id), data=tf, chunks=chunks, overwrite=True)
+    ds.attrs.update({"input_size": list(in_size), "original_size": list(orig_size)})
+
+
+def _tiled_result(features, mem, tile_shape, halo, shape) -> ImageEmbeddings:
+    return {"features": mem if mem else features, "input_size": None, "original_size": None,
+            "tile_shape": tuple(tile_shape), "halo": tuple(halo), "shape": tuple(shape)}
+
+
+def _compute_tiled_2d(predictor, input_, f, tile_shape, halo, batch_size, mask, pbar_init,
+                      pbar_update, tile_subset=None, signature=None) -> ImageEmbeddings:
+    shape_2d = input_.shape[:2]
+    blocking = _tile_grid(shape_2d, tile_shape)
+    tile_ids = _restrict_tiles(_get_tiles_in_mask(blocking, mask), tile_subset)
+    pbar_init(len(tile_ids), "compute tiled image embeddings")
+    features = f.require_group("features")
+    _update_group_attrs(features, {"shape": list(shape_2d), "tile_shape": list(tile_shape),
+                                   "halo": list(halo)})
+    adopt = signature is not None and _mark_partial_signature(features, signature)
+    writer = _EmbeddingWriter()
+    mem: Dict[int, Dict[str, Any]] = {}
+    pending: List[Tuple[int, np.ndarray, Tuple[int, int]]] = []
+
+    def flush():
+        if not pending:
+            return
+        feats = _features_to_cache_layout(
+            predictor.encode_batch(np.stack([p[1] for p in pending])))
+        for j, (tile_id, resized, orig_size) in enumerate(pending):
+            tf = feats[j:j + 1]
+            in_size = tuple(resized.shape[:2])
+            mem[tile_id] = {"features": tf, "input_size": in_size, "original_size": orig_size}
+            writer.submit(_write_tile, features, tile_id, tf, tf.shape, in_size, orig_size)
+            pbar_update(1)
+        pending.clear()
+
+    try:
+        for tile_id in tile_ids:
+            existing = _load_existing_tile(features, tile_id) if adopt else None
+            if existing is not None:
+                mem[tile_id] = existing
+                pbar_update(1)
+                continue
+            tile = blocking.get_block_with_halo(tile_id, halo).outer_block
+            tile_input = input_[tile.slicing]
+            resized = _resize_for_encoder(predictor, tile_input)
+            if pending and pending[-1][1].shape != resized.shape:
+                flush()  # a batch holds tiles of one shape (border tiles differ)
+            pending.append((tile_id, resized, tuple(tile_input.shape[:2])))
+            if len(pending) == batch_size:
+                flush()
+        flush()
+    finally:
+        writer.finish()
+    return _tiled_result(features, mem, tile_shape, halo, shape_2d)
+
+
+def _compute_tiled_3d(predictor, input_, f, tile_shape, halo, batch_size, mask, pbar_init,
+                      pbar_update, tile_subset=None, signature=None) -> ImageEmbeddings:
+    n_slices = input_.shape[0]
+    cfg = predictor.model.config
+    C, E = cfg.prompt_embed_dim, cfg.embedding_size
+    blocking = _tile_grid(input_.shape[1:3], tile_shape)
+    tile_ids = _restrict_tiles(
+        _get_tiles_in_mask(blocking, None if mask is None else np.max(mask, axis=0)),
+        tile_subset)
+    pbar_init(len(tile_ids) * n_slices, "compute tiled embeddings for the volume")
+    features = f.require_group("features")
+    _update_group_attrs(features, {"shape": list(input_.shape[:3]),
+                                   "tile_shape": list(tile_shape), "halo": list(halo)})
+    adopt = signature is not None and _mark_partial_signature(features, signature)
+    writer = _EmbeddingWriter()
+    mem: Dict[int, Dict[str, Any]] = {}
+    try:
+        for tile_id in tile_ids:
+            existing = _load_existing_tile(features, tile_id) if adopt else None
+            if existing is not None:
+                mem[tile_id] = existing
+                pbar_update(n_slices)
+                continue
+            tile = blocking.get_block_with_halo(tile_id, halo).outer_block
+            tile_feats = np.zeros((n_slices, 1, C, E, E), dtype=np.float32)
+            orig_size = tuple(tile.shape)
+            in_size = get_preprocess_shape(orig_size[0], orig_size[1], cfg.img_size)
+            for z0 in range(0, n_slices, batch_size):
+                zs = range(z0, min(z0 + batch_size, n_slices))
+                batch = np.stack([_resize_for_encoder(predictor, input_[(z,) + tile.slicing])
+                                  for z in zs])
+                tile_feats[z0:z0 + len(zs), 0] = _features_to_cache_layout(
+                    predictor.encode_batch(batch))
+                pbar_update(len(zs))
+            mem[tile_id] = {"features": tile_feats, "input_size": in_size,
+                            "original_size": orig_size}
+            writer.submit(_write_tile, features, tile_id, tile_feats, (1, 1, C, E, E), in_size,
+                          orig_size)
+    finally:
+        writer.finish()
+    return _tiled_result(features, mem, tile_shape, halo, input_.shape[:3])
+
+
+def _load_cached_embeddings(f, tile_shape, lazy_loading: bool) -> ImageEmbeddings:
     features = f["features"]
-    if not hasattr(features, "shape"):
-        raise NotImplementedError("tiled embedding caches are not ported yet")
+    if tile_shape is not None or not hasattr(features, "shape"):
+        # tiled: a group of per-tile datasets
+        if hasattr(features, "shape"):
+            raise RuntimeError("Cache does not contain tiled features.")
+        tiles = features if lazy_loading else {
+            int(k): {"features": features[k][...],
+                     "input_size": tuple(features[k].attrs["input_size"]),
+                     "original_size": tuple(features[k].attrs["original_size"])}
+            for k in features.keys()}
+        ga = features.attrs
+        return {"features": tiles, "input_size": None, "original_size": None,
+                "tile_shape": tuple(ga["tile_shape"]), "halo": tuple(ga["halo"]),
+                "shape": tuple(ga["shape"])}
     input_size = f.attrs.get("input_size")
     original_size = f.attrs.get("original_size")
     return {
@@ -319,12 +536,27 @@ def _load_cached_embeddings(f, lazy_loading: bool) -> ImageEmbeddings:
     }
 
 
+def _get_tile_features(image_embeddings: ImageEmbeddings, tile_id: int) -> Dict[str, Any]:
+    feats = image_embeddings["features"]
+    if isinstance(feats, dict):
+        return feats[int(tile_id)]
+    ds = feats[str(tile_id)]  # a lazily loaded cache: the zarr group
+    return {"features": ds[...], "input_size": tuple(ds.attrs["input_size"]),
+            "original_size": tuple(ds.attrs["original_size"])}
+
+
 def set_precomputed(predictor: SamPredictor, image_embeddings: ImageEmbeddings,
-                    i: Optional[int] = None) -> SamPredictor:
-    """Install precomputed embeddings (slice ``i`` of a volume) on the predictor."""
+                    i: Optional[int] = None, tile_id: Optional[int] = None) -> SamPredictor:
+    """Install precomputed embeddings (slice ``i`` of a volume; tile
+    ``tile_id`` of tiled embeddings) on the predictor."""
+    if tile_id is not None:
+        tile = _get_tile_features(image_embeddings, tile_id)
+        feats = tile["features"] if i is None else tile["features"][i]
+        predictor.set_features(feats, tile["original_size"], tile["input_size"])
+        return predictor
     features = image_embeddings["features"]
     if isinstance(features, dict) or not hasattr(features, "ndim"):
-        raise NotImplementedError("tiled embeddings are not ported yet")
+        raise ValueError("These are tiled embeddings: pass tile_id to select the tile.")
     if i is not None:
         features = features[i]
     predictor.set_features(np.asarray(features), image_embeddings["original_size"],
