@@ -8,7 +8,8 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
  2. builds the CUDA kernels from micro_sam_tpu_torch/csrc and prints the time;
  3. holds each kernel (layernorm, gemm, relpos_attention) and the two block
     chains against their plain PyTorch versions on the card, at the vit_b
-    shapes, in bf16 and f32, with timings, bounds and a library yardstick;
+    shapes, in bf16 and f32, with timings, bounds and a library yardstick
+    (relpos_attention's rows with the forward variant each launch takes);
     a chain's launches are counted around one run of it;
  4. the main path at full width: get_sam_model("vit_b") with random weights,
     precompute_image_embeddings on a 1024^2 image and a 3-slice volume, then
@@ -73,9 +74,10 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     cut to 4 blocks (global at 3) on the card against the CPU. Prints the
     phase's wall time;
 10. tiled precompute, the encoder's K9 / K11 routes and the rel-pos kernels
-    at every head dim: relpos_attention and its backward at head dims 16,
-    32, 40, 64, 80, 96, 100 and 128 (window and global grids, and a
-    misaligned view) against their plain versions, bf16 and f32; K9
+    at every head dim: relpos_attention at head dims 16, 32, 40, 64, 80, 96,
+    100, 128, 160 and 256 and its backward up to 128 (window and global
+    grids, and a misaligned view) against their plain versions, bf16 and
+    f32, the aligned bf16 forwards timed with their variant; K9
     (fused_window_block_spatial, vit_b and vit_h widths, padded and not) and
     K11 (fused_window_stack, 4 images) against their plain versions and the
     partitioned K2 chain; the device time of the partition copies K9 removes
@@ -94,8 +96,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     training numbers, the tiled routes), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
-    max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms) and, last,
-    the device line.
+    max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for
+    relpos_attention also its launches per forward variant in one vit_b
+    encode) and, last, the device line.
 """
 import json
 import os
@@ -124,32 +127,53 @@ def log(*a):
     print(*a, flush=True)
 
 
+MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
+def runs_recorded(acts):
+    """The device activities of a profiler session, split into the runs
+    between two recorded markers: each a list, in order of start."""
+    acts = sorted(acts, key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(acts) if MARKER in e.name]
+    return [acts[i + 1:j] for i, j in zip(marks, marks[1:])]
+
+
 def time_ms(fn, iters=20, warmup=3):
     """Device time of one run of ``fn``: the summed durations of the kernels
     and copies it puts on the card, from torch.profiler (CUPTI), averaged over
-    ``iters`` runs after ``warmup``. The host's gaps between launches are not
+    the runs recorded of ``iters``. The host's gaps between launches are not
     in it: small kernels launched from Python leave the card idle between
     them, which a pair of CUDA events around the run would count. A profiler
-    session now and then records no activity at all (a few in some 300
-    sessions of a run on the H100 machines, most of them early); it is run
-    again, up to ten times, and should the profiler record nothing in all of
-    them, the run fails: there is no other timer."""
+    session loses, now and then, the launches of its first milliseconds (one
+    of 20 of a K4 call in every session of a run on the H100, 20 of 40 of a
+    replay of four global launches: a mean over ``iters`` read low by as
+    much), so each session runs ``fn`` ``warmup`` times, then the ``iters``
+    runs, each followed by a marker kernel (``torch.cuda._sleep``), and
+    averages over the runs between two recorded markers. A session that
+    recorded no such run, or runs of unequal launch counts, is run again, up
+    to ten times; should none record one, the run fails: there is no other
+    timer."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
+    fn()
     torch.cuda.synchronize()
     for attempt in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warmup):
+                fn()
+            torch.cuda._sleep(1000)
             for _ in range(iters):
                 fn()
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-        if busy > 0:
-            return busy / 1e3 / iters
-        log(f"  (the profiler recorded no device activity, session {attempt + 1} of "
+        runs = runs_recorded(e for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
+        if runs and len({len(r) for r in runs}) == 1 and runs[0]:
+            return sum(e.time_range.elapsed_us() for r in runs for e in r) / 1e3 / len(runs)
+        log(f"  (the profiler recorded {len(runs)} runs of {iters} "
+            f"(launches {sorted({len(r) for r in runs})}), session {attempt + 1} of "
             f"{PROFILER_SESSIONS})")
-    raise RuntimeError(f"torch.profiler recorded no device time in {PROFILER_SESSIONS} sessions")
+    raise RuntimeError(f"torch.profiler recorded no whole run of {iters} in "
+                       f"{PROFILER_SESSIONS} sessions")
 
 
 def check(name, got, ref, dtype_name, quiet=False, tol=None):
@@ -379,10 +403,21 @@ def replay(calls, iters=10):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def relpos_variant(a):
+    """The forward kernel's variant (``forward_plan``) for a relpos_attention
+    call's arguments, with its dtype: the f32 kernel has one form."""
+    from micro_sam_tpu_torch.ops.relpos_attention import forward_plan, kernel_head_dim
+    B, nH, N, hd = a[0].shape
+    H, W = a[5]
+    if a[0].dtype == torch.float32:
+        return "f32 simt"
+    return forward_plan(N, H, W, kernel_head_dim(hd)).variant
+
+
 def measure_calls(calls, dname, shapes):
     """Each (name, args, kwargs, label) call against its f32 reference, then
     timed as the kernel, the plain version and the library call; one row per
-    call into ``shapes[name]``."""
+    call into ``shapes[name]`` (relpos_attention's with its variant)."""
     for name, a, kw, label in calls:
         kern, plain, lib, ref = counterparts(name, a, kw)
         err = check(f"{name} {label}", kern(), ref(), dname)
@@ -390,9 +425,13 @@ def measure_calls(calls, dname, shapes):
         p_ms = time_ms(plain, iters=5 if name == "relpos_attention" else 20)
         l_ms = time_ms(lib)
         b_ms, b_by = bound_of([(name, a, kw)])
-        shapes[name].append(dict(shape=label, dtype=dname, max_abs_err=err, ms=k_ms,
-                                 plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
-        log(f"    ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  "
+        row = dict(shape=label, dtype=dname, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                   library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+        if name == "relpos_attention":
+            row["variant"] = relpos_variant(a)
+        shapes[name].append(row)
+        log(f"    {('variant ' + row['variant'] + '  ') if 'variant' in row else ''}"
+            f"ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  "
             f"bound_ms {b_ms:.4f} ({b_by})")
 
 
@@ -542,6 +581,17 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None
         b_ms, b_by = bound_of(calls)
         out[name] = dict(launches_per_encode=per_encode[name], max_abs_err=err, ms=k_ms,
                          plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+        if name == "relpos_attention":  # launches per variant, each variant replayed alone
+            out[name]["variants"] = {}
+            for var in sorted({relpos_variant(c[1]) for c in calls}):
+                mine = [c for c in calls if relpos_variant(c[1]) == var]
+                kerns = [counterparts(*c)[0] for c in mine]
+                v_ms = time_ms(lambda: [f() for f in kerns], iters=10, warmup=2)
+                v_b, v_by = bound_of(mine)
+                out[name]["variants"][var] = dict(launches=len(mine), ms=v_ms, bound_ms=v_b,
+                                                  bound_by=v_by)
+                log(f"    variant {var}: {len(mine)} launches, ms {v_ms:.4f}, bound_ms "
+                    f"{v_b:.4f} ({v_by})")
         log(f"  {name}: {len(calls)} launches of one encode, max_abs_err {err:.3e}; ms {k_ms:.4f}"
             f"  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
     del rec
@@ -600,6 +650,9 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
         out[-1]["max_abs_err"] = max([out[-1]["max_abs_err"]] + [
             r["max_abs_err"] for r in lh["shapes"][name]])
         if name == "relpos_attention":
+            out[-1]["variants"] = {k: v["launches"] for k, v in e["variants"].items()}
+            out[-1]["variants_vit_h"] = {
+                k: v["launches"] for k, v in lh["vit_h"]["per_encode"][name]["variants"].items()}
             out[-1]["launches_training_path"] = train_launches[name]
             for m in ("vit_h", "vit_l"):
                 out[-1][f"launches_{m}_training_path"] = ft[m]["launches"][name]
@@ -1815,7 +1868,7 @@ def finetuning_phase(counters, root):
 # precompute through the three encoder routes
 # ---------------------------------------------------------------------------
 
-HD_SWEEP = (16, 32, 40, 64, 80, 96, 100, 128)
+HD_SWEEP = (16, 32, 40, 64, 80, 96, 100, 128, 160, 256)  # the backward stops at 128
 SWEEP_GRIDS = ((25, 14, False), (25, 14, True), (1, 64, False))  # (batch, grid side, misaligned)
 ROUTE_KNOBS = ("MSAM_TPU_SPATIAL_WINDOW", "MSAM_TPU_WINDOW_STACK")
 ROUTES = {"default": ({}, VIT_CHAINS), "K9": ({"MSAM_TPU_SPATIAL_WINDOW": "1"}, K9_CHAINS),
@@ -1844,14 +1897,16 @@ class Route:
 
 
 def head_dim_sweep():
-    """relpos_attention and its backward at every head dim of ``HD_SWEEP`` on
-    (25, 4, 196, hd) windows and a (1, 4, 4096, hd) global grid, q / k / v
-    strided out of qkv rows, and on the windows once more with every row
-    one element off its 16-byte alignment; against the plain versions, f32
-    rel 1e-4, bf16 2e-2 of max (the backward 3e-2). Head dims the kernels are
-    not built for run staged into the next built one."""
+    """relpos_attention and (up to head dim 128) its backward at every head
+    dim of ``HD_SWEEP`` on (25, 4, 196, hd) windows and a (1, 4, 4096, hd)
+    global grid, q / k / v strided out of qkv rows, and on the windows once
+    more with every row one element off its 16-byte alignment; against the
+    plain versions, f32 rel 1e-4, bf16 2e-2 of max (the backward 3e-2). Head
+    dims the kernels are not built for run staged into the next built one.
+    The aligned bf16 forwards are timed, with their variant, bound and SDPA
+    (bias materialized) beside them."""
     from micro_sam_tpu_torch.ops.relpos_attention import (
-        kernel_head_dim, relpos_attention, relpos_attention_backward,
+        MAX_BWD_HEAD_DIM, kernel_head_dim, relpos_attention, relpos_attention_backward,
         relpos_attention_backward_plain, relpos_attention_plain)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(2468)
@@ -1870,17 +1925,34 @@ def head_dim_sweep():
                 f32 = [t.float() for t in (q, k, v, out, rh, rw)]
                 ref = relpos_attention_plain(*f32[:3], *f32[4:], (H, H))
                 err = check(f"relpos_attention {label}", out, ref, dname, quiet=True)
-                dout = torch.randn(B, nH, N, hd, generator=g).to(dev, dt)
-                grads = relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, H))
-                ref_b = relpos_attention_backward_plain(*f32[:4], dout.float(), *f32[4:], (H, H))
-                err_b = check(f"relpos_attention_backward {label}", grads, ref_b, dname,
-                              quiet=True, tol=F32_TOL if dt == torch.float32 else BWD_BF16_TOL)
+                a = (q, k, v, rh, rw, (H, H))
+                row = dict(shape=label, dtype=dname, kernel_head_dim=kernel_head_dim(hd),
+                           variant=relpos_variant(a), max_abs_err=err)
+                timing = ""
+                if dt == torch.bfloat16 and not misaligned:
+                    kern, _, lib, _ = counterparts("relpos_attention", a, {})
+                    row["ms"], row["library_ms"] = time_ms(kern), time_ms(lib)
+                    row["bound_ms"], row["bound_by"] = bound_of([("relpos_attention", a, {})])
+                    timing = (f"; ms {row['ms']:.4f}  library_ms {row['library_ms']:.4f}  "
+                              f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+                    del kern, lib
+                err_b = None
+                if hd <= MAX_BWD_HEAD_DIM:
+                    dout = torch.randn(B, nH, N, hd, generator=g).to(dev, dt)
+                    grads = relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, H))
+                    ref_b = relpos_attention_backward_plain(*f32[:4], dout.float(), *f32[4:],
+                                                            (H, H))
+                    err_b = check(f"relpos_attention_backward {label}", grads, ref_b, dname,
+                                  quiet=True,
+                                  tol=F32_TOL if dt == torch.float32 else BWD_BF16_TOL)
+                    del dout, grads, ref_b
                 torch.cuda.synchronize()
-                rows.append(dict(shape=label, dtype=dname, kernel_head_dim=kernel_head_dim(hd),
-                                 max_abs_err=err, backward_max_abs_err=err_b))
+                row["backward_max_abs_err"] = err_b
+                rows.append(row)
                 log(f"  hd {hd:3d} (kernel {kernel_head_dim(hd):3d}) {label:<32s} {dname:<8s} "
-                    f"forward max_abs_err {err:.3e}, backward {err_b:.3e} ok")
-                del flat, q5, q, k, v, out, f32, ref, grads, ref_b, dout
+                    f"{row['variant']:<8s} forward max_abs_err {err:.3e}, backward "
+                    f"{'-' if err_b is None else f'{err_b:.3e}'} ok{timing}")
+                del flat, q5, q, k, v, out, f32, ref, a
         torch.cuda.empty_cache()
     return rows
 
@@ -2189,7 +2261,7 @@ def tiled_phase(counters, root):
     from micro_sam_tpu_torch.util import (_resize_for_encoder, get_sam_model,
                                           precompute_image_embeddings)
     from micro_sam_tpu_torch.utils.blocking import Blocking
-    log("  rel-pos attention forward and backward at every head dim up to 128 vs plain")
+    log("  rel-pos attention forward at every head dim up to 256, its backward up to 128, vs plain")
     sweep = head_dim_sweep()
     log("  K9 / K11 vs their plain versions and the partitioned K2 chain")
     window_rows = window_routes_kernel_phase(counters)
@@ -2317,13 +2389,18 @@ def main():
         _cuda.library(n)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc wall {_cuda.build_seconds:.1f} s) "
         f"into {_cuda.build_dir()}")
-    for n in _cuda.SOURCES:
+    for n in _cuda.SOURCES:  # each kernel's registers and any spill or stack frame
         path = os.path.join(_cuda.build_dir(), f"{n}.log")
         if os.path.exists(path):
+            entry = ""
             with open(path) as f:
                 for line in f:
-                    if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-                        log(f"  ptxas {n}: {line.strip()}")
+                    if "Compiling entry function" in line:
+                        entry = line.split("'")[1] if "'" in line else ""
+                    elif ("registers" in line or "bytes stack frame" in line and
+                          " 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+                          not in line):
+                        log(f"  ptxas {n} {entry}: {line.strip()}")
 
     # the profiler's first sessions in a process are the ones seen to record
     # nothing: take them on a throwaway measurement
@@ -2379,7 +2456,7 @@ def main():
     # phase 10: the head-dim sweep, K9 / K11, tiled precompute through the routes
     t10 = time.perf_counter()
     log("tiled precompute on vit_b through the default, K9 (spatial window) and K11 (window "
-        "stack) routes; rel-pos attention at head dims 16-128; K9 / K11 vs plain and K2")
+        "stack) routes; rel-pos attention at head dims 16-256; K9 / K11 vs plain and K2")
     counters["relpos_attention_spatial"] = relpos_attention_spatial
     p10 = tiled_phase(counters, root)
     log(f"phase 10 (tiled precompute, K9 / K11, head dims): {time.perf_counter() - t10:.1f} s")
@@ -2398,7 +2475,8 @@ def main():
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")}}}))
-    log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS} for r in rows]}))
+    log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants",) if k in r}
+                                for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

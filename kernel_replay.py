@@ -10,14 +10,16 @@ checkout's ``build/``, records the ``layernorm`` / ``gemm`` /
 ``relpos_attention`` launches of one batch-1 1024 x 1024 vit_b encode (bf16,
 random weights from seed 0, a random image from seed 0) through the
 encoder's default route, and replays each kernel's launches back to back.
-Device time from torch.profiler (CUPTI): the mean of 20 runs after 3 warm-up
-runs, taken ``REPS`` times. Prints the card's name and power limit, one JSON
-line per checkout and the median of each kernel per checkout; ``--out``
-writes all of it to a JSON file. Needs one CUDA card.
+Device time from torch.profiler (CUPTI), by the ``time_ms`` of the
+``chip_smoke.py`` beside this script: the mean of 20 runs, taken ``REPS``
+times. Prints the card's name and power limit, one JSON line per checkout
+and the median of each kernel per checkout; ``--out`` writes all of it to
+a JSON file. Needs one CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -28,26 +30,19 @@ REPS = 5
 KNOBS = ("MSAM_TPU_SPATIAL_WINDOW", "MSAM_TPU_WINDOW_STACK")
 
 
-def device_ms(fn, iters=20, warmup=3):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(10):  # a session now and then records nothing: run it again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-        if busy > 0:
-            return busy / 1e3 / iters
-    raise RuntimeError("torch.profiler recorded no device time")
+def smoke_timer():
+    """``time_ms`` of the chip_smoke.py beside this script: one timer for both
+    scripts, loaded before a checkout's root goes on the path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(here, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.time_ms
 
 
 def child(root: str) -> dict:
     root = os.path.abspath(root)
+    device_ms = smoke_timer()
     sys.path.insert(0, root)
     import numpy as np
     import torch

@@ -8,216 +8,687 @@
 // Replaces micro_sam_tpu/ops/flash_attention.py::_flash_kernel_qkv (reached
 // through flash_attention_qkv) and the attention stage inside
 // ops/fused_window_block.py::_fused_block_kernel / ::_fused_global_kernel.
+// Built once per head dim (-DMSAM_HD=<hd>: 32, 64, 80, 96, 128 and 256), a
+// library each, so that the builds run side by side.
 //
-// One block of 4 warps per (q-tile of 64 rows, head, batch), each warp owning
-// 16 q rows. The block first builds the per-row u_h / u_w tables
-// (64 x (H + W) f32) in shared memory, then walks k/v in tiles of 64 keys with
-// an online softmax, so no N x N logits or bias ever reach device memory.
 // Every pointer comes with element strides (batch, head, token; the head dim
-// is contiguous), so the kernel reads q/k/v straight out of the qkv product's
-// token-major (M, 3, nH, hd) rows and writes the (M, nH * hd) rows the proj
-// product reads, with no transposes; the same strides serve the
-// (B, 3, nH, N, hd) -> (B, nH, N, hd) layout of flash_attention_qkv.
+// is contiguous), so the kernel reads q/k/v straight out of the qkv
+// product's token-major rows and writes the rows the proj product reads.
+// Spatial mode (Geo, relpos_common.cuh; the counterpart of the spatial window
+// kernel fused_window_block.py::_fused_block_kernel(spatial=)): the batch
+// index runs over the windows of a padded (img, Hp, Wp) token map and each
+// window's tokens are gathered from the map's rows by index arithmetic in the
+// loads and the store. Only addresses change, so a spatial launch equals the
+// plain launch on the partitioned windows to the bit. The mode is a template
+// parameter (SP).
 //
-// Spatial mode (Geo, relpos_common.cuh; the counterpart of the spatial
-// window kernel micro_sam_tpu/ops/fused_window_block.py::_fused_block_kernel
-// (spatial=), reached through fused_window_block_spatial): the batch index
-// runs over the windows of a padded (img, Hp, Wp) token map and each window's
-// tokens are gathered from the map's rows by index arithmetic in the tile
-// loads and the output store, so the qkv product's map rows are read and the
-// proj product's map rows written with no partition or unpartition copy.
-// Only the addresses change: the arithmetic is that of the plain mode. The
-// mode is a template parameter (SP), so the plain instantiations, which the
-// default route runs, compile to the plain addressing alone.
-//
-// Bound on the H100: operations. A vit_b global block (N = 4096, 12 heads,
+// Bound on the H100: operations. A vit_b global launch (N = 4096, 12 heads,
 // hd 64) is 4 N^2 hd nH = 52 GFLOP (53 us at 989 TFLOP/s) against 25 MB of
-// q/k/v/out traffic (7 us); the windowed blocks (N = 196) move 30 MB per image
-// for 3 GFLOP, so they are bound by bytes. The bf16 kernel keeps everything of
-// the inner loop in registers: q as mma.sync m16n8k16 A fragments, the
-// logits and the output as f32 accumulators, and the probabilities, whose
-// accumulator layout is the A layout of the next product, repacked to bf16
-// without leaving the thread. k/v tiles arrive through a two-slot cp.async
-// ring, the next tile in flight while the current one is multiplied. The f32
-// kernel is a plain SIMT version of the same loop, kept for holding the kernel
-// path against the plain one at a tight tolerance.
+// q/k/v/out (7 us); a vit_b window launch (25 x 12 windows of 196 tokens)
+// moves 30 MB for 3 GFLOP, so it is bound by bytes. What held the earlier
+// design of this kernel (keys in tiles of 64 tokens, the bias gathered per
+// logit) at 5 % of the tensor-core rate was not its products but the scalar
+// work around them (measured on the card by taking pieces out: the bias, a
+// division and four shared gathers per logit, 36 % of the global launch; the
+// per-row u tables built by scalar dot products, 21 % of it and 54 % of the
+// window launch). This design removes that work:
 //
-// Both are instantiated for head dims 32 (TinyViT-sized), 64 (vit_b, vit_l),
-// 80 (vit_h), 96 and 128; the wrapper runs any other head dim up to 128 in
-// the next larger one, zero-padded. Every size follows from HD (HD / 16 k
-// steps of q k^T, HD / 8 output n8 tiles, a padded row of HD + 8,
-// HD * sizeof(T) / 16 cp.async chunks a row); at 80 the bf16 kernel holds 40
-// output, 32 logit and 20 q-fragment registers and takes 89 KB of shared
-// memory at the global grid, two blocks an SM as at 64. The largest, f32 at
-// 128, takes 206 KB at the 64 x 64 global grid.
+// * Keys are laid out by map row, each row padded to WP = W rounded up to 8
+//   slots, and a key tile holds R = 64 / WP whole padded rows (the JAX
+//   kernel's row-aligned block_k). A thread's key slots within an n8 tile of
+//   the mma.sync m16n8k16 layout are 2t, 2t + 1, so its key columns kx are
+//   the same in every tile: its u_w terms (times log2 e) live in 32
+//   registers for the whole key loop, u_h is one shared load per q row per
+//   tile when R = 1 (W > 32: every SAM ViT's global blocks) and one per n8
+//   tile else, and there is no division in the loop. Padding slots carry -inf
+//   in the u tables and a tile's n8 count stops at the map's last row, so
+//   masking costs nothing. Each
+//   logit is one FFMA (scale * log2 e folded, u_h folded into the row
+//   maximum) and one ex2.approx; p is rounded to bf16 once, when packed.
+// * The u tables are tensor-core products over q rows that share a table:
+//   the q rows of a block are a patch of the map (16 x 8 cells on the
+//   global grid), so the 8 cells of a patch row share Rh[qy] and the 16 of
+//   a patch column Rw[qx]; a window's rows share them by map row and
+//   column. The tables are read once a block from L2 (192 KB for a 16 x 8
+//   patch at hd 64, against the 512 KB of Rw alone that a block of 64
+//   consecutive q tokens would read); the products, ldmatrix gathering the
+//   rows, measured 11 % of the global launch and 20 % of a window's.
+// * k fragments come through ldmatrix.x4, v fragments through
+//   ldmatrix.x4.trans, and k/v tiles through a cp.async ring of 3 slots (2
+//   above head dim 80), one barrier per tile, each thread's slot arithmetic for the tile loads done
+//   once (TileChunks, up to hd 80). A full tile (8 n8 tiles of slots) runs a
+//   guard-free copy of the loop, so the scheduler interleaves its products;
+//   the ragged last tiles of a window take the guarded one.
+//
+// Variants (chosen in ops/relpos_attention.py::forward_plan, checked here):
+// * VAR_ROWS (W <= 64): one block per (patch, head, batch), 8 warps over a
+//   16 x 8 patch (4 warps over 8 x 8 above head dim 128 or a map side above
+//   64), the key tiles above streamed through the ring. The tile loads are
+//   still about a quarter of the global launch (measured by taking them
+//   out).
+// * VAR_WINDOW (H * WP <= 256, head dim <= 128, and the resident window
+//   within the 227 KB of shared memory a block may take: the 14 x 14 windows
+//   of every SAM ViT and the tiled path, not a 16 x 16 window at head dim
+//   128, which takes VAR_ROWS): one block of 8 warps per (window, head)
+//   loads the window's q, then k and v, once (keys padded to 14 x 16 = 224
+//   slots, not to the 256 of four 64-key tiles), builds its u tables while k
+//   and v are in flight, and its warps walk the window's 13 m16 q tiles
+//   against the resident keys. Bound by bytes; what remains is latency (one
+//   block an SM: 122 KB of shared memory and 200 registers a thread at hd 64).
+// * VAR_GENERAL (W > 64): as VAR_ROWS with tiles of 64-slot segments of
+//   one row; u_w is reloaded from shared memory per tile (the per-column
+//   path).
+// Head dims above 128 (built at 256): the block computes the logits over the
+// full head dim with q fragments read from shared memory per k step, and
+// accumulates p v for one 128-column slice of the output, the slice a grid
+// dimension; each slice's columns are written once.
+//
+// ptxas (-Xptxas -v, sm_90a): no instantiation spills or keeps a stack
+// frame. Registers, rows / general / window, plain mode (spatial mode):
+// hd 32 154 / 151 / 151 (170 / 168 / 163); hd 64 193 / 195 / 183 (217 / 218 /
+// 200); hd 80 224 / 234 / 195 (234 / 252 / 216); hd 96 250 / 250 / 213 (250 /
+// 250 / 238); hd 128 210 / 209 / 213 (217 / 214 / 241); hd 256 212 / 214
+// (217 / 218); the f32 kernel 123-149.
+// Shared memory, dynamic, one block an SM in all: rows at the global grid
+// 137 KB (hd 64), 153 KB (80), 143 KB (96), 167 KB (128), 165 KB (256, 8 x 8
+// patch); window 14 x 14: 122 KB (64), 143 KB (80), 165 KB (96), 208 KB (128).
+//
+// The f32 kernel is a plain SIMT loop over 64-token key tiles, kept for holding
+// the kernel path against the plain one at a tight tolerance; above head dim
+// 128 it takes 32 q rows a block and one 128-column output slice.
 #include "relpos_common.cuh"
 
-// ---------------------------------------------------------------------------
-// bf16: mma.sync, everything of the inner loop in registers
-// ---------------------------------------------------------------------------
+#ifndef MSAM_HD
+#error "build with -DMSAM_HD=<head dim>"
+#endif
 
-template <int HD>
-__host__ __device__ constexpr size_t bf16_smem(int H, int W) {
-  return align128(sizeof(__nv_bfloat16) * 5 * 64 * (HD + 8)) + sizeof(float) * QT * (H + W + 1);
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+enum { VAR_ROWS = 0, VAR_GENERAL = 1, VAR_WINDOW = 2 };
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may take (227 KB)
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int HD, bool SP>
-__global__ void __launch_bounds__(128) relpos_attention_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ rh,
-    const __nv_bfloat16* __restrict__ rw, __nv_bfloat16* __restrict__ out, int N, int H, int W,
-    long long qsb, long long qsh, long long qsn, long long ksb, long long ksh, long long ksn,
-    long long vsb, long long vsh, long long vsn, long long osb, long long osh, long long osn,
-    float scale, Geo geo) {
-  constexpr int LDT = HD + 8;  // padded smem row: conflict-free fragment loads
-  constexpr int KS = HD / 16;  // k steps of q k^T
-  constexpr int NT = HD / 8;   // n8 tiles of the output
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Kb = Qs + 64 * LDT;      // two slots
-  __nv_bfloat16* Vb = Kb + 2 * 64 * LDT;  // two slots
-  float* U = reinterpret_cast<float*>(smem + align128(sizeof(__nv_bfloat16) * 5 * 64 * LDT));
-  const int UP = H + W + 1;  // odd row stride: the 8 rows of a fragment hit 8 banks
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
 
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = q + batch_off<SP>(geo, b, qsb, qsn) + h * qsh;
-  const __nv_bfloat16* kb = k + batch_off<SP>(geo, b, ksb, ksn) + h * ksh;
-  const __nv_bfloat16* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh;
-  __nv_bfloat16* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh;
-  const int ntiles = (N + KT - 1) / KT;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
 
-  load_tile<__nv_bfloat16, HD, 64, SP>(Qs, qb, qsn, q0, N, geo);
-  load_tile<__nv_bfloat16, HD, 64, SP>(Kb, kb, ksn, 0, N, geo);
-  load_tile<__nv_bfloat16, HD, 64, SP>(Vb, vb, vsn, 0, N, geo);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  build_u<__nv_bfloat16, HD>(U, UP, Qs, rh, rw, q0, N, H, W);
+// ---------------------------------------------------------------------------
+// key tiling (the same arithmetic as ops/relpos_attention.py::forward_plan)
+// ---------------------------------------------------------------------------
 
-  // fragment coordinates (PTX m16n8k16): g = row within 8, t = column pair
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* Qw = Qs + warp * 16 * LDT;
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    qa[kk][0] = lds32(Qw + g * LDT + kk * 16 + t * 2);
-    qa[kk][1] = lds32(Qw + (g + 8) * LDT + kk * 16 + t * 2);
-    qa[kk][2] = lds32(Qw + g * LDT + kk * 16 + t * 2 + 8);
-    qa[kk][3] = lds32(Qw + (g + 8) * LDT + kk * 16 + t * 2 + 8);
+struct Tiling {
+  int wp;      // padded row: W rounded up to 8 slots
+  int twp;     // slots of one row within a tile: min(wp, 64)
+  int rows;    // map rows a tile holds: 64 / twp
+  int segs;    // tiles across one row: 1 unless W > 64
+  int ntiles;  // key tiles
+  int uwo;     // offset of u_w in a u row: after the H u_h entries
+  int uwl;     // u_w entries a row keeps: W, then -inf up to segs * twp
+  int up;      // u row pitch (odd: the 8 rows of a fragment hit 8 banks)
+};
+
+__host__ __device__ inline Tiling tiling_of(int H, int W) {
+  Tiling T;
+  T.wp = (W + 7) & ~7;
+  T.twp = T.wp < 64 ? T.wp : 64;
+  T.rows = 64 / T.twp;
+  T.segs = (T.wp + 63) / 64;
+  T.ntiles = (H + T.rows - 1) / T.rows * T.segs;
+  T.uwo = H;
+  T.uwl = T.segs * T.twp;
+  T.up = (T.uwo + T.uwl) | 1;
+  return T;
+}
+
+struct TileAt {
+  int ky0, kx0, nj;  // first map row, first column, n8 tiles of slots in use
+};
+
+__device__ __forceinline__ TileAt tile_at(const Tiling& T, int it, int H) {
+  const int rb = it / T.segs, seg = it - rb * T.segs;
+  TileAt a;
+  a.ky0 = rb * T.rows;
+  a.kx0 = seg * 64;
+  a.nj = min(T.rows, H - a.ky0) * min(T.twp, T.wp - a.kx0) / 8;
+  return a;
+}
+
+// nslots key slots (slot = r * twp + cx: map row ky0 + r, column kx0 + cx)
+// of a strided (token, COLS) source into smem rows of pitch LD, as 16-byte
+// cp.async copies; slots outside the map (r >= nrows, a row past H, a column
+// past W) are zero-filled
+template <int COLS, int LD, bool SP>
+__device__ __forceinline__ void load_slots(bf16* dst, const bf16* src, long long sn, int nslots,
+                                           int ky0, int kx0, int twp, int nrows, int H, int W,
+                                           const Geo& geo, int tid, int nthr) {
+  constexpr int CH = COLS * (int)sizeof(bf16) / 16;
+  const int rcp = (65536 + twp - 1) / twp;  // slot / twp as a product: exact for slot < 2^10
+  for (int c = tid; c < nslots * CH; c += nthr) {
+    const int slot = c / CH, part = c - slot * CH;
+    const int r = (slot * rcp) >> 16, cx = slot - r * twp;
+    const int ky = ky0 + r, kx = kx0 + cx;
+    const bool ok = r < nrows && ky < H && kx < W;
+    const char* g = ok ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, ky * W + kx, sn)) + part * 16
+                       : reinterpret_cast<const char*>(src);
+    cp_async16(reinterpret_cast<char*>(dst + slot * LD) + part * 16, g, ok);
   }
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
-  const float* U0 = U + (warp * 16 + g) * UP;
-  const float* U1 = U0 + 8 * UP;
-  __syncthreads();  // U complete
+}
 
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {  // the next tile flies while this one is multiplied
-      const int nxt = (it + 1) & 1;
-      load_tile<__nv_bfloat16, HD, 64, SP>(Kb + nxt * 64 * LDT, kb, ksn, (it + 1) * KT, N, geo);
-      load_tile<__nv_bfloat16, HD, 64, SP>(Vb + nxt * 64 * LDT, vb, vsn, (it + 1) * KT, N, geo);
-      cp_async_commit();
+// A thread's 16-byte chunks of the 64-slot k and v tiles (the same columns
+// when the head dim is one output slice), with load_slots's slot arithmetic
+// done once: the chunk's smem offset and column offset, its slot's row r and
+// column cx within the tile (-1: a slot past the tile's rows, zero-filled;
+// -2: no chunk). Each tile then costs a few adds and compares a chunk.
+template <int HD>
+struct TileChunks {
+  static constexpr int CH = HD * (int)sizeof(bf16) / 16, NC = (64 * CH + 127) / 128;
+  int dst[NC];  // smem element offset | column element offset << 16
+  int rc[NC];   // r | cx << 8, or -1 / -2
+
+  __device__ __forceinline__ void init(const Tiling& T, int tid, int nthr) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = tid + i * nthr;
+      const int slot = c / CH, part = c - slot * CH;
+      const int r = slot / T.twp, cx = slot - r * T.twp;
+      dst[i] = (slot * (HD + 8) + part * 8) | (part * 8) << 16;
+      rc[i] = c >= 64 * CH ? -2 : r < T.rows ? r | cx << 8 : -1;
     }
-    const __nv_bfloat16* Ks = Kb + (it & 1) * 64 * LDT;
-    const __nv_bfloat16* Vs = Vb + (it & 1) * 64 * LDT;
-    const int k0 = it * KT;
+  }
 
-    // s = q k^T: 8 n8 tiles of keys
-    float s[KT / 8][4];
+  template <bool SP>
+  __device__ __forceinline__ void issue(bf16* Ks, bf16* Vs, const bf16* kb, const bf16* vb,
+                                        long long ksn, long long vsn, int ky0, int kx0, int H,
+                                        int W, const Geo& geo) const {
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int i = 0; i < NC; ++i) {
+      if (rc[i] == -2) continue;
+      const int ky = ky0 + (rc[i] & 0xff), kx = kx0 + (rc[i] >> 8);
+      const bool ok = rc[i] >= 0 && ky < H && kx < W;
+      const int d = dst[i] & 0xffff, p = dst[i] >> 16, tok = ky * W + kx;
+      cp_async16(Ks + d, ok ? kb + tok_off<SP>(geo, tok, ksn) + p : kb, ok);
+      cp_async16(Vs + d, ok ? vb + tok_off<SP>(geo, tok, vsn) + p : vb, ok);
+    }
+  }
+};
+
+// q rows [t0, t0 + nrows) into smem rows of pitch LD; rows past N zero-filled
+template <int COLS, int LD, bool SP>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long sn, int t0,
+                                          int nrows, int N, const Geo& geo, int tid, int nthr) {
+  constexpr int CH = COLS * (int)sizeof(bf16) / 16;
+  for (int c = tid; c < nrows * CH; c += nthr) {
+    const int r = c / CH, part = c - r * CH, t = t0 + r;
+    const char* g = t < N ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, t, sn)) + part * 16
+                          : reinterpret_cast<const char*>(src);
+    cp_async16(reinterpret_cast<char*>(dst + r * LD) + part * 16, g, t < N);
+  }
+}
+
+// the nrows q rows of a patch of the map 8 cells wide (row r = py * 8 + px
+// is map cell (qy0 + py, qx0 + px)) into smem rows of pitch LD; cells off
+// the map zero-filled
+template <int COLS, int LD, bool SP>
+__device__ __forceinline__ void load_patch(bf16* dst, const bf16* src, long long sn, int nrows,
+                                           int qy0, int qx0, int H, int W, const Geo& geo,
+                                           int tid, int nthr) {
+  constexpr int CH = COLS * (int)sizeof(bf16) / 16;
+  for (int c = tid; c < nrows * CH; c += nthr) {
+    const int r = c / CH, part = c - r * CH;
+    const int qy = qy0 + (r >> 3), qx = qx0 + (r & 7);
+    const bool ok = qy < H && qx < W;
+    const char* g = ok ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, qy * W + qx, sn)) + part * 16
+                       : reinterpret_cast<const char*>(src);
+    cp_async16(reinterpret_cast<char*>(dst + r * LD) + part * 16, g, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// u tables, in log2 units: row r of U belongs to smem q row r;
+// [0, H) u_h, [H, H + W) u_w, [H + W, H + uwl) -inf (the padding columns of
+// a key row); rows off the map hold 0 where a q row holds u. A tile's rows
+// past H are never read: its n8 tiles in use (nj) stop at the map's last
+// row.
+// ---------------------------------------------------------------------------
+
+// the -inf pads, and the zeros of the rows off the map: rows r >= nvalid
+// (patch false: the window's q rows past N), or the cells of a patch 8 wide
+// at (qy0, qx0) off the H x W map (patch true); the products fill the rest
+__device__ __forceinline__ void u_pads(float* U, const Tiling& T, int nrows, int nvalid, bool patch,
+                                       int qy0, int qx0, int H, int W, int tid, int nthr) {
+  const int len = T.uwo + T.uwl;
+  for (int idx = tid; idx < nrows * len; idx += nthr) {
+    const int r = idx / len, j = idx - r * len;
+    const bool on_map = patch ? qy0 + (r >> 3) < H && qx0 + (r & 7) < W : r < nvalid;
+    if (j >= T.uwo + W) U[r * T.up + j] = -INFINITY;
+    else if (!on_map) U[r * T.up + j] = 0.f;
+  }
+}
+
+// One warp: u entries of up to 16 q rows that share one table, as a
+// tensor-core product. Row i < ni of the product is smem q row
+// row0 + i * rstride (pitch HD + 8), its u row the same index; its nb entries
+// are (q row) . tab[j] (tab: nb rows of HD), written at column off.
+template <int HD>
+__device__ __forceinline__ void u_product(float* U, int up, int off, const bf16* Qs, int row0,
+                                          int rstride, int ni, const bf16* tab, int nb, int lane) {
+  constexpr int LDT = HD + 8, KS = HD / 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int ai = min(lane & 15, ni - 1);  // the row this lane addresses for ldmatrix
+  const bf16* arow = Qs + (row0 + ai * rstride) * LDT + (lane >> 4) * 8;
+  for (int nb0 = 0; nb0 < nb; nb0 += 64) {
+    float d[8][4];
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* kr = Ks + (j * 8 + g) * LDT + kk * 16 + t * 2;
-        mma16816(s[j], qa[kk], lds32(kr), lds32(kr + 8));
+    for (int n = 0; n < 8; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+    const int nn = min(8, (nb - nb0 + 7) / 8);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, arow + kk * 16);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (n < nn) {
+          const int j = min(nb0 + n * 8 + g, nb - 1);
+          const uint32_t* b = reinterpret_cast<const uint32_t*>(tab + (size_t)j * HD + kk * 16 + t * 2);
+          mma16816(d[n], a, __ldg(b), __ldg(b + 4));
+        }
       }
     }
-
-    // scale, bias and mask; row maxima over the 4 lanes sharing a row
-    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + t * 2 + e;
-        if (key < N) {
-          const int ky = key / W, kx = key - ky * W;
-          s[j][e] = s[j][e] * scale + U0[ky] + U0[H + kx];
-          s[j][2 + e] = s[j][2 + e] * scale + U1[ky] + U1[H + kx];
-        } else {
-          s[j][e] = s[j][2 + e] = -INFINITY;
+        const int j = nb0 + n * 8 + t * 2 + e;
+        if (n < nn && j < nb) {
+          if (g < ni) U[(row0 + g * rstride) * up + off + j] = d[n][e] * LOG2E;
+          if (g + 8 < ni) U[(row0 + (g + 8) * rstride) * up + off + j] = d[n][2 + e] * LOG2E;
         }
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
       }
     }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+  }
+}
 
-    // p = exp(s - m), rounded to bf16 and packed straight into A fragments
-    uint32_t pa[KT / 16][4];
-    float ps0 = 0.f, ps1 = 0.f;
+// a thread's u_w terms for its key slots (n8 tile j, column 2t + e) of the
+// tiles starting at column kx0, rows g (0, 1) and g + 8 (2, 3); -inf past
+// the tile's rows
+__device__ __forceinline__ void load_uw(float (&uw)[8][4], const float* U0, const float* U1,
+                                        const Tiling& T, int kx0, int t) {
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      const float p0 = round_to<__nv_bfloat16>(expf(s[j][0] - mn0));
-      const float p1 = round_to<__nv_bfloat16>(expf(s[j][1] - mn0));
-      const float p2 = round_to<__nv_bfloat16>(expf(s[j][2] - mn1));
-      const float p3 = round_to<__nv_bfloat16>(expf(s[j][3] - mn1));
-      ps0 += p0 + p1;
-      ps1 += p2 + p3;
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, off);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, off);
+    for (int e = 0; e < 2; ++e) {
+      const int c = j * 8 + t * 2 + e;
+      const int cx = c % T.twp;
+      const bool ok = c < T.rows * T.twp;
+      uw[j][e] = ok ? U0[T.uwo + kx0 + cx] : -INFINITY;
+      uw[j][2 + e] = ok ? U1[T.uwo + kx0 + cx] : -INFINITY;
     }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
+  }
+}
 
-    // o = o * alpha + p v; v fragments come transposed out of shared memory
+// ---------------------------------------------------------------------------
+// bf16: one warp, 16 q rows against one key tile, everything in registers
+// ---------------------------------------------------------------------------
+
+// FULL: all 8 n8 tiles of slots in use (nj == 8), so the loops carry no
+// guard and the scheduler may interleave the products freely
+template <int HD, int NV, bool QREG, bool FULL>
+__device__ __forceinline__ void attend(float (&o)[NV / 8][4], float& m0, float& m1, float& l0,
+                                       float& l1, const uint32_t (&qa)[QREG ? HD / 16 : 1][4],
+                                       const bf16* Qw, const bf16* Ks, const bf16* Vs, int nj_,
+                                       const float (&uw)[8][4], const float* U0, const float* U1,
+                                       int ky0, const int (&jy)[8], bool one_row, float c2,
+                                       int lane) {
+  constexpr int KS = HD / 16, LDK = HD + 8, LDV = NV + 8, NT = NV / 8;
+  const int nj = FULL ? 8 : nj_;
+  // s = q k^T over the tile's nj n8 tiles of key slots
+  float s[8][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= a0; o[n][1] *= a0; o[n][2] *= a1; o[n][3] *= a1;
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    if constexpr (QREG) {
+      a[0] = qa[kk][0]; a[1] = qa[kk][1]; a[2] = qa[kk][2]; a[3] = qa[kk][3];
+    } else {
+      ldsm_x4(a, Qw + (lane & 15) * LDK + kk * 16 + (lane >> 4) * 8);
     }
 #pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        unsigned addr = (unsigned)__cvta_generic_to_shared(
-            Vs + (kk * 16 + (lane & 15)) * LDT + n * 8);
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-                     : "=r"(b0), "=r"(b1) : "r"(addr));
-        mma16816(o[n], pa[kk], b0, b1);
+    for (int j = 0; j < 8; j += 2) {
+      if (j < nj) {
+        uint32_t b[4];
+        ldsm_x4(b, Ks + ((j + (lane >> 4)) * 8 + (lane & 7)) * LDK + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma16816(s[j], a, b[0], b[1]);
+        mma16816(s[j + 1], a, b[2], b[3]);
       }
     }
-
-    if (it + 1 < ntiles) cp_async_wait<0>();
-    __syncthreads();  // the next tile is visible, and this slot is free to refill
   }
 
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  // logits in log2 units, x = s * scale * log2 e + u_w (+ u_h of the slot's
+  // row when the tile holds several rows; with one row u_h is folded into
+  // the row maximum); masked slots are -inf through u_w / u_h
+  float h0 = 0.f, h1 = 0.f;
+  if (one_row) {
+    h0 = U0[ky0];
+    h1 = U1[ky0];
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nj) {
+      float b0 = uw[j][0], b1 = uw[j][1], b2 = uw[j][2], b3 = uw[j][3];
+      if (!one_row) {
+        const float y0 = U0[ky0 + jy[j]], y1 = U1[ky0 + jy[j]];
+        b0 += y0; b1 += y0; b2 += y1; b3 += y1;
+      }
+      s[j][0] = fmaf(s[j][0], c2, b0);
+      s[j][1] = fmaf(s[j][1], c2, b1);
+      s[j][2] = fmaf(s[j][2], c2, b2);
+      s[j][3] = fmaf(s[j][3], c2, b3);
+    } else {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0 + h0), mn1 = fmaxf(m1, mx1 + h1);
+  const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
+  const float ng0 = mn0 - h0, ng1 = mn1 - h1;
+
+  // p = 2^(x - m), packed to bf16 straight into A fragments; the row sums
+  // stay per thread until the end
+  uint32_t pa[4][4];
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float p0 = ex2(s[j][0] - ng0), p1 = ex2(s[j][1] - ng0);
+    const float p2 = ex2(s[j][2] - ng1), p3 = ex2(s[j][3] - ng1);
+    ps0 += p0 + p1;
+    ps1 += p2 + p3;
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+  l0 = l0 * al0 + ps0;
+  l1 = l1 * al1 + ps1;
+  m0 = mn0;
+  m1 = mn1;
+
+  // o = o * alpha + p v
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
+    o[n][0] *= al0; o[n][1] *= al0; o[n][2] *= al1; o[n][3] *= al1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (2 * kk < nj) {
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, Vs + (kk * 16 + (lane & 15)) * LDV + (n + (lane >> 4)) * 8);
+        mma16816(o[n], pa[kk], b[0], b[1]);
+        mma16816(o[n + 1], pa[kk], b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int HD, int NV, bool QREG>
+__device__ __forceinline__ void attend_tile(float (&o)[NV / 8][4], float& m0, float& m1,
+                                            float& l0, float& l1,
+                                            const uint32_t (&qa)[QREG ? HD / 16 : 1][4],
+                                            const bf16* Qw, const bf16* Ks, const bf16* Vs,
+                                            int nj, const float (&uw)[8][4], const float* U0,
+                                            const float* U1, int ky0, const int (&jy)[8],
+                                            bool one_row, float c2, int lane) {
+  if (nj == 8)
+    attend<HD, NV, QREG, true>(o, m0, m1, l0, l1, qa, Qw, Ks, Vs, nj, uw, U0, U1, ky0, jy,
+                               one_row, c2, lane);
+  else
+    attend<HD, NV, QREG, false>(o, m0, m1, l0, l1, qa, Qw, Ks, Vs, nj, uw, U0, U1, ky0, jy,
+                                one_row, c2, lane);
+}
+
+// tokens tok0 (row g) and tok1 (row g + 8) of the warp's output, normalized;
+// a row off the map (ok false) is not written
+template <int NV, bool SP>
+__device__ __forceinline__ void store_rows(bf16* ob, long long osn, const Geo& geo,
+                                           float (&o)[NV / 8][4], float l0, float l1, int tok0,
+                                           bool ok0, int tok1, bool ok1, int t) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < NV / 8; ++n) {
     const int d = n * 8 + t * 2;
-    if (r0 < N)
-      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, r0, osn) + d) = pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < N)
-      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, r1, osn) + d) = pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, tok0, osn) + d) = pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, tok1, osn) + d) = pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+template <int HD> __host__ __device__ constexpr int out_cols() { return HD > 128 ? 128 : HD; }
+// k/v ring slots: 3 up to head dim 80, 2 above (shared memory). With the
+// 16-row patches below, the global launch at hd 80 measured 5-12 % faster
+// than with 2 slots and 8-row patches; at hd 64 the two are within 1 %.
+template <int HD> __host__ __device__ constexpr int ring() { return HD <= 80 ? 3 : 2; }
+
+// the window variant's key slots: H padded rows of WP, rounded up to 16 with
+// room for the last tile's k16 step
+__host__ __device__ inline int window_slots(const Tiling& T, int H) {
+  return (H * T.wp + 8 + 15) & ~15;
+}
+
+// map rows of a tiled block's q patch (8 columns wide): 16 (8 warps, each
+// k/v tile read for 128 q rows) where the head dim and the u tables allow,
+// else 8 (4 warps)
+__host__ __device__ inline int patch_rows(int hd, int H, int W) {
+  return hd <= 128 && H <= 64 && W <= 64 ? 16 : 8;
+}
+
+template <int HD>
+__host__ __device__ size_t bf16_smem(int var, int N, int H, int W) {
+  constexpr int LDK = HD + 8, LDV = out_cols<HD>() + 8;
+  const Tiling T = tiling_of(H, W);
+  if (var == VAR_WINDOW) {
+    const int NS = window_slots(T, H), NQ = (N + 15) & ~15;
+    return align128(sizeof(bf16) * ((size_t)NS * (LDK + LDV) + (size_t)NQ * LDK)) +
+           sizeof(float) * (size_t)NQ * T.up;
+  }
+  const int QR = 8 * patch_rows(HD, H, W);
+  return align128(sizeof(bf16) * (QR * LDK + ring<HD>() * 64 * (LDK + LDV))) +
+         sizeof(float) * QR * (size_t)T.up;
+}
+
+// (256, 1): with the block size alone ptxas held the head-dim-32 window
+// kernel to 128 registers and spilled
+template <int HD, bool SP, int VAR>
+__global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ rh, const bf16* __restrict__ rw, bf16* __restrict__ out, int N,
+    int H, int W, long long qsb, long long qsh, long long qsn, long long ksb, long long ksh,
+    long long ksn, long long vsb, long long vsh, long long vsn, long long osb, long long osh,
+    long long osn, float scale, Geo geo) {
+  constexpr int NV = out_cols<HD>(), NSL = HD / NV;
+  // q fragments in registers up to head dim 96; above, read from shared
+  // memory per k step (at 128 the spatial rows kernel spilled at 255
+  // registers with them held)
+  constexpr bool QREG = HD <= 96;
+  constexpr int LDK = HD + 8, LDV = NV + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Tiling T = tiling_of(H, W);
+  const float c2 = scale * LOG2E;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y / NSL, sl = blockIdx.y - h * NSL, b = blockIdx.z;
+  const bf16* qb = q + batch_off<SP>(geo, b, qsb, qsn) + h * qsh;
+  const bf16* kb = k + batch_off<SP>(geo, b, ksb, ksn) + h * ksh;
+  const bf16* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh + sl * NV;
+  bf16* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh + sl * NV;
+  int jy[8];  // the padded row (within a tile) of each n8 tile of slots
+#pragma unroll
+  for (int j = 0; j < 8; ++j) jy[j] = j * 8 / T.twp;
+  const bool one_row = T.rows == 1;
+
+  if constexpr (VAR == VAR_WINDOW) {
+    // the whole window resident: k, v (slot = ky * WP + kx), q, u
+    const int NS = window_slots(T, H), NQ = (N + 15) & ~15;
+    bf16* Ks = reinterpret_cast<bf16*>(smem);
+    bf16* Vs = Ks + NS * LDK;
+    bf16* Qs = Vs + NS * LDV;
+    float* U = reinterpret_cast<float*>(
+        smem + align128(sizeof(bf16) * ((size_t)NS * (LDK + LDV) + (size_t)NQ * LDK)));
+    load_rows<HD, LDK, SP>(Qs, qb, qsn, 0, NQ, N, geo, threadIdx.x, blockDim.x);
+    cp_async_commit();
+    load_slots<HD, LDK, SP>(Ks, kb, ksn, NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
+    load_slots<NV, LDV, SP>(Vs, vb, vsn, NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
+    cp_async_commit();
+    // the pads and the rows past N while the copies fly; the products
+    // wait for q alone, k and v still in flight
+    u_pads(U, T, NQ, N, false, 0, 0, H, W, threadIdx.x, blockDim.x);
+    cp_async_wait<1>();
+    __syncthreads();
+    // u by products: per map row y (its W q rows share Rh[y]), per map
+    // column x (its H q rows share Rw[x]), in pieces of 16 rows
+    const int ph = (W + 15) / 16, pw = (H + 15) / 16;
+    for (int item = warp; item < H * ph + W * pw; item += blockDim.x / 32) {
+      if (item < H * ph) {
+        const int y = item / ph, p = item - y * ph;
+        u_product<HD>(U, T.up, 0, Qs, y * W + p * 16, 1, min(16, W - p * 16),
+                      rh + (size_t)y * H * HD, H, lane);
+      } else {
+        const int x = (item - H * ph) / pw, p = item - H * ph - x * pw;
+        u_product<HD>(U, T.up, T.uwo, Qs, p * 16 * W + x, W, min(16, H - p * 16),
+                      rw + (size_t)x * W * HD, W, lane);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int qt = warp; qt * 16 < N; qt += blockDim.x / 32) {
+      const bf16* Qw = Qs + qt * 16 * LDK;
+      uint32_t qa[QREG ? HD / 16 : 1][4];
+      if constexpr (QREG) load_a_frags<HD, LDK>(qa, Qw, g, t);
+      const float* U0 = U + (qt * 16 + g) * T.up;
+      const float* U1 = U0 + 8 * T.up;
+      float uw[8][4];
+      load_uw(uw, U0, U1, T, 0, t);
+      float o[NV / 8][4];
+#pragma unroll
+      for (int n = 0; n < NV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      for (int it = 0; it < T.ntiles; ++it) {
+        const int ky0 = it * T.rows;
+        const int nj = min(T.rows, H - ky0) * T.wp / 8;
+        attend_tile<HD, NV, QREG>(o, m0, m1, l0, l1, qa, Qw, Ks + ky0 * T.wp * LDK,
+                                  Vs + ky0 * T.wp * LDV, nj, uw, U0, U1, ky0, jy, one_row, c2,
+                                  lane);
+      }
+      const int r0 = qt * 16 + g;
+      store_rows<NV, SP>(ob, osn, geo, o, l0, l1, r0, r0 < N, r0 + 8, r0 + 8 < N, t);
+    }
+  } else {
+    constexpr int ST = ring<HD>();
+    // the block's q rows: a PY x 8 patch of the map (row r = cell (r / 8,
+    // r % 8)), so that its rows share Rh[qy] by map row and Rw[qx] by map
+    // column; two patch rows a warp
+    const int PY = blockDim.x / 16, QR = 8 * PY;
+    bf16* Qs = reinterpret_cast<bf16*>(smem);
+    bf16* Kb = Qs + QR * LDK;
+    bf16* Vb = Kb + ST * 64 * LDK;
+    float* U = reinterpret_cast<float*>(
+        smem + align128(sizeof(bf16) * (QR * LDK + ST * 64 * (LDK + LDV))));
+    const int pnx = (W + 7) / 8;
+    const int qy0 = blockIdx.x / pnx * PY, qx0 = (blockIdx.x % pnx) * 8;
+    // head dims up to 80: the tile loads' slot arithmetic once (TileChunks);
+    // above, per tile (load_slots), where TileChunks would cost the registers
+    constexpr bool CHUNKS = HD <= 80;
+    TileChunks<CHUNKS ? HD : 16> chunks;
+    if constexpr (CHUNKS) chunks.init(T, threadIdx.x, blockDim.x);
+    auto issue = [&](int it, int slot) {
+      const TileAt a = tile_at(T, it, H);
+      if constexpr (CHUNKS) {
+        chunks.template issue<SP>(Kb + slot * 64 * LDK, Vb + slot * 64 * LDV, kb, vb, ksn, vsn,
+                                  a.ky0, a.kx0, H, W, geo);
+      } else {
+        load_slots<HD, LDK, SP>(Kb + slot * 64 * LDK, kb, ksn, 64, a.ky0, a.kx0, T.twp, T.rows,
+                                H, W, geo, threadIdx.x, blockDim.x);
+        load_slots<NV, LDV, SP>(Vb + slot * 64 * LDV, vb, vsn, 64, a.ky0, a.kx0, T.twp, T.rows,
+                                H, W, geo, threadIdx.x, blockDim.x);
+      }
+    };
+    load_patch<HD, LDK, SP>(Qs, qb, qsn, QR, qy0, qx0, H, W, geo, threadIdx.x, blockDim.x);
+    cp_async_commit();
+#pragma unroll
+    for (int s = 0; s < ST - 1; ++s) {
+      if (s < T.ntiles) issue(s, s);
+      cp_async_commit();
+    }
+    cp_async_wait<ST - 1>();
+    __syncthreads();
+    // u by products: patch row py (its 8 cells share Rh[qy0 + py]), patch
+    // column px (its PY cells share Rw[qx0 + px])
+    u_pads(U, T, QR, 0, true, qy0, qx0, H, W, threadIdx.x, blockDim.x);
+    const int nx = min(8, W - qx0), ny = min(PY, H - qy0);
+    for (int item = warp; item < PY + 8; item += blockDim.x / 32) {
+      if (item < PY) {
+        if (item < ny)
+          u_product<HD>(U, T.up, 0, Qs, item * 8, 1, nx, rh + (size_t)(qy0 + item) * H * HD, H,
+                        lane);
+      } else if (item - PY < nx) {
+        u_product<HD>(U, T.up, T.uwo, Qs, item - PY, 8, ny,
+                      rw + (size_t)(qx0 + item - PY) * W * HD, W, lane);
+      }
+    }
+    __syncthreads();
+
+    const bf16* Qw = Qs + warp * 16 * LDK;
+    uint32_t qa[QREG ? HD / 16 : 1][4];
+    if constexpr (QREG) load_a_frags<HD, LDK>(qa, Qw, g, t);
+    const float* U0 = U + (warp * 16 + g) * T.up;
+    const float* U1 = U0 + 8 * T.up;
+    float uw[8][4];
+    if constexpr (VAR == VAR_ROWS) load_uw(uw, U0, U1, T, 0, t);
+    float o[NV / 8][4];
+#pragma unroll
+    for (int n = 0; n < NV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    for (int it = 0; it < T.ntiles; ++it) {
+      cp_async_wait<ST - 2>();
+      __syncthreads();  // tile it is visible; the slot of tile it - 1 is free
+      if (it + ST - 1 < T.ntiles) issue(it + ST - 1, (it + ST - 1) % ST);
+      cp_async_commit();
+      const TileAt a = tile_at(T, it, H);
+      if constexpr (VAR == VAR_GENERAL) load_uw(uw, U0, U1, T, a.kx0, t);
+      const int slot = it % ST;
+      attend_tile<HD, NV, QREG>(o, m0, m1, l0, l1, qa, Qw, Kb + slot * 64 * LDK,
+                                Vb + slot * 64 * LDV, a.nj, uw, U0, U1, a.ky0, jy, one_row, c2,
+                                lane);
+    }
+    // rows g and g + 8 of the warp: patch cells (2 warp, g) and (2 warp + 1, g)
+    const int qx = qx0 + g, qy = qy0 + 2 * warp;
+    store_rows<NV, SP>(ob, osn, geo, o, l0, l1, qy * W + qx, qx < W && qy < H, (qy + 1) * W + qx,
+                       qx < W && qy + 1 < H, t);
   }
 }
 
@@ -226,14 +697,37 @@ __global__ void __launch_bounds__(128) relpos_attention_bf16_kernel(
 // ---------------------------------------------------------------------------
 constexpr int LDSS = KT + 4;
 
+template <int HD> __host__ __device__ constexpr int f32_rows() { return HD > 128 ? 32 : 64; }
+
 template <int HD>
 __host__ __device__ constexpr size_t f32_head(void) {
-  return align128(sizeof(float) * (3 * 64 * (HD + 8) + 2 * QT * LDSS + QT * (HD + 4)));
+  constexpr int QR = f32_rows<HD>(), NV = out_cols<HD>();
+  return align128(sizeof(float) * (QR * (HD + 8) + 64 * (HD + 8) + 64 * (NV + 8) + 2 * QR * LDSS +
+                                   QR * (NV + 4)));
 }
 
 template <int HD>
 __host__ __device__ constexpr size_t f32_smem(int H, int W) {
-  return f32_head<HD>() + sizeof(float) * QT * (H + W + 1);
+  return f32_head<HD>() + sizeof(float) * f32_rows<HD>() * (H + W + 1);
+}
+
+// U[r * up + j] = q_r . Rh[qy, j] (j < H), q_r . Rw[qx, j - H] (j >= H) for
+// nrows q rows (build_u of relpos_common.cuh at any row count)
+template <typename T, int HD>
+__device__ __forceinline__ void build_u_rows(float* U, int up, const T* Qs, const T* rh,
+                                             const T* rw, int q0, int nrows, int N, int H, int W) {
+  constexpr int LDT = HD + 8;
+  const int HW = H + W;
+  for (int idx = threadIdx.x; idx < nrows * HW; idx += blockDim.x) {
+    int r = idx / HW, j = idx % HW, qi = q0 + r;
+    float acc = 0.f;
+    if (qi < N) {
+      const T* tab = j < H ? rh + ((size_t)(qi / W) * H + j) * HD
+                           : rw + ((size_t)(qi % W) * W + (j - H)) * HD;
+      acc = dot_row<T, HD>(Qs + r * LDT, tab);
+    }
+    U[r * up + j] = acc;
+  }
 }
 
 // (128, 1): without the minimum of one block an SM, ptxas holds the kernel
@@ -245,29 +739,30 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     int N, int H, int W, long long qsb, long long qsh, long long qsn, long long ksb,
     long long ksh, long long ksn, long long vsb, long long vsh, long long vsn, long long osb,
     long long osh, long long osn, float scale, Geo geo) {
-  constexpr int LDT = HD + 8, LDO = HD + 4;
+  constexpr int QR = f32_rows<HD>(), NV = out_cols<HD>(), NSL = HD / NV;
+  constexpr int LDT = HD + 8, LDV = NV + 8, LDO = NV + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + 64 * LDT;
+  float* Ks = Qs + QR * LDT;
   float* Vs = Ks + 64 * LDT;
-  float* Ss = Vs + 64 * LDT;
-  float* Ps = Ss + QT * LDSS;
-  float* Os = Ps + QT * LDSS;
+  float* Ss = Vs + 64 * LDV;
+  float* Ps = Ss + QR * LDSS;
+  float* Os = Ps + QR * LDSS;
   float* U = reinterpret_cast<float*>(smem + f32_head<HD>());
   const int UP = H + W + 1;
 
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * QR, h = blockIdx.y / NSL, sl = blockIdx.y - h * NSL, b = blockIdx.z;
   const float* qb = q + batch_off<SP>(geo, b, qsb, qsn) + h * qsh;
   const float* kb = k + batch_off<SP>(geo, b, ksb, ksn) + h * ksh;
-  const float* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh;
-  float* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh;
+  const float* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh + sl * NV;
+  float* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh + sl * NV;
 
-  load_tile<float, HD, 64, SP>(Qs, qb, qsn, q0, N, geo);
+  load_tile<float, HD, QR, SP>(Qs, qb, qsn, q0, N, geo);
   cp_async_commit();
-  for (int i = threadIdx.x; i < QT * LDO; i += blockDim.x) Os[i] = 0.f;
+  for (int i = threadIdx.x; i < QR * LDO; i += blockDim.x) Os[i] = 0.f;
   cp_async_wait<0>();
   __syncthreads();
-  build_u<float, HD>(U, UP, Qs, rh, rw, q0, N, H, W);
+  build_u_rows<float, HD>(U, UP, Qs, rh, rw, q0, QR, N, H, W);
 
   // each warp owns 16 rows and walks them one at a time; a lane holds keys
   // (lane, lane + 32) of the tile and dims (lane, lane + 32, ...)
@@ -284,7 +779,7 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
   for (int k0 = 0; k0 < N; k0 += KT) {
     __syncthreads();  // previous tile consumed (and U complete on entry)
     load_tile<float, HD, 64, SP>(Ks, kb, ksn, k0, N, geo);
-    load_tile<float, HD, 64, SP>(Vs, vb, vsn, k0, N, geo);
+    load_tile<float, NV, 64, SP>(Vs, vb, vsn, k0, N, geo);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -317,13 +812,13 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
       for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
       l[r] = l[r] * alpha + ps;
       m[r] = m_new;
-      for (int d = lane; d < HD; d += 32) Ow[r * LDO + d] *= alpha;
+      for (int d = lane; d < NV; d += 32) Ow[r * LDO + d] *= alpha;
     }
     __syncwarp();
     for (int r = 0; r < 16; ++r) {
-      for (int d = lane; d < HD; d += 32) {
+      for (int d = lane; d < NV; d += 32) {
         float acc = Ow[r * LDO + d];
-        for (int c = 0; c < KT; ++c) acc = fmaf(Pw[r * LDSS + c], Vs[c * LDT + d], acc);
+        for (int c = 0; c < KT; ++c) acc = fmaf(Pw[r * LDSS + c], Vs[c * LDV + d], acc);
         Ow[r * LDO + d] = acc;
       }
     }
@@ -335,62 +830,85 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     const int qi = q0 + warp * 16 + r;
     if (qi < N) {
       const float inv = 1.f / l[r];
-      for (int d = lane; d < HD; d += 32) ob[tok_off<SP>(geo, qi, osn) + d] = Ow[r * LDO + d] * inv;
+      for (int d = lane; d < NV; d += 32) ob[tok_off<SP>(geo, qi, osn) + d] = Ow[r * LDO + d] * inv;
     }
   }
 }
 
 template <typename T, typename Kernel>
-static int launch(Kernel kern, size_t smem, const void* q, const void* k, const void* v,
-                  const void* rh, const void* rw, void* out, int B, int nH, int N, int H, int W,
+static int launch(Kernel kern, size_t smem, dim3 grid, int threads, const void* q, const void* k,
+                  const void* v, const void* rh, const void* rw, void* out, int N, int H, int W,
                   const long long* st, float scale, Geo geo, cudaStream_t s) {
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + QT - 1) / QT, nH, B);
-  kern<<<grid, 128, smem, s>>>(
+  kern<<<grid, threads, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)rh, (const T*)rw, (T*)out, N, H, W,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
       geo);
   return (int)cudaGetLastError();
 }
 
+template <int HD, bool SP>
+static int launch_bf16(int var, int B, int nH, int N, int H, int W, const void* q, const void* k,
+                       const void* v, const void* rh, const void* rw, void* out,
+                       const long long* st, float scale, Geo geo, cudaStream_t s) {
+  constexpr int NSL = HD / out_cols<HD>();
+  const size_t smem = bf16_smem<HD>(var, N, H, W);
+  if constexpr (HD <= 128) {
+    if (var == VAR_WINDOW)
+      return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_WINDOW>, smem,
+                          dim3(1, nH * NSL, B), 256, q, k, v, rh, rw, out, N, H, W, st, scale, geo,
+                          s);
+  }
+  const int py = patch_rows(HD, H, W);
+  const dim3 grid((H + py - 1) / py * ((W + 7) / 8), nH * NSL, B);
+  if (var == VAR_ROWS)
+    return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_ROWS>, smem, grid, 16 * py, q, k,
+                        v, rh, rw, out, N, H, W, st, scale, geo, s);
+  return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_GENERAL>, smem, grid, 16 * py, q,
+                      k, v, rh, rw, out, N, H, W, st, scale, geo, s);
+}
+
 // strides: 12 element strides, (batch, head, token) for q, k, v, out in turn
 // (the batch strides unused in the spatial mode). win > 0: the spatial mode,
 // B windows of win x win tokens (H == W == win) of maps of nwy x nwx windows.
+// variant: VAR_ROWS, VAR_GENERAL or VAR_WINDOW, as forward_plan picks it
+// (bf16; the f32 kernel has one form); refused where it does not apply.
 MSAM_EXPORT int msam_relpos_attention(const void* q, const void* k, const void* v,
                                       const void* rh, const void* rw, void* out, int B,
                                       int nH, int N, int H, int W, int hd,
                                       const long long* strides, float scale, int win, int nwy,
-                                      int nwx, int dtype, void* stream) {
-  if (N != H * W || B <= 0 || nH <= 0 || B > 65535 || nH > 65535) return (int)cudaErrorInvalidValue;
+                                      int nwx, int variant, int dtype, void* stream) {
+  constexpr int NSL = MSAM_HD / out_cols<MSAM_HD>();
+  if (hd != MSAM_HD || N != H * W || B <= 0 || nH <= 0 || B > 65535 || nH * NSL > 65535)
+    return (int)cudaErrorInvalidValue;
   if (win < 0 || (win > 0 && (H != win || W != win || nwy <= 0 || nwx <= 0 || B % (nwy * nwx))))
     return (int)cudaErrorInvalidValue;
   const Geo geo{win, nwy, nwx};
   cudaStream_t s = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-#define MSAM_ARGS q, k, v, rh, rw, out, B, nH, N, H, W, strides, scale, geo, s
-#define MSAM_BF16_CASE(D)                                                                    \
-  case D:                                                                                    \
-    return launch<bf>(win ? relpos_attention_bf16_kernel<D, true> : relpos_attention_bf16_kernel<D, false>, \
-                      bf16_smem<D>(H, W), MSAM_ARGS);
-#define MSAM_F32_CASE(D)                                                                     \
-  case D:                                                                                    \
-    return launch<float>(win ? relpos_attention_f32_kernel<D, true> : relpos_attention_f32_kernel<D, false>, \
-                         f32_smem<D>(H, W), MSAM_ARGS);
   if (dtype == MSAM_BF16) {
-    switch (hd) {
-      MSAM_BF16_CASE(32) MSAM_BF16_CASE(64) MSAM_BF16_CASE(80) MSAM_BF16_CASE(96)
-      MSAM_BF16_CASE(128)
-    }
-  } else if (dtype == MSAM_F32) {
-    switch (hd) {
-      MSAM_F32_CASE(32) MSAM_F32_CASE(64) MSAM_F32_CASE(80) MSAM_F32_CASE(96)
-      MSAM_F32_CASE(128)
-    }
+    const Tiling T = tiling_of(H, W);
+    const bool window = MSAM_HD <= 128 && T.segs == 1 && H * T.wp <= 256 &&
+                        bf16_smem<MSAM_HD>(VAR_WINDOW, N, H, W) <= SMEM_LIMIT;
+    const bool ok = variant == VAR_WINDOW ? window
+                  : variant == VAR_ROWS   ? W <= 64
+                  : variant == VAR_GENERAL && W > 64;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    return win ? launch_bf16<MSAM_HD, true>(variant, B, nH, N, H, W, q, k, v, rh, rw, out,
+                                            strides, scale, geo, s)
+               : launch_bf16<MSAM_HD, false>(variant, B, nH, N, H, W, q, k, v, rh, rw, out,
+                                             strides, scale, geo, s);
   }
-#undef MSAM_F32_CASE
-#undef MSAM_BF16_CASE
-#undef MSAM_ARGS
+  if (dtype == MSAM_F32) {
+    constexpr int QR = f32_rows<MSAM_HD>();
+    const dim3 grid((N + QR - 1) / QR, nH * NSL, B);
+    const size_t smem = f32_smem<MSAM_HD>(H, W);
+    return win ? launch<float>(relpos_attention_f32_kernel<MSAM_HD, true>, smem, grid, 2 * QR, q,
+                               k, v, rh, rw, out, N, H, W, strides, scale, geo, s)
+               : launch<float>(relpos_attention_f32_kernel<MSAM_HD, false>, smem, grid, 2 * QR,
+                               q, k, v, rh, rw, out, N, H, W, strides, scale, geo, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

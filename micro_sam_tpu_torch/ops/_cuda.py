@@ -2,9 +2,9 @@
 
 Each source compiles on its own, with ``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared -Xcompiler -fPIC``, into a shared library with a plain
-C interface that ``ctypes`` loads; the backward of the rel-pos attention
-compiles once per head dim (``-DMSAM_HD=<hd>``), a library each, so that its
-five builds run side by side. All libraries build at the first CUDA use, in
+C interface that ``ctypes`` loads; the rel-pos attention forward and its
+backward compile once per head dim (``-DMSAM_HD=<hd>``), a library each, so
+that their builds run side by side. All libraries build at the first CUDA use, in
 parallel (one ``nvcc`` each), into ``build/kernels-<hash>/`` at the root of the
 checkout; the hash covers the sources, so an edited kernel rebuilds and an
 unchanged one loads straight away. Nothing here runs at import time: the
@@ -25,16 +25,18 @@ from typing import Dict
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-# the head dims the rel-pos attention kernels are built for (forward and
-# backward); ops/relpos_attention.py runs any other head dim up to the largest
-# in the next larger one
-RELPOS_HEAD_DIMS = (32, 64, 80, 96, 128)
+# the head dims the rel-pos attention forward and its backward are built for;
+# ops/relpos_attention.py runs any other head dim up to the largest in the
+# next larger one
+RELPOS_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+RELPOS_BWD_HEAD_DIMS = (32, 64, 80, 96, 128)
 # library name -> (source under csrc/ without .cu, extra nvcc flags)
 _LIBRARIES = {
-    **{n: (n, ()) for n in ("layernorm", "gemm", "relpos_attention", "dwconv",
-                            "tiny_attention")},
-    **{f"relpos_attention_bwd_hd{d}": ("relpos_attention_bwd", (f"-DMSAM_HD={d}",))
+    **{n: (n, ()) for n in ("layernorm", "gemm", "dwconv", "tiny_attention")},
+    **{f"relpos_attention_hd{d}": ("relpos_attention", (f"-DMSAM_HD={d}",))
        for d in RELPOS_HEAD_DIMS},
+    **{f"relpos_attention_bwd_hd{d}": ("relpos_attention_bwd", (f"-DMSAM_HD={d}",))
+       for d in RELPOS_BWD_HEAD_DIMS},
 }
 SOURCES = tuple(_LIBRARIES)  # the libraries, by name
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,10 +47,11 @@ _BWD_SIGNATURE = ("msam_relpos_attention_bwd",
 _SIGNATURES = {
     "layernorm": ("msam_layernorm", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
     "gemm": ("msam_gemm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "relpos_attention": ("msam_relpos_attention",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          ctypes.POINTER(_LL), _F, _I, _I, _I, _I, _P]),
-    **{f"relpos_attention_bwd_hd{d}": _BWD_SIGNATURE for d in RELPOS_HEAD_DIMS},
+    **{f"relpos_attention_hd{d}": ("msam_relpos_attention",
+                                   [_P] * 6 + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 5
+                                   + [_P])
+       for d in RELPOS_HEAD_DIMS},
+    **{f"relpos_attention_bwd_hd{d}": _BWD_SIGNATURE for d in RELPOS_BWD_HEAD_DIMS},
     "dwconv": ("msam_dwconv", [_P] * 5 + [_I] * 6 + [_P]),
     "tiny_attention": ("msam_tiny_attention", [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
 }

@@ -52,6 +52,7 @@ def attention_with_rel_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: q, k, v (B, N, nH, hd) with N == H * W -> (B, N, nH, hd), through
     ``flash_attention_rel_pos`` (the kernels; their plain versions for CPU
     tensors). Counterpart of ``micro_sam_tpu.ops.attention_with_rel_pos``. On
-    the card it takes every head dim up to 128 (``relpos_attention.MAX_HEAD_DIM``)
-    and raises above."""
+    the card the forward takes every head dim up to 256
+    (``relpos_attention.MAX_HEAD_DIM``), its backward up to 128; each raises
+    above."""
     return flash_attention_rel_pos(q, k, v, hw, rel_h, rel_w)

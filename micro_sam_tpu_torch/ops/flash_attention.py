@@ -79,9 +79,9 @@ def flash_attention_rel_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             hw: Tuple[int, int], rel_h: Optional[torch.Tensor],
                             rel_w: Optional[torch.Tensor]) -> torch.Tensor:
     """(B, N, nH, hd) attention over an (H, W) grid -> (B, N, nH, hd).
-    Missing rel-pos tables act as zeros. On the card, forward and backward
-    take every head dim up to 128 (``relpos_attention.MAX_HEAD_DIM``) and
-    raise above."""
+    Missing rel-pos tables act as zeros. On the card the forward takes every
+    head dim up to 256 (``relpos_attention.MAX_HEAD_DIM``), the backward up
+    to 128 (``MAX_BWD_HEAD_DIM``); each raises above."""
     H, W = hw
     if rel_h is None:
         rel_h = torch.zeros((H, H, q.shape[-1]), dtype=q.dtype, device=q.device)

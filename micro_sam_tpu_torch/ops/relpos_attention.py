@@ -15,29 +15,35 @@ through ``_flash_backward_qkv``, the custom_vjp backward of
 ``flash_attention_qkv``).
 
 Forward bound on the H100: operations (4 N^2 hd flops per head against 4 N hd
-values moved: a vit_b global block is 52 GFLOP). One block per (64-row q tile,
-head, batch) walks k/v in 64-key tiles with an online softmax; the bias is
-built in the kernel from 64 x (H + W) per-row dot products, so neither N x N
-logits nor the bias touch device memory. In bf16 both products run on the
-tensor cores (``mma.sync``) with logits, probabilities and output in
-registers; f32 is a plain SIMT loop. q, k, v and out are strided views (the
-head dim contiguous), so the kernel reads the qkv product's rows and writes
-the proj product's rows in place.
+values moved: a vit_b global block is 52 GFLOP). The bias is built in the
+kernel from per-row u tables, so neither N x N logits nor the bias touch
+device memory. In bf16 both products run on the tensor cores (``mma.sync``)
+with logits, probabilities and output in registers; keys are tiled in whole
+map rows, so each thread's share of the bias sits in registers. Three
+variants (``forward_plan``, a pure function of N, H, W and the head dim, the
+same on every route): ``"window"`` (the 14 x 14 windows: one block per
+window and head, the window's keys resident), ``"rows"`` (W <= 64: a block
+per patch of q cells, key tiles of 64 / W whole rows) and ``"general"``
+(W > 64: key tiles of 64-column row segments). f32 is a plain SIMT loop. q, k, v and out
+are strided views (the head dim contiguous), so the kernel reads the qkv
+product's rows and writes the proj product's rows in place.
 
 Backward: four launches (row statistics, dk/dv, dq with the per-key-row and
 per-key-column sums of dS, the table gradients), about 10 N^2 hd flops per
 head; see the source for the design.
 
-Head dims: both kernels are built for 32, 64 (vit_b, vit_l), 80 (vit_h), 96
-and 128 (``HEAD_DIMS``). A CUDA tensor of another head dim up to 128 runs in
-the smallest of those at least as large: the wrapper stages q, k, v, the
-tables (and for the backward out and dout) into zero-padded buffers, keeps
-the scale at the true head dim's ``hd ** -0.5`` and writes the first ``hd``
-columns back. Zero columns add nothing to q . k or q . rel, and the extra
-output columns (and those of d rel_h / d rel_w) are dropped, so the result is
-the same function. Views the kernels cannot read in place (rows not 16-byte
-aligned, a strided head dim) go through the same staging. Above 128 the
-wrappers raise. The plain versions take any head dim.
+Head dims: the forward is built for 32, 64 (vit_b, vit_l), 80 (vit_h), 96,
+128 and 256 (``HEAD_DIMS``; above 128 each block computes one 128-column
+slice of the output), the backward for the same up to 128
+(``BWD_HEAD_DIMS``). A CUDA tensor of another head dim runs in the smallest
+built one at least as large: the wrapper stages q, k, v, the tables (and for
+the backward out and dout) into zero-padded buffers, keeps the scale at the
+true head dim's ``hd ** -0.5`` and writes the first ``hd`` columns back. Zero
+columns add nothing to q . k or q . rel, and the extra output columns (and
+those of d rel_h / d rel_w) are dropped, so the result is the same function.
+Views the kernels cannot read in place (rows not 16-byte aligned, a strided
+head dim) go through the same staging. Above 256 the forward raises, above
+128 the backward. The plain versions take any head dim.
 
 Spatial mode (``relpos_attention_spatial``): the forward over the w x w
 windows of padded (B, Hp, Wp) token maps, reading q, k, v from the map's rows
@@ -46,25 +52,68 @@ TPU's spatial window kernel).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _cuda
 
-HEAD_DIMS = _cuda.RELPOS_HEAD_DIMS  # the instantiated head dims, forward and backward
-BWD_HEAD_DIMS = HEAD_DIMS
+HEAD_DIMS = _cuda.RELPOS_HEAD_DIMS  # the forward's instantiated head dims
+BWD_HEAD_DIMS = _cuda.RELPOS_BWD_HEAD_DIMS  # the backward's
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_BWD_HEAD_DIM = BWD_HEAD_DIMS[-1]
 
 
-def kernel_head_dim(hd: int) -> int:
+def kernel_head_dim(hd: int, dims: Tuple[int, ...] = HEAD_DIMS) -> int:
     """The instantiated head dim a head dim ``hd`` runs in: the smallest of
-    ``HEAD_DIMS`` at least as large. Raises above ``MAX_HEAD_DIM``."""
-    for d in HEAD_DIMS:
+    ``dims`` (the forward's, or ``BWD_HEAD_DIMS``) at least as large. Raises
+    above the largest."""
+    for d in dims:
         if d >= hd:
             return d
-    raise ValueError(f"the rel-pos attention kernels take head dims up to {MAX_HEAD_DIM}, "
+    what = "forward" if dims == HEAD_DIMS else "backward"
+    raise ValueError(f"the rel-pos attention {what} kernel takes head dims up to {dims[-1]}, "
                      f"not {hd}")
+
+
+# the forward kernel's variants (VAR_* in csrc/relpos_attention.cu)
+VARIANT_CODES = {"rows": 0, "general": 1, "window": 2}
+SMEM_LIMIT = 232448  # dynamic shared memory one block may take on the H100 (227 KB)
+
+
+class ForwardPlan(NamedTuple):
+    """The bf16 forward kernel's ``variant`` for one launch, and its kernel
+    ``code``."""
+    variant: str
+    code: int
+
+
+def _window_smem(N: int, H: int, W: int, hd: int) -> int:
+    """Bytes of shared memory the window variant takes (``bf16_smem`` in the
+    kernel): k and v of the window's padded key slots, its q rows and their
+    f32 u tables, all resident."""
+    wp = -(-W // 8) * 8
+    ld = hd + 8
+    slots, rows = (H * wp + 8 + 15) // 16 * 16, -(-N // 16) * 16
+    return -(-2 * (slots * 2 * ld + rows * ld) // 128) * 128 + 4 * rows * ((H + wp) | 1)
+
+
+def forward_plan(N: int, H: int, W: int, hd: int) -> ForwardPlan:
+    """The forward variant for an (H, W) grid (N = H * W) at kernel head dim
+    ``hd`` (the kernel checks the same rule):
+
+    - ``"window"``: hd <= 128, W <= 64, the keys padded to rows of W rounded
+      up to 8 fit 256 slots and the whole window fits shared memory (the 14 x 14
+      windows of every SAM ViT): one block per (batch, head), keys resident;
+    - ``"rows"``: W <= 64 otherwise: a block per patch of q cells, key tiles
+      of whole map rows (the global grid: one row a tile);
+    - ``"general"``: W > 64: key tiles of 64-slot row segments."""
+    wp = -(-W // 8) * 8
+    if hd <= 128 and wp <= 64 and H * wp <= 256 and _window_smem(N, H, W, hd) <= SMEM_LIMIT:
+        variant = "window"
+    else:
+        variant = "rows" if W <= 64 else "general"
+    return ForwardPlan(variant, VARIANT_CODES[variant])
 
 
 def _in_place(t: torch.Tensor) -> bool:
@@ -121,14 +170,14 @@ def _launch_forward(q, k, v, rel_h, rel_w, out, dims, geo, ok, strides_of) -> No
 def _forward_kernel(q, k, v, rh, rw, out, dims, hdp, scale, geo, strides) -> None:
     """One launch of ``csrc/relpos_attention.cu`` on operands it takes as they
     are (head dim ``hdp``, one of ``HEAD_DIMS``), ``scale`` the true head
-    dim's."""
+    dim's, in the variant ``forward_plan`` picks."""
     B, nH, N, H, W = dims
-    lib = _cuda.library("relpos_attention")
-    rc = lib.msam_relpos_attention(
+    name = f"relpos_attention_hd{hdp}"
+    rc = _cuda.library(name).msam_relpos_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-        B, nH, N, H, W, hdp, (_cuda._LL * 12)(*strides), scale, *geo, _cuda.dtype_code(q),
-        _cuda.stream_ptr(q))
-    _cuda.check("relpos_attention", rc)
+        B, nH, N, H, W, hdp, (_cuda._LL * 12)(*strides), scale, *geo,
+        forward_plan(N, H, W, hdp).code, _cuda.dtype_code(q), _cuda.stream_ptr(q))
+    _cuda.check(name, rc)
 
 
 def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -154,7 +203,7 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention with the decomposed rel-pos bias over strided (B, nH, N, hd)
     views. ``out``, when given, is a (B, nH, N, hd) view the result is written
     into (and returned). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel, for any head dim up to ``MAX_HEAD_DIM`` (128)."""
+    launches the kernel, for any head dim up to ``MAX_HEAD_DIM`` (256)."""
     B, nH, N, hd = q.shape
     H, W = hw
     if N != H * W or k.shape != q.shape or v.shape != q.shape:
@@ -288,8 +337,8 @@ def relpos_attention_backward(q, k, v, out, dout, rel_h, rel_w, hw: Tuple[int, i
     the gradients are written into the given views (e.g. the rows of the qkv
     product's gradient). rel_h / rel_w are the tables the forward used. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel's four
-    stages, for any head dim up to ``MAX_HEAD_DIM`` (128; staged as the
-    forward's, the table gradients cut back to ``hd``)."""
+    stages, for any head dim up to ``MAX_BWD_HEAD_DIM`` (128; staged as the
+    forward's, the table gradients cut back to ``hd``); above it, it raises."""
     B, nH, N, hd = q.shape
     H, W = hw
     if N != H * W or any(t.shape != q.shape for t in (k, v, out, dout)):
@@ -311,7 +360,7 @@ def _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv):
     back to ``hd``."""
     B, nH, N, hd = q.shape
     H, W = hw
-    hdp = kernel_head_dim(hd)
+    hdp = kernel_head_dim(hd, BWD_HEAD_DIMS)
     grads = [torch.empty((B, nH, N, hd), device=q.device, dtype=q.dtype) if t is None else t
              for t in (dq, dk, dv)]
     for t in (k, v, out, dout, *grads):

@@ -87,6 +87,61 @@ def test_relpos_attention_matches_plain(dev, dtype, B, H, W, hd):
     _held(got, ref, dtype)
 
 
+VARIANT_CASES = {  # id: (B, nH, H, W, hd, the bf16 kernel's variant)
+    "global_12h": (1, 12, 64, 64, 64, "rows"),
+    "global_16h": (1, 16, 64, 64, 64, "rows"),
+    "w32_rows2": (2, 3, 16, 32, 64, "rows"),
+    "w24_window": (2, 3, 2, 24, 64, "window"),
+    "w40": (2, 3, 24, 40, 64, "rows"),
+    "w96_general": (1, 2, 8, 96, 64, "general"),
+    "tiny": (3, 2, 2, 3, 64, "window"),
+    "window_b25": (25, 12, 14, 14, 64, "window"),
+    "window_b100": (100, 12, 14, 14, 64, "window"),
+    "window_b25_hd80": (25, 16, 14, 14, 80, "window"),
+    "window_b100_hd80": (100, 16, 14, 14, 80, "window"),
+    "window_hd160": (4, 2, 14, 14, 160, "rows"),
+    "global_hd160": (1, 2, 64, 64, 160, "rows"),
+    "window_hd256": (4, 2, 14, 14, 256, "rows"),
+    "global_hd256": (1, 2, 64, 64, 256, "rows"),
+    "w96_hd256": (1, 2, 3, 96, 256, "general"),
+    # windows at the edge of one block's shared memory: the largest that
+    # stays resident, and three that take the rows variant instead
+    "w16_hd96_window": (2, 2, 16, 16, 96, "window"),
+    "w16_hd128": (2, 2, 16, 16, 128, "rows"),
+    "w15_hd128": (2, 2, 15, 15, 128, "rows"),
+    "w4x64_hd96": (2, 2, 4, 64, 96, "rows"),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(VARIANT_CASES))
+def test_relpos_attention_variants_match_plain(dev, dtype, case):
+    """The forward at each variant's edges (``forward_plan``): the global
+    grid at 12 and 16 heads, W dividing 64 and not, W > 64, a grid of 6
+    tokens, the 14 x 14 windows at batch 25 and at the tiled path's 100, head
+    dims 64 / 80, 160 / 256 (two 128-column output slices), and windows
+    whose keys fit 256 slots but not one block's shared memory. q, k, v
+    strided out of qkv rows, the output into proj rows; one launch a call."""
+    from micro_sam_tpu_torch.ops.relpos_attention import (forward_plan, kernel_head_dim,
+                                                          relpos_attention,
+                                                          relpos_attention_plain)
+    B, nH, H, W, hd, variant = VARIANT_CASES[case]
+    N = H * W
+    assert forward_plan(N, H, W, kernel_head_dim(hd)).variant == variant
+    g = torch.Generator().manual_seed(8)
+    q5 = torch.randn(B, N, 3, nH, hd, generator=g).to(dev, dtype)
+    q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
+    rh = (torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dtype)
+    rw = (torch.randn(W, W, hd, generator=g) * 0.3).to(dev, dtype)
+    out = torch.full((B, N, nH, hd), float("nan"), device=dev, dtype=dtype).transpose(1, 2)
+    n = relpos_attention.launches
+    got = relpos_attention(q, k, v, rh, rw, (H, W), out=out)
+    torch.cuda.synchronize()
+    assert got is out and relpos_attention.launches == n + 1
+    _held(got, relpos_attention_plain(q.float(), k.float(), v.float(), rh.float(), rw.float(),
+                                      (H, W)), dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,H,W,hd", [(25, 14, 14, 64), (1, 64, 64, 64), (3, 10, 7, 64),
                                       (25, 14, 14, 80), (1, 64, 64, 80), (3, 10, 7, 80)],

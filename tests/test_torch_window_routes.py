@@ -212,11 +212,11 @@ def _staging_case(hd, dtype=torch.float32, seed=19):
     return q, k, v, rh, rw, (H, W)
 
 
-@pytest.mark.parametrize("hd", [40, 16, 64])
+@pytest.mark.parametrize("hd", [40, 16, 64, 160])
 def test_forward_staging_pads_the_head_dim(monkeypatch, hd):
-    """hd 40 runs in the kernel built for 64, hd 16 in 32, and a misaligned
-    hd-64 view in 64 itself: the stand-in kernel on the staged buffers, cut
-    back to hd, is the plain result at the true head dim."""
+    """hd 40 runs in the kernel built for 64, hd 16 in 32, hd 160 in 256, and
+    a misaligned hd-64 view in 64 itself: the stand-in kernel on the staged
+    buffers, cut back to hd, is the plain result at the true head dim."""
     from micro_sam_tpu_torch.ops import relpos_attention as rpa
     q, k, v, rh, rw, hw = _staging_case(hd)
     seen = []
@@ -225,10 +225,18 @@ def test_forward_staging_pads_the_head_dim(monkeypatch, hd):
     out = torch.full(q.shape, float("nan"))
     rpa._launch_forward(q, k, v, rh, rw, out, (q.shape[0], q.shape[1], q.shape[2], *hw),
                         (0, 0, 0), rpa._in_place, lambda t: t.stride()[:3])
-    assert seen == [rpa.kernel_head_dim(hd)] == [{40: 64, 16: 32, 64: 64}[hd]]
-    ref = rpa.relpos_attention_plain(q.double(), k.double(), v.double(), rh.double(),
-                                     rw.double(), hw)
-    assert rel_err(out.numpy(), ref.numpy()) <= 1e-6
+    assert seen == [rpa.kernel_head_dim(hd)] == [{40: 64, 16: 32, 64: 64, 160: 256}[hd]]
+    # the stand-in on the unpadded operands in float64 (the plain version
+    # computes in f32, whose own error at hd 160 is about 1e-6)
+    dims = (q.shape[0], q.shape[1], q.shape[2], *hw)
+    ref64 = torch.empty(q.shape, dtype=torch.float64)
+    _f64_forward(*(t.double() for t in (q, k, v, rh, rw)), ref64, dims, hd, hd ** -0.5,
+                 (0, 0, 0), None)
+    assert rel_err(out.numpy(), ref64.numpy()) <= 1e-6
+    if hd <= 128:
+        ref = rpa.relpos_attention_plain(q.double(), k.double(), v.double(), rh.double(),
+                                         rw.double(), hw)
+        assert rel_err(out.numpy(), ref.numpy()) <= 1e-6
 
 
 def test_backward_staging_pads_the_head_dim(monkeypatch):
@@ -270,12 +278,23 @@ def test_backward_staging_pads_the_head_dim(monkeypatch):
 
 
 def test_head_dims_above_128_are_refused():
+    """Only by the backward now: the forward is built up to 256 and stages
+    every head dim up to it; the backward stops at 128."""
     from micro_sam_tpu_torch.ops import relpos_attention as rpa
-    assert rpa.HEAD_DIMS == (32, 64, 80, 96, 128) == rpa.BWD_HEAD_DIMS
-    assert [rpa.kernel_head_dim(d) for d in (1, 32, 33, 72, 80, 81, 100, 128)] == \
-        [32, 32, 64, 80, 80, 96, 128, 128]
-    with pytest.raises(ValueError, match="up to 128"):
-        rpa.kernel_head_dim(129)
+    assert rpa.HEAD_DIMS == (32, 64, 80, 96, 128, 256)
+    assert rpa.BWD_HEAD_DIMS == (32, 64, 80, 96, 128)
+    assert [rpa.kernel_head_dim(d) for d in (1, 32, 33, 72, 80, 81, 100, 128, 129, 160, 256)] \
+        == [32, 32, 64, 80, 80, 96, 128, 128, 256, 256, 256]
+    assert [rpa.kernel_head_dim(d, rpa.BWD_HEAD_DIMS) for d in (1, 33, 81, 100, 128)] == \
+        [32, 64, 96, 128, 128]
+    with pytest.raises(ValueError, match="forward kernel takes head dims up to 256"):
+        rpa.kernel_head_dim(257)
+    with pytest.raises(ValueError, match="backward kernel takes head dims up to 128"):
+        rpa.kernel_head_dim(129, rpa.BWD_HEAD_DIMS)
+    q = torch.zeros(1, 1, 4, 136)
+    tab = torch.zeros(2, 2, 136)
+    with pytest.raises(ValueError, match="up to 128"):  # before any launch
+        rpa._backward_staged(q, q, q, q, q, tab, tab, (2, 2), None, None, None)
 
 
 def test_spatial_plain_is_the_partitioned_attention():
