@@ -19,10 +19,12 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     encode is recorded call by call, and each kernel's launches of it are
     replayed on their own inputs: checked against the plain version, and
     timed back to back as the kernel, the plain version and library calls;
- 5. holds the backward kernel relpos_attention_backward (K4) against its plain
-    backward at the window (25, 12, 196, 64) and global (1, 12, 4096, 64)
-    shapes, f32 (rel 1e-4) and bf16 (rel 3e-2 of the f32 plain result on the
-    same bf16 inputs), with timings, bounds and an SDPA-backward yardstick;
+ 5. holds the backward kernel relpos_attention_backward (K4), handed the
+    forward's lse as the training path does, against its plain backward at
+    vit_b's training shapes ((50, 12, 196, 64) windows, the (2, 12, 4096, 64)
+    global grid), f32 (rel 1e-4) and bf16 (rel 3e-2 of the f32 plain result on the same bf16
+    inputs), with timings, bounds and an SDPA-backward yardstick, its stage
+    variants and, in bf16, each of its four stages timed alone;
  6. finetuning at full vit_b width: train_sam("vit_b", with_segmentation_decoder
     =False, n_iterations=2) on 512^2 synthetic patches, its best.pkl loaded
     into the predictor for one predict; then SamTrainer steps at train_sam's
@@ -75,7 +77,7 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     phase's wall time;
 10. tiled precompute, the encoder's K9 / K11 routes and the rel-pos kernels
     at every head dim: relpos_attention at head dims 16, 32, 40, 64, 80, 96,
-    100, 128, 160 and 256 and its backward up to 128 (window and global
+    100, 128, 160 and 256, its lse and its backward (window and global
     grids, and a misaligned view) against their plain versions, bf16 and
     f32, the aligned bf16 forwards timed with their variant; K9
     (fused_window_block_spatial, vit_b and vit_h widths, padded and not) and
@@ -96,7 +98,8 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     training numbers, the tiled routes), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
-    max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for
+    max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for the
+    backward its stages, launches per stage variant and head dims; for
     relpos_attention also its launches per forward variant in one vit_b
     encode) and, last, the device line.
 """
@@ -669,6 +672,10 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
         "calls_per_step": k4["calls_per_step"],
+        "stages": "0 prep (u rows, D, lse2), 1 dk/dv, 2 dq (with dSr / dSc), 3 table gradients",
+        "variants": k4["launches_by_variant"],
+        "head_dims": "built for 32, 64, 80, 96, 128 and 256; any head dim up to 256 staged into "
+                     "the next built one; above 256 refused",
         "per": "all calls of one vit_b bf16 training step (batch 2 of 1024^2), back to back",
         "shapes": bwd_rows, "launches_vit_l_training_path":
             ft["vit_l"]["launches"]["relpos_attention_backward"], "vit_l": ft["vit_l"]["k4"],
@@ -683,7 +690,7 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
         "max_abs_err": max([k4h["max_abs_err"]] + [r["max_abs_err"] for r in ft["bwd_rows"]]),
         "ms": k4h["ms"], "plain_ms": k4h["plain_ms"], "bound_ms": k4h["bound_ms"],
         "bound_by": k4h["bound_by"], "library_ms": k4h["library_ms"],
-        "calls_per_step": k4h["calls_per_step"],
+        "calls_per_step": k4h["calls_per_step"], "variants": k4h["launches_by_variant"],
         "per": "all calls of one vit_h bf16 training step (batch 2 of 1024^2), back to back",
         "shapes": ft["bwd_rows"],
     })
@@ -1320,11 +1327,48 @@ def tiny_kernel_phase(counters):
 # phase 5: the backward kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def backward_phase(grids=((25, 14), (1, 64)), nH=NH, hd=HD, seed=4321):
+STAGES = ("prep", "dk/dv", "dq", "tables")
+
+
+def backward_stage_fns(a, lse):
+    """One closure per stage of K4 (``STAGES``) on a relpos_attention_backward
+    call's own operands (at a built head dim, rows the kernel reads in place)
+    and its forward's lse, each launching that stage alone into buffers of
+    its own, in the variant ``backward_plan`` picks; run once in order here,
+    so that each stage finds its predecessors' scratch. For timing: the
+    wrapper's launch count does not see them."""
+    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+    q, k, v, out, dout, rh, rw, (H, W) = a
+    B, nH, N, hd = q.shape
+    rht, rwt = rpa._tables(rh, rw, q.dtype, hd)
+    outs = [torch.empty_like(q) for _ in range(3)]
+    drh, drw = (torch.empty(s, s, hd, device=q.device) for s in (H, W))
+    scratch = torch.empty(rpa._bwd_scratch_floats(B, nH, N, H, W), device=q.device)
+    codes = (rpa.backward_plan(N, H, W, hd).codes if q.dtype == torch.bfloat16 else (0, 0, 0, 0))
+    fns = [lambda s=s: rpa._backward_kernel(s, codes[s], [q, k, v, out, dout], lse, rht, rwt, outs,
+                                            drh, drw, scratch, (B, nH, N, H, W), hd, hd ** -0.5)
+           for s in range(4)]
+    for f in fns:
+        f()
+    return fns
+
+
+def backward_variants(a):
+    """K4's bf16 variants of its dk/dv and dq stages for a call's arguments."""
+    from micro_sam_tpu_torch.ops.relpos_attention import backward_plan, kernel_head_dim
+    B, nH, N, hd = a[0].shape
+    H, W = a[7]
+    if a[0].dtype == torch.float32:
+        return "f32 simt"
+    plan = backward_plan(N, H, W, kernel_head_dim(hd))
+    return f"dk/dv {plan.dkdv}, dq {plan.dq}"
+
+
+def backward_phase(grids=((50, 14), (2, 64)), nH=NH, hd=HD, seed=4321):
     """K4 at the window and global shapes ((batch, grid side) pairs: vit_b's
     by default), q / k / v read from the qkv rows' strides, dout the
-    transposed view of the proj product's rows, as the training path gives
-    them."""
+    transposed view of the proj product's rows and the forward's lse, as the
+    training path gives them; in bf16 each stage also timed alone."""
     from micro_sam_tpu_torch.models.image_encoder import get_rel_pos
     from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
     dev = torch.device("cuda")
@@ -1342,10 +1386,11 @@ def backward_phase(grids=((25, 14), (1, 64)), nH=NH, hd=HD, seed=4321):
             q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
             rh = get_rel_pos(H, H, rnd(2 * H - 1, HD, scale=0.3)).to(dt)
             rw = get_rel_pos(H, H, rnd(2 * H - 1, HD, scale=0.3)).to(dt)
-            out = relpos_attention(q, k, v, rh, rw, (H, H))
+            lse = torch.empty((B, NH, N), device=dev)
+            out = relpos_attention(q, k, v, rh, rw, (H, H), lse=lse)
             dout = rnd(B, N, NH, HD).to(dt).transpose(1, 2)
             a = (q, k, v, out, dout, rh, rw, (H, H))
-            kern, plain, lib, ref = counterparts("relpos_attention_backward", a, {})
+            kern, plain, lib, ref = counterparts("relpos_attention_backward", a, {"lse": lse})
             tol = F32_TOL if dt == torch.float32 else BWD_BF16_TOL
             label = f"relpos_attention_backward ({B}, {NH}, {N}, {HD}) dq dk dv drh drw"
             err = check(label, kern(), ref(), dname, tol=tol)
@@ -1353,11 +1398,18 @@ def backward_phase(grids=((25, 14), (1, 64)), nH=NH, hd=HD, seed=4321):
             p_ms = time_ms(plain, iters=5)
             l_ms = time_ms(lib, iters=10)
             b_ms, b_by = bound_of([("relpos_attention_backward", a, {})])
-            rows.append(dict(shape=f"({B}, {NH}, {N}, {HD})", dtype=dname, max_abs_err=err,
-                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
-            log(f"    ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms (SDPA backward, bias "
-                f"grad) {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
-            del a, kern, plain, lib, ref, q5, q, k, v, out, dout
+            row = dict(shape=f"({B}, {NH}, {N}, {HD})", dtype=dname, variant=backward_variants(a),
+                       max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+            stages = ""
+            if dt == torch.bfloat16:
+                row["stage_ms"] = dict(zip(STAGES,
+                                           (time_ms(f) for f in backward_stage_fns(a, lse))))
+                stages = "; stages " + ", ".join(f"{k} {v:.4f}" for k, v in row["stage_ms"].items())
+            rows.append(row)
+            log(f"    {row['variant']}: ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms (SDPA "
+                f"backward, bias grad) {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by}){stages}")
+            del a, kern, plain, lib, ref, q5, q, k, v, out, dout, lse
             torch.cuda.empty_cache()
     return rows
 
@@ -1392,7 +1444,7 @@ class CallRecorder:
 
 PROFILE_GROUPS = (  # kernel-name patterns -> the layer they belong to
     ("K4 relpos_attention_backward", ("prep_bf16_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel",
-                                      "relgrad_kernel")),
+                                      "relgrad_bf16_kernel")),
     ("K1 relpos_attention", ("relpos_attention_bf16_kernel",)),
     ("matrix products and convolutions (cuBLAS / cuDNN)", ("gemm", "nvjet", "sm90", "xmma",
                                                            "cutlass", "conv")),
@@ -1572,8 +1624,12 @@ def timed_steps(counters, model_type, train_loader, val_loader, batches, save_ro
                              quiet=True, tol=BWD_BF16_TOL))
     k_ms, p_ms, l_ms = replay(calls, iters=5)
     b_ms, b_by = bound_of(calls)
-    k4 = dict(calls_per_step=len(calls), max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-              bound_ms=b_ms, bound_by=b_by)
+    variants = {}
+    for _, a, _ in calls:
+        v = backward_variants(a)
+        variants[v] = variants.get(v, 0) + 4
+    k4 = dict(calls_per_step=len(calls), launches_by_variant=variants, max_abs_err=err, ms=k_ms,
+              plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
     log(f"  relpos_attention_backward: {len(calls)} calls of one step, max_abs_err {err:.3e}; "
         f"ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
     del calls, rec, trainer, model
@@ -1868,7 +1924,7 @@ def finetuning_phase(counters, root):
 # precompute through the three encoder routes
 # ---------------------------------------------------------------------------
 
-HD_SWEEP = (16, 32, 40, 64, 80, 96, 100, 128, 160, 256)  # the backward stops at 128
+HD_SWEEP = (16, 32, 40, 64, 80, 96, 100, 128, 160, 256)
 SWEEP_GRIDS = ((25, 14, False), (25, 14, True), (1, 64, False))  # (batch, grid side, misaligned)
 ROUTE_KNOBS = ("MSAM_TPU_SPATIAL_WINDOW", "MSAM_TPU_WINDOW_STACK")
 ROUTES = {"default": ({}, VIT_CHAINS), "K9": ({"MSAM_TPU_SPATIAL_WINDOW": "1"}, K9_CHAINS),
@@ -1897,16 +1953,17 @@ class Route:
 
 
 def head_dim_sweep():
-    """relpos_attention and (up to head dim 128) its backward at every head
+    """relpos_attention and its backward (with the forward's lse) at every head
     dim of ``HD_SWEEP`` on (25, 4, 196, hd) windows and a (1, 4, 4096, hd)
     global grid, q / k / v strided out of qkv rows, and on the windows once
     more with every row one element off its 16-byte alignment; against the
-    plain versions, f32 rel 1e-4, bf16 2e-2 of max (the backward 3e-2). Head
-    dims the kernels are not built for run staged into the next built one.
-    The aligned bf16 forwards are timed, with their variant, bound and SDPA
-    (bias materialized) beside them."""
+    plain versions, f32 rel 1e-4, bf16 2e-2 of max (the backward 3e-2; the
+    forward's lse 1e-4 of max in both). Head dims the kernels are not built
+    for run staged into the next built one. The aligned bf16 forwards are
+    timed, with their variant, bound and SDPA (bias materialized) beside
+    them."""
     from micro_sam_tpu_torch.ops.relpos_attention import (
-        MAX_BWD_HEAD_DIM, kernel_head_dim, relpos_attention, relpos_attention_backward,
+        kernel_head_dim, relpos_attention, relpos_attention_backward,
         relpos_attention_backward_plain, relpos_attention_plain)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(2468)
@@ -1921,10 +1978,13 @@ def head_dim_sweep():
                 q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
                 rh, rw = ((torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dt) for _ in range(2))
                 label = f"({B}, {nH}, {N}, {hd}){' misaligned' if misaligned else ''}"
-                out = relpos_attention(q, k, v, rh, rw, (H, H))
+                lse, lse_ref = (torch.empty(B, nH, N, device=dev) for _ in range(2))
+                out = relpos_attention(q, k, v, rh, rw, (H, H), lse=lse)
                 f32 = [t.float() for t in (q, k, v, out, rh, rw)]
-                ref = relpos_attention_plain(*f32[:3], *f32[4:], (H, H))
+                ref = relpos_attention_plain(*f32[:3], *f32[4:], (H, H), lse=lse_ref)
                 err = check(f"relpos_attention {label}", out, ref, dname, quiet=True)
+                check(f"relpos_attention lse {label}", lse, lse_ref, dname, quiet=True,
+                      tol=F32_TOL)
                 a = (q, k, v, rh, rw, (H, H))
                 row = dict(shape=label, dtype=dname, kernel_head_dim=kernel_head_dim(hd),
                            variant=relpos_variant(a), max_abs_err=err)
@@ -1936,22 +1996,18 @@ def head_dim_sweep():
                     timing = (f"; ms {row['ms']:.4f}  library_ms {row['library_ms']:.4f}  "
                               f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
                     del kern, lib
-                err_b = None
-                if hd <= MAX_BWD_HEAD_DIM:
-                    dout = torch.randn(B, nH, N, hd, generator=g).to(dev, dt)
-                    grads = relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, H))
-                    ref_b = relpos_attention_backward_plain(*f32[:4], dout.float(), *f32[4:],
-                                                            (H, H))
-                    err_b = check(f"relpos_attention_backward {label}", grads, ref_b, dname,
-                                  quiet=True,
-                                  tol=F32_TOL if dt == torch.float32 else BWD_BF16_TOL)
-                    del dout, grads, ref_b
+                dout = torch.randn(B, nH, N, hd, generator=g).to(dev, dt)
+                grads = relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, H), lse=lse)
+                ref_b = relpos_attention_backward_plain(*f32[:4], dout.float(), *f32[4:], (H, H))
+                err_b = check(f"relpos_attention_backward {label}", grads, ref_b, dname,
+                              quiet=True, tol=F32_TOL if dt == torch.float32 else BWD_BF16_TOL)
+                del dout, grads, ref_b, lse, lse_ref
                 torch.cuda.synchronize()
                 row["backward_max_abs_err"] = err_b
                 rows.append(row)
                 log(f"  hd {hd:3d} (kernel {kernel_head_dim(hd):3d}) {label:<32s} {dname:<8s} "
-                    f"{row['variant']:<8s} forward max_abs_err {err:.3e}, backward "
-                    f"{'-' if err_b is None else f'{err_b:.3e}'} ok{timing}")
+                    f"{row['variant']:<8s} forward max_abs_err {err:.3e}, backward {err_b:.3e} "
+                    f"ok{timing}")
                 del flat, q5, q, k, v, out, f32, ref, a
         torch.cuda.empty_cache()
     return rows
@@ -2475,7 +2531,8 @@ def main():
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")}}}))
-    log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants",) if k in r}
+    log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims")
+                                  if k in r}
                                 for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

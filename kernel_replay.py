@@ -1,20 +1,26 @@
-"""Time the ViT kernels of one vit_b encode, replayed back to back, for one or
-more checkouts of this repository, each in its own process and in the order
-given, so that two versions of a kernel are compared on one card:
+"""Time the ViT kernels of one vit_b encode and of one vit_b training step,
+replayed back to back, for one or more checkouts of this repository, each in
+its own process and in the order given, so that two versions of a kernel are
+compared on one card:
 
     python3 kernel_replay.py OLD NEW NEW OLD [--out FILE]
 
 Each argument is the root of a checkout (``.`` for this one). Its process
-imports that checkout's ``micro_sam_tpu_torch``, builds its kernels into that
-checkout's ``build/``, records the ``layernorm`` / ``gemm`` /
-``relpos_attention`` launches of one batch-1 1024 x 1024 vit_b encode (bf16,
-random weights from seed 0, a random image from seed 0) through the
-encoder's default route, and replays each kernel's launches back to back.
-Device time from torch.profiler (CUPTI), by the ``time_ms`` of the
-``chip_smoke.py`` beside this script: the mean of 20 runs, taken ``REPS``
-times. Prints the card's name and power limit, one JSON line per checkout
-and the median of each kernel per checkout; ``--out`` writes all of it to
-a JSON file. Needs one CUDA card.
+imports that checkout's ``micro_sam_tpu_torch`` and builds its kernels into
+that checkout's ``build/``. The encode replay records the ``layernorm`` /
+``gemm`` / ``relpos_attention`` launches of one batch-1 1024 x 1024 vit_b
+encode (bf16, random weights from seed 0, a random image from seed 0)
+through the encoder's default route; the step replay records the
+``relpos_attention`` (K1, with the checkpoint recompute) and
+``relpos_attention_backward`` (K4) calls of one vit_b ``forward_train`` and
+its backward (batch 2 of 1024 x 1024, bf16 compute, f32 weights from seed 0,
+random pixels and upstream gradient from seed 0), as a training step makes
+them. Each kernel's calls are replayed back to back: device time from
+torch.profiler (CUPTI), by the ``time_ms`` of the ``chip_smoke.py`` beside
+this script, the mean of 20 runs (10 for the step), taken ``REPS`` times.
+Prints the card's name and power limit, one JSON line per checkout and the
+median of each kernel per checkout (``ms`` per encode, ``step_ms`` per
+step); ``--out`` writes all of it to a JSON file. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -79,6 +85,51 @@ def child(root: str) -> dict:
         out["launches"][name] = len(mine)
         out["ms"][name] = [device_ms(lambda: [fn(*a, **kw) for _, fn, a, kw in mine])
                            for _ in range(REPS)]
+    del calls, predictor
+    out.update(step_replay(device_ms))
+    return out
+
+
+def step_replay(device_ms) -> dict:
+    """The K1 and K4 calls of one vit_b forward_train + backward (batch 2,
+    1024^2, bf16), recorded by patching the module names the autograd
+    function calls them by, each kernel's calls replayed back to back."""
+    import torch
+    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+    from micro_sam_tpu_torch.training import get_trainable_sam_model
+    sam = get_trainable_sam_model("vit_b", seed=0).sam
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 1024, 1024, 3, generator=g).cuda()
+    gout = None
+    calls = {"relpos_attention": [], "relpos_attention_backward": []}
+    saved = {n: getattr(rpa, n) for n in calls}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            calls[name].append((a, kw))
+            return fn(*a, **kw)
+        # the wrapped function counts its launches on the object its module
+        # name points to, which is now this wrapper
+        call.launches = 0
+        return call
+    with torch.enable_grad():
+        y = sam.encode_image_train(x)  # builds nothing new: a warm-up step
+        gout = torch.randn(y.shape, generator=g).to(y.device, y.dtype)
+        y.backward(gout)
+        for n, fn in saved.items():
+            setattr(rpa, n, wrap(n, fn))
+        try:
+            sam.zero_grad(set_to_none=True)
+            sam.encode_image_train(x).backward(gout)
+        finally:
+            for n, fn in saved.items():
+                setattr(rpa, n, fn)
+    torch.cuda.synchronize()
+    out = {"step_calls": {n: len(c) for n, c in calls.items()}, "step_ms": {}}
+    for n, mine in calls.items():
+        fn = saved[n]
+        out["step_ms"][n] = [device_ms(lambda: [fn(*a, **kw) for a, kw in mine], iters=10)
+                             for _ in range(REPS)]
     return out
 
 
@@ -112,7 +163,9 @@ def main():
         mine = [r for r in runs if r["root"] == root]
         summary[root] = {k: statistics.median(v for r in mine for v in r["ms"][k])
                          for k in mine[0]["ms"]}
-        print(f"{root}: median ms per encode {summary[root]}", flush=True)
+        summary[root]["step"] = {k: statistics.median(v for r in mine for v in r["step_ms"][k])
+                                 for k in mine[0]["step_ms"]}
+        print(f"{root}: median ms per encode and per training step {summary[root]}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

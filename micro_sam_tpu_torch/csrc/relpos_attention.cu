@@ -9,7 +9,9 @@
 // through flash_attention_qkv) and the attention stage inside
 // ops/fused_window_block.py::_fused_block_kernel / ::_fused_global_kernel.
 // Built once per head dim (-DMSAM_HD=<hd>: 32, 64, 80, 96, 128 and 256), a
-// library each, so that the builds run side by side.
+// library each, so that the builds run side by side. The key tiling, the
+// loaders and the u products live in relpos_common.cuh, shared with the
+// backward.
 //
 // Every pointer comes with element strides (batch, head, token; the head dim
 // is contiguous), so the kernel reads q/k/v straight out of the qkv
@@ -83,12 +85,18 @@
 // accumulates p v for one 128-column slice of the output, the slice a grid
 // dimension; each slice's columns are written once.
 //
+// Row statistics: handed an lse buffer, each variant (and the f32 kernel)
+// stores each row's log-sum-exp of the logits once, at the end (natural
+// units, from the running maximum and sum; slice 0 only): the backward's
+// row statistics, so that it does not walk the keys again. Null stores
+// nothing (the serving path).
+//
 // ptxas (-Xptxas -v, sm_90a): no instantiation spills or keeps a stack
 // frame. Registers, rows / general / window, plain mode (spatial mode):
-// hd 32 154 / 151 / 151 (170 / 168 / 163); hd 64 193 / 195 / 183 (217 / 218 /
-// 200); hd 80 224 / 234 / 195 (234 / 252 / 216); hd 96 250 / 250 / 213 (250 /
-// 250 / 238); hd 128 210 / 209 / 213 (217 / 214 / 241); hd 256 212 / 214
-// (217 / 218); the f32 kernel 123-149.
+// hd 32 157 / 155 / 155 (177 / 174 / 162); hd 64 195 / 197 / 186 (224 / 225 /
+// 203); hd 80 228 / 237 / 198 (241 / 252 / 219); hd 96 251 / 251 / 216 (252 /
+// 252 / 239); hd 128 213 / 211 / 215 (223 / 220 / 243); hd 256 216 / 218
+// (225 / 226); the f32 kernel 125-151.
 // Shared memory, dynamic, one block an SM in all: rows at the global grid
 // 137 KB (hd 64), 153 KB (80), 143 KB (96), 167 KB (128), 165 KB (256, 8 x 8
 // patch); window 14 x 14: 122 KB (64), 143 KB (80), 165 KB (96), 208 KB (128).
@@ -101,92 +109,6 @@
 #ifndef MSAM_HD
 #error "build with -DMSAM_HD=<head dim>"
 #endif
-
-using bf16 = __nv_bfloat16;
-
-constexpr float LOG2E = 1.4426950408889634f;
-enum { VAR_ROWS = 0, VAR_GENERAL = 1, VAR_WINDOW = 2 };
-constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may take (227 KB)
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// ---------------------------------------------------------------------------
-// key tiling (the same arithmetic as ops/relpos_attention.py::forward_plan)
-// ---------------------------------------------------------------------------
-
-struct Tiling {
-  int wp;      // padded row: W rounded up to 8 slots
-  int twp;     // slots of one row within a tile: min(wp, 64)
-  int rows;    // map rows a tile holds: 64 / twp
-  int segs;    // tiles across one row: 1 unless W > 64
-  int ntiles;  // key tiles
-  int uwo;     // offset of u_w in a u row: after the H u_h entries
-  int uwl;     // u_w entries a row keeps: W, then -inf up to segs * twp
-  int up;      // u row pitch (odd: the 8 rows of a fragment hit 8 banks)
-};
-
-__host__ __device__ inline Tiling tiling_of(int H, int W) {
-  Tiling T;
-  T.wp = (W + 7) & ~7;
-  T.twp = T.wp < 64 ? T.wp : 64;
-  T.rows = 64 / T.twp;
-  T.segs = (T.wp + 63) / 64;
-  T.ntiles = (H + T.rows - 1) / T.rows * T.segs;
-  T.uwo = H;
-  T.uwl = T.segs * T.twp;
-  T.up = (T.uwo + T.uwl) | 1;
-  return T;
-}
-
-struct TileAt {
-  int ky0, kx0, nj;  // first map row, first column, n8 tiles of slots in use
-};
-
-__device__ __forceinline__ TileAt tile_at(const Tiling& T, int it, int H) {
-  const int rb = it / T.segs, seg = it - rb * T.segs;
-  TileAt a;
-  a.ky0 = rb * T.rows;
-  a.kx0 = seg * 64;
-  a.nj = min(T.rows, H - a.ky0) * min(T.twp, T.wp - a.kx0) / 8;
-  return a;
-}
-
-// nslots key slots (slot = r * twp + cx: map row ky0 + r, column kx0 + cx)
-// of a strided (token, COLS) source into smem rows of pitch LD, as 16-byte
-// cp.async copies; slots outside the map (r >= nrows, a row past H, a column
-// past W) are zero-filled
-template <int COLS, int LD, bool SP>
-__device__ __forceinline__ void load_slots(bf16* dst, const bf16* src, long long sn, int nslots,
-                                           int ky0, int kx0, int twp, int nrows, int H, int W,
-                                           const Geo& geo, int tid, int nthr) {
-  constexpr int CH = COLS * (int)sizeof(bf16) / 16;
-  const int rcp = (65536 + twp - 1) / twp;  // slot / twp as a product: exact for slot < 2^10
-  for (int c = tid; c < nslots * CH; c += nthr) {
-    const int slot = c / CH, part = c - slot * CH;
-    const int r = (slot * rcp) >> 16, cx = slot - r * twp;
-    const int ky = ky0 + r, kx = kx0 + cx;
-    const bool ok = r < nrows && ky < H && kx < W;
-    const char* g = ok ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, ky * W + kx, sn)) + part * 16
-                       : reinterpret_cast<const char*>(src);
-    cp_async16(reinterpret_cast<char*>(dst + slot * LD) + part * 16, g, ok);
-  }
-}
 
 // A thread's 16-byte chunks of the 64-slot k and v tiles (the same columns
 // when the head dim is one output slice), with load_slots's slot arithmetic
@@ -225,120 +147,6 @@ struct TileChunks {
     }
   }
 };
-
-// q rows [t0, t0 + nrows) into smem rows of pitch LD; rows past N zero-filled
-template <int COLS, int LD, bool SP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long sn, int t0,
-                                          int nrows, int N, const Geo& geo, int tid, int nthr) {
-  constexpr int CH = COLS * (int)sizeof(bf16) / 16;
-  for (int c = tid; c < nrows * CH; c += nthr) {
-    const int r = c / CH, part = c - r * CH, t = t0 + r;
-    const char* g = t < N ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, t, sn)) + part * 16
-                          : reinterpret_cast<const char*>(src);
-    cp_async16(reinterpret_cast<char*>(dst + r * LD) + part * 16, g, t < N);
-  }
-}
-
-// the nrows q rows of a patch of the map 8 cells wide (row r = py * 8 + px
-// is map cell (qy0 + py, qx0 + px)) into smem rows of pitch LD; cells off
-// the map zero-filled
-template <int COLS, int LD, bool SP>
-__device__ __forceinline__ void load_patch(bf16* dst, const bf16* src, long long sn, int nrows,
-                                           int qy0, int qx0, int H, int W, const Geo& geo,
-                                           int tid, int nthr) {
-  constexpr int CH = COLS * (int)sizeof(bf16) / 16;
-  for (int c = tid; c < nrows * CH; c += nthr) {
-    const int r = c / CH, part = c - r * CH;
-    const int qy = qy0 + (r >> 3), qx = qx0 + (r & 7);
-    const bool ok = qy < H && qx < W;
-    const char* g = ok ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, qy * W + qx, sn)) + part * 16
-                       : reinterpret_cast<const char*>(src);
-    cp_async16(reinterpret_cast<char*>(dst + r * LD) + part * 16, g, ok);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// u tables, in log2 units: row r of U belongs to smem q row r;
-// [0, H) u_h, [H, H + W) u_w, [H + W, H + uwl) -inf (the padding columns of
-// a key row); rows off the map hold 0 where a q row holds u. A tile's rows
-// past H are never read: its n8 tiles in use (nj) stop at the map's last
-// row.
-// ---------------------------------------------------------------------------
-
-// the -inf pads, and the zeros of the rows off the map: rows r >= nvalid
-// (patch false: the window's q rows past N), or the cells of a patch 8 wide
-// at (qy0, qx0) off the H x W map (patch true); the products fill the rest
-__device__ __forceinline__ void u_pads(float* U, const Tiling& T, int nrows, int nvalid, bool patch,
-                                       int qy0, int qx0, int H, int W, int tid, int nthr) {
-  const int len = T.uwo + T.uwl;
-  for (int idx = tid; idx < nrows * len; idx += nthr) {
-    const int r = idx / len, j = idx - r * len;
-    const bool on_map = patch ? qy0 + (r >> 3) < H && qx0 + (r & 7) < W : r < nvalid;
-    if (j >= T.uwo + W) U[r * T.up + j] = -INFINITY;
-    else if (!on_map) U[r * T.up + j] = 0.f;
-  }
-}
-
-// One warp: u entries of up to 16 q rows that share one table, as a
-// tensor-core product. Row i < ni of the product is smem q row
-// row0 + i * rstride (pitch HD + 8), its u row the same index; its nb entries
-// are (q row) . tab[j] (tab: nb rows of HD), written at column off.
-template <int HD>
-__device__ __forceinline__ void u_product(float* U, int up, int off, const bf16* Qs, int row0,
-                                          int rstride, int ni, const bf16* tab, int nb, int lane) {
-  constexpr int LDT = HD + 8, KS = HD / 16;
-  const int g = lane >> 2, t = lane & 3;
-  const int ai = min(lane & 15, ni - 1);  // the row this lane addresses for ldmatrix
-  const bf16* arow = Qs + (row0 + ai * rstride) * LDT + (lane >> 4) * 8;
-  for (int nb0 = 0; nb0 < nb; nb0 += 64) {
-    float d[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
-    const int nn = min(8, (nb - nb0 + 7) / 8);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, arow + kk * 16);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        if (n < nn) {
-          const int j = min(nb0 + n * 8 + g, nb - 1);
-          const uint32_t* b = reinterpret_cast<const uint32_t*>(tab + (size_t)j * HD + kk * 16 + t * 2);
-          mma16816(d[n], a, __ldg(b), __ldg(b + 4));
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = nb0 + n * 8 + t * 2 + e;
-        if (n < nn && j < nb) {
-          if (g < ni) U[(row0 + g * rstride) * up + off + j] = d[n][e] * LOG2E;
-          if (g + 8 < ni) U[(row0 + (g + 8) * rstride) * up + off + j] = d[n][2 + e] * LOG2E;
-        }
-      }
-    }
-  }
-}
-
-// a thread's u_w terms for its key slots (n8 tile j, column 2t + e) of the
-// tiles starting at column kx0, rows g (0, 1) and g + 8 (2, 3); -inf past
-// the tile's rows
-__device__ __forceinline__ void load_uw(float (&uw)[8][4], const float* U0, const float* U1,
-                                        const Tiling& T, int kx0, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = j * 8 + t * 2 + e;
-      const int cx = c % T.twp;
-      const bool ok = c < T.rows * T.twp;
-      uw[j][e] = ok ? U0[T.uwo + kx0 + cx] : -INFINITY;
-      uw[j][2 + e] = ok ? U1[T.uwo + kx0 + cx] : -INFINITY;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: one warp, 16 q rows against one key tile, everything in registers
@@ -468,15 +276,22 @@ __device__ __forceinline__ void attend_tile(float (&o)[NV / 8][4], float& m0, fl
 }
 
 // tokens tok0 (row g) and tok1 (row g + 8) of the warp's output, normalized;
-// a row off the map (ok false) is not written
+// a row off the map (ok false) is not written. lse (the (batch, head)'s row
+// of log-sum-exps, or null): each row's log-sum-exp, natural units, from the
+// running maximum m (log2 units) and sum l
 template <int NV, bool SP>
 __device__ __forceinline__ void store_rows(bf16* ob, long long osn, const Geo& geo,
-                                           float (&o)[NV / 8][4], float l0, float l1, int tok0,
-                                           bool ok0, int tok1, bool ok1, int t) {
+                                           float (&o)[NV / 8][4], float m0, float m1, float l0,
+                                           float l1, int tok0, bool ok0, int tok1, bool ok1,
+                                           float* lse, int t) {
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (lse != nullptr && t == 0) {
+    if (ok0) lse[tok0] = (m0 + log2f(l0)) * LN2;
+    if (ok1) lse[tok1] = (m1 + log2f(l1)) * LN2;
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
@@ -489,17 +304,10 @@ __device__ __forceinline__ void store_rows(bf16* ob, long long osn, const Geo& g
   }
 }
 
-template <int HD> __host__ __device__ constexpr int out_cols() { return HD > 128 ? 128 : HD; }
 // k/v ring slots: 3 up to head dim 80, 2 above (shared memory). With the
 // 16-row patches below, the global launch at hd 80 measured 5-12 % faster
 // than with 2 slots and 8-row patches; at hd 64 the two are within 1 %.
 template <int HD> __host__ __device__ constexpr int ring() { return HD <= 80 ? 3 : 2; }
-
-// the window variant's key slots: H padded rows of WP, rounded up to 16 with
-// room for the last tile's k16 step
-__host__ __device__ inline int window_slots(const Tiling& T, int H) {
-  return (H * T.wp + 8 + 15) & ~15;
-}
 
 // map rows of a tiled block's q patch (8 columns wide): 16 (8 warps, each
 // k/v tile read for 128 q rows) where the head dim and the u tables allow,
@@ -527,7 +335,8 @@ __host__ __device__ size_t bf16_smem(int var, int N, int H, int W) {
 template <int HD, bool SP, int VAR>
 __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rh, const bf16* __restrict__ rw, bf16* __restrict__ out, int N,
+    const bf16* __restrict__ rh, const bf16* __restrict__ rw, bf16* __restrict__ out,
+    float* __restrict__ lse, int N,
     int H, int W, long long qsb, long long qsh, long long qsn, long long ksb, long long ksh,
     long long ksn, long long vsb, long long vsh, long long vsn, long long osb, long long osh,
     long long osn, float scale, Geo geo) {
@@ -546,6 +355,7 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
   const bf16* kb = k + batch_off<SP>(geo, b, ksb, ksn) + h * ksh;
   const bf16* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh + sl * NV;
   bf16* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh + sl * NV;
+  float* lb = lse != nullptr && sl == 0 ? lse + ((size_t)b * (gridDim.y / NSL) + h) * N : nullptr;
   int jy[8];  // the padded row (within a tile) of each n8 tile of slots
 #pragma unroll
   for (int j = 0; j < 8; ++j) jy[j] = j * 8 / T.twp;
@@ -605,7 +415,7 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
                                   lane);
       }
       const int r0 = qt * 16 + g;
-      store_rows<NV, SP>(ob, osn, geo, o, l0, l1, r0, r0 < N, r0 + 8, r0 + 8 < N, t);
+      store_rows<NV, SP>(ob, osn, geo, o, m0, m1, l0, l1, r0, r0 < N, r0 + 8, r0 + 8 < N, lb, t);
     }
   } else {
     constexpr int ST = ring<HD>();
@@ -687,8 +497,8 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
     }
     // rows g and g + 8 of the warp: patch cells (2 warp, g) and (2 warp + 1, g)
     const int qx = qx0 + g, qy = qy0 + 2 * warp;
-    store_rows<NV, SP>(ob, osn, geo, o, l0, l1, qy * W + qx, qx < W && qy < H, (qy + 1) * W + qx,
-                       qx < W && qy + 1 < H, t);
+    store_rows<NV, SP>(ob, osn, geo, o, m0, m1, l0, l1, qy * W + qx, qx < W && qy < H,
+                       (qy + 1) * W + qx, qx < W && qy + 1 < H, lb, t);
   }
 }
 
@@ -712,7 +522,7 @@ __host__ __device__ constexpr size_t f32_smem(int H, int W) {
 }
 
 // U[r * up + j] = q_r . Rh[qy, j] (j < H), q_r . Rw[qx, j - H] (j >= H) for
-// nrows q rows (build_u of relpos_common.cuh at any row count)
+// nrows q rows, by scalar dot products
 template <typename T, int HD>
 __device__ __forceinline__ void build_u_rows(float* U, int up, const T* Qs, const T* rh,
                                              const T* rw, int q0, int nrows, int N, int H, int W) {
@@ -736,8 +546,8 @@ template <int HD, bool SP>
 __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ rh, const float* __restrict__ rw, float* __restrict__ out,
-    int N, int H, int W, long long qsb, long long qsh, long long qsn, long long ksb,
-    long long ksh, long long ksn, long long vsb, long long vsh, long long vsn, long long osb,
+    float* __restrict__ lse, int N, int H, int W, long long qsb, long long qsh, long long qsn,
+    long long ksb, long long ksh, long long ksn, long long vsb, long long vsh, long long vsn, long long osb,
     long long osh, long long osn, float scale, Geo geo) {
   constexpr int QR = f32_rows<HD>(), NV = out_cols<HD>(), NSL = HD / NV;
   constexpr int LDT = HD + 8, LDV = NV + 8, LDO = NV + 4;
@@ -831,19 +641,21 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     if (qi < N) {
       const float inv = 1.f / l[r];
       for (int d = lane; d < NV; d += 32) ob[tok_off<SP>(geo, qi, osn) + d] = Ow[r * LDO + d] * inv;
+      if (lse != nullptr && sl == 0 && lane == 0)
+        lse[((size_t)b * (gridDim.y / NSL) + h) * N + qi] = m[r] + logf(l[r]);
     }
   }
 }
 
 template <typename T, typename Kernel>
 static int launch(Kernel kern, size_t smem, dim3 grid, int threads, const void* q, const void* k,
-                  const void* v, const void* rh, const void* rw, void* out, int N, int H, int W,
-                  const long long* st, float scale, Geo geo, cudaStream_t s) {
+                  const void* v, const void* rh, const void* rw, void* out, float* lse, int N,
+                  int H, int W, const long long* st, float scale, Geo geo, cudaStream_t s) {
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, threads, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)rh, (const T*)rw, (T*)out, N, H, W,
+      (const T*)q, (const T*)k, (const T*)v, (const T*)rh, (const T*)rw, (T*)out, lse, N, H, W,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
       geo);
   return (int)cudaGetLastError();
@@ -851,23 +663,23 @@ static int launch(Kernel kern, size_t smem, dim3 grid, int threads, const void* 
 
 template <int HD, bool SP>
 static int launch_bf16(int var, int B, int nH, int N, int H, int W, const void* q, const void* k,
-                       const void* v, const void* rh, const void* rw, void* out,
+                       const void* v, const void* rh, const void* rw, void* out, float* lse,
                        const long long* st, float scale, Geo geo, cudaStream_t s) {
   constexpr int NSL = HD / out_cols<HD>();
   const size_t smem = bf16_smem<HD>(var, N, H, W);
   if constexpr (HD <= 128) {
     if (var == VAR_WINDOW)
       return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_WINDOW>, smem,
-                          dim3(1, nH * NSL, B), 256, q, k, v, rh, rw, out, N, H, W, st, scale, geo,
-                          s);
+                          dim3(1, nH * NSL, B), 256, q, k, v, rh, rw, out, lse, N, H, W, st, scale,
+                          geo, s);
   }
   const int py = patch_rows(HD, H, W);
   const dim3 grid((H + py - 1) / py * ((W + 7) / 8), nH * NSL, B);
   if (var == VAR_ROWS)
     return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_ROWS>, smem, grid, 16 * py, q, k,
-                        v, rh, rw, out, N, H, W, st, scale, geo, s);
+                        v, rh, rw, out, lse, N, H, W, st, scale, geo, s);
   return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_GENERAL>, smem, grid, 16 * py, q,
-                      k, v, rh, rw, out, N, H, W, st, scale, geo, s);
+                      k, v, rh, rw, out, lse, N, H, W, st, scale, geo, s);
 }
 
 // strides: 12 element strides, (batch, head, token) for q, k, v, out in turn
@@ -875,15 +687,19 @@ static int launch_bf16(int var, int B, int nH, int N, int H, int W, const void* 
 // B windows of win x win tokens (H == W == win) of maps of nwy x nwx windows.
 // variant: VAR_ROWS, VAR_GENERAL or VAR_WINDOW, as forward_plan picks it
 // (bf16; the f32 kernel has one form); refused where it does not apply.
+// lse: null, or a contiguous (B, nH, N) f32 buffer that takes each row's
+// log-sum-exp of the logits (natural units; the backward's row statistics);
+// not in the spatial mode.
 MSAM_EXPORT int msam_relpos_attention(const void* q, const void* k, const void* v,
-                                      const void* rh, const void* rw, void* out, int B,
+                                      const void* rh, const void* rw, void* out, float* lse, int B,
                                       int nH, int N, int H, int W, int hd,
                                       const long long* strides, float scale, int win, int nwy,
                                       int nwx, int variant, int dtype, void* stream) {
   constexpr int NSL = MSAM_HD / out_cols<MSAM_HD>();
   if (hd != MSAM_HD || N != H * W || B <= 0 || nH <= 0 || B > 65535 || nH * NSL > 65535)
     return (int)cudaErrorInvalidValue;
-  if (win < 0 || (win > 0 && (H != win || W != win || nwy <= 0 || nwx <= 0 || B % (nwy * nwx))))
+  if (win < 0 || (win > 0 && (H != win || W != win || nwy <= 0 || nwx <= 0 || B % (nwy * nwx) ||
+                              lse != nullptr)))
     return (int)cudaErrorInvalidValue;
   const Geo geo{win, nwy, nwx};
   cudaStream_t s = (cudaStream_t)stream;
@@ -895,9 +711,9 @@ MSAM_EXPORT int msam_relpos_attention(const void* q, const void* k, const void* 
                   : variant == VAR_ROWS   ? W <= 64
                   : variant == VAR_GENERAL && W > 64;
     if (!ok) return (int)cudaErrorInvalidValue;
-    return win ? launch_bf16<MSAM_HD, true>(variant, B, nH, N, H, W, q, k, v, rh, rw, out,
+    return win ? launch_bf16<MSAM_HD, true>(variant, B, nH, N, H, W, q, k, v, rh, rw, out, lse,
                                             strides, scale, geo, s)
-               : launch_bf16<MSAM_HD, false>(variant, B, nH, N, H, W, q, k, v, rh, rw, out,
+               : launch_bf16<MSAM_HD, false>(variant, B, nH, N, H, W, q, k, v, rh, rw, out, lse,
                                              strides, scale, geo, s);
   }
   if (dtype == MSAM_F32) {
@@ -905,9 +721,9 @@ MSAM_EXPORT int msam_relpos_attention(const void* q, const void* k, const void* 
     const dim3 grid((N + QR - 1) / QR, nH * NSL, B);
     const size_t smem = f32_smem<MSAM_HD>(H, W);
     return win ? launch<float>(relpos_attention_f32_kernel<MSAM_HD, true>, smem, grid, 2 * QR, q,
-                               k, v, rh, rw, out, N, H, W, strides, scale, geo, s)
+                               k, v, rh, rw, out, lse, N, H, W, strides, scale, geo, s)
                : launch<float>(relpos_attention_f32_kernel<MSAM_HD, false>, smem, grid, 2 * QR,
-                               q, k, v, rh, rw, out, N, H, W, strides, scale, geo, s);
+                               q, k, v, rh, rw, out, lse, N, H, W, strides, scale, geo, s);
   }
   return (int)cudaErrorInvalidValue;
 }

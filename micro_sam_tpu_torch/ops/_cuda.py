@@ -29,7 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 # ops/relpos_attention.py runs any other head dim up to the largest in the
 # next larger one
 RELPOS_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
-RELPOS_BWD_HEAD_DIMS = (32, 64, 80, 96, 128)
+RELPOS_BWD_HEAD_DIMS = RELPOS_HEAD_DIMS
 # library name -> (source under csrc/ without .cu, extra nvcc flags)
 _LIBRARIES = {
     **{n: (n, ()) for n in ("layernorm", "gemm", "dwconv", "tiny_attention")},
@@ -43,12 +43,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _BWD_SIGNATURE = ("msam_relpos_attention_bwd",
-                  [_I] + [_P] * 13 + [_LL] + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P])
+                  [_I, _I] + [_P] * 14 + [_LL] + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P])
 _SIGNATURES = {
     "layernorm": ("msam_layernorm", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
     "gemm": ("msam_gemm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     **{f"relpos_attention_hd{d}": ("msam_relpos_attention",
-                                   [_P] * 6 + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 5
+                                   [_P] * 7 + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 5
                                    + [_P])
        for d in RELPOS_HEAD_DIMS},
     **{f"relpos_attention_bwd_hd{d}": _BWD_SIGNATURE for d in RELPOS_BWD_HEAD_DIMS},

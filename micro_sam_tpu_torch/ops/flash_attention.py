@@ -46,24 +46,26 @@ def _heads_first(t: torch.Tensor) -> torch.Tensor:
 
 class RelPosAttentionSplitFn(torch.autograd.Function):
     """Differentiable rel-pos attention over separate (B, N, nH, hd) q, k, v:
-    the forward is ``relpos_attention``, the backward
-    ``relpos_attention_backward`` writing dq / dk / dv straight into
+    the forward is ``relpos_attention`` (keeping the rows' log-sum-exps), the
+    backward ``relpos_attention_backward`` writing dq / dk / dv straight into
     (B, N, nH, hd) tensors (the plain versions for CPU tensors). The tables'
     gradients come back in their dtype (f32 from the kernel)."""
 
     @staticmethod
     def forward(ctx, q, k, v, rel_h, rel_w, hw):
         dt = q.dtype
+        B, N, nH, _ = q.shape
         out = torch.empty(q.shape, device=q.device, dtype=dt)
+        lse = torch.empty((B, nH, N), device=q.device, dtype=torch.float32)
         rpa.relpos_attention(*(_heads_first(t) for t in (q, k, v)), rel_h.to(dt), rel_w.to(dt),
-                             hw, out=_heads_first(out))
-        ctx.save_for_backward(q, k, v, rel_h, rel_w, out)
+                             hw, out=_heads_first(out), lse=lse)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
         ctx.hw = tuple(hw)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, rel_h, rel_w, out = ctx.saved_tensors
+        q, k, v, rel_h, rel_w, out, lse = ctx.saved_tensors
         dt = q.dtype
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
@@ -71,7 +73,7 @@ class RelPosAttentionSplitFn(torch.autograd.Function):
         dq, dk, dv = (_heads_first(g) for g in grads)
         _, _, _, drh, drw = rpa.relpos_attention_backward(
             *(_heads_first(t) for t in (q, k, v, out, dout.to(dt))), rel_h.to(dt), rel_w.to(dt),
-            ctx.hw, dq=dq, dk=dk, dv=dv)
+            ctx.hw, dq=dq, dk=dk, dv=dv, lse=lse)
         return (*grads, drh.to(rel_h.dtype), drw.to(rel_w.dtype), None)
 
 
@@ -79,9 +81,9 @@ def flash_attention_rel_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             hw: Tuple[int, int], rel_h: Optional[torch.Tensor],
                             rel_w: Optional[torch.Tensor]) -> torch.Tensor:
     """(B, N, nH, hd) attention over an (H, W) grid -> (B, N, nH, hd).
-    Missing rel-pos tables act as zeros. On the card the forward takes every
-    head dim up to 256 (``relpos_attention.MAX_HEAD_DIM``), the backward up
-    to 128 (``MAX_BWD_HEAD_DIM``); each raises above."""
+    Missing rel-pos tables act as zeros. On the card the forward and the
+    backward take every head dim up to 256 (``relpos_attention.MAX_HEAD_DIM``)
+    and raise above."""
     H, W = hw
     if rel_h is None:
         rel_h = torch.zeros((H, H, q.shape[-1]), dtype=q.dtype, device=q.device)

@@ -28,22 +28,29 @@ per patch of q cells, key tiles of 64 / W whole rows) and ``"general"``
 are strided views (the head dim contiguous), so the kernel reads the qkv
 product's rows and writes the proj product's rows in place.
 
-Backward: four launches (row statistics, dk/dv, dq with the per-key-row and
-per-key-column sums of dS, the table gradients), about 10 N^2 hd flops per
-head; see the source for the design.
+The forward can also store each row's log-sum-exp of the logits (``lse``,
+natural units, one f32 store a row); ``RelPosAttentionFn`` keeps it for the
+backward, so the backward does not walk the keys again for its row
+statistics.
 
-Head dims: the forward is built for 32, 64 (vit_b, vit_l), 80 (vit_h), 96,
-128 and 256 (``HEAD_DIMS``; above 128 each block computes one 128-column
-slice of the output), the backward for the same up to 128
-(``BWD_HEAD_DIMS``). A CUDA tensor of another head dim runs in the smallest
+Backward: four launches (u rows and D, dk/dv, dq with the per-key-row and
+per-key-column sums of dS, the table gradients), about 10 N^2 hd flops per
+head; see the source for the design. Stages 1 and 2 have the forward's
+three variants in bf16 (``backward_plan``): ``"window"`` (the window's keys
+and q rows resident, a block per window and head), ``"rows"`` and
+``"general"``.
+
+Head dims: both directions are built for 32, 64 (vit_b, vit_l), 80 (vit_h),
+96, 128 and 256 (``HEAD_DIMS``; above 128 each block computes one 128-column
+slice of its output). A CUDA tensor of another head dim runs in the smallest
 built one at least as large: the wrapper stages q, k, v, the tables (and for
 the backward out and dout) into zero-padded buffers, keeps the scale at the
 true head dim's ``hd ** -0.5`` and writes the first ``hd`` columns back. Zero
 columns add nothing to q . k or q . rel, and the extra output columns (and
 those of d rel_h / d rel_w) are dropped, so the result is the same function.
 Views the kernels cannot read in place (rows not 16-byte aligned, a strided
-head dim) go through the same staging. Above 256 the forward raises, above
-128 the backward. The plain versions take any head dim.
+head dim) go through the same staging. Above 256 both raise. The plain
+versions take any head dim.
 
 Spatial mode (``relpos_attention_spatial``): the forward over the w x w
 windows of padded (B, Hp, Wp) token maps, reading q, k, v from the map's rows
@@ -59,21 +66,19 @@ import torch
 from . import _cuda
 
 HEAD_DIMS = _cuda.RELPOS_HEAD_DIMS  # the forward's instantiated head dims
-BWD_HEAD_DIMS = _cuda.RELPOS_BWD_HEAD_DIMS  # the backward's
+BWD_HEAD_DIMS = _cuda.RELPOS_BWD_HEAD_DIMS  # the backward's: the same
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 MAX_BWD_HEAD_DIM = BWD_HEAD_DIMS[-1]
 
 
 def kernel_head_dim(hd: int, dims: Tuple[int, ...] = HEAD_DIMS) -> int:
     """The instantiated head dim a head dim ``hd`` runs in: the smallest of
-    ``dims`` (the forward's, or ``BWD_HEAD_DIMS``) at least as large. Raises
-    above the largest."""
+    ``dims`` at least as large. Raises above the largest."""
     for d in dims:
         if d >= hd:
             return d
-    what = "forward" if dims == HEAD_DIMS else "backward"
-    raise ValueError(f"the rel-pos attention {what} kernel takes head dims up to {dims[-1]}, "
-                     f"not {hd}")
+    raise ValueError(f"the rel-pos attention kernels (forward and backward) take head dims up "
+                     f"to {dims[-1]}, not {hd}")
 
 
 # the forward kernel's variants (VAR_* in csrc/relpos_attention.cu)
@@ -88,6 +93,10 @@ class ForwardPlan(NamedTuple):
     code: int
 
 
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
 def _window_smem(N: int, H: int, W: int, hd: int) -> int:
     """Bytes of shared memory the window variant takes (``bf16_smem`` in the
     kernel): k and v of the window's padded key slots, its q rows and their
@@ -95,7 +104,7 @@ def _window_smem(N: int, H: int, W: int, hd: int) -> int:
     wp = -(-W // 8) * 8
     ld = hd + 8
     slots, rows = (H * wp + 8 + 15) // 16 * 16, -(-N // 16) * 16
-    return -(-2 * (slots * 2 * ld + rows * ld) // 128) * 128 + 4 * rows * ((H + wp) | 1)
+    return _align128(2 * (slots * 2 * ld + rows * ld)) + 4 * rows * ((H + wp) | 1)
 
 
 def forward_plan(N: int, H: int, W: int, hd: int) -> ForwardPlan:
@@ -114,6 +123,57 @@ def forward_plan(N: int, H: int, W: int, hd: int) -> ForwardPlan:
     else:
         variant = "rows" if W <= 64 else "general"
     return ForwardPlan(variant, VARIANT_CODES[variant])
+
+
+class BackwardPlan(NamedTuple):
+    """The bf16 backward's variants of its dk/dv stage (1) and its dq stage
+    (2), and the kernel code of each of the four stages (stages 0 and 3 have
+    one form)."""
+    dkdv: str
+    dq: str
+    codes: Tuple[int, int, int, int]
+
+
+def _bwd_window_smem(stage: int, N: int, H: int, W: int, hd: int) -> int:
+    """Bytes of shared memory the backward's window variant of stage 1 (dk/dv)
+    or 2 (dq) takes (``dkdv_bf16_smem`` / ``dq_bf16_smem`` in the kernel): k,
+    v, q and dO of the whole window and its f32 u rows (stage 1 also lse and
+    D), resident."""
+    wp = -(-W // 8) * 8
+    ld = hd + 8
+    slots, rows = (H * wp + 8 + 15) // 16 * 16, -(-N // 16) * 16
+    ug = -(-H // 4) * 4 + wp  # a u row: u_h to a multiple of 4, then u_w
+    if stage == 1:
+        pitch = ug
+        while pitch % 16 not in (4, 12):
+            pitch += 4
+        per_row = pitch + 2
+    else:
+        per_row = ug + 4 if ug % 8 == 0 else ug
+    return _align128(2 * (2 * slots + 2 * rows) * ld) + 4 * rows * per_row
+
+
+def backward_plan(N: int, H: int, W: int, hd: int) -> BackwardPlan:
+    """The bf16 backward's variants for an (H, W) grid (N = H * W) at kernel
+    head dim ``hd`` (the kernel checks the same rule), for its dk/dv stage and
+    its dq stage each:
+
+    - ``"window"``: hd <= 128, W <= 64, the keys padded to rows of W rounded up
+      to 8 fit 256 slots and the stage's resident window fits shared memory
+      (the 14 x 14 windows up to head dim 96); for the dq stage also rows of
+      16 slots (9 <= W <= 16): one block per (batch, head);
+    - ``"rows"``: W <= 64 otherwise: key tiles of whole map rows;
+    - ``"general"``: W > 64: key tiles of 64-slot row segments."""
+    wp = -(-W // 8) * 8
+    names = []
+    for stage in (1, 2):
+        if (hd <= 128 and wp <= 64 and H * wp <= 256 and (stage == 1 or wp == 16)
+                and _bwd_window_smem(stage, N, H, W, hd) <= SMEM_LIMIT):
+            names.append("window")
+        else:
+            names.append("rows" if W <= 64 else "general")
+    return BackwardPlan(names[0], names[1],
+                        (0, VARIANT_CODES[names[0]], VARIANT_CODES[names[1]], 0))
 
 
 def _in_place(t: torch.Tensor) -> bool:
@@ -145,11 +205,12 @@ def _tables(rel_h: torch.Tensor, rel_w: torch.Tensor, dt: torch.dtype, hdp: int)
     return tuple(_staged(t.to(dt).contiguous(), hdp) for t in (rel_h, rel_w))
 
 
-def _launch_forward(q, k, v, rel_h, rel_w, out, dims, geo, ok, strides_of) -> None:
+def _launch_forward(q, k, v, rel_h, rel_w, out, dims, geo, ok, strides_of, lse=None) -> None:
     """One launch of the forward kernel. ``dims`` = (B, nH, N, H, W) as the
     kernel sees them, ``geo`` = (window, nwy, nwx) (zeros: the plain mode);
     ``ok`` / ``strides_of``: whether the kernel takes a tensor where it lies,
-    and its (batch, head, token) element strides."""
+    and its (batch, head, token) element strides; ``lse``: None or the
+    (B, nH, N) f32 buffer the rows' log-sum-exps go to."""
     B, nH, N, H, W = dims
     hd = q.shape[-1]
     hdp = kernel_head_dim(hd)
@@ -162,54 +223,74 @@ def _launch_forward(q, k, v, rel_h, rel_w, out, dims, geo, ok, strides_of) -> No
     qs, ks, vs = (_staged(t, hdp, ok) for t in (q, k, v))
     os_ = _staged(out, hdp, ok, fill=False)
     strides = [x for t in (qs, ks, vs, os_) for x in strides_of(t)]
-    _forward_kernel(qs, ks, vs, rh, rw, os_, dims, hdp, float(hd ** -0.5), geo, strides)
+    _forward_kernel(qs, ks, vs, rh, rw, os_, dims, hdp, float(hd ** -0.5), geo, strides, lse)
     if os_ is not out:
         out.copy_(os_[..., :hd])
 
 
-def _forward_kernel(q, k, v, rh, rw, out, dims, hdp, scale, geo, strides) -> None:
+def _forward_kernel(q, k, v, rh, rw, out, dims, hdp, scale, geo, strides, lse=None) -> None:
     """One launch of ``csrc/relpos_attention.cu`` on operands it takes as they
     are (head dim ``hdp``, one of ``HEAD_DIMS``), ``scale`` the true head
-    dim's, in the variant ``forward_plan`` picks."""
+    dim's, in the variant ``forward_plan`` picks; with ``lse``, the rows'
+    log-sum-exps into it."""
     B, nH, N, H, W = dims
     name = f"relpos_attention_hd{hdp}"
     rc = _cuda.library(name).msam_relpos_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-        B, nH, N, H, W, hdp, (_cuda._LL * 12)(*strides), scale, *geo,
-        forward_plan(N, H, W, hdp).code, _cuda.dtype_code(q), _cuda.stream_ptr(q))
+        0 if lse is None else lse.data_ptr(), B, nH, N, H, W, hdp, (_cuda._LL * 12)(*strides),
+        scale, *geo, forward_plan(N, H, W, hdp).code, _cuda.dtype_code(q), _cuda.stream_ptr(q))
     _cuda.check(name, rc)
 
 
-def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           rel_h: torch.Tensor, rel_w: torch.Tensor,
-                           hw: Tuple[int, int]) -> torch.Tensor:
-    """q, k, v: (B, nH, N, hd) (any strides); rel_h (H, H, hd), rel_w (W, W, hd).
-    Returns (B, nH, N, hd) in q.dtype, computed in f32."""
-    B, nH, N, hd = q.shape
+def _logits_plain(qf, kf, rel_h, rel_w, hw):
+    """The (B, nH, N, N) f32 logits of f32 q, k: scaled q . k plus the bias."""
+    B, nH, N, hd = qf.shape
     H, W = hw
-    qf, kf, vf = q.float(), k.float(), v.float()
     logits = (qf * hd ** -0.5) @ kf.transpose(-1, -2)
     r_q = qf.reshape(B, nH, H, W, hd)
     rh = torch.einsum("bnijc,ikc->bnijk", r_q, rel_h.float())
     rw = torch.einsum("bnijc,jkc->bnijk", r_q, rel_w.float())
-    logits = logits.view(B, nH, H, W, H, W) + rh[..., :, None] + rw[..., None, :]
-    w = torch.softmax(logits.view(B, nH, N, N), dim=-1)
-    return (w @ vf).to(q.dtype)
+    return (logits.view(B, nH, H, W, H, W) + rh[..., :, None] + rw[..., None, :]).view(B, nH, N, N)
+
+
+def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rel_h: torch.Tensor, rel_w: torch.Tensor,
+                           hw: Tuple[int, int], lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v: (B, nH, N, hd) (any strides); rel_h (H, H, hd), rel_w (W, W, hd).
+    Returns (B, nH, N, hd) in q.dtype, computed in f32. ``lse``, when given,
+    a (B, nH, N) f32 tensor, takes each row's log-sum-exp of the logits."""
+    logits = _logits_plain(q.float(), k.float(), rel_h, rel_w, hw)
+    if lse is not None:
+        lse.copy_(torch.logsumexp(logits, dim=-1))
+    w = torch.softmax(logits, dim=-1)
+    return (w @ v.float()).to(q.dtype)
+
+
+def _check_lse(lse: Optional[torch.Tensor], q: torch.Tensor, who: str) -> None:
+    B, nH, N, _ = q.shape
+    if lse is not None and (lse.shape != (B, nH, N) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{who}: lse must be a contiguous (B, nH, N) float32 tensor on "
+                         f"q's device")
 
 
 def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      rel_h: torch.Tensor, rel_w: torch.Tensor, hw: Tuple[int, int],
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None,
+                     lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention with the decomposed rel-pos bias over strided (B, nH, N, hd)
     views. ``out``, when given, is a (B, nH, N, hd) view the result is written
-    into (and returned). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel, for any head dim up to ``MAX_HEAD_DIM`` (256)."""
+    into (and returned); ``lse``, when given, a contiguous (B, nH, N) f32
+    tensor that takes each row's log-sum-exp of the logits (what the backward
+    reads). A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel, for any head dim up to ``MAX_HEAD_DIM`` (256)."""
     B, nH, N, hd = q.shape
     H, W = hw
     if N != H * W or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"relpos_attention: shapes {tuple(q.shape)} over grid {hw}")
+    _check_lse(lse, q, "relpos_attention")
     if q.device.type == "cpu":
-        res = relpos_attention_plain(q, k, v, rel_h, rel_w, hw)
+        res = relpos_attention_plain(q, k, v, rel_h, rel_w, hw, lse)
         if out is None:
             return res
         out.copy_(res)
@@ -219,7 +300,7 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out is None:
         out = torch.empty((B, nH, N, hd), device=q.device, dtype=q.dtype)
     _launch_forward(q, k, v, rel_h, rel_w, out, (B, nH, N, H, W), (0, 0, 0), _in_place,
-                    lambda t: t.stride()[:3])
+                    lambda t: t.stride()[:3], lse)
     relpos_attention.launches += 1
     return out
 
@@ -287,23 +368,25 @@ def relpos_attention_spatial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 relpos_attention_spatial.launches = 0
 
 
-def relpos_attention_backward_plain(q, k, v, out, dout, rel_h, rel_w, hw):
+def relpos_attention_backward_plain(q, k, v, out, dout, rel_h, rel_w, hw, lse=None):
     """The VJP of ``relpos_attention_plain`` written out, in f32.
 
     q, k, v, out, dout: (B, nH, N, hd) (any strides); rel_h (H, H, hd), rel_w
     (W, W, hd). Returns (dq, dk, dv) in q.dtype and (d rel_h, d rel_w) in f32.
-    ``out`` is the forward's output (D = rowsum(dout * out))."""
+    ``out`` is the forward's output (D = rowsum(dout * out)); ``lse``, when
+    given, the forward's (B, nH, N) row log-sum-exps, from which the
+    probabilities are taken (P = exp(S - lse)) instead of a softmax."""
     B, nH, N, hd = q.shape
     H, W = hw
     s = hd ** -0.5
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
     rh, rw = rel_h.float(), rel_w.float()
     r_q = qf.reshape(B, nH, H, W, hd)
-    logits = (qf * s) @ kf.transpose(-1, -2)
-    uh = torch.einsum("bnijc,ikc->bnijk", r_q, rh)
-    uw = torch.einsum("bnijc,jkc->bnijk", r_q, rw)
-    logits = logits.view(B, nH, H, W, H, W) + uh[..., :, None] + uw[..., None, :]
-    p = torch.softmax(logits.view(B, nH, N, N), dim=-1)
+    logits = _logits_plain(qf, kf, rh, rw, hw)
+    if lse is None:
+        p = torch.softmax(logits, dim=-1)
+    else:
+        p = torch.exp(logits - lse.float()[..., None])
     dv = p.transpose(-1, -2) @ gf
     dp = gf @ vf.transpose(-1, -2)
     ds = p * (dp - (gf * of).sum(-1, keepdim=True))
@@ -320,44 +403,51 @@ def relpos_attention_backward_plain(q, k, v, out, dout, rel_h, rel_w, hw):
 
 def _bwd_scratch_floats(B: int, nH: int, N: int, H: int, W: int) -> int:
     """Length of the backward's f32 scratch (``scratch_floats`` in the source):
-    per (batch, head) the u rows, lse and D over N padded to 64, then the
-    per-key-row and per-key-column sums of dS."""
-    NP = -(-N // 64) * 64
-    UG = -(-(H + W) // 4) * 4
-    return B * nH * NP * (UG + 2) + B * nH * N * (H + W)
+    per (batch, head) and token the u row (u_h to a multiple of 4 entries, then
+    u_w to the key tiles' width), lse in log2 units, D, and the per-key-row and
+    per-key-column sums of dS (H and W rounded up to 16)."""
+    wp = -(-W // 8) * 8
+    uwl = wp if wp <= 64 else -(-wp // 64) * 64
+    UG = -(-H // 4) * 4 + uwl
+    return B * nH * N * (UG + 2 + -(-H // 16) * 16 + -(-W // 16) * 16)
 
 
 def relpos_attention_backward(q, k, v, out, dout, rel_h, rel_w, hw: Tuple[int, int],
                               dq: Optional[torch.Tensor] = None,
                               dk: Optional[torch.Tensor] = None,
-                              dv: Optional[torch.Tensor] = None):
+                              dv: Optional[torch.Tensor] = None,
+                              lse: Optional[torch.Tensor] = None):
     """Gradients of ``relpos_attention``: (dq, dk, dv, d rel_h, d rel_w).
 
     q, k, v, out, dout, and dq / dk / dv when given, are (B, nH, N, hd) views;
     the gradients are written into the given views (e.g. the rows of the qkv
-    product's gradient). rel_h / rel_w are the tables the forward used. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel's four
-    stages, for any head dim up to ``MAX_BWD_HEAD_DIM`` (128; staged as the
+    product's gradient). rel_h / rel_w are the tables the forward used;
+    ``lse`` the (B, nH, N) f32 row log-sum-exps the forward stored (on a CUDA
+    tensor without it, one forward launch computes them first). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel's four stages,
+    for any head dim up to ``MAX_BWD_HEAD_DIM`` (256; staged as the
     forward's, the table gradients cut back to ``hd``); above it, it raises."""
     B, nH, N, hd = q.shape
     H, W = hw
     if N != H * W or any(t.shape != q.shape for t in (k, v, out, dout)):
         raise ValueError(f"relpos_attention_backward: shapes {tuple(q.shape)} over grid {hw}")
+    _check_lse(lse, q, "relpos_attention_backward")
     if q.device.type == "cpu":
-        res = relpos_attention_backward_plain(q, k, v, out, dout, rel_h, rel_w, hw)
+        res = relpos_attention_backward_plain(q, k, v, out, dout, rel_h, rel_w, hw, lse)
         grads = []
         for dst, src in zip((dq, dk, dv), res[:3]):
             grads.append(src if dst is None else dst.copy_(src))
         return (*grads, res[3], res[4])
     if q.device.type != "cuda":
         raise RuntimeError(f"relpos_attention_backward: unsupported device {q.device}")
-    return _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv)
+    return _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv, lse)
 
 
-def _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv):
+def _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv, lse=None):
     """The kernel path of ``relpos_attention_backward``: operands staged to an
-    instantiated head dim where needed, the four stages, the results cut
-    back to ``hd``."""
+    instantiated head dim where needed, the row log-sum-exps by a forward
+    launch where not given, the four stages in ``backward_plan``'s variants,
+    the results cut back to ``hd``."""
     B, nH, N, hd = q.shape
     H, W = hw
     hdp = kernel_head_dim(hd, BWD_HEAD_DIMS)
@@ -374,11 +464,19 @@ def _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv):
     outs = [_staged(t, hdp, fill=False) for t in grads]
     drh = torch.empty((H, H, hdp), device=q.device, dtype=torch.float32)
     drw = torch.empty((W, W, hdp), device=q.device, dtype=torch.float32)
+    dims, scale = (B, nH, N, H, W), float(hd ** -0.5)
+    if lse is None:
+        lse = torch.empty((B, nH, N), device=q.device, dtype=torch.float32)
+        fwd = ins[:3] + [torch.empty_like(ins[0])]
+        _forward_kernel(*fwd[:3], rh, rw, fwd[3], dims, hdp, scale, (0, 0, 0),
+                        [x for t in fwd for x in t.stride()[:3]], lse)
+        relpos_attention.launches += 1
     scratch = torch.empty(_bwd_scratch_floats(B, nH, N, H, W), device=q.device,
                           dtype=torch.float32)
+    codes = backward_plan(N, H, W, hdp).codes if q.dtype == torch.bfloat16 else (0, 0, 0, 0)
     for stage in range(4):
-        _backward_kernel(stage, ins, rh, rw, outs, drh, drw, scratch, (B, nH, N, H, W), hdp,
-                         float(hd ** -0.5))
+        _backward_kernel(stage, codes[stage], ins, lse, rh, rw, outs, drh, drw, scratch, dims,
+                         hdp, scale)
         relpos_attention_backward.launches += 1
     for dst, src in zip(grads, outs):
         if src is not dst:
@@ -391,17 +489,19 @@ def _backward_staged(q, k, v, out, dout, rel_h, rel_w, hw, dq, dk, dv):
 relpos_attention_backward.launches = 0
 
 
-def _backward_kernel(stage, ins, rh, rw, outs, drh, drw, scratch, dims, hdp, scale) -> None:
+def _backward_kernel(stage, code, ins, lse, rh, rw, outs, drh, drw, scratch, dims, hdp,
+                     scale) -> None:
     """One stage of ``csrc/relpos_attention_bwd.cu`` (built for head dim
-    ``hdp``) on operands it takes as they are: ``ins`` q, k, v, out, dout,
-    ``outs`` dq, dk, dv; ``scratch`` f32, ``_bwd_scratch_floats`` long, shared
-    by the four stages; ``scale`` the true head dim's."""
+    ``hdp``) in the variant ``code`` on operands it takes as they are: ``ins``
+    q, k, v, out, dout, ``lse`` the forward's row log-sum-exps, ``outs`` dq,
+    dk, dv; ``scratch`` f32, ``_bwd_scratch_floats`` long, shared by the four
+    stages; ``scale`` the true head dim's."""
     B, nH, N, H, W = dims
     q = ins[0]
     strides = (_cuda._LL * 24)(*(x for t in (*ins, *outs) for x in t.stride()[:3]))
     name = f"relpos_attention_bwd_hd{hdp}"
     rc = _cuda.library(name).msam_relpos_attention_bwd(
-        stage, *(t.data_ptr() for t in ins), rh.data_ptr(), rw.data_ptr(),
+        stage, code, *(t.data_ptr() for t in ins), lse.data_ptr(), rh.data_ptr(), rw.data_ptr(),
         *(g.data_ptr() for g in outs), drh.data_ptr(), drw.data_ptr(), scratch.data_ptr(),
         scratch.numel(), B, nH, N, H, W, hdp, strides, scale, _cuda.dtype_code(q),
         _cuda.stream_ptr(q))
@@ -414,7 +514,8 @@ class RelPosAttentionFn(torch.autograd.Function):
     ``relpos_attention_backward`` (the plain versions for CPU tensors).
 
     Counterpart of ``flash_attention_qkv_core``'s custom_vjp: saves qkv, the
-    tables and the output. The output is a (B, nH, N, hd) view of a
+    tables, the output and the rows' log-sum-exps (which the TPU kernel
+    recomputes in its backward). The output is a (B, nH, N, hd) view of a
     (B, N, nH, hd) buffer, so the proj product reads its rows as they are; the
     qkv gradient has qkv's own strides, so for qkv viewed out of the qkv
     product's (B, N, 3, nH, hd) rows its gradient is those rows. The tables'
@@ -427,19 +528,21 @@ class RelPosAttentionFn(torch.autograd.Function):
             raise ValueError(f"RelPosAttentionFn: qkv shape {tuple(qkv.shape)}")
         dt = qkv.dtype
         out = torch.empty((B, N, nH, hd), device=qkv.device, dtype=dt).transpose(1, 2)
-        relpos_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2], rel_h.to(dt), rel_w.to(dt), hw, out=out)
-        ctx.save_for_backward(qkv, rel_h, rel_w, out)
+        lse = torch.empty((B, nH, N), device=qkv.device, dtype=torch.float32)
+        relpos_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2], rel_h.to(dt), rel_w.to(dt), hw, out=out,
+                         lse=lse)
+        ctx.save_for_backward(qkv, rel_h, rel_w, out, lse)
         ctx.hw = tuple(hw)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, rel_h, rel_w, out = ctx.saved_tensors
+        qkv, rel_h, rel_w, out, lse = ctx.saved_tensors
         dt = qkv.dtype
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
         dqkv = torch.empty_like(qkv)
         _, _, _, drh, drw = relpos_attention_backward(
             qkv[:, 0], qkv[:, 1], qkv[:, 2], out, dout.to(dt), rel_h.to(dt), rel_w.to(dt),
-            ctx.hw, dq=dqkv[:, 0], dk=dqkv[:, 1], dv=dqkv[:, 2])
+            ctx.hw, dq=dqkv[:, 0], dk=dqkv[:, 1], dv=dqkv[:, 2], lse=lse)
         return dqkv, drh.to(rel_h.dtype), drw.to(rel_w.dtype), None

@@ -275,7 +275,8 @@ def test_relpos_attention_backward_refuses_hd96(dev, dtype):
     """The backward kernel used to be built for head dims 64 and 80 only and
     refused 96; it is now built for 96 too and matches the plain backward
     there (bf16: within 3e-2 of the f32 plain result). What it still refuses
-    is a head dim above 128, before any launch."""
+    is a head dim above 256, before any launch (up to 128 until the backward
+    was built at 256)."""
     from micro_sam_tpu_torch.ops.relpos_attention import (
         relpos_attention, relpos_attention_backward, relpos_attention_backward_plain)
     B, nH, H, hd = 2, 2, 7, 96
@@ -291,9 +292,9 @@ def test_relpos_attention_backward_refuses_hd96(dev, dtype):
     assert relpos_attention_backward.launches == n + 4
     _held_grads(got, relpos_attention_backward_plain(
         *(t.float() for t in (q, k, v, out, dout, rh, rw)), (H, H)), dtype)
-    big = torch.zeros(1, 1, 4, 136, device=dev, dtype=dtype)
-    tab = torch.zeros(2, 2, 136, device=dev, dtype=dtype)
-    with pytest.raises(ValueError, match="up to 128"):
+    big = torch.zeros(1, 1, 4, 264, device=dev, dtype=dtype)
+    tab = torch.zeros(2, 2, 264, device=dev, dtype=dtype)
+    with pytest.raises(ValueError, match="up to 256"):
         relpos_attention_backward(big, big, big, big, big, tab, tab, (2, 2))
     assert relpos_attention_backward.launches == n + 4
 
@@ -310,14 +311,103 @@ def _held_grads(got, ref, dtype):
         assert err <= tol, err
 
 
-HD_SWEEP = [16, 32, 40, 64, 80, 96, 100, 128]
+BWD_VARIANT_CASES = {  # id: (B, nH, H, W, hd, the bf16 dk/dv and dq variants)
+    "global": (1, 12, 64, 64, 64, "rows", "rows"),
+    "global_16h": (1, 16, 64, 64, 64, "rows", "rows"),
+    "global_hd80": (1, 16, 64, 64, 80, "rows", "rows"),
+    "grid24x40": (2, 3, 24, 40, 64, "rows", "rows"),
+    "w96": (1, 4, 8, 96, 64, "general", "general"),
+    "tiny": (3, 2, 2, 3, 64, "window", "rows"),
+    "windows50": (50, 12, 14, 14, 64, "window", "window"),
+    "windows50_hd80": (50, 16, 14, 14, 80, "window", "window"),
+    **{f"hd{hd}": (2, 2, 7, 9, hd, v, v) for hd, v in
+       ((32, "window"), (64, "window"), (80, "window"), (96, "window"), (128, "window"),
+        (160, "rows"), (256, "rows"))},
+    "windows_hd128": (4, 4, 14, 14, 128, "rows", "rows"),
+    "global_hd256": (1, 2, 64, 64, 256, "rows", "rows"),
+}
+
+
+def _backward_case(dev, dtype, B, nH, H, W, hd, seed):
+    """q, k, v strided out of (B, N, 3, nH, hd) rows, the tables, the
+    forward's output and lse (from the kernel) and an upstream gradient."""
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    g = torch.Generator().manual_seed(seed)
+    N = H * W
+    rows = torch.randn(B, N, 3, nH, hd, generator=g).to(dev, dtype)
+    q, k, v = (rows[:, :, i].transpose(1, 2) for i in range(3))
+    rh = (torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dtype)
+    rw = (torch.randn(W, W, hd, generator=g) * 0.3).to(dev, dtype)
+    lse = torch.empty(B, nH, N, device=dev)
+    out = relpos_attention(q, k, v, rh, rw, (H, W), lse=lse)
+    dout = torch.randn(B, nH, N, hd, generator=g).to(dev, dtype)
+    return q, k, v, rh, rw, out, lse, dout
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(BWD_VARIANT_CASES))
+def test_relpos_attention_backward_variants_match_plain(dev, dtype, case):
+    """Each stage variant of the backward (backward_plan: window, rows,
+    general) and each built head dim, with the forward's lse as the
+    training path hands it, against the plain backward (f32 rel 1e-4; bf16
+    3e-2 of the f32 plain result on the same bf16 inputs); four launches."""
+    from micro_sam_tpu_torch.ops.relpos_attention import (
+        backward_plan, kernel_head_dim, relpos_attention_backward,
+        relpos_attention_backward_plain)
+    B, nH, H, W, hd, dkdv, dq = BWD_VARIANT_CASES[case]
+    plan = backward_plan(H * W, H, W, kernel_head_dim(hd))
+    assert (plan.dkdv, plan.dq) == (dkdv, dq)
+    q, k, v, rh, rw, out, lse, dout = _backward_case(dev, dtype, B, nH, H, W, hd, seed=hd + W)
+    n = relpos_attention_backward.launches
+    got = relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, W), lse=lse)
+    torch.cuda.synchronize()
+    assert relpos_attention_backward.launches == n + 4
+    _held_grads(got, relpos_attention_backward_plain(
+        *(t.float() for t in (q, k, v, out, dout, rh, rw)), (H, W)), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["global", "windows50", "w96", "hd256"])
+def test_relpos_attention_backward_is_deterministic(dev, dtype, case):
+    """Two runs of the backward on the same inputs are equal to the bit (no
+    atomics; every sum in a fixed order), with and without a given lse."""
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention_backward
+    B, nH, H, W, hd = BWD_VARIANT_CASES[case][:5]
+    q, k, v, rh, rw, out, lse, dout = _backward_case(dev, dtype, B, nH, H, W, hd, seed=5)
+    runs = [relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, W), lse=lse)
+            for _ in range(2)]
+    runs.append(relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, W)))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nH,H,W,hd", [(1, 12, 64, 64, 64), (25, 16, 14, 14, 80),
+                                         (1, 4, 8, 96, 64), (2, 2, 7, 9, 256), (3, 2, 2, 3, 40)],
+                         ids=["global", "windows_hd80", "w96", "hd256", "tiny_hd40"])
+def test_relpos_attention_lse_matches_plain(dev, dtype, B, nH, H, W, hd):
+    """K1's stored row log-sum-exps against the plain forward's (rel 1e-4 of
+    max in both dtypes), and the serving call without lse unchanged to the
+    bit by asking for them."""
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention, relpos_attention_plain
+    q, k, v, rh, rw, out, lse, _ = _backward_case(dev, dtype, B, nH, H, W, hd, seed=9)
+    ref = torch.empty_like(lse)
+    relpos_attention_plain(q.float(), k.float(), v.float(), rh.float(), rw.float(), (H, W),
+                           lse=ref)
+    err = float((lse - ref).abs().max()) / float(ref.abs().max())
+    assert torch.isfinite(lse).all() and err <= 1e-4, err
+    assert torch.equal(relpos_attention(q, k, v, rh, rw, (H, W)), out)
+
+
+HD_SWEEP = [16, 32, 40, 64, 80, 96, 100, 128, 160, 256]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
 @pytest.mark.parametrize("hd", HD_SWEEP)
 def test_relpos_attention_head_dim_sweep(dev, dtype, hd, misaligned):
-    """Forward and backward at every head dim up to 128 against the plain
+    """Forward and backward at every head dim up to 256 against the plain
     versions: an instantiated head dim runs in place, another one staged
     into the next instantiated one, zero-padded; a view offset by one
     element (rows not 16-byte aligned) is staged too. One forward launch and

@@ -186,7 +186,7 @@ def test_layernorm_grid_mask_equals_the_partition_mask():
 # misaligned views run in an instantiated head dim, zero-padded
 # ---------------------------------------------------------------------------
 
-def _f64_forward(q, k, v, rh, rw, out, dims, hdp, scale, geo, strides):
+def _f64_forward(q, k, v, rh, rw, out, dims, hdp, scale, geo, strides, lse=None):
     """A float64 stand-in for one forward launch on staged operands: the
     kernel's arithmetic with the scale it is handed (not hdp ** -0.5)."""
     B, nH, N, H, W = dims
@@ -243,15 +243,18 @@ def test_backward_staging_pads_the_head_dim(monkeypatch):
     """The backward's staging at hd 40 (kernel 64): a float64 stand-in for
     the four stages computes the gradients on the padded buffers with the
     true scale; cut back to hd (d rel_h / d rel_w too) they are the plain
-    backward's, written into the caller's gradient views."""
+    backward's, written into the caller's gradient views. The forward's row
+    log-sum-exps reach every stage as given."""
     from micro_sam_tpu_torch.ops import relpos_attention as rpa
     hd = 40
     q, k, v, rh, rw, hw = _staging_case(hd, seed=20)
-    out = rpa.relpos_attention_plain(q, k, v, rh, rw, hw)
+    lse = torch.empty(q.shape[:3])
+    out = rpa.relpos_attention_plain(q, k, v, rh, rw, hw, lse=lse)
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(21))
 
-    def stand_in(stage, ins, rhs, rws, outs, drh, drw, scratch, dims, hdp, scale):
+    def stand_in(stage, code, ins, lse_, rhs, rws, outs, drh, drw, scratch, dims, hdp, scale):
         assert hdp == 64 and all(t.shape[-1] == 64 for t in (*ins, *outs, rhs, rws))
+        assert lse_ is lse and code == 0
         if stage:
             return
         qd, kd, vd, od, gd = (t.double().requires_grad_(i < 3) for i, t in enumerate(ins))
@@ -268,7 +271,7 @@ def test_backward_staging_pads_the_head_dim(monkeypatch):
     monkeypatch.setattr(rpa, "_backward_kernel", stand_in)
     monkeypatch.setattr(rpa.relpos_attention_backward, "launches", 0)
     dq, dk, dv = (torch.full(q.shape, float("nan")) for _ in range(3))
-    got = rpa._backward_staged(q, k, v, out, dout, rh, rw, hw, dq, dk, dv)
+    got = rpa._backward_staged(q, k, v, out, dout, rh, rw, hw, dq, dk, dv, lse)
     ref = rpa.relpos_attention_backward_plain(*(t.double() for t in (q, k, v, out, dout, rh, rw)),
                                               hw)
     assert got[0] is dq and got[2] is dv
@@ -278,23 +281,26 @@ def test_backward_staging_pads_the_head_dim(monkeypatch):
 
 
 def test_head_dims_above_128_are_refused():
-    """Only by the backward now: the forward is built up to 256 and stages
-    every head dim up to it; the backward stops at 128."""
+    """Only above 256 now, by the forward and the backward alike: both are
+    built up to 256 and stage every head dim up to it; above, both raise
+    before any launch."""
     from micro_sam_tpu_torch.ops import relpos_attention as rpa
     assert rpa.HEAD_DIMS == (32, 64, 80, 96, 128, 256)
-    assert rpa.BWD_HEAD_DIMS == (32, 64, 80, 96, 128)
+    assert rpa.BWD_HEAD_DIMS == rpa.HEAD_DIMS and rpa.MAX_BWD_HEAD_DIM == 256
     assert [rpa.kernel_head_dim(d) for d in (1, 32, 33, 72, 80, 81, 100, 128, 129, 160, 256)] \
         == [32, 32, 64, 80, 80, 96, 128, 128, 256, 256, 256]
-    assert [rpa.kernel_head_dim(d, rpa.BWD_HEAD_DIMS) for d in (1, 33, 81, 100, 128)] == \
-        [32, 64, 96, 128, 128]
-    with pytest.raises(ValueError, match="forward kernel takes head dims up to 256"):
-        rpa.kernel_head_dim(257)
-    with pytest.raises(ValueError, match="backward kernel takes head dims up to 128"):
-        rpa.kernel_head_dim(129, rpa.BWD_HEAD_DIMS)
-    q = torch.zeros(1, 1, 4, 136)
-    tab = torch.zeros(2, 2, 136)
-    with pytest.raises(ValueError, match="up to 128"):  # before any launch
+    assert [rpa.kernel_head_dim(d, rpa.BWD_HEAD_DIMS) for d in (1, 33, 81, 100, 128, 136, 256)] \
+        == [32, 64, 96, 128, 128, 256, 256]
+    for dims in (rpa.HEAD_DIMS, rpa.BWD_HEAD_DIMS):
+        with pytest.raises(ValueError, match="forward and backward.*up to 256"):
+            rpa.kernel_head_dim(257, dims)
+    q = torch.zeros(1, 1, 4, 264)
+    tab = torch.zeros(2, 2, 264)
+    with pytest.raises(ValueError, match="up to 256"):  # before any launch
         rpa._backward_staged(q, q, q, q, q, tab, tab, (2, 2), None, None, None)
+    with pytest.raises(ValueError, match="up to 256"):
+        rpa._launch_forward(q, q, q, tab, tab, q.clone(), (1, 1, 4, 2, 2), (0, 0, 0),
+                            rpa._in_place, lambda t: t.stride()[:3])
 
 
 def test_spatial_plain_is_the_partitioned_attention():
