@@ -5,12 +5,16 @@
 
 Phases (any fault ends the run with a non-zero exit, and no result line):
  1. the card: CUDA must be available; prints its name and power limit;
- 2. builds the CUDA kernels from micro_sam_tpu_torch/csrc and prints the time;
+ 2. builds the CUDA kernels from micro_sam_tpu_torch/csrc and prints the time,
+    each kernel's ptxas registers and any spill or warning; fails if a gemm
+    kernel spills or, where the toolkit has cuobjdump, if a bf16 gemm kernel's
+    SASS holds no HGMMA (warpgroup product) or no UTMALDG (TMA load);
  3. holds each kernel (layernorm, gemm, relpos_attention) and the two block
     chains against their plain PyTorch versions on the card, at the vit_b
     shapes, in bf16 and f32, with timings, bounds and a library yardstick
-    (relpos_attention's rows with the forward variant each launch takes);
-    a chain's launches are counted around one run of it;
+    (relpos_attention's rows with the forward variant each launch takes,
+    gemm's with its plan); a chain's launches are counted around one run of
+    it; the host microseconds a gemm call costs;
  4. the main path at full width: get_sam_model("vit_b") with random weights,
     precompute_image_embeddings on a 1024^2 image and a 3-slice volume, then
     SamPredictor.predict with points, a box, box + point, a mask and a batch
@@ -38,6 +42,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     three stage geometries, dwconv at the MBConv and the three tail shapes,
     the gemm's residual_gelu epilogue) and the K6 / K7 / K8 chains against
     their plain versions, bf16 and f32, with launches per chain call checked;
+    the gemm at each of the 14 distinct products of the vit_t encode
+    (``gemm_sweep``: held against plain, timed with F.linear + epilogue,
+    bound and plan);
     then the same serving path as phase 4 with get_sam_model("vit_t"): launch
     counts per encode (12 dwconv, 10 tiny_attention, 20 layernorm, 44 gemm),
     each chain call's launches counted around it on that path (a chain's
@@ -49,7 +56,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     and (1, 16, 4096, 80)) and at vit_l's 16 heads of 64, layernorm and gemm
     at vit_h's widths (C 1280, N 3840 / 1280 / 5120, K 5120) and the
     attention halves K10 (25, 196, 1280, masked) and K5 (1, 4096, 1280)
-    against their plain versions, bf16 and f32, four launches a call; then the serving path of phase 4 with
+    against their plain versions, bf16 and f32, four launches a call; the
+    gemm at the 8 distinct products of the vit_l encode; then the serving
+    path of phase 4 with
     get_sam_model("vit_h") and get_sam_model("vit_l"): launches per encode
     (64 / 128 / 32 and 48 / 96 / 24 layernorm / gemm / relpos_attention),
     each chain call's launches counted around it on the path by patching
@@ -98,7 +107,8 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     training numbers, the tiled routes), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
-    max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for the
+    max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
+    launches per plan of each model's encode; for the
     backward its stages, launches per stage variant and head dims; for
     relpos_attention also its launches per forward variant in one vit_b
     encode) and, last, the device line.
@@ -432,10 +442,146 @@ def measure_calls(calls, dname, shapes):
                    library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
         if name == "relpos_attention":
             row["variant"] = relpos_variant(a)
+        if name == "gemm":
+            row["plan"] = gemm_plan_label(a)
         shapes[name].append(row)
         log(f"    {('variant ' + row['variant'] + '  ') if 'variant' in row else ''}"
+            f"{('plan ' + row['plan'] + '  ') if 'plan' in row else ''}"
             f"ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  "
             f"bound_ms {b_ms:.4f} ({b_by})")
+
+
+def vit_gemm_shapes(width, blocks_win, blocks_glob):
+    """The four products of a ViT block at ``width``, on the window rows and
+    on the global rows of one 1024^2 image: (label, M, N, K, epilogue,
+    launches per encode)."""
+    return tuple((f"{p} {M}", M, N, K, epi, n)
+                 for M, n in ((WIN_ROWS, blocks_win), (GLOB_ROWS, blocks_glob))
+                 for p, N, K, epi in (("qkv", 3 * width, width, "none"),
+                                      ("proj", width, width, "residual"),
+                                      ("lin1", 4 * width, width, "gelu"),
+                                      ("lin2", width, 4 * width, "residual")))
+
+
+# every distinct gemm shape of one batch-1 1024^2 encode, with its launches
+# per encode: (label, M, N, K, epilogue, launches)
+GEMM_SHAPES = {
+    "vit_b": vit_gemm_shapes(768, 8, 4),
+    "vit_l": vit_gemm_shapes(1024, 20, 4),
+    "vit_h": vit_gemm_shapes(1280, 28, 4),
+    "vit_t": (("MBConv expand", 65536, 256, 64, "gelu", 2),
+              ("MBConv shrink", 65536, 64, 256, "residual_gelu", 2),
+              ("s1 qkv", 17689, 384, 128, "none", 2), ("s1 proj", 17689, 128, 128, "residual", 2),
+              ("s1 lin1", 16384, 512, 128, "gelu", 2), ("s1 lin2", 16384, 128, 512, "residual", 2),
+              ("s2 qkv", 4900, 480, 160, "none", 6), ("s2 proj", 4900, 160, 160, "residual", 6),
+              ("s2 lin1", 4096, 640, 160, "gelu", 6), ("s2 lin2", 4096, 160, 640, "residual", 6),
+              ("s3 qkv", 4900, 960, 320, "none", 2), ("s3 proj", 4900, 320, 320, "residual", 2),
+              ("s3 lin1", 4096, 1280, 320, "gelu", 2),
+              ("s3 lin2", 4096, 320, 1280, "residual", 2)),
+}
+
+
+def gemm_plan_label(a):
+    """The bf16 kernel's plan for a gemm call (``ops.gemm.gemm_plan``), or
+    the kernel's fixed tiling where the package has no plan."""
+    from micro_sam_tpu_torch.ops import gemm as gemm_mod
+    x, w = a[0], a[1]
+    if x.dtype != torch.bfloat16:
+        return "f32 simt 64x64"
+    if not hasattr(gemm_mod, "gemm_plan"):
+        return "wmma 128x128, a block per tile"
+    return str(gemm_mod.gemm_plan(x.shape[0], w.shape[0], x.shape[1],
+                                  a[3] if len(a) > 3 else "none"))
+
+
+def gemm_sweep(model, seed=4242):
+    """The bf16 gemm at every distinct shape of ``model``'s encode
+    (``GEMM_SHAPES``): held against the plain version in f32 on the same
+    inputs, timed as the kernel and as F.linear + its epilogue, with its bound
+    and plan; then the sums per encode (each shape times its launches)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, torch.bfloat16)
+
+    rows = []
+    for label, M, N, K, epi, n in GEMM_SHAPES[model]:
+        a = (rnd(M, K), rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.1).float(), epi)
+        if epi in ("residual", "residual_gelu"):
+            a += (rnd(M, N),)
+        kern, _, lib, ref = counterparts("gemm", a, {})
+        err = check(f"gemm {model} {label} ({M}x{K})({K}x{N}) {epi}", kern(), ref(), "bfloat16",
+                    quiet=True)
+        k_ms, l_ms = time_ms(kern), time_ms(lib)
+        b_ms, b_by = bound_of([("gemm", a, {})])
+        rows.append(dict(model=model, shape=f"{label} ({M}x{K})({K}x{N}) {epi}",
+                         launches_per_encode=n, dtype="bfloat16", max_abs_err=err, ms=k_ms,
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, plan=gemm_plan_label(a)))
+        log(f"    gemm {model} {rows[-1]['shape']:<44s} x{n:<3d} plan {rows[-1]['plan']}  "
+            f"ms {k_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})  "
+            f"share of bound {b_ms / k_ms:.3f}")
+        del a
+    tot = {k: sum(r[k] * r["launches_per_encode"] for r in rows)
+           for k in ("ms", "library_ms", "bound_ms")}
+    log(f"  gemm {model}, the shapes times their launches per encode: ms {tot['ms']:.4f}  "
+        f"library_ms {tot['library_ms']:.4f}  bound_ms {tot['bound_ms']:.4f}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gemm_sass_check():
+    """The gemm library as built: no spill in any of its kernels (ptxas), and,
+    where the toolkit has cuobjdump, the warpgroup products (HGMMA) and TMA
+    loads (UTMALDG) in its SASS; fails if the bf16 kernels have none."""
+    from micro_sam_tpu_torch.ops import _cuda
+    d = _cuda.build_dir()
+    with open(os.path.join(d, "gemm.log")) as f:
+        spills = [ln.strip() for ln in f if "spill" in ln and " 0 bytes spill stores" not in ln]
+    if spills:
+        raise AssertionError(f"gemm: ptxas spills: {spills}")
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("  gemm SASS: the toolkit has no cuobjdump; not checked")
+        return None
+    sass = subprocess.run([tool, "-sass", os.path.join(d, "libgemm.so")], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[fn][op] += op in line
+    bf16 = {k: v for k, v in counts.items() if "wgmma" in k}
+    log(f"  gemm SASS: {len(bf16)} bf16 kernels; HGMMA / UTMALDG instructions each: "
+        f"{sorted({(v['HGMMA'], v['UTMALDG']) for v in bf16.values()})}")
+    if not bf16 or any(v["HGMMA"] == 0 or v["UTMALDG"] == 0 for v in bf16.values()):
+        raise AssertionError(f"gemm: a bf16 kernel without HGMMA or UTMALDG: {counts}")
+    return bf16
+
+
+def gemm_host_us(launches=1000):
+    """Host microseconds a gemm call costs (wrapper, tensor maps, launch): a
+    host clock around ``launches`` calls of a small shape on one x and one
+    weight, before the synchronize."""
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x, w = (torch.randn(256, 256, generator=g).to("cuda", torch.bfloat16) for _ in range(2))
+    b = torch.zeros(256, device="cuda")
+    for _ in range(20):
+        gemm(x, w, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        gemm(x, w, b)
+    us = (time.perf_counter() - t0) / launches * 1e6
+    torch.cuda.synchronize()
+    log(f"  gemm host cost: {us:.2f} us a call (host clock around {launches} calls of "
+        f"(256x256)(256x256), one weight)")
+    return us
 
 
 def kernel_phase(counters, width=C, heads=NH, halves=False, attn_heads=()):
@@ -584,6 +730,9 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None
         b_ms, b_by = bound_of(calls)
         out[name] = dict(launches_per_encode=per_encode[name], max_abs_err=err, ms=k_ms,
                          plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+        if name == "gemm":  # launches per plan
+            plans = [gemm_plan_label(c[1]) for c in calls]
+            out[name]["plans"] = {k: plans.count(k) for k in sorted(set(plans))}
         if name == "relpos_attention":  # launches per variant, each variant replayed alone
             out[name]["variants"] = {}
             for var in sorted({relpos_variant(c[1]) for c in calls}):
@@ -611,7 +760,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "bound_ms", "bound_by", "library_ms")
 
 
-def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft):
+def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
+              host_us):
     """One entry per kernel, per vit_t chain and per ViT attention half (K5,
     K10). launches: the count of the path the kernel is on (vit_b serving for
     layernorm, gemm and relpos_attention, whose vit_t, training, vit_h and
@@ -625,7 +775,9 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
     phases 3, 5, 7 and 8 (the vit_h widths, head dim 80). Phase 9 adds the
     backward at head dim 80 (launches and times of the vit_h training path,
     one vit_h step's calls) and K12 (launches and times of its own path:
-    two calls through attention_with_rel_pos, forward and backward)."""
+    two calls through attention_with_rel_pos, forward and backward). The
+    gemm entry adds the launches per plan of each model's encode and the
+    host microseconds a call costs."""
     sources = {"layernorm": "micro_sam_tpu_torch/csrc/layernorm.cu",
                "gemm": "micro_sam_tpu_torch/csrc/gemm.cu",
                "relpos_attention": "micro_sam_tpu_torch/csrc/relpos_attention.cu"}
@@ -650,6 +802,11 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
         for m in ("vit_h", "vit_l"):
             out[-1][f"launches_{m}_path"] = lh[m]["launches"][name]
             out[-1][m] = lh[m]["per_encode"][name]
+        if name == "gemm":
+            out[-1]["plans"] = {"vit_b": e["plans"], "vit_t": tiny["per_encode"][name]["plans"],
+                                **{m: lh[m]["per_encode"][name]["plans"]
+                                   for m in ("vit_h", "vit_l")}}
+            out[-1]["host_us"] = host_us
         out[-1]["max_abs_err"] = max([out[-1]["max_abs_err"]] + [
             r["max_abs_err"] for r in lh["shapes"][name]])
         if name == "relpos_attention":
@@ -1454,7 +1611,7 @@ PROFILE_GROUPS = (  # kernel-name patterns -> the layer they belong to
 
 
 SERVE_PROFILE_GROUPS = (  # the port's kernels first: cuBLAS names contain "gemm" too
-    ("gemm (port kernel)", ("gemm_bf16_kernel", "gemm_f32_kernel")),
+    ("gemm (port kernel)", ("gemm_wgmma_kernel", "gemm_f32_kernel")),
     ("layernorm (port kernel)", ("layernorm_kernel",)),
     ("relpos_attention (port kernel)", ("relpos_attention_bf16_kernel",)),
     ("dwconv (port kernel)", ("dwconv3x3_kernel",)),
@@ -2457,6 +2614,9 @@ def main():
                           " 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
                           not in line):
                         log(f"  ptxas {n} {entry}: {line.strip()}")
+                    elif "warn" in line.lower():
+                        log(f"  ptxas {n} {entry}: {line.strip()}")
+    gemm_sass_check()
 
     # the profiler's first sessions in a process are the ones seen to record
     # nothing: take them on a throwaway measurement
@@ -2467,6 +2627,7 @@ def main():
     counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention,
                 "dwconv": dwconv, "tiny_attention": tiny_attention}
     shapes, chains = kernel_phase(counters)
+    host_us = gemm_host_us()
     log("main path: vit_b, 1024^2, random weights (seed 0), bf16")
     launches, per_encode, e2e = main_path_phase(counters)
     torch.cuda.empty_cache()
@@ -2483,6 +2644,8 @@ def main():
     # phase 7: vit_t
     log("vit_t kernels and chains vs plain versions (bf16: plain in f32 on the same bf16 inputs)")
     tiny_shapes, tiny_chains = tiny_kernel_phase(counters)
+    log("gemm at every distinct product of the vit_t encode (bf16)")
+    tiny_shapes["gemm"] += gemm_sweep("vit_t")
     log("main path: vit_t, 1024^2, random weights (seed 0), bf16")
     t_launches, t_per_encode, t_e2e = main_path_phase(counters, "vit_t", chains=TINY_CHAINS)
     tiny = dict(shapes=tiny_shapes, chains=tiny_chains, launches=t_launches,
@@ -2495,6 +2658,8 @@ def main():
         f"same bf16 inputs)")
     lh_shapes, lh_chains = kernel_phase(counters, width=1280, heads=16, halves=True,
                                         attn_heads=((16, 64),))
+    log("gemm at every distinct product of the vit_l encode (bf16)")
+    lh_shapes["gemm"] += gemm_sweep("vit_l")
     lh = dict(shapes=lh_shapes, chains=lh_chains)
     for model_type in ("vit_h", "vit_l"):
         log(f"main path: {model_type}, 1024^2, random weights (seed 0), bf16")
@@ -2516,7 +2681,8 @@ def main():
     counters["relpos_attention_spatial"] = relpos_attention_spatial
     p10 = tiled_phase(counters, root)
     log(f"phase 10 (tiled precompute, K9 / K11, head dims): {time.perf_counter() - t10:.1f} s")
-    rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft)
+    rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
+                     host_us)
     rows += summarize_tiled(p10)
     # the details first, then the kernels line, short: one entry per kernel
     # and chain with the keys of the contract
@@ -2531,7 +2697,8 @@ def main():
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")}}}))
-    log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims")
+    log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
+                                                                  "plans")
                                   if k in r}
                                 for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,16 +1,19 @@
-"""Time the ViT kernels of one vit_b encode and of one vit_b training step,
+"""Time the ViT kernels of one encode and of one vit_b training step,
 replayed back to back, for one or more checkouts of this repository, each in
 its own process and in the order given, so that two versions of a kernel are
 compared on one card:
 
-    python3 kernel_replay.py OLD NEW NEW OLD [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD [--model vit_b|vit_h] [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD --gemm-shapes [--out FILE]
+    python3 kernel_replay.py . --gemm-plans [--out FILE]
 
 Each argument is the root of a checkout (``.`` for this one). Its process
 imports that checkout's ``micro_sam_tpu_torch`` and builds its kernels into
 that checkout's ``build/``. The encode replay records the ``layernorm`` /
-``gemm`` / ``relpos_attention`` launches of one batch-1 1024 x 1024 vit_b
-encode (bf16, random weights from seed 0, a random image from seed 0)
-through the encoder's default route; the step replay records the
+``gemm`` / ``relpos_attention`` launches of one batch-1 1024 x 1024 encode of
+``--model`` (default vit_b; bf16, random weights from seed 0, a random image
+from seed 0) through the encoder's default route; with vit_b, the step
+replay records the
 ``relpos_attention`` (K1, with the checkpoint recompute) and
 ``relpos_attention_backward`` (K4) calls of one vit_b ``forward_train`` and
 its backward (batch 2 of 1024 x 1024, bf16 compute, f32 weights from seed 0,
@@ -20,7 +23,13 @@ torch.profiler (CUPTI), by the ``time_ms`` of the ``chip_smoke.py`` beside
 this script, the mean of 20 runs (10 for the step), taken ``REPS`` times.
 Prints the card's name and power limit, one JSON line per checkout and the
 median of each kernel per checkout (``ms`` per encode, ``step_ms`` per
-step); ``--out`` writes all of it to a JSON file. Needs one CUDA card.
+step); ``--out`` writes all of it to a JSON file. ``--gemm-shapes`` replaces
+both replays by the bf16 ``gemm`` at every distinct shape of the vit_b,
+vit_l, vit_h and vit_t encodes (``gemm_sweep`` of ``chip_smoke.py``: held
+against the plain version, timed with ``F.linear`` + epilogue, the bound and
+the plan) and the host microseconds a ``gemm`` call costs (``gemm_host_us``);
+``--gemm-plans`` times the vit_b, vit_h and vit_t shapes under every plan the
+kernel takes (``plan_sweep``), for tuning ``gemm_plan``. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -36,19 +45,82 @@ REPS = 5
 KNOBS = ("MSAM_TPU_SPATIAL_WINDOW", "MSAM_TPU_WINDOW_STACK")
 
 
-def smoke_timer():
-    """``time_ms`` of the chip_smoke.py beside this script: one timer for both
-    scripts, loaded before a checkout's root goes on the path."""
+def smoke_module():
+    """The chip_smoke.py beside this script (its ``time_ms`` and gemm sweep):
+    one timer for both scripts, loaded before a checkout's root goes on the
+    path."""
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(here, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.time_ms
+    return smoke
 
 
-def child(root: str) -> dict:
+def gemm_child(root: str, smoke, plans: bool) -> dict:
+    import torch
+    from micro_sam_tpu_torch.ops import _cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.build()
+    smoke.time_ms(lambda: torch.ones(1024, device="cuda").add_(1), iters=2, warmup=1)
+    if plans:
+        return {"root": root, "kernels": _cuda.build_dir(),
+                "plans": {m: plan_sweep(smoke, m) for m in PLAN_MODELS}}
+    out = {"root": root, "kernels": _cuda.build_dir(), "host_us": smoke.gemm_host_us(),
+           "shapes": {}}
+    for model in smoke.GEMM_SHAPES:
+        out["shapes"][model] = smoke.gemm_sweep(model)
+    return out
+
+
+PLAN_MODELS = ("vit_b", "vit_h", "vit_t")
+
+
+def plan_sweep(smoke, model) -> list:
+    """The bf16 gemm at each distinct shape of ``model``'s encode under the
+    plans the kernel takes: 256-wide tiles split between the warpgroups,
+    128-wide tiles split or (without a GELU) taken in turns, each at ring
+    depths 3 to the most that fits, on the persistent grid (at most one block
+    an SM), and the split plans at their default depth with a block per
+    tile; each run held against the plain version. One row per shape: ms per
+    plan, and the plan ``gemm_plan`` picks."""
+    import torch
+    from micro_sam_tpu_torch.ops.gemm import (STAGES, GemmPlan, gemm, gemm_plain, gemm_plan,
+                                              max_stages)
+    g = torch.Generator().manual_seed(5)
+    rows = []
+    for label, M, N, K, epi, n in smoke.GEMM_SHAPES[model]:
+        rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to("cuda",
+                                                                             torch.bfloat16)
+        x, w, b = rnd(M, K), rnd(N, K, scale=K ** -0.5), torch.zeros(N, device="cuda")
+        r = rnd(M, N) if epi.startswith("residual") else None
+        ref = gemm_plain(x.float(), w.float(), b, epi, None if r is None else r.float())
+        cands = []
+        for bn, turns in ((256, False), (128, False), (128, True)):
+            if turns and "gelu" in epi:  # the kernel takes no GELU in turns
+                continue
+            tiles = -(-M // 128) * -(-N // bn)
+            cands += [GemmPlan(bn, st, min(tiles, 132), tiles, turns)
+                      for st in range(3, max_stages(bn) + 1)]
+            if not turns:  # a block per tile
+                cands.append(GemmPlan(bn, STAGES[bn], tiles, tiles))
+        ms = {}
+        for p in cands:
+            smoke.check(f"gemm {model} {label} {p}", gemm(x, w, b, epi, r, plan=p), ref,
+                        "bfloat16", quiet=True)
+            ms[str(p)] = smoke.time_ms(lambda: gemm(x, w, b, epi, r, plan=p))
+        best = min(ms, key=ms.get)
+        picked = str(gemm_plan(M, N, K, epi))
+        rows.append({"shape": f"{label} ({M}x{K})({K}x{N}) {epi}", "launches_per_encode": n,
+                     "ms": ms, "picked": picked, "best": best})
+        print(f"  {model} {rows[-1]['shape']}: picked {picked} {ms[picked]:.4f} ms; best {best} "
+              f"{ms[best]:.4f} ms", flush=True)
+    return rows
+
+
+def child(root: str, model: str, gemm_shapes: bool, gemm_plans: bool) -> dict:
     root = os.path.abspath(root)
-    device_ms = smoke_timer()
+    smoke = smoke_module()
+    device_ms = smoke.time_ms
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -56,6 +128,8 @@ def child(root: str) -> dict:
     pkg = os.path.dirname(os.path.abspath(micro_sam_tpu_torch.__file__))
     if pkg != os.path.join(root, "micro_sam_tpu_torch"):
         raise RuntimeError(f"imported {pkg}, not the package of {root}")
+    if gemm_shapes or gemm_plans:
+        return gemm_child(root, smoke, gemm_plans)
     from micro_sam_tpu_torch.ops import _cuda
     from micro_sam_tpu_torch.ops import fused_window_block as fwb
     from micro_sam_tpu_torch.util import _to_image, get_sam_model
@@ -63,7 +137,7 @@ def child(root: str) -> dict:
         os.environ.pop(k, None)
     rng = np.random.RandomState(0)
     x1 = _to_image(rng.randint(0, 256, size=(1024, 1024)).astype(np.uint8))[None]
-    predictor = get_sam_model("vit_b", seed=0)
+    predictor = get_sam_model(model, seed=0)
     predictor.encode_batch(x1.astype(np.float32))  # builds the kernels
     torch.cuda.synchronize()
     calls, saved = [], fwb._KERNELS
@@ -79,14 +153,15 @@ def child(root: str) -> dict:
     finally:
         fwb._KERNELS = saved
     torch.cuda.synchronize()
-    out = {"root": root, "kernels": _cuda.build_dir(), "launches": {}, "ms": {}}
+    out = {"root": root, "model": model, "kernels": _cuda.build_dir(), "launches": {}, "ms": {}}
     for name in ("layernorm", "gemm", "relpos_attention"):
         mine = [c for c in calls if c[0] == name]
         out["launches"][name] = len(mine)
         out["ms"][name] = [device_ms(lambda: [fn(*a, **kw) for _, fn, a, kw in mine])
                            for _ in range(REPS)]
     del calls, predictor
-    out.update(step_replay(device_ms))
+    if model == "vit_b":
+        out.update(step_replay(device_ms))
     return out
 
 
@@ -133,14 +208,36 @@ def step_replay(device_ms) -> dict:
     return out
 
 
+def gemm_summary(runs) -> dict:
+    """Per model: the median of each shape's kernel ms over the runs of one
+    checkout, and per encode the sums of the shapes times their launches
+    (kernel and F.linear + epilogue, the bound) with the host us a call."""
+    out = {"host_us": statistics.median(r["host_us"] for r in runs)}
+    for model, rows in runs[0]["shapes"].items():
+        ms = [statistics.median(r["shapes"][model][i]["ms"] for r in runs)
+              for i in range(len(rows))]
+        lib = [statistics.median(r["shapes"][model][i]["library_ms"] for r in runs)
+               for i in range(len(rows))]
+        n = [row["launches_per_encode"] for row in rows]
+        out[model] = {"ms": dict(zip((row["shape"] for row in rows), ms)),
+                      "per_encode_ms": sum(a * b for a, b in zip(ms, n)),
+                      "per_encode_library_ms": sum(a * b for a, b in zip(lib, n)),
+                      "per_encode_bound_ms": sum(row["bound_ms"] * k for row, k in zip(rows, n))}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--model", default="vit_b", choices=("vit_b", "vit_h"))
+    ap.add_argument("--gemm-shapes", action="store_true")
+    ap.add_argument("--gemm-plans", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child)), flush=True)
+        print(json.dumps(child(args.child, args.model, args.gemm_shapes, args.gemm_plans)),
+              flush=True)
         return
     import torch
     if not torch.cuda.is_available() or not args.roots:
@@ -150,22 +247,36 @@ def main():
     print(card.strip().splitlines()[0], flush=True)
     runs = []
     for root in args.roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root],
+        flags = (["--model", args.model] + (["--gemm-shapes"] if args.gemm_shapes else [])
+                 + (["--gemm-plans"] if args.gemm_plans else []))
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root] + flags,
                               capture_output=True, text=True)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout + proc.stderr)
             sys.exit(f"{root}: replay failed (rc {proc.returncode})")
-        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        *logged, last = proc.stdout.strip().splitlines()
+        print("\n".join(logged), flush=True)
+        run = json.loads(last)
         runs.append(run)
         print(json.dumps(run), flush=True)
     summary = {}
     for root in dict.fromkeys(r["root"] for r in runs):
         mine = [r for r in runs if r["root"] == root]
+        if args.gemm_plans:
+            continue
+        if args.gemm_shapes:
+            summary[root] = gemm_summary(mine)
+            print(f"{root}: median over its runs, ms per shape and per encode (the shapes "
+                  f"times their launches) {json.dumps(summary[root])}", flush=True)
+            continue
         summary[root] = {k: statistics.median(v for r in mine for v in r["ms"][k])
                          for k in mine[0]["ms"]}
-        summary[root]["step"] = {k: statistics.median(v for r in mine for v in r["step_ms"][k])
-                                 for k in mine[0]["step_ms"]}
-        print(f"{root}: median ms per encode and per training step {summary[root]}", flush=True)
+        if "step_ms" in mine[0]:
+            summary[root]["step"] = {k: statistics.median(v for r in mine
+                                                          for v in r["step_ms"][k])
+                                     for k in mine[0]["step_ms"]}
+        print(f"{root}: median ms per {args.model} encode and per training step "
+              f"{summary[root]}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -46,7 +46,7 @@ _BWD_SIGNATURE = ("msam_relpos_attention_bwd",
                   [_I, _I] + [_P] * 14 + [_LL] + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P])
 _SIGNATURES = {
     "layernorm": ("msam_layernorm", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
-    "gemm": ("msam_gemm", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "gemm": ("msam_gemm", [_P] * 5 + [_I] * 9 + [_P]),
     **{f"relpos_attention_hd{d}": ("msam_relpos_attention",
                                    [_P] * 7 + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 5
                                    + [_P])
@@ -55,6 +55,8 @@ _SIGNATURES = {
     "dwconv": ("msam_dwconv", [_P] * 5 + [_I] * 6 + [_P]),
     "tiny_attention": ("msam_tiny_attention", [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
 }
+# a library's other exports: name -> [(function, argtypes, restype)]
+_MORE = {"gemm": [("msam_gemm_maps_encoded", [_I], _I)]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -134,6 +136,9 @@ def library(name: str) -> ctypes.CDLL:
                 err = getattr(lib, f"{fn_name}_error_string")
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
+                for more, more_args, more_res in _MORE.get(n, ()):
+                    getattr(lib, more).argtypes = more_args
+                    getattr(lib, more).restype = more_res
                 _libs[n] = lib
         return _libs[name]
 

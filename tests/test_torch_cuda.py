@@ -51,8 +51,13 @@ def test_layernorm_matches_plain(dev, dtype, masked):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "residual_gelu"])
-@pytest.mark.parametrize("M,K,N", [(4900, 768, 2304), (37, 72, 40), (130, 3072, 768)],
-                         ids=["vit_b_qkv", "ragged", "vit_b_lin2"])
+@pytest.mark.parametrize("M,K,N", [
+    (4900, 768, 2304), (37, 72, 40), (130, 3072, 768), (4900, 1024, 3072), (4900, 1280, 5120),
+    (4900, 5120, 1280), (65536, 64, 256), (65536, 256, 64), (4900, 160, 480), (100, 256, 384),
+    (333, 128, 200), (70, 64, 37)],
+    ids=["vit_b_qkv", "ragged", "vit_b_lin2", "vit_l_qkv", "vit_h_lin1_wraps", "vit_h_lin2",
+         "vit_t_expand", "vit_t_shrink", "vit_t_s2_qkv", "m_below_one_tile", "m_not_64_multiple",
+         "n_not_8_multiple"])
 def test_gemm_matches_plain(dev, dtype, epilogue, M, K, N):
     from micro_sam_tpu_torch.ops.gemm import gemm, gemm_plain
     g = torch.Generator().manual_seed(1)
@@ -64,6 +69,119 @@ def test_gemm_matches_plain(dev, dtype, epilogue, M, K, N):
     torch.cuda.synchronize()
     _held(got, gemm_plain(x.float(), w.float(), b, epilogue, None if r is None else r.float()),
           dtype)
+
+
+def _main_path_gemm_shapes():
+    """chip_smoke.GEMM_SHAPES: every distinct product of the vit_b, vit_l,
+    vit_h and vit_t encodes, (model, label, M, N, K, epilogue)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return [(m, lab, M, N, K, e) for m, rows in smoke.GEMM_SHAPES.items()
+            for lab, M, N, K, e, _ in rows]
+
+
+GEMM_MAIN_PATH = _main_path_gemm_shapes()
+
+
+@pytest.mark.parametrize("model,label,M,N,K,epilogue", GEMM_MAIN_PATH,
+                         ids=[f"{m}-{lab.replace(' ', '_')}" for m, lab, *_ in GEMM_MAIN_PATH])
+def test_gemm_main_path_shapes_match_plain(dev, model, label, M, N, K, epilogue):
+    from micro_sam_tpu_torch.ops.gemm import gemm, gemm_plain
+    g = torch.Generator().manual_seed(11)
+    dt = torch.bfloat16
+    x = torch.randn(M, K, generator=g).to(dev, dt)
+    w = (torch.randn(N, K, generator=g) * K ** -0.5).to(dev, dt)
+    b = (torch.randn(N, generator=g) * 0.1).to(dev)
+    r = torch.randn(M, N, generator=g).to(dev, dt) if epilogue.startswith("residual") else None
+    got = gemm(x, w, b, epilogue, r)
+    torch.cuda.synchronize()
+    _held(got, gemm_plain(x.float(), w.float(), b, epilogue, None if r is None else r.float()),
+          dt)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "residual"])
+@pytest.mark.parametrize("bn,turns,stages,grid", [
+    (256, False, 3, 7), (256, False, 4, 132), (128, False, 3, 7), (128, False, 7, 132),
+    (128, True, 3, 7), (128, True, 7, 5), (128, True, 5, 132), (128, True, 4, 1)],
+    ids=["256_s3_g7", "256_s4_g132", "128_s3_g7", "128_s7_g132", "turns_s3_g7", "turns_s7_g5",
+         "turns_s5_g132", "turns_s4_g1"])
+def test_gemm_every_plan_matches_plain(dev, epilogue, bn, turns, stages, grid):
+    """Each schedule of the kernel, its ring shallow and deep, on grids small
+    enough that a block walks many tiles (an odd count in turns) and the
+    ring wraps many times: a ragged (1000, 1280) x (2000, 1280)^T product."""
+    from micro_sam_tpu_torch.ops.gemm import GemmPlan, gemm, gemm_plain
+    g = torch.Generator().manual_seed(14)
+    M, K, N = 1000, 1280, 2000
+    x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(N, K, generator=g) * K ** -0.5).to(dev, torch.bfloat16)
+    b = (torch.randn(N, generator=g) * 0.1).to(dev)
+    r = torch.randn(M, N, generator=g).to(dev, torch.bfloat16) if epilogue != "none" else None
+    tiles = -(-M // 128) * -(-N // bn)
+    got = gemm(x, w, b, epilogue, r, plan=GemmPlan(bn, stages, grid, tiles, turns))
+    torch.cuda.synchronize()
+    _held(got, gemm_plain(x.float(), w.float(), b, epilogue, None if r is None else r.float()),
+          torch.bfloat16)
+
+
+@pytest.mark.parametrize("epilogue", ["gelu", "residual_gelu"])
+def test_gemm_refuses_turns_with_gelu(dev, epilogue):
+    """The kernel has no GELU epilogue in turns (the plan never asks for
+    one): the launch is refused, and nothing is counted."""
+    from micro_sam_tpu_torch.ops.gemm import GemmPlan, gemm
+    x = torch.zeros(300, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(256, 64, device=dev, dtype=torch.bfloat16)
+    r = torch.zeros(300, 256, device=dev, dtype=torch.bfloat16) if epilogue != "gelu" else None
+    n = gemm.launches
+    with pytest.raises(RuntimeError):
+        gemm(x, w, torch.zeros(256, device=dev), epilogue, r, plan=GemmPlan(128, 5, 2, 6, True))
+    assert gemm.launches == n
+
+
+@pytest.mark.parametrize("N,K", [(1280, 1280), (5120, 1280)], ids=["bn128", "bn256"])
+def test_gemm_weight_map_reused_with_new_x(dev, N, K):
+    """A weight's tensor map is encoded once and reused while X changes: three
+    calls on one weight with new X (and new M) all hold, the weight's map is
+    encoded at most once, and a call again on the last X encodes nothing."""
+    from micro_sam_tpu_torch.ops import _cuda
+    from micro_sam_tpu_torch.ops.gemm import gemm, gemm_plain
+    g = torch.Generator().manual_seed(12)
+    w = (torch.randn(N, K, generator=g) * K ** -0.5).to(dev, torch.bfloat16)
+    b = (torch.randn(N, generator=g) * 0.1).to(dev)
+    lib = _cuda.library("gemm")
+    before, encoded, xs = lib.msam_gemm_maps_encoded(1), [], []
+    for M in (4900, 4096, 4900):
+        xs.append(torch.randn(M, K, generator=g).to(dev, torch.bfloat16))
+        got = gemm(xs[-1], w, b, "gelu")
+        torch.cuda.synchronize()
+        _held(got, gemm_plain(xs[-1].float(), w.float(), b, "gelu"), torch.bfloat16)
+        encoded.append(lib.msam_gemm_maps_encoded(1))
+    # at most the first call encodes W (an earlier test's weight of this shape
+    # may have left its map at this address); the others reuse it
+    assert encoded[0] - before in (0, 1) and encoded[1] == encoded[2] == encoded[0]
+    x_maps = lib.msam_gemm_maps_encoded(0)
+    gemm(xs[-1], w, b, "gelu")
+    assert lib.msam_gemm_maps_encoded(0) == x_maps and lib.msam_gemm_maps_encoded(1) == encoded[0]
+
+
+def test_gemm_counts_one_launch_per_call(dev):
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    g = torch.Generator().manual_seed(13)
+    n = gemm.launches
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(300, 64, generator=g).to(dev, dt)
+        w = torch.randn(96, 64, generator=g).to(dev, dt)
+        gemm(x, w, torch.zeros(96, device=dev))
+        gemm(x, w, torch.zeros(96, device=dev), "residual", torch.zeros(300, 96, device=dev,
+                                                                         dtype=dt))
+    gemm(torch.empty(0, 64, device=dev, dtype=torch.bfloat16),
+         torch.zeros(96, 64, device=dev, dtype=torch.bfloat16), torch.zeros(96, device=dev))
+    torch.cuda.synchronize()
+    assert gemm.launches == n + 4  # an empty product launches nothing
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
