@@ -7,8 +7,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
  1. the card: CUDA must be available; prints its name and power limit;
  2. builds the CUDA kernels from micro_sam_tpu_torch/csrc and prints the time,
     each kernel's ptxas registers and any spill or warning; fails if a gemm
-    kernel spills or, where the toolkit has cuobjdump, if a bf16 gemm kernel's
-    SASS holds no HGMMA (warpgroup product) or no UTMALDG (TMA load);
+    or dwconv kernel spills or, where the toolkit has cuobjdump, if a bf16
+    gemm kernel's SASS holds no HGMMA (warpgroup product) or no UTMALDG (TMA
+    load), or a kernel of dwconv's TMA body no UTMALDG;
  3. holds each kernel (layernorm, gemm, relpos_attention) and the two block
     chains against their plain PyTorch versions on the card, at the vit_b
     shapes, in bf16 and f32, with timings, bounds and a library yardstick
@@ -28,7 +29,12 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     vit_b's training shapes ((50, 12, 196, 64) windows, the (2, 12, 4096, 64)
     global grid), f32 (rel 1e-4) and bf16 (rel 3e-2 of the f32 plain result on the same bf16
     inputs), with timings, bounds and an SDPA-backward yardstick, its stage
-    variants and, in bf16, each of its four stages timed alone;
+    variants and, in bf16, each of its four stages timed alone; then K1 and
+    K4 in bf16 on grids beyond one key rectangle (336 x 336 at head dims 64
+    and 80, 32 x 640 at 64; 2 heads): the forward's output and lse on 128
+    sampled rows, and the backward with dout on 64 of them, against the
+    plain version's rows over all keys, launches per call (one, four, a key
+    rectangle), each timed with its bound;
  6. finetuning at full vit_b width: train_sam("vit_b", with_segmentation_decoder
     =False, n_iterations=2) on 512^2 synthetic patches, its best.pkl loaded
     into the predictor for one predict; then SamTrainer steps at train_sam's
@@ -42,6 +48,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     three stage geometries, dwconv at the MBConv and the three tail shapes,
     the gemm's residual_gelu epilogue) and the K6 / K7 / K8 chains against
     their plain versions, bf16 and f32, with launches per chain call checked;
+    dwconv at each depthwise shape of the encode (``dwconv_sweep``: held
+    against plain, timed with cuDNN's depthwise convolution, bound, the sum
+    per encode);
     the gemm at each of the 14 distinct products of the vit_t encode
     (``gemm_sweep``: held against plain, timed with F.linear + epilogue,
     bound and plan);
@@ -530,37 +539,76 @@ def gemm_sweep(model, seed=4242):
     return rows
 
 
-def gemm_sass_check():
-    """The gemm library as built: no spill in any of its kernels (ptxas), and,
-    where the toolkit has cuobjdump, the warpgroup products (HGMMA) and TMA
-    loads (UTMALDG) in its SASS; fails if the bf16 kernels have none."""
+# the depthwise shapes of one batch-1 1024^2 vit_t encode with their launches
+# per encode: (label, H, W, C, gelu, launches)
+DWCONV_SHAPES = (("MBConv", 256, 256, 256, True, 2), ("s1 tail", 128, 128, 128, False, 2),
+                 ("s2 tail", 64, 64, 160, False, 6), ("s3 tail", 64, 64, 320, False, 2))
+
+
+def dwconv_sweep(seed=4343):
+    """The bf16 dwconv at each depthwise shape of the vit_t encode
+    (``DWCONV_SHAPES``): held against the plain version in f32 on the same
+    inputs, timed as the kernel and as cuDNN's depthwise convolution (BN
+    folded, F.gelu), with its bound; then the sums per encode (each shape
+    times its launches)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = []
+    for label, H, W, Cc, gelu, n in DWCONV_SHAPES:
+        a = ((torch.randn(1, H, W, Cc, generator=g)).to(dev, torch.bfloat16),
+             (torch.randn(Cc, 1, 3, 3, generator=g) / 3).to(dev),
+             (torch.randn(Cc, generator=g) * 0.2 + 1).to(dev),
+             (torch.randn(Cc, generator=g) * 0.1).to(dev), gelu)
+        kern, _, lib, ref = counterparts("dwconv", a, {})
+        shape = f"{label} (1, {H}, {W}, {Cc}){' gelu' if gelu else ''}"
+        err = check(f"dwconv {shape}", kern(), ref(), "bfloat16", quiet=True)
+        k_ms, l_ms = time_ms(kern), time_ms(lib)
+        b_ms, b_by = bound_of([("dwconv", a, {})])
+        rows.append(dict(model="vit_t", shape=shape, launches_per_encode=n, dtype="bfloat16",
+                         max_abs_err=err, ms=k_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"    dwconv {shape:<32s} x{n:<2d} ms {k_ms:.4f}  library_ms {l_ms:.4f}  "
+            f"bound_ms {b_ms:.4f} ({b_by})  share of bound {b_ms / k_ms:.3f}")
+        del a
+    tot = {k: sum(r[k] * r["launches_per_encode"] for r in rows)
+           for k in ("ms", "library_ms", "bound_ms")}
+    log(f"  dwconv vit_t, the shapes times their launches per encode: ms {tot['ms']:.4f}  "
+        f"library_ms {tot['library_ms']:.4f}  bound_ms {tot['bound_ms']:.4f}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sass_check(lib, tag, ops):
+    """The library ``lib`` as built: no spill in any of its kernels (ptxas),
+    and, where the toolkit has cuobjdump, each instruction of ``ops`` in the
+    SASS of every kernel whose name holds ``tag``; fails if one has none (or
+    no kernel has the tag). Returns the counts of those kernels."""
     from micro_sam_tpu_torch.ops import _cuda
     d = _cuda.build_dir()
-    with open(os.path.join(d, "gemm.log")) as f:
+    with open(os.path.join(d, f"{lib}.log")) as f:
         spills = [ln.strip() for ln in f if "spill" in ln and " 0 bytes spill stores" not in ln]
     if spills:
-        raise AssertionError(f"gemm: ptxas spills: {spills}")
+        raise AssertionError(f"{lib}: ptxas spills: {spills}")
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("  gemm SASS: the toolkit has no cuobjdump; not checked")
+        log(f"  {lib} SASS: the toolkit has no cuobjdump; not checked")
         return None
-    sass = subprocess.run([tool, "-sass", os.path.join(d, "libgemm.so")], capture_output=True,
+    sass = subprocess.run([tool, "-sass", os.path.join(d, f"lib{lib}.so")], capture_output=True,
                           text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            counts[fn] = dict.fromkeys(ops, 0)
         elif fn is not None:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ops:
                 counts[fn][op] += op in line
-    bf16 = {k: v for k, v in counts.items() if "wgmma" in k}
-    log(f"  gemm SASS: {len(bf16)} bf16 kernels; HGMMA / UTMALDG instructions each: "
-        f"{sorted({(v['HGMMA'], v['UTMALDG']) for v in bf16.values()})}")
-    if not bf16 or any(v["HGMMA"] == 0 or v["UTMALDG"] == 0 for v in bf16.values()):
-        raise AssertionError(f"gemm: a bf16 kernel without HGMMA or UTMALDG: {counts}")
-    return bf16
+    mine = {k: v for k, v in counts.items() if tag in k}
+    log(f"  {lib} SASS: {len(counts)} kernels, {len(mine)} with '{tag}'; {' / '.join(ops)} "
+        f"instructions each: {sorted({tuple(v.values()) for v in mine.values()})}")
+    if not mine or any(0 in v.values() for v in mine.values()):
+        raise AssertionError(f"{lib}: a '{tag}' kernel without {ops}: {counts}")
+    return mine
 
 
 def gemm_host_us(launches=1000):
@@ -1569,6 +1617,76 @@ def backward_phase(grids=((50, 14), (2, 64)), nH=NH, hd=HD, seed=4321):
             del a, kern, plain, lib, ref, q5, q, k, v, out, dout, lse
             torch.cuda.empty_cache()
     return rows
+
+
+# grids whose u tables need more than one key rectangle: (H, W, head dim), 2
+# heads, batch 1 (a 336 x 336 map is vit_b's global grid at img_size 5376)
+LARGE_GRIDS = ((336, 336, 64), (336, 336, 80), (32, 640, 64))
+
+
+def large_grid_phase(seed=4545, nH=2):
+    """K1 and K4 (bf16) on ``LARGE_GRIDS``: the forward's output and lse on 128
+    sampled q rows (the map's corners among them) against the plain version's
+    rows over all keys; the backward with dout zero outside 64 of them against
+    the plain backward of those rows (dq, dk, dv, both table gradients); the
+    launches per call (one a key rectangle, four a rectangle); both timed
+    with their bound. Returns the forward's and the backward's rows."""
+    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    fwd_rows, bwd_rows = [], []
+    for H, W, hd in LARGE_GRIDS:
+        N = H * W
+        x5 = torch.randn(1, N, 3, nH, hd, generator=g).to(dev, torch.bfloat16)
+        q, k, v = (x5[:, :, i].transpose(1, 2) for i in range(3))
+        rh = (torch.randn(H, H, hd, generator=g) * 0.3).to(dev, torch.bfloat16)
+        rw = (torch.randn(W, W, hd, generator=g) * 0.3).to(dev, torch.bfloat16)
+        sample = torch.cat([torch.tensor([0, W - 1, N - W, N - 1]),
+                            torch.randperm(N, generator=g)[:124]]).unique().to(dev)
+        lse = torch.empty((1, nH, N), device=dev)
+        fplan, bplan = rpa.forward_plan(N, H, W, hd), rpa.backward_plan(N, H, W, hd)
+        before = rpa.relpos_attention.launches
+        out = rpa.relpos_attention(q, k, v, rh, rw, (H, W), lse=lse)
+        torch.cuda.synchronize()
+        f_launches = rpa.relpos_attention.launches - before
+        if f_launches != len(fplan.rects):
+            raise AssertionError(f"K1 {H}x{W}: {f_launches} launches, not {len(fplan.rects)}")
+        ref, ref_lse = rpa.relpos_attention_plain_rows(q, k, v, rh, rw, (H, W), sample)
+        label = f"({H}x{W}, {nH} heads of {hd}) {len(fplan.rects)} key rectangles"
+        err = check(f"relpos_attention {label}, 128 rows", out[:, :, sample], ref, "bfloat16")
+        check(f"relpos_attention {label}, lse of 128 rows", lse[:, :, sample], ref_lse,
+              "float32")
+        a = (q, k, v, rh, rw, (H, W))
+        f_ms = time_ms(lambda: rpa.relpos_attention(*a, lse=lse), iters=3, warmup=1)
+        b_ms, b_by = bound_of([("relpos_attention", a, {})])
+        fwd_rows.append(dict(shape=f"(1, {nH}, {N}, {hd}) grid {H}x{W}", dtype="bfloat16",
+                             variant=f"{fplan.variant} x{len(fplan.rects)}", max_abs_err=err,
+                             ms=f_ms, bound_ms=b_ms, bound_by=b_by, launches=f_launches))
+        log(f"    K1 {label}: ms {f_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+        rows = sample[:64]
+        dout = torch.zeros_like(q)
+        dout[:, :, rows] = torch.randn(1, nH, len(rows), hd, generator=g).to(dev, torch.bfloat16)
+        before = rpa.relpos_attention_backward.launches
+        got = rpa.relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, W), lse=lse)
+        torch.cuda.synchronize()
+        k_launches = rpa.relpos_attention_backward.launches - before
+        if k_launches != 4 * len(bplan.rects):
+            raise AssertionError(f"K4 {H}x{W}: {k_launches} launches, not {4 * len(bplan.rects)}")
+        ref = rpa.relpos_attention_backward_plain_rows(q, k, v, out, dout, rh, rw, (H, W), rows)
+        blabel = f"({H}x{W}, {nH} heads of {hd}) {len(bplan.rects)} key rectangles"
+        err = check(f"relpos_attention_backward {blabel}, dout on 64 rows", got, ref,
+                    "bfloat16", tol=BWD_BF16_TOL)
+        ab = (q, k, v, out, dout, rh, rw, (H, W))
+        k_ms = time_ms(lambda: rpa.relpos_attention_backward(*ab, lse=lse), iters=3, warmup=1)
+        b_ms, b_by = bound_of([("relpos_attention_backward", ab, {})])
+        bwd_rows.append(dict(shape=f"(1, {nH}, {N}, {hd}) grid {H}x{W}", dtype="bfloat16",
+                             variant=f"dk/dv {bplan.dkdv}, dq {bplan.dq} x{len(bplan.rects)}",
+                             max_abs_err=err, ms=k_ms, bound_ms=b_ms, bound_by=b_by,
+                             launches=k_launches))
+        log(f"    K4 {blabel}: ms {k_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
+        del x5, q, k, v, out, dout, got, ref, a, ab, lse
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
 
 
 # ---------------------------------------------------------------------------
@@ -2616,7 +2734,8 @@ def main():
                         log(f"  ptxas {n} {entry}: {line.strip()}")
                     elif "warn" in line.lower():
                         log(f"  ptxas {n} {entry}: {line.strip()}")
-    gemm_sass_check()
+    sass_check("gemm", "wgmma", ("HGMMA", "UTMALDG"))  # the bf16 kernels
+    sass_check("dwconv", "dwconv_tma_kernel", ("UTMALDG",))
 
     # the profiler's first sessions in a process are the ones seen to record
     # nothing: take them on a throwaway measurement
@@ -2636,6 +2755,11 @@ def main():
     log("backward kernel vs plain backward (bf16: within 3e-2 of the f32 plain result)")
     with torch.enable_grad():
         bwd_rows = backward_phase()
+    log("K1 and K4 on grids beyond one key rectangle (bf16, sampled rows against the plain "
+        "version)")
+    large_fwd, large_bwd = large_grid_phase()
+    shapes["relpos_attention"] += large_fwd
+    bwd_rows += large_bwd
     # phase 6: finetuning
     log("training path: train_sam / SamTrainer, vit_b, 512^2 patches -> 1024^2, bf16 compute")
     counters["relpos_attention_backward"] = relpos_attention_backward
@@ -2644,6 +2768,8 @@ def main():
     # phase 7: vit_t
     log("vit_t kernels and chains vs plain versions (bf16: plain in f32 on the same bf16 inputs)")
     tiny_shapes, tiny_chains = tiny_kernel_phase(counters)
+    log("dwconv at every depthwise shape of the vit_t encode (bf16) against cuDNN")
+    tiny_shapes["dwconv"] += dwconv_sweep()
     log("gemm at every distinct product of the vit_t encode (bf16)")
     tiny_shapes["gemm"] += gemm_sweep("vit_t")
     log("main path: vit_t, 1024^2, random weights (seed 0), bf16")

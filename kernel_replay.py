@@ -3,16 +3,21 @@ replayed back to back, for one or more checkouts of this repository, each in
 its own process and in the order given, so that two versions of a kernel are
 compared on one card:
 
-    python3 kernel_replay.py OLD NEW NEW OLD [--model vit_b|vit_h] [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD [--model vit_b|vit_h|vit_t] [--out FILE]
     python3 kernel_replay.py OLD NEW NEW OLD --gemm-shapes [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD --dwconv-shapes [--out FILE]
     python3 kernel_replay.py . --gemm-plans [--out FILE]
+    python3 kernel_replay.py . --dwconv-plans [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD --encode [--model ...] [--out FILE]
 
 Each argument is the root of a checkout (``.`` for this one). Its process
 imports that checkout's ``micro_sam_tpu_torch`` and builds its kernels into
 that checkout's ``build/``. The encode replay records the ``layernorm`` /
 ``gemm`` / ``relpos_attention`` launches of one batch-1 1024 x 1024 encode of
 ``--model`` (default vit_b; bf16, random weights from seed 0, a random image
-from seed 0) through the encoder's default route; with vit_b, the step
+from seed 0) through the encoder's default route (vit_t: the ``dwconv``,
+``layernorm``, ``gemm`` and ``tiny_attention`` launches of its MBConv,
+attention and tail chains); with vit_b, the step
 replay records the
 ``relpos_attention`` (K1, with the checkpoint recompute) and
 ``relpos_attention_backward`` (K4) calls of one vit_b ``forward_train`` and
@@ -29,7 +34,16 @@ vit_l, vit_h and vit_t encodes (``gemm_sweep`` of ``chip_smoke.py``: held
 against the plain version, timed with ``F.linear`` + epilogue, the bound and
 the plan) and the host microseconds a ``gemm`` call costs (``gemm_host_us``);
 ``--gemm-plans`` times the vit_b, vit_h and vit_t shapes under every plan the
-kernel takes (``plan_sweep``), for tuning ``gemm_plan``. Needs one CUDA card.
+kernel takes (``plan_sweep``), for tuning ``gemm_plan``. ``--dwconv-shapes``
+replaces the replays by the bf16 ``dwconv`` at each depthwise shape of the
+vit_t encode (``dwconv_sweep`` of ``chip_smoke.py``: held against the plain
+version, timed with cuDNN's depthwise convolution, the bound), and sums them
+per encode; ``--dwconv-plans`` times those shapes under tiles of 128 and 256
+threads and 4 to 32 rows (``dwconv_plan_sweep``), for tuning ``dwconv_plan``.
+``--encode`` times, instead of any kernel, ``SamPredictor.encode_batch`` of
+``--model`` on a host clock that ends in a synchronize (1024 x 1024 pixels
+at batch 1 and 8, ``ENCODE_REPS`` runs after two warm-ups, the median per
+image): the serving metric with the host's work in it. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -56,23 +70,67 @@ def smoke_module():
     return smoke
 
 
-def gemm_child(root: str, smoke, plans: bool) -> dict:
+# the sweeps that replace the replays, one flag each (a child runs one)
+SWEEPS = ("gemm-shapes", "gemm-plans", "dwconv-shapes", "dwconv-plans", "encode")
+ENCODE_REPS = 10
+
+
+def sweep_child(root: str, smoke, sweep: str) -> dict:
     import torch
     from micro_sam_tpu_torch.ops import _cuda
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     _cuda.build()
     smoke.time_ms(lambda: torch.ones(1024, device="cuda").add_(1), iters=2, warmup=1)
-    if plans:
-        return {"root": root, "kernels": _cuda.build_dir(),
-                "plans": {m: plan_sweep(smoke, m) for m in PLAN_MODELS}}
-    out = {"root": root, "kernels": _cuda.build_dir(), "host_us": smoke.gemm_host_us(),
-           "shapes": {}}
-    for model in smoke.GEMM_SHAPES:
-        out["shapes"][model] = smoke.gemm_sweep(model)
+    out = {"root": root, "kernels": _cuda.build_dir()}
+    if sweep == "dwconv-shapes":
+        out["shapes"] = {"vit_t": smoke.dwconv_sweep()}
+    elif sweep == "dwconv-plans":
+        out["plans"] = dwconv_plan_sweep(smoke)
+    elif sweep == "gemm-plans":
+        out["plans"] = {m: plan_sweep(smoke, m) for m in PLAN_MODELS}
+    else:
+        out["host_us"] = smoke.gemm_host_us()
+        out["shapes"] = {model: smoke.gemm_sweep(model) for model in smoke.GEMM_SHAPES}
     return out
 
 
 PLAN_MODELS = ("vit_b", "vit_h", "vit_t")
+
+
+def dwconv_plan_sweep(smoke) -> list:
+    """The bf16 dwconv at each depthwise shape of the vit_t encode under
+    tiles of 128 and 256 threads, 4 to 32 rows (the TMA body), each run held
+    against the plain version; one row per shape: ms per tile and the tile
+    ``dwconv_plan`` picks."""
+    import torch
+    from micro_sam_tpu_torch.ops.dwconv import DwconvPlan, dwconv, dwconv_plain, dwconv_plan
+    g = torch.Generator().manual_seed(6)
+    rows = []
+    for label, H, W, C, gelu, n in smoke.DWCONV_SHAPES:
+        x = torch.randn(1, H, W, C, generator=g).to("cuda", torch.bfloat16)
+        w = (torch.randn(C, 1, 3, 3, generator=g) / 3).to("cuda")
+        s, t = (torch.rand(C, generator=g) + 0.5).cuda(), (torch.randn(C, generator=g) * 0.1).cuda()
+        ref = dwconv_plain(x.float(), w, s, t, gelu)
+        picked = dwconv_plan(1, H, W, C, 2)
+        cands = {picked}
+        for threads in (128, 256):
+            for th in (4, 8, 16, 32):
+                tw = min(W, 128, threads // (picked.ct // picked.vec))
+                slot = -(-(th + 2) * (tw + 2) * picked.ct * 2 // 128) * 128
+                if 2 * slot + 144 <= 232448:  # two halo slots within a block's shared memory
+                    cands.add(picked._replace(th=min(th, H), tw=tw))
+        ms = {}
+        for p in sorted(cands):
+            smoke.check(f"dwconv {label} {p}", dwconv(x, w, s, t, gelu, plan=p), ref, "bfloat16",
+                        quiet=True)
+            ms[str(tuple(p))] = smoke.time_ms(lambda: dwconv(x, w, s, t, gelu, plan=p))
+        best = min(ms, key=ms.get)
+        rows.append({"shape": f"{label} (1, {H}, {W}, {C})", "launches_per_encode": n, "ms": ms,
+                     "picked": str(tuple(picked)), "best": best})
+        print(f"  dwconv {rows[-1]['shape']}: picked {tuple(picked)} {ms[str(tuple(picked))]:.4f} "
+              f"ms; best {best} {ms[best]:.4f} ms", flush=True)
+    return rows
 
 
 def plan_sweep(smoke, model) -> list:
@@ -117,7 +175,12 @@ def plan_sweep(smoke, model) -> list:
     return rows
 
 
-def child(root: str, model: str, gemm_shapes: bool, gemm_plans: bool) -> dict:
+# the chain modules whose kernel tables an encode of each model is recorded through
+RECORDED = {"vit_t": ("fused_mbconv", "fused_tiny_attention", "fused_tiny_tail")}
+REPLAYED = {"vit_t": ("dwconv", "layernorm", "gemm", "tiny_attention")}
+
+
+def child(root: str, model: str, sweep: str = "") -> dict:
     root = os.path.abspath(root)
     smoke = smoke_module()
     device_ms = smoke.time_ms
@@ -128,10 +191,12 @@ def child(root: str, model: str, gemm_shapes: bool, gemm_plans: bool) -> dict:
     pkg = os.path.dirname(os.path.abspath(micro_sam_tpu_torch.__file__))
     if pkg != os.path.join(root, "micro_sam_tpu_torch"):
         raise RuntimeError(f"imported {pkg}, not the package of {root}")
-    if gemm_shapes or gemm_plans:
-        return gemm_child(root, smoke, gemm_plans)
+    if sweep == "encode":
+        return encode_child(root, model)
+    if sweep:
+        return sweep_child(root, smoke, sweep)
+    import importlib
     from micro_sam_tpu_torch.ops import _cuda
-    from micro_sam_tpu_torch.ops import fused_window_block as fwb
     from micro_sam_tpu_torch.util import _to_image, get_sam_model
     for k in KNOBS:
         os.environ.pop(k, None)
@@ -140,21 +205,26 @@ def child(root: str, model: str, gemm_shapes: bool, gemm_plans: bool) -> dict:
     predictor = get_sam_model(model, seed=0)
     predictor.encode_batch(x1.astype(np.float32))  # builds the kernels
     torch.cuda.synchronize()
-    calls, saved = [], fwb._KERNELS
+    calls = []
+    modules = [importlib.import_module(f"micro_sam_tpu_torch.ops.{n}")
+               for n in RECORDED.get(model, ("fused_window_block",))]
+    saved = [m._KERNELS for m in modules]
 
     def wrap(fn):
         def call(*a, **kw):
             calls.append((fn.__name__, fn, a, kw))
             return fn(*a, **kw)
         return call
-    fwb._KERNELS = tuple(wrap(f) for f in saved)
+    for m, kernels in zip(modules, saved):
+        m._KERNELS = tuple(wrap(f) for f in kernels)
     try:
         predictor.encode_batch(x1.astype(np.float32))
     finally:
-        fwb._KERNELS = saved
+        for m, kernels in zip(modules, saved):
+            m._KERNELS = kernels
     torch.cuda.synchronize()
     out = {"root": root, "model": model, "kernels": _cuda.build_dir(), "launches": {}, "ms": {}}
-    for name in ("layernorm", "gemm", "relpos_attention"):
+    for name in REPLAYED.get(model, ("layernorm", "gemm", "relpos_attention")):
         mine = [c for c in calls if c[0] == name]
         out["launches"][name] = len(mine)
         out["ms"][name] = [device_ms(lambda: [fn(*a, **kw) for _, fn, a, kw in mine])
@@ -162,6 +232,35 @@ def child(root: str, model: str, gemm_shapes: bool, gemm_plans: bool) -> dict:
     del calls, predictor
     if model == "vit_b":
         out.update(step_replay(device_ms))
+    return out
+
+
+def encode_child(root: str, model: str) -> dict:
+    """Host-clock ms per image of ``encode_batch`` at batch 1 and 8 (median of
+    ``ENCODE_REPS`` after two warm-ups), bf16, random weights from seed 0."""
+    import time
+    import numpy as np
+    import torch
+    from micro_sam_tpu_torch.util import _to_image, get_sam_model
+    for k in KNOBS:
+        os.environ.pop(k, None)
+    x1 = _to_image(np.random.RandomState(0).randint(0, 256, size=(1024, 1024))
+                   .astype(np.uint8))[None].astype(np.float32)
+    predictor = get_sam_model(model, seed=0)
+    out = {"root": root, "model": model, "encode_ms": {}}
+    for bs in (1, 8):
+        x = np.repeat(x1, bs, axis=0)
+        for _ in range(2):
+            predictor.encode_batch(x)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(ENCODE_REPS):
+            t0 = time.perf_counter()
+            predictor.encode_batch(x)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3 / bs)
+        out["encode_ms"][str(bs)] = statistics.median(ts)
+        out.setdefault("all_ms", {})[str(bs)] = ts
     return out
 
 
@@ -212,7 +311,8 @@ def gemm_summary(runs) -> dict:
     """Per model: the median of each shape's kernel ms over the runs of one
     checkout, and per encode the sums of the shapes times their launches
     (kernel and F.linear + epilogue, the bound) with the host us a call."""
-    out = {"host_us": statistics.median(r["host_us"] for r in runs)}
+    out = ({"host_us": statistics.median(r["host_us"] for r in runs)} if "host_us" in runs[0]
+           else {})
     for model, rows in runs[0]["shapes"].items():
         ms = [statistics.median(r["shapes"][model][i]["ms"] for r in runs)
               for i in range(len(rows))]
@@ -230,14 +330,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--child", help=argparse.SUPPRESS)
-    ap.add_argument("--model", default="vit_b", choices=("vit_b", "vit_h"))
-    ap.add_argument("--gemm-shapes", action="store_true")
-    ap.add_argument("--gemm-plans", action="store_true")
+    ap.add_argument("--model", default="vit_b", choices=("vit_b", "vit_h", "vit_l", "vit_t"))
+    group = ap.add_mutually_exclusive_group()
+    for name in SWEEPS:
+        group.add_argument(f"--{name}", dest="sweep", action="store_const", const=name,
+                           default="")
     ap.add_argument("--out")
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child, args.model, args.gemm_shapes, args.gemm_plans)),
-              flush=True)
+        print(json.dumps(child(args.child, args.model, args.sweep)), flush=True)
         return
     import torch
     if not torch.cuda.is_available() or not args.roots:
@@ -247,8 +348,7 @@ def main():
     print(card.strip().splitlines()[0], flush=True)
     runs = []
     for root in args.roots:
-        flags = (["--model", args.model] + (["--gemm-shapes"] if args.gemm_shapes else [])
-                 + (["--gemm-plans"] if args.gemm_plans else []))
+        flags = ["--model", args.model] + ([f"--{args.sweep}"] if args.sweep else [])
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root] + flags,
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -262,9 +362,15 @@ def main():
     summary = {}
     for root in dict.fromkeys(r["root"] for r in runs):
         mine = [r for r in runs if r["root"] == root]
-        if args.gemm_plans:
+        if args.sweep.endswith("plans"):
             continue
-        if args.gemm_shapes:
+        if args.sweep == "encode":
+            summary[root] = {bs: statistics.median(r["encode_ms"][bs] for r in mine)
+                             for bs in ("1", "8")}
+            print(f"{root}: {args.model} encode ms per image, median of its runs, batch 1 / 8: "
+                  f"{summary[root]}", flush=True)
+            continue
+        if args.sweep:
             summary[root] = gemm_summary(mine)
             print(f"{root}: median over its runs, ms per shape and per encode (the shapes "
                   f"times their launches) {json.dumps(summary[root])}", flush=True)

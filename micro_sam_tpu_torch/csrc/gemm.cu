@@ -54,11 +54,10 @@
 // cudaGetDriverEntryPoint (no -lcuda), and cached on their full key. The f32
 // path is a plain SIMT tile kernel (64 x 64 tile, 4 x 4 per thread), kept for
 // holding the kernel path against the plain one at a tight tolerance.
-#include <cuda.h>
-
 #include <mutex>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 #define EPI_NONE 0
 #define EPI_GELU 1
@@ -80,53 +79,12 @@ __device__ __forceinline__ float epilogue(float acc, float b, const T* R, size_t
 constexpr int BM = 128, BK = 64;   // BK: 64 bf16 = 128 bytes, the swizzle's width
 constexpr int kThreads = 384;      // warpgroups 0 and 1 consume, 2 produces
 constexpr int kSmemLimit = 232448; // dynamic shared memory a block may use
-constexpr long long kWaitClocks = 1ll << 32;  // ~2 s: a wait that long is a fault
 
 template <int BN> __host__ __device__ constexpr int stage_bytes() { return (BM + BN) * BK * 2; }
 // dynamic shared memory of a plan: the ring, its full and empty barriers, two
 // order barriers, 1024 for alignment
 template <int BN> __host__ __device__ constexpr int smem_bytes(int stages) {
   return stages * stage_bytes<BN>() + stages * 16 + 16 + 1024;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Waits until the phase of parity `parity` of the barrier has completed. A
-// parity slip would hang the card: past ~2 s of waiting the kernel traps, and
-// the launch fails instead.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > kWaitClocks) __trap();
-  }
-}
-
-// one 2-d TMA load of a box at (c0 along K, c1 along the rows) into shared
-// memory, completing on the barrier's transaction count
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 // wgmma matrix descriptor of a K-major tile in the 128-byte swizzle: start
@@ -498,27 +456,6 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
 // ---------------------------------------------------------------------------
 // host: tensor maps and launches
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? (EncodeTiled)p : nullptr;
-  }();
-  return fn;
-}
-
 // a (rows, K) bf16 row-major matrix, read in boxes of BK x box_rows into the
 // 128-byte swizzle, zeros past its edges
 static bool encode_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {

@@ -91,12 +91,25 @@
 // row statistics, so that it does not walk the keys again. Null stores
 // nothing (the serving path).
 //
+// Key rectangles: a launch attends over the keys of one rectangle of the
+// key map (first row ky0, first column kx0, KH x KW; the whole map unless
+// the wrapper splits it), and its u tables hold that rectangle's KH + KW
+// entries a q row, so the rows / general variants' shared memory does not
+// grow with the map: ops/relpos_attention.py::forward_plan splits a map
+// whose tables would not fit into rectangles that do (no SAM ViT's 64 x 64
+// or 14 x 14 grid needs it; a 336 x 336 grid of img_size 5376 does). Handed
+// lse_prev (the log-sum-exps of the rectangles before), a launch merges its
+// partial output into the output of those rectangles (out = out_prev w_prev
+// + o w, the weights exp(lse_prev - lse) and exp(lse_r - lse)) and stores
+// the joint lse: the same softmax, one more rounding of the output a
+// rectangle.
+//
 // ptxas (-Xptxas -v, sm_90a): no instantiation spills or keeps a stack
 // frame. Registers, rows / general / window, plain mode (spatial mode):
-// hd 32 157 / 155 / 155 (177 / 174 / 162); hd 64 195 / 197 / 186 (224 / 225 /
-// 203); hd 80 228 / 237 / 198 (241 / 252 / 219); hd 96 251 / 251 / 216 (252 /
-// 252 / 239); hd 128 213 / 211 / 215 (223 / 220 / 243); hd 256 216 / 218
-// (225 / 226); the f32 kernel 125-151.
+// hd 32 155 / 150 / 154 (174 / 170 / 165); hd 64 195 / 197 / 187 (219 / 220 /
+// 206); hd 80 210 / 212 / 200 (252 / 252 / 222); hd 96 251 / 251 / 220 (250 /
+// 250 / 241); hd 128 213 / 211 / 215 (218 / 216 / 246); hd 256 218 / 218
+// (222 / 222); the f32 kernel 125-151.
 // Shared memory, dynamic, one block an SM in all: rows at the global grid
 // 137 KB (hd 64), 153 KB (80), 143 KB (96), 167 KB (128), 165 KB (256, 8 x 8
 // patch); window 14 x 14: 122 KB (64), 143 KB (80), 165 KB (96), 208 KB (128).
@@ -135,13 +148,13 @@ struct TileChunks {
   template <bool SP>
   __device__ __forceinline__ void issue(bf16* Ks, bf16* Vs, const bf16* kb, const bf16* vb,
                                         long long ksn, long long vsn, int ky0, int kx0, int H,
-                                        int W, const Geo& geo) const {
+                                        int W, int pitch, const Geo& geo) const {
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       if (rc[i] == -2) continue;
       const int ky = ky0 + (rc[i] & 0xff), kx = kx0 + (rc[i] >> 8);
       const bool ok = rc[i] >= 0 && ky < H && kx < W;
-      const int d = dst[i] & 0xffff, p = dst[i] >> 16, tok = ky * W + kx;
+      const int d = dst[i] & 0xffff, p = dst[i] >> 16, tok = ky * pitch + kx;
       cp_async16(Ks + d, ok ? kb + tok_off<SP>(geo, tok, ksn) + p : kb, ok);
       cp_async16(Vs + d, ok ? vb + tok_off<SP>(geo, tok, vsn) + p : vb, ok);
     }
@@ -275,32 +288,66 @@ __device__ __forceinline__ void attend_tile(float (&o)[NV / 8][4], float& m0, fl
                                 one_row, c2, lane);
 }
 
+// the weights that merge a row's partial result (log-sum-exp L, log2 units)
+// into the result of the key rectangles before it (lse_prev p, natural
+// units): out = out * inv + out_prev * keep, L becomes the joint one
+__device__ __forceinline__ void merge_weights(float& L, float& inv, float& keep, float p) {
+  const float p2 = p * LOG2E, M = fmaxf(L, p2);
+  const float wr = ex2(L - M), wp = ex2(p2 - M), s = wr + wp;
+  inv *= wr / s;
+  keep = wp / s;
+  L = M + log2f(s);
+}
+
 // tokens tok0 (row g) and tok1 (row g + 8) of the warp's output, normalized;
 // a row off the map (ok false) is not written. lse (the (batch, head)'s row
 // of log-sum-exps, or null): each row's log-sum-exp, natural units, from the
-// running maximum m (log2 units) and sum l
+// running maximum m (log2 units) and sum l. lprev (or null): the rows'
+// log-sum-exps of the key rectangles before this one, whose output the rows
+// are merged into
 template <int NV, bool SP>
 __device__ __forceinline__ void store_rows(bf16* ob, long long osn, const Geo& geo,
                                            float (&o)[NV / 8][4], float m0, float m1, float l0,
                                            float l1, int tok0, bool ok0, int tok1, bool ok1,
-                                           float* lse, int t) {
+                                           float* lse, const float* lprev, int t) {
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  if (lse != nullptr && t == 0) {
-    if (ok0) lse[tok0] = (m0 + log2f(l0)) * LN2;
-    if (ok1) lse[tok1] = (m1 + log2f(l1)) * LN2;
+  float L0 = m0 + log2f(l0), L1 = m1 + log2f(l1);
+  float inv0 = 1.f / l0, inv1 = 1.f / l1, keep0 = 0.f, keep1 = 0.f;
+  if (lprev != nullptr) {
+    if (ok0) merge_weights(L0, inv0, keep0, lprev[tok0]);
+    if (ok1) merge_weights(L1, inv1, keep1, lprev[tok1]);
   }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {
+    if (ok0) lse[tok0] = L0 * LN2;
+    if (ok1) lse[tok1] = L1 * LN2;
+  }
 #pragma unroll
   for (int n = 0; n < NV / 8; ++n) {
     const int d = n * 8 + t * 2;
-    if (ok0)
-      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, tok0, osn) + d) = pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    if (ok1)
-      *reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, tok1, osn) + d) = pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+    if (ok0) {
+      uint32_t* p = reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, tok0, osn) + d);
+      float a = o[n][0] * inv0, b = o[n][1] * inv0;
+      if (lprev != nullptr) {
+        const uint32_t old = *p;
+        a = fmaf(__uint_as_float(old << 16), keep0, a);
+        b = fmaf(__uint_as_float(old & 0xffff0000u), keep0, b);
+      }
+      *p = pack_bf16(a, b);
+    }
+    if (ok1) {
+      uint32_t* p = reinterpret_cast<uint32_t*>(ob + tok_off<SP>(geo, tok1, osn) + d);
+      float a = o[n][2] * inv1, b = o[n][3] * inv1;
+      if (lprev != nullptr) {
+        const uint32_t old = *p;
+        a = fmaf(__uint_as_float(old << 16), keep1, a);
+        b = fmaf(__uint_as_float(old & 0xffff0000u), keep1, b);
+      }
+      *p = pack_bf16(a, b);
+    }
   }
 }
 
@@ -316,10 +363,11 @@ __host__ __device__ inline int patch_rows(int hd, int H, int W) {
   return hd <= 128 && H <= 64 && W <= 64 ? 16 : 8;
 }
 
+// the map is H x W, its key rectangle KH x KW (the window variant: the whole map)
 template <int HD>
-__host__ __device__ size_t bf16_smem(int var, int N, int H, int W) {
+__host__ __device__ size_t bf16_smem(int var, int N, int H, int W, int KH, int KW) {
   constexpr int LDK = HD + 8, LDV = out_cols<HD>() + 8;
-  const Tiling T = tiling_of(H, W);
+  const Tiling T = tiling_of(KH, KW);
   if (var == VAR_WINDOW) {
     const int NS = window_slots(T, H), NQ = (N + 15) & ~15;
     return align128(sizeof(bf16) * ((size_t)NS * (LDK + LDV) + (size_t)NQ * LDK)) +
@@ -336,8 +384,8 @@ template <int HD, bool SP, int VAR>
 __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ rh, const bf16* __restrict__ rw, bf16* __restrict__ out,
-    float* __restrict__ lse, int N,
-    int H, int W, long long qsb, long long qsh, long long qsn, long long ksb, long long ksh,
+    float* __restrict__ lse, const float* __restrict__ lse_prev, int N, int H, int W, int KH,
+    int KW, long long qsb, long long qsh, long long qsn, long long ksb, long long ksh,
     long long ksn, long long vsb, long long vsh, long long vsn, long long osb, long long osh,
     long long osn, float scale, Geo geo) {
   constexpr int NV = out_cols<HD>(), NSL = HD / NV;
@@ -347,7 +395,7 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
   constexpr bool QREG = HD <= 96;
   constexpr int LDK = HD + 8, LDV = NV + 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Tiling T = tiling_of(H, W);
+  const Tiling T = tiling_of(KH, KW);  // the window variant: KH, KW = H, W
   const float c2 = scale * LOG2E;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y / NSL, sl = blockIdx.y - h * NSL, b = blockIdx.z;
@@ -355,7 +403,9 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
   const bf16* kb = k + batch_off<SP>(geo, b, ksb, ksn) + h * ksh;
   const bf16* vb = v + batch_off<SP>(geo, b, vsb, vsn) + h * vsh + sl * NV;
   bf16* ob = out + batch_off<SP>(geo, b, osb, osn) + h * osh + sl * NV;
-  float* lb = lse != nullptr && sl == 0 ? lse + ((size_t)b * (gridDim.y / NSL) + h) * N : nullptr;
+  const size_t bh = (size_t)b * (gridDim.y / NSL) + h;
+  float* lb = lse != nullptr && sl == 0 ? lse + bh * N : nullptr;
+  const float* lp = lse_prev != nullptr ? lse_prev + bh * N : nullptr;
   int jy[8];  // the padded row (within a tile) of each n8 tile of slots
 #pragma unroll
   for (int j = 0; j < 8; ++j) jy[j] = j * 8 / T.twp;
@@ -371,12 +421,12 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
         smem + align128(sizeof(bf16) * ((size_t)NS * (LDK + LDV) + (size_t)NQ * LDK)));
     load_rows<HD, LDK, SP>(Qs, qb, qsn, 0, NQ, N, geo, threadIdx.x, blockDim.x);
     cp_async_commit();
-    load_slots<HD, LDK, SP>(Ks, kb, ksn, NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
-    load_slots<NV, LDV, SP>(Vs, vb, vsn, NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
+    load_slots<HD, LDK, SP>(Ks, kb, ksn, NS, 0, 0, T.wp, H, H, W, W, geo, threadIdx.x, blockDim.x);
+    load_slots<NV, LDV, SP>(Vs, vb, vsn, NS, 0, 0, T.wp, H, H, W, W, geo, threadIdx.x, blockDim.x);
     cp_async_commit();
     // the pads and the rows past N while the copies fly; the products
     // wait for q alone, k and v still in flight
-    u_pads(U, T, NQ, N, false, 0, 0, H, W, threadIdx.x, blockDim.x);
+    u_pads(U, T, NQ, N, false, 0, 0, H, W, W, threadIdx.x, blockDim.x);
     cp_async_wait<1>();
     __syncthreads();
     // u by products: per map row y (its W q rows share Rh[y]), per map
@@ -415,7 +465,7 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
                                   lane);
       }
       const int r0 = qt * 16 + g;
-      store_rows<NV, SP>(ob, osn, geo, o, m0, m1, l0, l1, r0, r0 < N, r0 + 8, r0 + 8 < N, lb, t);
+      store_rows<NV, SP>(ob, osn, geo, o, m0, m1, l0, l1, r0, r0 < N, r0 + 8, r0 + 8 < N, lb, lp, t);
     }
   } else {
     constexpr int ST = ring<HD>();
@@ -435,16 +485,17 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
     constexpr bool CHUNKS = HD <= 80;
     TileChunks<CHUNKS ? HD : 16> chunks;
     if constexpr (CHUNKS) chunks.init(T, threadIdx.x, blockDim.x);
+    // key tiles of the rectangle (rows W tokens apart in the map)
     auto issue = [&](int it, int slot) {
-      const TileAt a = tile_at(T, it, H);
+      const TileAt a = tile_at(T, it, KH);
       if constexpr (CHUNKS) {
         chunks.template issue<SP>(Kb + slot * 64 * LDK, Vb + slot * 64 * LDV, kb, vb, ksn, vsn,
-                                  a.ky0, a.kx0, H, W, geo);
+                                  a.ky0, a.kx0, KH, KW, W, geo);
       } else {
         load_slots<HD, LDK, SP>(Kb + slot * 64 * LDK, kb, ksn, 64, a.ky0, a.kx0, T.twp, T.rows,
-                                H, W, geo, threadIdx.x, blockDim.x);
+                                KH, KW, W, geo, threadIdx.x, blockDim.x);
         load_slots<NV, LDV, SP>(Vb + slot * 64 * LDV, vb, vsn, 64, a.ky0, a.kx0, T.twp, T.rows,
-                                H, W, geo, threadIdx.x, blockDim.x);
+                                KH, KW, W, geo, threadIdx.x, blockDim.x);
       }
     };
     load_patch<HD, LDK, SP>(Qs, qb, qsn, QR, qy0, qx0, H, W, geo, threadIdx.x, blockDim.x);
@@ -457,17 +508,18 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
     cp_async_wait<ST - 1>();
     __syncthreads();
     // u by products: patch row py (its 8 cells share Rh[qy0 + py]), patch
-    // column px (its PY cells share Rw[qx0 + px])
-    u_pads(U, T, QR, 0, true, qy0, qx0, H, W, threadIdx.x, blockDim.x);
+    // column px (its PY cells share Rw[qx0 + px]), over the rectangle's KH
+    // rows and KW columns (rh, rw start at its first row / column)
+    u_pads(U, T, QR, 0, true, qy0, qx0, H, W, KW, threadIdx.x, blockDim.x);
     const int nx = min(8, W - qx0), ny = min(PY, H - qy0);
     for (int item = warp; item < PY + 8; item += blockDim.x / 32) {
       if (item < PY) {
         if (item < ny)
-          u_product<HD>(U, T.up, 0, Qs, item * 8, 1, nx, rh + (size_t)(qy0 + item) * H * HD, H,
+          u_product<HD>(U, T.up, 0, Qs, item * 8, 1, nx, rh + (size_t)(qy0 + item) * H * HD, KH,
                         lane);
       } else if (item - PY < nx) {
         u_product<HD>(U, T.up, T.uwo, Qs, item - PY, 8, ny,
-                      rw + (size_t)(qx0 + item - PY) * W * HD, W, lane);
+                      rw + (size_t)(qx0 + item - PY) * W * HD, KW, lane);
       }
     }
     __syncthreads();
@@ -488,7 +540,7 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
       __syncthreads();  // tile it is visible; the slot of tile it - 1 is free
       if (it + ST - 1 < T.ntiles) issue(it + ST - 1, (it + ST - 1) % ST);
       cp_async_commit();
-      const TileAt a = tile_at(T, it, H);
+      const TileAt a = tile_at(T, it, KH);
       if constexpr (VAR == VAR_GENERAL) load_uw(uw, U0, U1, T, a.kx0, t);
       const int slot = it % ST;
       attend_tile<HD, NV, QREG>(o, m0, m1, l0, l1, qa, Qw, Kb + slot * 64 * LDK,
@@ -498,7 +550,7 @@ __global__ void __launch_bounds__(256, 1) relpos_attention_bf16_kernel(
     // rows g and g + 8 of the warp: patch cells (2 warp, g) and (2 warp + 1, g)
     const int qx = qx0 + g, qy = qy0 + 2 * warp;
     store_rows<NV, SP>(ob, osn, geo, o, m0, m1, l0, l1, qy * W + qx, qx < W && qy < H,
-                       (qy + 1) * W + qx, qx < W && qy + 1 < H, lb, t);
+                       (qy + 1) * W + qx, qx < W && qy + 1 < H, lb, lp, t);
   }
 }
 
@@ -516,24 +568,27 @@ __host__ __device__ constexpr size_t f32_head(void) {
                                    QR * (NV + 4)));
 }
 
+// u rows over a KH x KW key rectangle
 template <int HD>
-__host__ __device__ constexpr size_t f32_smem(int H, int W) {
-  return f32_head<HD>() + sizeof(float) * f32_rows<HD>() * (H + W + 1);
+__host__ __device__ constexpr size_t f32_smem(int KH, int KW) {
+  return f32_head<HD>() + sizeof(float) * f32_rows<HD>() * (KH + KW + 1);
 }
 
-// U[r * up + j] = q_r . Rh[qy, j] (j < H), q_r . Rw[qx, j - H] (j >= H) for
-// nrows q rows, by scalar dot products
+// U[r * up + j] = q_r . Rh[qy, j] (j < KH), q_r . Rw[qx, j - KH] (j >= KH)
+// for nrows q rows of the H x W map, by scalar dot products; rh / rw start
+// at the key rectangle's first row / column
 template <typename T, int HD>
 __device__ __forceinline__ void build_u_rows(float* U, int up, const T* Qs, const T* rh,
-                                             const T* rw, int q0, int nrows, int N, int H, int W) {
+                                             const T* rw, int q0, int nrows, int N, int H, int W,
+                                             int KH, int KW) {
   constexpr int LDT = HD + 8;
-  const int HW = H + W;
+  const int HW = KH + KW;
   for (int idx = threadIdx.x; idx < nrows * HW; idx += blockDim.x) {
     int r = idx / HW, j = idx % HW, qi = q0 + r;
     float acc = 0.f;
     if (qi < N) {
-      const T* tab = j < H ? rh + ((size_t)(qi / W) * H + j) * HD
-                           : rw + ((size_t)(qi % W) * W + (j - H)) * HD;
+      const T* tab = j < KH ? rh + ((size_t)(qi / W) * H + j) * HD
+                            : rw + ((size_t)(qi % W) * W + (j - KH)) * HD;
       acc = dot_row<T, HD>(Qs + r * LDT, tab);
     }
     U[r * up + j] = acc;
@@ -546,7 +601,8 @@ template <int HD, bool SP>
 __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ rh, const float* __restrict__ rw, float* __restrict__ out,
-    float* __restrict__ lse, int N, int H, int W, long long qsb, long long qsh, long long qsn,
+    float* __restrict__ lse, const float* __restrict__ lse_prev, int N, int H, int W, int KH,
+    int KW, long long qsb, long long qsh, long long qsn,
     long long ksb, long long ksh, long long ksn, long long vsb, long long vsh, long long vsn, long long osb,
     long long osh, long long osn, float scale, Geo geo) {
   constexpr int QR = f32_rows<HD>(), NV = out_cols<HD>(), NSL = HD / NV;
@@ -559,7 +615,7 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
   float* Ps = Ss + QR * LDSS;
   float* Os = Ps + QR * LDSS;
   float* U = reinterpret_cast<float*>(smem + f32_head<HD>());
-  const int UP = H + W + 1;
+  const int UP = KH + KW + 1, NK = KH * KW;
 
   const int q0 = blockIdx.x * QR, h = blockIdx.y / NSL, sl = blockIdx.y - h * NSL, b = blockIdx.z;
   const float* qb = q + batch_off<SP>(geo, b, qsb, qsn) + h * qsh;
@@ -572,7 +628,7 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
   for (int i = threadIdx.x; i < QR * LDO; i += blockDim.x) Os[i] = 0.f;
   cp_async_wait<0>();
   __syncthreads();
-  build_u_rows<float, HD>(U, UP, Qs, rh, rw, q0, QR, N, H, W);
+  build_u_rows<float, HD>(U, UP, Qs, rh, rw, q0, QR, N, H, W, KH, KW);
 
   // each warp owns 16 rows and walks them one at a time; a lane holds keys
   // (lane, lane + 32) of the tile and dims (lane, lane + 32, ...)
@@ -586,10 +642,10 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
 #pragma unroll
   for (int r = 0; r < 16; ++r) { m[r] = -INFINITY; l[r] = 0.f; }
 
-  for (int k0 = 0; k0 < N; k0 += KT) {
+  for (int k0 = 0; k0 < NK; k0 += KT) {
     __syncthreads();  // previous tile consumed (and U complete on entry)
-    load_tile<float, HD, 64, SP>(Ks, kb, ksn, k0, N, geo);
-    load_tile<float, NV, 64, SP>(Vs, vb, vsn, k0, N, geo);
+    load_key_tile<float, HD, 64, SP>(Ks, kb, ksn, k0, NK, KW, W, geo);
+    load_key_tile<float, NV, 64, SP>(Vs, vb, vsn, k0, NK, KW, W, geo);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -607,8 +663,8 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     for (int r = 0; r < 16; ++r) {
       const float* Ur = Uw + r * UP;
       float s0 = -INFINITY, s1 = -INFINITY;
-      if (key0 < N) s0 = Sw[r * LDSS + lane] * scale + Ur[key0 / W] + Ur[H + key0 % W];
-      if (key1 < N) s1 = Sw[r * LDSS + lane + 32] * scale + Ur[key1 / W] + Ur[H + key1 % W];
+      if (key0 < NK) s0 = Sw[r * LDSS + lane] * scale + Ur[key0 / KW] + Ur[KH + key0 % KW];
+      if (key1 < NK) s1 = Sw[r * LDSS + lane + 32] * scale + Ur[key1 / KW] + Ur[KH + key1 % KW];
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -635,51 +691,69 @@ __global__ void __launch_bounds__(128, 1) relpos_attention_f32_kernel(
     __syncwarp();
   }
 
+  const size_t bh = (size_t)b * (gridDim.y / NSL) + h;
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int qi = q0 + warp * 16 + r;
     if (qi < N) {
-      const float inv = 1.f / l[r];
-      for (int d = lane; d < NV; d += 32) ob[tok_off<SP>(geo, qi, osn) + d] = Ow[r * LDO + d] * inv;
-      if (lse != nullptr && sl == 0 && lane == 0)
-        lse[((size_t)b * (gridDim.y / NSL) + h) * N + qi] = m[r] + logf(l[r]);
+      float inv = 1.f / l[r], keep = 0.f, L = m[r] + logf(l[r]);
+      if (lse_prev != nullptr) {  // merged into the key rectangles before
+        const float p = lse_prev[bh * N + qi], M = fmaxf(L, p);
+        const float wr = expf(L - M), wp = expf(p - M), s = wr + wp;
+        inv *= wr / s;
+        keep = wp / s;
+        L = M + logf(s);
+      }
+      float* orow = ob + tok_off<SP>(geo, qi, osn);
+      for (int d = lane; d < NV; d += 32)
+        orow[d] = lse_prev != nullptr ? fmaf(orow[d], keep, Ow[r * LDO + d] * inv)
+                                      : Ow[r * LDO + d] * inv;
+      if (lse != nullptr && sl == 0 && lane == 0) lse[bh * N + qi] = L;
     }
   }
 }
 
+// a launch's operands: k, v, rh and rw already at the key rectangle's first
+// key, first table row and first table column
+struct Operands {
+  const void *q, *k, *v, *rh, *rw;
+  void* out;
+  float* lse;
+  const float* lse_prev;
+  int N, H, W, KH, KW;
+};
+
 template <typename T, typename Kernel>
-static int launch(Kernel kern, size_t smem, dim3 grid, int threads, const void* q, const void* k,
-                  const void* v, const void* rh, const void* rw, void* out, float* lse, int N,
-                  int H, int W, const long long* st, float scale, Geo geo, cudaStream_t s) {
+static int launch(Kernel kern, size_t smem, dim3 grid, int threads, const Operands& o,
+                  const long long* st, float scale, Geo geo, cudaStream_t s) {
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, threads, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)rh, (const T*)rw, (T*)out, lse, N, H, W,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      geo);
+      (const T*)o.q, (const T*)o.k, (const T*)o.v, (const T*)o.rh, (const T*)o.rw, (T*)o.out,
+      o.lse, o.lse_prev, o.N, o.H, o.W, o.KH, o.KW, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], scale, geo);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool SP>
-static int launch_bf16(int var, int B, int nH, int N, int H, int W, const void* q, const void* k,
-                       const void* v, const void* rh, const void* rw, void* out, float* lse,
-                       const long long* st, float scale, Geo geo, cudaStream_t s) {
+static int launch_bf16(int var, int B, int nH, const Operands& o, const long long* st, float scale,
+                       Geo geo, cudaStream_t s) {
   constexpr int NSL = HD / out_cols<HD>();
-  const size_t smem = bf16_smem<HD>(var, N, H, W);
+  const int H = o.H, W = o.W;
+  const size_t smem = bf16_smem<HD>(var, o.N, H, W, o.KH, o.KW);
   if constexpr (HD <= 128) {
     if (var == VAR_WINDOW)
       return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_WINDOW>, smem,
-                          dim3(1, nH * NSL, B), 256, q, k, v, rh, rw, out, lse, N, H, W, st, scale,
-                          geo, s);
+                          dim3(1, nH * NSL, B), 256, o, st, scale, geo, s);
   }
   const int py = patch_rows(HD, H, W);
   const dim3 grid((H + py - 1) / py * ((W + 7) / 8), nH * NSL, B);
   if (var == VAR_ROWS)
-    return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_ROWS>, smem, grid, 16 * py, q, k,
-                        v, rh, rw, out, lse, N, H, W, st, scale, geo, s);
-  return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_GENERAL>, smem, grid, 16 * py, q,
-                      k, v, rh, rw, out, lse, N, H, W, st, scale, geo, s);
+    return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_ROWS>, smem, grid, 16 * py, o,
+                        st, scale, geo, s);
+  return launch<bf16>(relpos_attention_bf16_kernel<HD, SP, VAR_GENERAL>, smem, grid, 16 * py, o,
+                      st, scale, geo, s);
 }
 
 // strides: 12 element strides, (batch, head, token) for q, k, v, out in turn
@@ -689,41 +763,56 @@ static int launch_bf16(int var, int B, int nH, int N, int H, int W, const void* 
 // (bf16; the f32 kernel has one form); refused where it does not apply.
 // lse: null, or a contiguous (B, nH, N) f32 buffer that takes each row's
 // log-sum-exp of the logits (natural units; the backward's row statistics);
-// not in the spatial mode.
+// not in the spatial mode. (ky0, kx0, kh, kw): the key rectangle the launch
+// attends over (the whole map: 0, 0, H, W); lse_prev: null, or the (B, nH, N)
+// log-sum-exps of the rectangles launched before, into whose output in out
+// this one's is merged (then lse, a buffer other than lse_prev, is required).
+// The window variant and the spatial mode take the whole map only.
 MSAM_EXPORT int msam_relpos_attention(const void* q, const void* k, const void* v,
-                                      const void* rh, const void* rw, void* out, float* lse, int B,
-                                      int nH, int N, int H, int W, int hd,
-                                      const long long* strides, float scale, int win, int nwy,
-                                      int nwx, int variant, int dtype, void* stream) {
+                                      const void* rh, const void* rw, void* out, float* lse,
+                                      const float* lse_prev, int B, int nH, int N, int H, int W,
+                                      int hd, const long long* strides, float scale, int win,
+                                      int nwy, int nwx, int variant, int ky0, int kx0, int kh,
+                                      int kw, int dtype, void* stream) {
   constexpr int NSL = MSAM_HD / out_cols<MSAM_HD>();
   if (hd != MSAM_HD || N != H * W || B <= 0 || nH <= 0 || B > 65535 || nH * NSL > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool whole = ky0 == 0 && kx0 == 0 && kh == H && kw == W;
+  if (ky0 < 0 || kx0 < 0 || kh <= 0 || kw <= 0 || ky0 + kh > H || kx0 + kw > W ||
+      (lse_prev != nullptr && (lse == nullptr || lse == lse_prev)))
+    return (int)cudaErrorInvalidValue;
   if (win < 0 || (win > 0 && (H != win || W != win || nwy <= 0 || nwx <= 0 || B % (nwy * nwx) ||
-                              lse != nullptr)))
+                              lse != nullptr || !whole)))
     return (int)cudaErrorInvalidValue;
   const Geo geo{win, nwy, nwx};
   cudaStream_t s = (cudaStream_t)stream;
+  const size_t esz = dtype == MSAM_BF16 ? 2 : 4;
+  const long long first = (long long)ky0 * W + kx0;  // the rectangle's first key token
+  const Operands o{q,
+                   (const char*)k + first * strides[5] * esz,
+                   (const char*)v + first * strides[8] * esz,
+                   (const char*)rh + (size_t)ky0 * hd * esz,
+                   (const char*)rw + (size_t)kx0 * hd * esz,
+                   out, lse, lse_prev, N, H, W, kh, kw};
   if (dtype == MSAM_BF16) {
     const Tiling T = tiling_of(H, W);
-    const bool window = MSAM_HD <= 128 && T.segs == 1 && H * T.wp <= 256 &&
-                        bf16_smem<MSAM_HD>(VAR_WINDOW, N, H, W) <= SMEM_LIMIT;
+    const bool window = whole && MSAM_HD <= 128 && T.segs == 1 && H * T.wp <= 256 &&
+                        bf16_smem<MSAM_HD>(VAR_WINDOW, N, H, W, H, W) <= SMEM_LIMIT;
     const bool ok = variant == VAR_WINDOW ? window
-                  : variant == VAR_ROWS   ? W <= 64
-                  : variant == VAR_GENERAL && W > 64;
+                  : variant == VAR_ROWS   ? kw <= 64
+                  : variant == VAR_GENERAL && kw > 64;
     if (!ok) return (int)cudaErrorInvalidValue;
-    return win ? launch_bf16<MSAM_HD, true>(variant, B, nH, N, H, W, q, k, v, rh, rw, out, lse,
-                                            strides, scale, geo, s)
-               : launch_bf16<MSAM_HD, false>(variant, B, nH, N, H, W, q, k, v, rh, rw, out, lse,
-                                             strides, scale, geo, s);
+    return win ? launch_bf16<MSAM_HD, true>(variant, B, nH, o, strides, scale, geo, s)
+               : launch_bf16<MSAM_HD, false>(variant, B, nH, o, strides, scale, geo, s);
   }
   if (dtype == MSAM_F32) {
     constexpr int QR = f32_rows<MSAM_HD>();
     const dim3 grid((N + QR - 1) / QR, nH * NSL, B);
-    const size_t smem = f32_smem<MSAM_HD>(H, W);
-    return win ? launch<float>(relpos_attention_f32_kernel<MSAM_HD, true>, smem, grid, 2 * QR, q,
-                               k, v, rh, rw, out, lse, N, H, W, strides, scale, geo, s)
+    const size_t smem = f32_smem<MSAM_HD>(kh, kw);
+    return win ? launch<float>(relpos_attention_f32_kernel<MSAM_HD, true>, smem, grid, 2 * QR, o,
+                               strides, scale, geo, s)
                : launch<float>(relpos_attention_f32_kernel<MSAM_HD, false>, smem, grid, 2 * QR,
-                               q, k, v, rh, rw, out, lse, N, H, W, strides, scale, geo, s);
+                               o, strides, scale, geo, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -65,6 +65,16 @@
 // gradients (a grid dimension), the products over the full head dim
 // recomputed per slice.
 //
+// Key rectangles (as in the forward): a launch of each stage takes the keys
+// of one rectangle of the key map (KH x KW from row ky0, column kx0; the
+// whole map unless the wrapper splits it) and its u rows, dSr and dSc hold
+// that rectangle's KH + KW entries a q row, so no stage's shared memory
+// grows with the map (ops/relpos_attention.py::backward_plan splits a map
+// whose stages would not fit). With the forward's global lse and D, the
+// rectangles' dk and dv are their own keys'; their dq and table gradients
+// add up: with acc set, stage 2 adds its dq into dq and stage 3 its table
+// gradients into drh / drw (the wrapper zeroes those first).
+//
 // Built once per head dim: the source is compiled with -DMSAM_HD=<hd> into a
 // library of its own for each of 32, 64 (vit_b, vit_l), 80 (vit_h), 96, 128
 // and 256 (ops/_cuda.py), so the builds run in parallel; the wrapper runs any
@@ -95,10 +105,10 @@
 //
 // ptxas (-Xptxas -v, sm_90a): no instantiation spills or keeps a stack
 // frame. Registers, bf16, at head dims 32 / 64 / 80 / 96 / 128 / 256:
-// prep 102 / 150 / 168 / 168 / 154 / 255; dk/dv rows and general 232 / 255 /
-// 255 / 245 / 255 / 242, window 150 / 168 / 201 / 180 / 218 / -; dq rows
-// 215 / 250 / 252 / 243 / 249 / 253, general 130 / 148 / 184 / 255 / 255 /
-// 255, window 142 / 189 / 210 / 210 / 255 / -; tables 68 / 72 / 72 / 80 /
+// prep 96 / 148 / 168 / 168 / 154 / 255; dk/dv rows and general 232 / 255 /
+// 255 / 245 / 255 / 242, window 149 / 167 / 201 / 180 / 218 / -; dq rows
+// 214 / 250 / 253 / 242 / 247 / 250, general 130 / 148 / 216 / 255 / 255 /
+// 255, window 141 / 188 / 207 / 209 / 255 / -; tables 70 / 72 / 73 / 80 /
 // 114 / 114; f32 38-254. Shared memory, dynamic, at head dim 64 / 80:
 // prep 43008 / 45056 (64 x 64 grid); dk/dv rows 158208 / 178688, window
 // 160640 / 189312 (14 x 14); dq rows 159744 / 180224, window 158976 /
@@ -126,6 +136,8 @@ struct BwdArgs {
   float* dsc;        // (B nH, N, WQ): dSc, zero past W
   long long st[8][3];  // element strides (batch, head, token)
   int B, nH, N, H, W, UG, HP, WQ;
+  int KH, KW;  // the key rectangle (k, v, dk, dv, rh, rw, drh, drw start at its first key)
+  int acc;     // 1: stage 2 adds into dq; 2: stage 3 adds into drh / drw
   float scale;
 };
 
@@ -181,9 +193,10 @@ __device__ __forceinline__ float bf16_bits_to_f32(unsigned short v) {
 // stage 0 (bf16): u rows by products over a patch's rows that share a table
 // ---------------------------------------------------------------------------
 
+// KH, KW: the key rectangle (its u rows)
 template <int HD>
-__host__ __device__ inline size_t prep_bf16_smem(int H, int W) {
-  const Tiling T = bwd_tiling(H, W);
+__host__ __device__ inline size_t prep_bf16_smem(int KH, int KW) {
+  const Tiling T = bwd_tiling(KH, KW);
   return align128(sizeof(bf16) * 64 * (HD + 8)) +
          sizeof(float) * 64 * (size_t)pitch_4mod8(u_global(T));
 }
@@ -195,7 +208,7 @@ __global__ void __launch_bounds__(128, 1) prep_bf16_kernel(const BwdArgs a) {
   constexpr int LDK = HD + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const int N = a.N, H = a.H, W = a.W, UG = a.UG;
-  Tiling T = bwd_tiling(H, W);
+  Tiling T = bwd_tiling(a.KH, a.KW);
   T.up = pitch_4mod8(UG);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   float* U = reinterpret_cast<float*>(smem + align128(sizeof(bf16) * 64 * LDK));
@@ -208,17 +221,18 @@ __global__ void __launch_bounds__(128, 1) prep_bf16_kernel(const BwdArgs a) {
   load_patch<HD, LDK, false>(Qs, in_ptr<bf16>(a, 0, b, h), a.st[0][2], 64, qy0, qx0, H, W, geo,
                              threadIdx.x, blockDim.x);
   cp_async_commit();
-  u_pads(U, T, 64, 0, true, qy0, qx0, H, W, threadIdx.x, blockDim.x);
+  u_pads(U, T, 64, 0, true, qy0, qx0, H, W, a.KW, threadIdx.x, blockDim.x);
   cp_async_wait<0>();
   __syncthreads();
   const int nx = min(8, W - qx0), ny = min(8, H - qy0);
   for (int item = warp; item < 16; item += blockDim.x / 32) {
     if (item < 8) {
       if (item < ny)
-        u_product<HD>(U, T.up, 0, Qs, item * 8, 1, nx, rh + (size_t)(qy0 + item) * H * HD, H, lane);
+        u_product<HD>(U, T.up, 0, Qs, item * 8, 1, nx, rh + (size_t)(qy0 + item) * H * HD, a.KH,
+                      lane);
     } else if (item - 8 < nx) {
       u_product<HD>(U, T.up, T.uwo, Qs, item - 8, 8, ny, rw + (size_t)(qx0 + item - 8) * W * HD,
-                    W, lane);
+                    a.KW, lane);
     }
   }
   __syncthreads();
@@ -259,6 +273,7 @@ __host__ __device__ inline int dkdv_upitch(const Tiling& T, int var) {
   return pitch_4mod16((var == VAR_WINDOW ? T.uwo : UHC) + T.uwl);
 }
 
+// H, W: the key rectangle (the window variant: the whole map, N = H W)
 template <int HD>
 __host__ __device__ inline size_t dkdv_bf16_smem(int var, int N, int H, int W) {
   constexpr int LDK = HD + 8;
@@ -397,8 +412,8 @@ __global__ void __launch_bounds__(256, 1) dkdv_bf16_kernel(const BwdArgs a) {
   constexpr int LDK = HD + 8, NV = out_cols<HD>(), NSL = HD / NV, NT = NV / 8;
   constexpr bool HOLD = HD <= 80;  // k / v A fragments held in registers
   extern __shared__ __align__(128) unsigned char smem[];
-  const int N = a.N, H = a.H, W = a.W;
-  const Tiling T = bwd_tiling(H, W);
+  const int N = a.N, H = a.H, W = a.W, KH = a.KH, KW = a.KW;
+  const Tiling T = bwd_tiling(KH, KW);
   const int P = dkdv_upitch(T, VAR);
   const float c2 = a.scale * LOG2E;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -424,8 +439,8 @@ __global__ void __launch_bounds__(256, 1) dkdv_bf16_kernel(const BwdArgs a) {
     float* Us = reinterpret_cast<float*>(smem + align128(sizeof(bf16) * (size_t)(2 * NS + 2 * NQ) * LDK));
     float* Ls = Us + NQ * P;
     float* Ds = Ls + NQ;
-    load_slots<HD, LDK, false>(Ks, kb, a.st[1][2], NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
-    load_slots<HD, LDK, false>(Vs, vb, a.st[2][2], NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
+    load_slots<HD, LDK, false>(Ks, kb, a.st[1][2], NS, 0, 0, T.wp, H, H, W, W, geo, threadIdx.x, blockDim.x);
+    load_slots<HD, LDK, false>(Vs, vb, a.st[2][2], NS, 0, 0, T.wp, H, H, W, W, geo, threadIdx.x, blockDim.x);
     load_rows<HD, LDK, false>(Qs, qb, a.st[0][2], 0, NQ, N, geo, threadIdx.x, blockDim.x);
     load_rows<HD, LDK, false>(Gs, gb, a.st[4][2], 0, NQ, N, geo, threadIdx.x, blockDim.x);
     load_u_rows(Us, Ls, Ds, Ug, Lg, Dg, a.UG, T.uwo, T.uwl, P, 0, T.uwo, 0, NQ, N);
@@ -459,17 +474,17 @@ __global__ void __launch_bounds__(256, 1) dkdv_bf16_kernel(const BwdArgs a) {
     unsigned char* ring = smem + align128(sizeof(bf16) * 2 * 64 * TPB * LDK);
     const int it0 = blockIdx.x * TPB;
     // the block's map rows (for its u_h columns) and each warp's tile
-    const TileAt first = tile_at(T, it0, H);
+    const TileAt first = tile_at(T, it0, KH);
     const int c4 = first.ky0 & ~3, nh = min(UHC, T.uwo);
     const int wt = it0 + warp / 4;
-    const TileAt mine = tile_at(T, min(wt, T.ntiles - 1), H);
+    const TileAt mine = tile_at(T, min(wt, T.ntiles - 1), KH);
     for (int i = 0; i < TPB; ++i) {
       if (it0 + i >= T.ntiles) break;
-      const TileAt ta = tile_at(T, it0 + i, H);
+      const TileAt ta = tile_at(T, it0 + i, KH);
       load_slots<HD, LDK, false>(Ks + i * 64 * LDK, kb, a.st[1][2], 64, ta.ky0, ta.kx0, T.twp, T.rows,
-                                 H, W, geo, threadIdx.x, blockDim.x);
+                                 KH, KW, W, geo, threadIdx.x, blockDim.x);
       load_slots<HD, LDK, false>(Vs + i * 64 * LDK, vb, a.st[2][2], 64, ta.ky0, ta.kx0, T.twp, T.rows,
-                                 H, W, geo, threadIdx.x, blockDim.x);
+                                 KH, KW, W, geo, threadIdx.x, blockDim.x);
     }
     cp_async_commit();
     const int nsteps = (N + QB - 1) / QB;
@@ -493,8 +508,8 @@ __global__ void __launch_bounds__(256, 1) dkdv_bf16_kernel(const BwdArgs a) {
     const int r0 = s0 / T.twp, r1 = s1 / T.twp;
     const int ky0 = mine.ky0 + r0, kx0 = mine.kx0 + s0 - r0 * T.twp;
     const int ky1 = mine.ky0 + r1, kx1 = mine.kx0 + s1 - r1 * T.twp;
-    const bool ok0 = wt < T.ntiles && r0 < T.rows && ky0 < H && kx0 < W;
-    const bool ok1 = wt < T.ntiles && r1 < T.rows && ky1 < H && kx1 < W;
+    const bool ok0 = wt < T.ntiles && r0 < T.rows && ky0 < KH && kx0 < KW;
+    const bool ok1 = wt < T.ntiles && r1 < T.rows && ky1 < KH && kx1 < KW;
     const int uw0 = nh + min(kx0, T.uwl - 1), uw1 = nh + min(kx1, T.uwl - 1);
     const int uh0 = min(max(ky0 - c4, 0), nh - 1), uh1 = min(max(ky1 - c4, 0), nh - 1);
     const bf16* Kw = Ks + ((warp >> 2) * 64 + (warp & 3) * 16) * LDK;
@@ -538,10 +553,11 @@ __host__ __device__ inline int dq_patch_rows(int hd, int H, int W) {
 }
 template <int HD> __host__ __device__ constexpr int dq_ring() { return HD <= 96 ? 3 : 2; }
 
+// the map is H x W, its key rectangle KH x KW (the window variant: the whole map)
 template <int HD>
-__host__ __device__ inline size_t dq_bf16_smem(int var, int N, int H, int W) {
+__host__ __device__ inline size_t dq_bf16_smem(int var, int N, int H, int W, int KH, int KW) {
   constexpr int LDK = HD + 8, NV = out_cols<HD>();
-  const Tiling T = bwd_tiling(H, W);
+  const Tiling T = bwd_tiling(KH, KW);
   const int up = pitch_4mod8(u_global(T));
   if (var == VAR_WINDOW) {
     const int NS = window_slots(T, H), NQ = (N + 15) & ~15;
@@ -705,7 +721,8 @@ __device__ __forceinline__ void dq_tile_any(float (&dq)[out_cols<HD>() / 8][4],
 // a thread's dSc sums (fragment layout, key slots of a tile of twp-slot rows)
 // into the u_w entries of its rows (dead once loaded into registers): each
 // key column belongs to one thread, which adds its tiles' rows in order
-// (JW < 8: the sums are already per column, n8 tile j's in j % JW)
+// (JW < 8: the sums are already per column, n8 tile j's in j % JW); W: the
+// key rectangle's columns
 template <int JW>
 __device__ __forceinline__ void store_dsc(float* U0, float* U1, const float (&dsc)[JW][4],
                                           const Tiling& T, int jy, int W, int t) {
@@ -730,8 +747,11 @@ __device__ __forceinline__ void store_dsc(float* U0, float* U1, const float (&ds
 // One warp: rows row0 + i * rstride (i < ni) of the staged dq (f32, row(r)
 // its address) += A[rows, 0:nb] . tab[0:nb, slice] (A: f32 shared rows of
 // pitch ap; tab: nb rows of HD, bf16, device memory), as a tensor-core
-// product with A rounded to bf16
-template <int HD, typename Row>
+// product with A rounded to bf16. UNR: the k16 loop's unrolling (2 for the
+// general variant at head dim 80, whose dq kernel spills 132 bytes at 1
+// since the table's rows are a key rectangle's; 1, as ptxas chose for it,
+// everywhere else)
+template <int HD, int UNR = 1, typename Row>
 __device__ __forceinline__ void table_term(Row row, const float* A, int ap, int row0, int rstride,
                                            int ni, const bf16* tab, int nb, int sl, int lane) {
   constexpr int NV = out_cols<HD>(), NT = NV / 8;
@@ -742,6 +762,7 @@ __device__ __forceinline__ void table_term(Row row, const float* A, int ap, int 
   for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
   const float* A0 = A + (row0 + min(g, ni - 1) * rstride) * ap;
   const float* A1 = A + (row0 + min(g + 8, ni - 1) * rstride) * ap;
+#pragma unroll UNR
   for (int k0 = 0; k0 < nb; k0 += 16) {
     auto av = [&](const float* ar, bool ok, int k) { return ok && k < nb ? ar[k] : 0.f; };
     uint32_t a[4];
@@ -796,20 +817,34 @@ __device__ __forceinline__ void table_terms(Row row, const float* Ua, int up, in
   __syncthreads();
 }
 
-// a q row's finished dq (f32 staged) to device memory, its dSr / dSc rows to
-// scratch (slice 0), 16 bytes a thread at a time
+// a q row's finished dq (f32 staged) to device memory (added to what is
+// there with acc & 1), its dSr / dSc rows (the key rectangle's KH / KW
+// entries) to scratch (slice 0), 16 bytes a thread at a time
 template <int NV>
 __device__ __forceinline__ void store_q_row(const BwdArgs& a, bf16* dqb, const float* Dq,
                                             const float* Ur, const float* Cr, int tok, int bh,
                                             int sl, int part) {
-  const int H = a.H, W = a.W;
+  const int H = a.KH, W = a.KW;
   if (part < NV / 8) {
+    uint4* dst = reinterpret_cast<uint4*>(dqb + (long long)tok * a.st[5][2] + part * 8);
+    float d[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d[e] = Dq[part * 8 + e];
+    if (a.acc & 1) {
+      const uint4 old = *dst;
+      const uint32_t w[4] = {old.x, old.y, old.z, old.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        d[2 * e] += __uint_as_float(w[e] << 16);
+        d[2 * e + 1] += __uint_as_float(w[e] & 0xffff0000u);
+      }
+    }
     uint4 v;
-    v.x = pack_bf16(Dq[part * 8], Dq[part * 8 + 1]);
-    v.y = pack_bf16(Dq[part * 8 + 2], Dq[part * 8 + 3]);
-    v.z = pack_bf16(Dq[part * 8 + 4], Dq[part * 8 + 5]);
-    v.w = pack_bf16(Dq[part * 8 + 6], Dq[part * 8 + 7]);
-    *reinterpret_cast<uint4*>(dqb + (long long)tok * a.st[5][2] + part * 8) = v;
+    v.x = pack_bf16(d[0], d[1]);
+    v.y = pack_bf16(d[2], d[3]);
+    v.z = pack_bf16(d[4], d[5]);
+    v.w = pack_bf16(d[6], d[7]);
+    *dst = v;
     return;
   }
   if (sl != 0) return;
@@ -837,8 +872,8 @@ __global__ void __launch_bounds__(256, 1) dq_bf16_kernel(const BwdArgs a) {
   // (the forms in which ptxas does not spill it, found by trying each)
   constexpr bool QREG = VAR == VAR_GENERAL ? HD == 96 : HD <= 80;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int N = a.N, H = a.H, W = a.W, UG = a.UG;
-  Tiling T = bwd_tiling(H, W);
+  const int N = a.N, H = a.H, W = a.W, UG = a.UG, KH = a.KH, KW = a.KW;
+  Tiling T = bwd_tiling(KH, KW);  // the window variant: KH, KW = H, W
   T.up = pitch_4mod8(UG);
   const int up = T.up;
   const float c2 = a.scale * LOG2E;
@@ -883,8 +918,8 @@ __global__ void __launch_bounds__(256, 1) dq_bf16_kernel(const BwdArgs a) {
       const int r = c / (UG / 4), part = c - r * (UG / 4);
       cp_async16(U + r * up + part * 4, r < N ? Ug + (size_t)r * UG + part * 4 : Ug, r < N);
     }
-    load_slots<HD, LDK, false>(Ks, kb, a.st[1][2], NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
-    load_slots<HD, LDK, false>(Vs, vb, a.st[2][2], NS, 0, 0, T.wp, H, H, W, geo, threadIdx.x, blockDim.x);
+    load_slots<HD, LDK, false>(Ks, kb, a.st[1][2], NS, 0, 0, T.wp, H, H, W, W, geo, threadIdx.x, blockDim.x);
+    load_slots<HD, LDK, false>(Vs, vb, a.st[2][2], NS, 0, 0, T.wp, H, H, W, W, geo, threadIdx.x, blockDim.x);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -963,11 +998,11 @@ __global__ void __launch_bounds__(256, 1) dq_bf16_kernel(const BwdArgs a) {
     const int pnx = (W + 7) / 8;
     const int qy0 = blockIdx.x / pnx * PY, qx0 = (blockIdx.x % pnx) * 8;
     auto issue = [&](int it, int s) {
-      const TileAt ta = tile_at(T, it, H);
+      const TileAt ta = tile_at(T, it, KH);
       load_slots<HD, LDK, false>(Kb + s * 64 * LDK, kb, a.st[1][2], 64, ta.ky0, ta.kx0, T.twp,
-                                 T.rows, H, W, geo, threadIdx.x, blockDim.x);
+                                 T.rows, KH, KW, W, geo, threadIdx.x, blockDim.x);
       load_slots<HD, LDK, false>(Vb + s * 64 * LDK, vb, a.st[2][2], 64, ta.ky0, ta.kx0, T.twp,
-                                 T.rows, H, W, geo, threadIdx.x, blockDim.x);
+                                 T.rows, KH, KW, W, geo, threadIdx.x, blockDim.x);
     };
     load_patch<HD, LDK, false>(Qs, qb, a.st[0][2], QR, qy0, qx0, H, W, geo, threadIdx.x, blockDim.x);
     load_patch<HD, LDK, false>(Gs, gb, a.st[4][2], QR, qy0, qx0, H, W, geo, threadIdx.x, blockDim.x);
@@ -1012,7 +1047,7 @@ __global__ void __launch_bounds__(256, 1) dq_bf16_kernel(const BwdArgs a) {
         }
         if constexpr (VAR == VAR_ROWS) load_uw(uw, U0, U1, T, 0, t);
       }
-      const TileAt ta = tile_at(T, it, H);
+      const TileAt ta = tile_at(T, it, KH);
       const int s = it % ST;
       // VAR_GENERAL: this segment's u_w terms and dSc sums in shared memory
       // (each key column's owned by one thread)
@@ -1026,7 +1061,7 @@ __global__ void __launch_bounds__(256, 1) dq_bf16_kernel(const BwdArgs a) {
         rs0 = rs1 = 0.f;
       }
     }
-    if constexpr (VAR == VAR_ROWS) store_dsc(U0, U1, dsc, T, jy, W, t);
+    if constexpr (VAR == VAR_ROWS) store_dsc(U0, U1, dsc, T, jy, KW, t);
     __syncthreads();  // the walk is over: the ring takes the staged dq
     float* D0w = Dq + (warp * 16 + g) * LDQ;
     float* D1w = D0w + 8 * LDQ;
@@ -1043,12 +1078,16 @@ __global__ void __launch_bounds__(256, 1) dq_bf16_kernel(const BwdArgs a) {
     const int cp = VAR == VAR_GENERAL ? T.uwl : up;
     const int nx = min(8, W - qx0), ny = min(PY, H - qy0);
     auto dq_row = [&](int r) { return Dq + r * LDQ; };
-    // patch row py: its cells share Rh[qy0 + py]; patch column px: Rw[qx0 + px]
+    // patch row py: its cells share Rh[qy0 + py]; patch column px: Rw[qx0 +
+    // px]; over the key rectangle's KH rows / KW columns
+    constexpr int UNR = VAR == VAR_GENERAL && HD == 80 ? 2 : 1;
     for (int item = warp; item < ny; item += blockDim.x / 32)
-      table_term<HD>(dq_row, U, up, item * 8, 1, nx, rh + (size_t)(qy0 + item) * H * HD, H, sl, lane);
+      table_term<HD, UNR>(dq_row, U, up, item * 8, 1, nx, rh + (size_t)(qy0 + item) * H * HD, KH,
+                          sl, lane);
     __syncthreads();
     for (int item = warp; item < nx; item += blockDim.x / 32)
-      table_term<HD>(dq_row, Ca, cp, item, 8, ny, rw + (size_t)(qx0 + item) * W * HD, W, sl, lane);
+      table_term<HD, UNR>(dq_row, Ca, cp, item, 8, ny, rw + (size_t)(qx0 + item) * W * HD, KW,
+                          sl, lane);
     __syncthreads();
     for (int c = threadIdx.x; c < QR * chunks; c += blockDim.x) {
       const int r = c / chunks, part = c - r * chunks;
@@ -1091,12 +1130,13 @@ __global__ void __launch_bounds__(256) relgrad_bf16_kernel(const BwdArgs a) {
   const int per = relgrad_tiles<HD>(gridDim.z), n0 = blockIdx.z * per, nt = min(per, NT - n0);
   const int LDB = per * 8 + 8, LDR = per * 8 + 4;
   const size_t CHUNK = sizeof(float) * RB * RAP + sizeof(bf16) * RB * LDB;
-  const int mh = (H + 15) / 16, mw = (W + 15) / 16;
+  const int mh = (a.KH + 15) / 16, mw = (a.KW + 15) / 16;
   int blk = blockIdx.x;
   const bool is_h = blk < H * mh;
   if (!is_h) blk -= H * mh;
   const int mt_n = is_h ? mh : mw, A = blk / mt_n, mt = blk - A * mt_n;
-  const int Lc = is_h ? H : W;  // the table's columns
+  const int Lc = is_h ? a.KH : a.KW;  // the table's columns in the key rectangle
+  const int Lp = is_h ? H : W;        // the table's row pitch
   const int M = is_h ? W : H;   // rows with y (x) = A per (batch, head)
   const float* src = is_h ? a.dsr : a.dsc;
   const int sp = is_h ? a.HP : a.WQ;
@@ -1173,7 +1213,8 @@ __global__ void __launch_bounds__(256) relgrad_bf16_kernel(const BwdArgs a) {
       float sum = 0.f;
 #pragma unroll
       for (int w = 0; w < 8; ++w) sum += red[(w * 16 + row) * LDR + d];  // warps in order
-      out[((size_t)A * Lc + mt * 16 + row) * HD + sl * NV + n0 * 8 + d] = sum;
+      float* o = out + ((size_t)A * Lp + mt * 16 + row) * HD + sl * NV + n0 * 8 + d;
+      *o = (a.acc & 2) ? *o + sum : sum;
     }
   }
 }
@@ -1197,8 +1238,8 @@ template <int HD> __host__ __device__ constexpr int f32_rows() { return HD > 128
 // u rows, D and lse2 of 64 tokens by scalar dot products
 template <int HD>
 __global__ void __launch_bounds__(128) prep_f32_kernel(const BwdArgs a) {
-  const int N = a.N, H = a.H, W = a.W, UG = a.UG;
-  const Tiling T = bwd_tiling(H, W);
+  const int N = a.N, H = a.H, W = a.W, UG = a.UG, KH = a.KH, KW = a.KW;
+  const Tiling T = bwd_tiling(KH, KW);
   const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z, bh = b * a.nH + h;
   const float* qb = in_ptr<float>(a, 0, b, h);
   const float* rh = reinterpret_cast<const float*>(a.rh);
@@ -1210,8 +1251,8 @@ __global__ void __launch_bounds__(128) prep_f32_kernel(const BwdArgs a) {
     const float* qr = qb + (long long)qi * a.st[0][2];
     const int y = qi / W, x = qi - y * W;
     float v = 0.f;
-    if (j < H) v = dot_row<float, HD>(qr, rh + ((size_t)y * H + j) * HD) * LOG2E;
-    else if (j >= T.uwo + W) v = -INFINITY;
+    if (j < KH) v = dot_row<float, HD>(qr, rh + ((size_t)y * H + j) * HD) * LOG2E;
+    else if (j >= T.uwo + KW) v = -INFINITY;
     else if (j >= T.uwo) v = dot_row<float, HD>(qr, rw + ((size_t)x * W + j - T.uwo) * HD) * LOG2E;
     Ug[(size_t)qi * UG + j] = v;
   }
@@ -1250,6 +1291,7 @@ __host__ __device__ constexpr size_t f32_tiles_bytes(int ns) {
   return align128(sizeof(float) * (4 * FR * (HD + 8) + ns * FR * (FR + 4)));
 }
 
+// H, W: the key rectangle
 template <int HD>
 __host__ __device__ inline size_t dkdv_f32_smem(int H, int W) {
   constexpr int FR = f32_rows<HD>();
@@ -1267,8 +1309,8 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dkdv_f32_kernel(const B
   float* Gs = Qs + FR * LDT;
   float* Ps = Gs + FR * LDT;
   float* DSs = Ps + FR * LDS;
-  const int N = a.N, H = a.H, W = a.W, UG = a.UG;
-  const Tiling T = bwd_tiling(H, W);
+  const int N = a.N, W = a.W, UG = a.UG, KW = a.KW, NK = a.KH * a.KW;
+  const Tiling T = bwd_tiling(a.KH, KW);
   float* U = reinterpret_cast<float*>(smem + f32_tiles_bytes<HD>(2));
   float* Ls = U + FR * UG;
   float* Ds = Ls + FR;
@@ -1278,8 +1320,9 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dkdv_f32_kernel(const B
   const float* qb = in_ptr<float>(a, 0, b, h);
   const float* gb = in_ptr<float>(a, 4, b, h);
 
-  load_tile<float, HD, FR>(Ks, in_ptr<float>(a, 1, b, h), a.st[1][2], k0, N);
-  load_tile<float, HD, FR>(Vs, in_ptr<float>(a, 2, b, h), a.st[2][2], k0, N);
+  // keys of the rectangle (key t: row t / KW, column t % KW)
+  load_key_tile<float, HD, FR>(Ks, in_ptr<float>(a, 1, b, h), a.st[1][2], k0, NK, KW, W);
+  load_key_tile<float, HD, FR>(Vs, in_ptr<float>(a, 2, b, h), a.st[2][2], k0, NK, KW, W);
   cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1303,7 +1346,7 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dkdv_f32_kernel(const B
     __syncthreads();
     for (int r = 0; r < 16; ++r) {
       const int key = k0 + warp * 16 + r;
-      const int ky = key / W, kx = key - ky * W;
+      const int ky = key / KW, kx = key - ky * KW;
       for (int c = lane; c < FR; c += 32) {
         const int qi = q0 + c;
         float s = 0.f, dp = 0.f;
@@ -1313,7 +1356,7 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dkdv_f32_kernel(const B
           dp = fmaf(Vw[r * LDT + d], Gs[c * LDT + d], dp);
         }
         float p = 0.f, ds = 0.f;
-        if (key < N && qi < N) {
+        if (key < NK && qi < N) {
           p = exp2f(fmaf(s, c2, U[c * UG + ky] + U[c * UG + T.uwo + kx] - Ls[c]));
           ds = p * (dp - Ds[c]);
         }
@@ -1345,13 +1388,14 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dkdv_f32_kernel(const B
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int key = k0 + warp * 16 + r;
-    if (key >= N) continue;
+    if (key >= NK) continue;
+    const int ky = key / KW, tok = ky * W + key - ky * KW;
 #pragma unroll
     for (int e = 0; e < DE; ++e) {
       const int d = lane + 32 * e;
       if (d >= NV) continue;
-      dkb[(long long)key * a.st[6][2] + d] = dk[r][e] * a.scale;
-      dvb[(long long)key * a.st[7][2] + d] = dv[r][e];
+      dkb[(long long)tok * a.st[6][2] + d] = dk[r][e] * a.scale;
+      dvb[(long long)tok * a.st[7][2] + d] = dv[r][e];
     }
   }
 }
@@ -1382,6 +1426,7 @@ __device__ __forceinline__ void accumulate_rel(float* Acc, int up, int uwo, cons
   }
 }
 
+// H, W: the key rectangle
 template <int HD>
 __host__ __device__ inline size_t dq_f32_smem(int H, int W) {
   constexpr int FR = f32_rows<HD>();
@@ -1398,8 +1443,8 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dq_f32_kernel(const Bwd
   float* Ks = Gs + FR * LDT;
   float* Vs = Ks + FR * LDT;
   float* Sd = Vs + FR * LDT;
-  const int N = a.N, H = a.H, W = a.W, UG = a.UG;
-  const Tiling T = bwd_tiling(H, W);
+  const int N = a.N, H = a.H, W = a.W, UG = a.UG, KH = a.KH, KW = a.KW, NK = KH * KW;
+  const Tiling T = bwd_tiling(KH, KW);
   float* U = reinterpret_cast<float*>(smem + f32_tiles_bytes<HD>(1));
   float* Acc = U + FR * UG;
   float* Ls = Acc + FR * UG;
@@ -1426,10 +1471,10 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dq_f32_kernel(const Bwd
 #pragma unroll
     for (int e = 0; e < DE; ++e) dq[r][e] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += FR) {
+  for (int k0 = 0; k0 < NK; k0 += FR) {  // the rectangle's keys
     __syncthreads();  // the previous k/v tile is consumed (and U, Acc are set on entry)
-    load_tile<float, HD, FR>(Ks, kb, a.st[1][2], k0, N);
-    load_tile<float, HD, FR>(Vs, vb, a.st[2][2], k0, N);
+    load_key_tile<float, HD, FR>(Ks, kb, a.st[1][2], k0, NK, KW, W);
+    load_key_tile<float, HD, FR>(Vs, vb, a.st[2][2], k0, NK, KW, W);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -1444,8 +1489,8 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dq_f32_kernel(const Bwd
           dp = fmaf(Gw[r * LDT + d], Vs[c * LDT + d], dp);
         }
         float ds = 0.f;
-        if (key < N && qi < N) {
-          const int ky = key / W, kx = key - ky * W;
+        if (key < NK && qi < N) {
+          const int ky = key / KW, kx = key - ky * KW;
           ds = exp2f(fmaf(s, c2, U[row * UG + ky] + U[row * UG + T.uwo + kx] - Ls[row])) *
                (dp - Ds[row]);
         }
@@ -1465,7 +1510,7 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dq_f32_kernel(const Bwd
         dq[r][e] = acc;
       }
     }
-    accumulate_rel<FR>(Acc + warp * 16 * UG, UG, T.uwo, Sw, k0, N, H, W, lane);
+    accumulate_rel<FR>(Acc + warp * 16 * UG, UG, T.uwo, Sw, k0, NK, KH, KW, lane);
     __syncwarp();
   }
   // every warp is done with the last k tile: it takes the finished dq
@@ -1491,19 +1536,20 @@ __global__ void __launch_bounds__(2 * f32_rows<HD>(), 1) dq_f32_kernel(const Bwd
     const float* ar = Acc + r * UG;
     float acc = Dq[r * LDQ + d];
     const float* th = rh + (size_t)y * H * HD + sl * NV + d;
-    for (int j = 0; j < H; ++j) acc = fmaf(ar[j], th[(size_t)j * HD], acc);
+    for (int j = 0; j < KH; ++j) acc = fmaf(ar[j], th[(size_t)j * HD], acc);
     const float* tw = rw + (size_t)x * W * HD + sl * NV + d;
-    for (int j = 0; j < W; ++j) acc = fmaf(ar[T.uwo + j], tw[(size_t)j * HD], acc);
-    dqb[(long long)qi * a.st[5][2] + d] = acc;
+    for (int j = 0; j < KW; ++j) acc = fmaf(ar[T.uwo + j], tw[(size_t)j * HD], acc);
+    float* dst = dqb + (long long)qi * a.st[5][2] + d;
+    *dst = (a.acc & 1) ? *dst + acc : acc;
   }
   if (sl != 0) return;
   for (int idx = threadIdx.x; idx < FR * (a.HP + a.WQ); idx += blockDim.x) {
     const int r = idx / (a.HP + a.WQ), j = idx % (a.HP + a.WQ), qi = q0 + r;
     if (qi >= N) continue;
-    if (j < a.HP) a.dsr[((size_t)bh * N + qi) * a.HP + j] = j < H ? Acc[r * UG + j] : 0.f;
+    if (j < a.HP) a.dsr[((size_t)bh * N + qi) * a.HP + j] = j < KH ? Acc[r * UG + j] : 0.f;
     else {
       const int x = j - a.HP;
-      a.dsc[((size_t)bh * N + qi) * a.WQ + x] = x < W ? Acc[r * UG + T.uwo + x] : 0.f;
+      a.dsc[((size_t)bh * N + qi) * a.WQ + x] = x < KW ? Acc[r * UG + T.uwo + x] : 0.f;
     }
   }
 }
@@ -1516,11 +1562,12 @@ template <int HD>
 __global__ void __launch_bounds__(4 * HD) relgrad_f32_kernel(const BwdArgs a) {
   __shared__ float red[4][RG][HD];
   const int H = a.H, W = a.W, N = a.N;
-  const int nbh = (H + RG - 1) / RG, nbw = (W + RG - 1) / RG;
+  const int nbh = (a.KH + RG - 1) / RG, nbw = (a.KW + RG - 1) / RG;
   int blk = blockIdx.x;
   const bool is_h = blk < H * nbh;
   if (!is_h) blk -= H * nbh;
-  const int nb = is_h ? nbh : nbw, L = is_h ? H : W, M = is_h ? W : H;
+  // L: the table's columns in the key rectangle, Lp its row pitch
+  const int nb = is_h ? nbh : nbw, L = is_h ? a.KH : a.KW, Lp = is_h ? H : W, M = is_h ? W : H;
   const int A = blk / nb, c0 = (blk % nb) * RG;
   const float* src = is_h ? a.dsr : a.dsc;
   const int sp = is_h ? a.HP : a.WQ;
@@ -1545,8 +1592,11 @@ __global__ void __launch_bounds__(4 * HD) relgrad_f32_kernel(const BwdArgs a) {
     float* out = is_h ? a.drh : a.drw;
 #pragma unroll
     for (int e = 0; e < RG; ++e)
-      if (c0 + e < L)
-        out[((size_t)A * L + c0 + e) * HD + d] = red[0][e][d] + red[1][e][d] + red[2][e][d] + red[3][e][d];
+      if (c0 + e < L) {
+        float* o = out + ((size_t)A * Lp + c0 + e) * HD + d;
+        const float sum = red[0][e][d] + red[1][e][d] + red[2][e][d] + red[3][e][d];
+        *o = (a.acc & 2) ? *o + sum : sum;
+      }
   }
 }
 
@@ -1565,7 +1615,7 @@ static int run(Kernel kern, dim3 grid, int threads, size_t smem, const BwdArgs& 
 }
 
 // float count of the scratch: per (batch, head) the u rows (UG a row), lse2
-// and D, dSr (HP a row) and dSc (WQ a row)
+// and D, dSr (HP a row) and dSc (WQ a row); H, W: the key rectangle
 static long long scratch_floats(int B, int nH, int N, int H, int W, int* UG, int* HP, int* WQ) {
   *UG = u_global(bwd_tiling(H, W));
   *HP = round16(H);
@@ -1573,32 +1623,35 @@ static long long scratch_floats(int B, int nH, int N, int H, int W, int* UG, int
   return (long long)B * nH * N * (*UG + 2 + *HP + *WQ);
 }
 
-// whether the bf16 stage 1 / 2 variant applies (backward_plan's rule)
+// whether the bf16 stage 1 / 2 variant applies (backward_plan's rule): the
+// window variant takes the whole map only; rows / general go by the key
+// rectangle's columns
 template <int HD>
-static bool variant_ok(int stage, int var, int N, int H, int W) {
+static bool variant_ok(int stage, int var, const BwdArgs& a) {
+  const int N = a.N, H = a.H, W = a.W;
   const Tiling T = bwd_tiling(H, W);
   if (var == VAR_WINDOW) {
     const size_t smem = stage == 1 ? dkdv_bf16_smem<HD>(VAR_WINDOW, N, H, W)
-                                   : dq_bf16_smem<HD>(VAR_WINDOW, N, H, W);
-    return HD <= 128 && T.segs == 1 && H * T.wp <= 256 && smem <= SMEM_LIMIT &&
-           (stage == 1 || T.wp == 16);
+                                   : dq_bf16_smem<HD>(VAR_WINDOW, N, H, W, H, W);
+    return a.KH == H && a.KW == W && HD <= 128 && T.segs == 1 && H * T.wp <= 256 &&
+           smem <= SMEM_LIMIT && (stage == 1 || T.wp == 16);
   }
-  return var == VAR_ROWS ? W <= 64 : var == VAR_GENERAL && W > 64;
+  return var == VAR_ROWS ? a.KW <= 64 : var == VAR_GENERAL && a.KW > 64;
 }
 
 template <int HD>
 static int launch_bf16(int stage, int var, BwdArgs& a, cudaStream_t s) {
   constexpr int NSL = HD / out_cols<HD>();
-  const Tiling T = bwd_tiling(a.H, a.W);
-  const int N = a.N, H = a.H, W = a.W;
-  if ((stage == 1 || stage == 2) ? !variant_ok<HD>(stage, var, N, H, W) : var != VAR_ROWS)
+  const Tiling T = bwd_tiling(a.KH, a.KW);
+  const int N = a.N, H = a.H, W = a.W, KH = a.KH, KW = a.KW;
+  if ((stage == 1 || stage == 2) ? !variant_ok<HD>(stage, var, a) : var != VAR_ROWS)
     return (int)cudaErrorInvalidValue;
   switch (stage) {
     case 0:
       return run(prep_bf16_kernel<HD>, dim3((H + 7) / 8 * ((W + 7) / 8), a.nH, a.B), 128,
-                 prep_bf16_smem<HD>(H, W), a, s);
+                 prep_bf16_smem<HD>(KH, KW), a, s);
     case 1: {
-      const size_t smem = dkdv_bf16_smem<HD>(var, N, H, W);
+      const size_t smem = dkdv_bf16_smem<HD>(var, N, KH, KW);
       if constexpr (HD <= 128) {
         if (var == VAR_WINDOW)
           return run(dkdv_bf16_kernel<HD, VAR_WINDOW>, dim3(1, a.nH * NSL, a.B), 256, smem, a, s);
@@ -1609,7 +1662,7 @@ static int launch_bf16(int stage, int var, BwdArgs& a, cudaStream_t s) {
                              : run(dkdv_bf16_kernel<HD, VAR_GENERAL>, grid, 128 * TPB, smem, a, s);
     }
     case 2: {
-      const size_t smem = dq_bf16_smem<HD>(var, N, H, W);
+      const size_t smem = dq_bf16_smem<HD>(var, N, H, W, KH, KW);
       if constexpr (HD <= 128) {
         if (var == VAR_WINDOW)
           return run(dq_bf16_kernel<HD, VAR_WINDOW, 2>, dim3(1, a.nH * NSL, a.B), 256, smem, a, s);
@@ -1620,7 +1673,7 @@ static int launch_bf16(int stage, int var, BwdArgs& a, cudaStream_t s) {
                              : run(dq_bf16_kernel<HD, VAR_GENERAL, 0>, grid, 16 * py, smem, a, s);
     }
     case 3: {
-      const int blocks = H * ((H + 15) / 16) + W * ((W + 15) / 16);
+      const int blocks = H * ((KH + 15) / 16) + W * ((KW + 15) / 16);
       const int nb = relgrad_groups<HD>(blocks * NSL);
       return run(relgrad_bf16_kernel<HD>, dim3(blocks, NSL, nb), 256, relgrad_bf16_smem<HD>(nb),
                  a, s);
@@ -1633,16 +1686,17 @@ template <int HD>
 static int launch_f32(int stage, int var, BwdArgs& a, cudaStream_t s) {
   constexpr int FR = f32_rows<HD>(), NSL = HD / out_cols<HD>();
   if (var != VAR_ROWS) return (int)cudaErrorInvalidValue;
-  const dim3 tiles((a.N + FR - 1) / FR, a.nH * NSL, a.B);
+  const dim3 tiles((a.N + FR - 1) / FR, a.nH * NSL, a.B);            // q rows
+  const dim3 key_tiles((a.KH * a.KW + FR - 1) / FR, a.nH * NSL, a.B);  // the rectangle's keys
   switch (stage) {
     case 0:
       return run(prep_f32_kernel<HD>, dim3((a.N + 63) / 64, a.nH, a.B), 128, 0, a, s);
     case 1:
-      return run(dkdv_f32_kernel<HD>, tiles, 2 * FR, dkdv_f32_smem<HD>(a.H, a.W), a, s);
+      return run(dkdv_f32_kernel<HD>, key_tiles, 2 * FR, dkdv_f32_smem<HD>(a.KH, a.KW), a, s);
     case 2:
-      return run(dq_f32_kernel<HD>, tiles, 2 * FR, dq_f32_smem<HD>(a.H, a.W), a, s);
+      return run(dq_f32_kernel<HD>, tiles, 2 * FR, dq_f32_smem<HD>(a.KH, a.KW), a, s);
     case 3: {
-      const int blocks = a.H * ((a.H + RG - 1) / RG) + a.W * ((a.W + RG - 1) / RG);
+      const int blocks = a.H * ((a.KH + RG - 1) / RG) + a.W * ((a.KW + RG - 1) / RG);
       return run(relgrad_f32_kernel<HD>, dim3(blocks), 4 * HD, 0, a, s);
     }
   }
@@ -1656,23 +1710,41 @@ static int launch_f32(int stage, int var, BwdArgs& a, cudaStream_t s) {
 // grads: dq, dk, dv (strided (B, nH, N, hd) views); rh (H, H, hd), rw
 // (W, W, hd) contiguous in the compute dtype; drh, drw contiguous f32;
 // strides: 24 element strides, (batch, head, token) for q, k, v, O, dO, dq,
-// dk, dv in turn; scratch: f32, at least scratch_floats() long.
+// dk, dv in turn; scratch: f32, at least scratch_floats() long (of the key
+// rectangle). (ky0, kx0, kh, kw): the key rectangle of the launch (the whole
+// map: 0, 0, H, W); run the four stages of one rectangle before the next's.
+// acc: 1, stage 2 adds into dq; 2, stage 3 adds into drh / drw.
 MSAM_EXPORT int msam_relpos_attention_bwd(int stage, int variant, const void* q, const void* k,
                                           const void* v, const void* o, const void* dout,
                                           const float* lse, const void* rh, const void* rw,
                                           void* dq, void* dk, void* dv, float* drh, float* drw,
                                           float* scratch, long long scratch_len, int B, int nH,
                                           int N, int H, int W, int hd, const long long* strides,
-                                          float scale, int dtype, void* stream) {
+                                          float scale, int ky0, int kx0, int kh, int kw, int acc,
+                                          int dtype, void* stream) {
   constexpr int NSL = MSAM_HD / out_cols<MSAM_HD>();
   if (N != H * W || B <= 0 || nH <= 0 || B > 65535 || nH * NSL > 65535 || hd != MSAM_HD)
     return (int)cudaErrorInvalidValue;
+  if (ky0 < 0 || kx0 < 0 || kh <= 0 || kw <= 0 || ky0 + kh > H || kx0 + kw > W || acc < 0 ||
+      acc > 3)
+    return (int)cudaErrorInvalidValue;
+  const size_t esz = dtype == MSAM_BF16 ? 2 : 4;
+  const long long first = (long long)ky0 * W + kx0;  // the rectangle's first key token
   BwdArgs a;
-  a.in[0] = q; a.in[1] = k; a.in[2] = v; a.in[3] = o; a.in[4] = dout;
-  a.grad[0] = dq; a.grad[1] = dk; a.grad[2] = dv;
-  a.rh = rh; a.rw = rw; a.drh = drh; a.drw = drw; a.lse = lse;
+  a.in[0] = q; a.in[3] = o; a.in[4] = dout;
+  a.in[1] = (const char*)k + first * strides[5] * esz;
+  a.in[2] = (const char*)v + first * strides[8] * esz;
+  a.grad[0] = dq;
+  a.grad[1] = (char*)dk + first * strides[20] * esz;
+  a.grad[2] = (char*)dv + first * strides[23] * esz;
+  a.rh = (const char*)rh + (size_t)ky0 * hd * esz;
+  a.rw = (const char*)rw + (size_t)kx0 * hd * esz;
+  a.drh = drh + (size_t)ky0 * hd;
+  a.drw = drw + (size_t)kx0 * hd;
+  a.lse = lse;
   a.B = B; a.nH = nH; a.N = N; a.H = H; a.W = W; a.scale = scale;
-  if (scratch_len < scratch_floats(B, nH, N, H, W, &a.UG, &a.HP, &a.WQ))
+  a.KH = kh; a.KW = kw; a.acc = acc;
+  if (scratch_len < scratch_floats(B, nH, N, kh, kw, &a.UG, &a.HP, &a.WQ))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * nH * N;
   a.U = scratch;

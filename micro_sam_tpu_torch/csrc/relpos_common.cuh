@@ -58,6 +58,24 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long sn, in
   }
 }
 
+// keys [k0, k0 + ROWS) of a key rectangle kw columns wide (key t at map
+// row t / kw, column t % kw, token (t / kw) * pitch + t % kw of the
+// rectangle's first token) into a padded smem tile; keys past nk
+// zero-filled. With kw == pitch (whole rows) the keys are tokens k0...
+template <typename T, int HD, int ROWS = 64, bool SP = false>
+__device__ __forceinline__ void load_key_tile(T* dst, const T* src, long long sn, int k0, int nk,
+                                              int kw, int pitch, Geo geo = Geo{0, 0, 0}) {
+  constexpr int LDT = HD + 8;
+  constexpr int CH = HD * sizeof(T) / 16;
+  for (int c = threadIdx.x; c < ROWS * CH; c += blockDim.x) {
+    const int r = c / CH, part = c % CH, t = k0 + r;
+    const int ky = t / kw, tok = ky * pitch + (t - ky * kw);
+    const char* g = t < nk ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, tok, sn)) + part * 16
+                           : reinterpret_cast<const char*>(src);
+    cp_async16(reinterpret_cast<char*>(dst + r * LDT) + part * 16, g, t < nk);
+  }
+}
+
 // 4-byte asynchronous global -> shared copy; src-size 0 zero-fills
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
   unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -215,14 +233,15 @@ __device__ __forceinline__ TileAt tile_at(const Tiling& T, int it, int H) {
   return a;
 }
 
-// nslots key slots (slot = r * twp + cx: map row ky0 + r, column kx0 + cx)
-// of a strided (token, COLS) source into smem rows of pitch LD, as 16-byte
-// cp.async copies; slots outside the map (r >= nrows, a row past H, a column
-// past W) are zero-filled
+// nslots key slots (slot = r * twp + cx: key row ky0 + r, column kx0 + cx
+// of the key rectangle, H x W, whose rows are pitch tokens apart) of a
+// strided (token, COLS) source into smem rows of pitch LD, as 16-byte
+// cp.async copies; slots outside the rectangle (r >= nrows, a row past H, a
+// column past W) are zero-filled
 template <int COLS, int LD, bool SP>
 __device__ __forceinline__ void load_slots(bf16* dst, const bf16* src, long long sn, int nslots,
                                            int ky0, int kx0, int twp, int nrows, int H, int W,
-                                           const Geo& geo, int tid, int nthr) {
+                                           int pitch, const Geo& geo, int tid, int nthr) {
   constexpr int CH = COLS * (int)sizeof(bf16) / 16;
   const int rcp = (65536 + twp - 1) / twp;  // slot / twp as a product: exact for slot < 2^10
   for (int c = tid; c < nslots * CH; c += nthr) {
@@ -230,7 +249,7 @@ __device__ __forceinline__ void load_slots(bf16* dst, const bf16* src, long long
     const int r = (slot * rcp) >> 16, cx = slot - r * twp;
     const int ky = ky0 + r, kx = kx0 + cx;
     const bool ok = r < nrows && ky < H && kx < W;
-    const char* g = ok ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, ky * W + kx, sn)) + part * 16
+    const char* g = ok ? reinterpret_cast<const char*>(src + tok_off<SP>(geo, ky * pitch + kx, sn)) + part * 16
                        : reinterpret_cast<const char*>(src);
     cp_async16(reinterpret_cast<char*>(dst + slot * LD) + part * 16, g, ok);
   }
@@ -268,23 +287,25 @@ __device__ __forceinline__ void load_patch(bf16* dst, const bf16* src, long long
 }
 
 // ---------------------------------------------------------------------------
-// u tables, in log2 units: row r of U belongs to smem q row r;
-// [0, H) u_h, [H, H + W) u_w, [H + W, H + uwl) -inf (the padding columns of
-// a key row); rows off the map hold 0 where a q row holds u. A tile's rows
-// past H are never read: its n8 tiles in use (nj) stop at the map's last
-// row.
+// u tables, in log2 units: row r of U belongs to smem q row r; over a key
+// rectangle of KH rows and KW columns (the whole map unless the wrapper
+// splits the keys): [0, KH) u_h, [uwo, uwo + KW) u_w, [uwo + KW, uwo + uwl)
+// -inf (the padding columns of a key row); rows off the map hold 0 where a
+// q row holds u. A tile's rows past KH are never read: its n8 tiles in use
+// (nj) stop at the rectangle's last row.
 // ---------------------------------------------------------------------------
 
 // the -inf pads, and the zeros of the rows off the map: rows r >= nvalid
 // (patch false: the window's q rows past N), or the cells of a patch 8 wide
-// at (qy0, qx0) off the H x W map (patch true); the products fill the rest
+// at (qy0, qx0) off the H x W map (patch true); the products fill the rest.
+// kw: the key rectangle's columns
 __device__ __forceinline__ void u_pads(float* U, const Tiling& T, int nrows, int nvalid, bool patch,
-                                       int qy0, int qx0, int H, int W, int tid, int nthr) {
+                                       int qy0, int qx0, int H, int W, int kw, int tid, int nthr) {
   const int len = T.uwo + T.uwl;
   for (int idx = tid; idx < nrows * len; idx += nthr) {
     const int r = idx / len, j = idx - r * len;
     const bool on_map = patch ? qy0 + (r >> 3) < H && qx0 + (r & 7) < W : r < nvalid;
-    if (j >= T.uwo + W) U[r * T.up + j] = -INFINITY;
+    if (j >= T.uwo + kw) U[r * T.up + j] = -INFINITY;
     else if (!on_map) U[r * T.up + j] = 0.f;
   }
 }

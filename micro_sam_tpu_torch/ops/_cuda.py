@@ -43,20 +43,22 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _BWD_SIGNATURE = ("msam_relpos_attention_bwd",
-                  [_I, _I] + [_P] * 14 + [_LL] + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P])
+                  [_I, _I] + [_P] * 14 + [_LL] + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 6
+                  + [_P])
 _SIGNATURES = {
     "layernorm": ("msam_layernorm", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
     "gemm": ("msam_gemm", [_P] * 5 + [_I] * 9 + [_P]),
     **{f"relpos_attention_hd{d}": ("msam_relpos_attention",
-                                   [_P] * 7 + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 5
+                                   [_P] * 8 + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 9
                                    + [_P])
        for d in RELPOS_HEAD_DIMS},
     **{f"relpos_attention_bwd_hd{d}": _BWD_SIGNATURE for d in RELPOS_BWD_HEAD_DIMS},
-    "dwconv": ("msam_dwconv", [_P] * 5 + [_I] * 6 + [_P]),
+    "dwconv": ("msam_dwconv", [_P] * 5 + [_I] * 11 + [_P]),
     "tiny_attention": ("msam_tiny_attention", [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
 }
 # a library's other exports: name -> [(function, argtypes, restype)]
-_MORE = {"gemm": [("msam_gemm_maps_encoded", [_I], _I)]}
+_MORE = {"gemm": [("msam_gemm_maps_encoded", [_I], _I)],
+         "dwconv": [("msam_dwconv_maps_encoded", [], _I)]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -748,7 +748,8 @@ def test_vit_h_class_encoder_on_card_matches_cpu(dev):
                                           (2, 13, 11, 160, False), (1, 9, 7, 12, True)],
                          ids=["mbconv", "tail", "odd", "narrow"])
 def test_dwconv_matches_plain(dev, dtype, B, H, W, C, gelu):
-    """Any H, W and C: 12 channels take the kernel's one-channel path."""
+    """Any H, W and C: 12 bf16 channels (24 bytes a pixel) take the kernel's
+    body without TMA."""
     from micro_sam_tpu_torch.ops.dwconv import dwconv, dwconv_plain
     g = torch.Generator().manual_seed(8)
     x = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
@@ -839,3 +840,161 @@ def test_get_sam_model_defaults_to_the_card(dev):
     for model_type in ("vit_b", "vit_t"):
         p = get_sam_model(model_type)
         assert p.device.type == "cuda" and p.model.config.compute_dtype == "bfloat16"
+
+
+# ---------------------------------------------------------------------------
+# dwconv: the TMA body at the vit_t shapes, the other body, edges
+# ---------------------------------------------------------------------------
+
+DW_VIT_T = {"mbconv": (256, 256, 256, True), "stage1_tail": (128, 128, 128, False),
+            "stage2_tail": (64, 64, 160, False), "stage3_tail": (64, 64, 320, False)}
+
+
+def _dw_case(dev, dtype, B, H, W, C, seed=8):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    w = (torch.randn(C, 1, 3, 3, generator=g) / 3).to(dev)
+    s, t = (torch.rand(C, generator=g) + 0.5).to(dev), (torch.randn(C, generator=g) * 0.1).to(dev)
+    return x, w, s, t
+
+
+def _dw_held(dev, dtype, x, w, s, t, gelu, body):
+    from micro_sam_tpu_torch.ops.dwconv import _alignment, dwconv, dwconv_plain, dwconv_plan
+    B, H, W, C = x.shape
+    plan = dwconv_plan(B, H, W, C, x.element_size(), _alignment(x))
+    assert plan.body == body
+    n = dwconv.launches
+    got = dwconv(x, w, s, t, gelu)
+    torch.cuda.synchronize()
+    assert dwconv.launches == n + 1
+    _held(got, dwconv_plain(x.float(), w, s, t, gelu), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("shape", list(DW_VIT_T))
+def test_dwconv_vit_t_shapes_match_plain(dev, dtype, B, shape):
+    """The depthwise shapes of a vit_t encode (the MBConv's with GELU, the
+    three tails'), batch 1 and 8: the TMA body, one launch a call."""
+    H, W, C, gelu = DW_VIT_T[shape]
+    _dw_held(dev, dtype, *_dw_case(dev, dtype, B, H, W, C), gelu, "tma")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [8, 12, 24, 40, 160, 320])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 6), (2, 2), (3, 3), (5, 1), (2, 9), (3, 40),
+                                 (17, 13), (33, 65)])
+def test_dwconv_edges_match_plain(dev, dtype, C, H, W):
+    """H or W of 1, 2 and 3, odd sizes, narrow and wide channel counts: the
+    TMA body where C's bytes are a multiple of 16 (C 12 in bf16 is not), the
+    other body else; both with and without GELU."""
+    x, w, s, t = _dw_case(dev, dtype, 2, H, W, C, seed=H * 100 + W + C)
+    body = "tma" if (C * x.element_size()) % 16 == 0 else "plain"
+    for gelu in (False, True):
+        _dw_held(dev, dtype, x, w, s, t, gelu, body)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [64, 160, 12])
+def test_dwconv_unaligned_view_takes_the_other_body(dev, dtype, C):
+    """A map one element past an aligned address: no TMA; the other body's
+    vectors as wide as the address allows."""
+    x0, w, s, t = _dw_case(dev, dtype, 2, 19, 23, C)
+    buf = torch.empty(x0.numel() + 1, device=dev, dtype=dtype)
+    x = buf[1:].view(x0.shape)
+    x.copy_(x0)
+    _dw_held(dev, dtype, x, w, s, t, True, "plain")
+
+
+def test_dwconv_weight_update_is_seen(dev):
+    """The (9, C) re-layout of the weight is cached per weight tensor and
+    made anew after an in-place update."""
+    from micro_sam_tpu_torch.ops.dwconv import dwconv, dwconv_plain
+    x, w, s, t = _dw_case(dev, torch.float32, 1, 20, 24, 64)
+    _held(dwconv(x, w, s, t), dwconv_plain(x, w, s, t), torch.float32)
+    with torch.no_grad():
+        w.mul_(-2.0)
+    _held(dwconv(x, w, s, t), dwconv_plain(x, w, s, t), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# rel-pos attention (K1, K4) on grids whose u tables need key rectangles
+# ---------------------------------------------------------------------------
+
+LARGE_GRIDS = {"336x336_hd64": (336, 336, 64), "336x336_hd80": (336, 336, 80),
+               "32x640_hd64": (32, 640, 64)}
+
+
+def _large_case(dev, dtype, H, W, hd, seed, nH=2):
+    """q, k, v strided out of (1, N, 3, nH, hd) rows, the tables, 128
+    sampled q rows (the map's corners among them) and 64 of them for the
+    backward."""
+    g = torch.Generator().manual_seed(seed)
+    N = H * W
+    rows = torch.randn(1, N, 3, nH, hd, generator=g).to(dev, dtype)
+    q, k, v = (rows[:, :, i].transpose(1, 2) for i in range(3))
+    rh = (torch.randn(H, H, hd, generator=g) * 0.3).to(dev, dtype)
+    rw = (torch.randn(W, W, hd, generator=g) * 0.3).to(dev, dtype)
+    corners = torch.tensor([0, W - 1, N - W, N - 1])
+    sample = torch.cat([corners, torch.randperm(N, generator=g)[:124]]).unique().to(dev)
+    return q, k, v, rh, rw, sample
+
+
+def _rects(dtype, H, W, hd, backward=False):
+    from micro_sam_tpu_torch.ops import relpos_attention as rpa
+    if dtype == torch.bfloat16:
+        plan = (rpa.backward_plan if backward else rpa.forward_plan)(H * W, H, W, hd)
+        return [r for r, _ in plan.rects]
+    return list((rpa.f32_backward_rects if backward else rpa.f32_forward_rects)(H, W, hd))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(LARGE_GRIDS))
+def test_relpos_attention_large_grid_matches_plain_rows(dev, dtype, case):
+    """K1 on a grid above the one-rectangle limit: one launch a key
+    rectangle, the outputs merged by their log-sum-exps; 128 sampled rows
+    (output and lse) against the plain version's rows over all keys."""
+    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                          relpos_attention_plain_rows)
+    H, W, hd = LARGE_GRIDS[case]
+    rects = _rects(dtype, H, W, hd)
+    assert len(rects) > 1
+    q, k, v, rh, rw, sample = _large_case(dev, dtype, H, W, hd, seed=H + W + hd)
+    lse = torch.empty(q.shape[:3], device=dev)
+    n = relpos_attention.launches
+    out = relpos_attention(q, k, v, rh, rw, (H, W), lse=lse)
+    torch.cuda.synchronize()
+    assert relpos_attention.launches == n + len(rects)
+    ref, ref_lse = relpos_attention_plain_rows(q, k, v, rh, rw, (H, W), sample)
+    _held(out[:, :, sample], ref, dtype)
+    err = float((lse[:, :, sample] - ref_lse).abs().max()) / float(ref_lse.abs().max())
+    assert torch.isfinite(lse).all() and err <= 1e-4, err
+    # without lse: the same output (the rectangles' log-sum-exps in buffers of their own)
+    assert torch.equal(relpos_attention(q, k, v, rh, rw, (H, W)), out)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(LARGE_GRIDS))
+def test_relpos_attention_backward_large_grid_matches_plain_rows(dev, dtype, case):
+    """K4 on the same grids, dout zero outside 64 sampled rows: dq (zero
+    elsewhere), dk, dv and both table gradients against the plain backward
+    of those rows (f32 rel 1e-4, bf16 3e-2); four launches a rectangle."""
+    from micro_sam_tpu_torch.ops.relpos_attention import (
+        relpos_attention, relpos_attention_backward, relpos_attention_backward_plain_rows)
+    H, W, hd = LARGE_GRIDS[case]
+    rects = _rects(dtype, H, W, hd, backward=True)
+    assert len(rects) > 1
+    q, k, v, rh, rw, sample = _large_case(dev, dtype, H, W, hd, seed=H * W + hd)
+    rows = sample[:64]
+    lse = torch.empty(q.shape[:3], device=dev)
+    out = relpos_attention(q, k, v, rh, rw, (H, W), lse=lse)
+    g = torch.Generator().manual_seed(hd)
+    dout = torch.zeros_like(q)
+    dout[:, :, rows] = torch.randn(q.shape[0], q.shape[1], len(rows), hd,
+                                   generator=g).to(dev, dtype)
+    n = relpos_attention_backward.launches
+    got = relpos_attention_backward(q, k, v, out, dout, rh, rw, (H, W), lse=lse)
+    torch.cuda.synchronize()
+    assert relpos_attention_backward.launches == n + 4 * len(rects)
+    _held_grads(got, relpos_attention_backward_plain_rows(q, k, v, out, dout, rh, rw, (H, W),
+                                                          rows), dtype)

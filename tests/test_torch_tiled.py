@@ -3,12 +3,9 @@ against the JAX package, on the tiny config over the same weights (f32, CPU).
 
 Tolerances: per tile features rel <= 1e-4 of max|ref|, sizes equal; mask
 logits rel <= 1e-4, IoU abs <= 1e-4 (as tests/test_torch_predictor.py);
-cache reads exact. Tiles are resized to the encoder's input size, and the
-port's resize (antialiased bilinear ``F.interpolate``) is within one grey
-level of the JAX package's PIL resize, not equal to it
-(tests/test_torch_predictor.py::test_resize_within_one_grey_level_of_pil):
-where features are compared, the port is handed PIL's resize (``pil_resize``),
-so that the comparison is of the tiling and the encoder.
+cache reads exact. Tiles are resized to the encoder's input size by the
+port's own resize, which equals the JAX package's PIL resize to the bit
+(tests/test_torch_resize.py).
 """
 import os
 import shutil
@@ -53,15 +50,6 @@ def jax_tiles(predictors, image, volume):
                        verbose=False)}
 
 
-@pytest.fixture
-def pil_resize(predictors, monkeypatch):
-    """The port resizes tiles as the JAX package does (PIL)."""
-    from micro_sam_tpu_torch import util
-    jp, _ = predictors
-    monkeypatch.setattr(util, "_resize_for_encoder",
-                        lambda predictor, im: jp._resize_longest_host(util._to_image(im)))
-
-
 def _assert_tiles_match(got, ref, exact=False):
     assert sorted(got) == sorted(ref)
     for t in ref:
@@ -89,8 +77,7 @@ def _no_encode(predictor, monkeypatch):
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
-def test_tiled_precompute_matches_jax(predictors, image, volume, jax_tiles, monkeypatch,
-                                      pil_resize, ndim):
+def test_tiled_precompute_matches_jax(predictors, image, volume, jax_tiles, monkeypatch, ndim):
     """Tiled 2d (8 tiles, consecutive same-shape tiles batched 2 at a time)
     and tiled 3d (4 tiles x 3 slices, batched 2 slices at a time) against the
     JAX package, tile by tile."""
@@ -112,7 +99,7 @@ def test_tiled_precompute_matches_jax(predictors, image, volume, jax_tiles, monk
     _assert_tiles_match(got["features"], ref["features"])
 
 
-def test_tiled_precompute_restricted_to_a_mask(predictors, image, pil_resize):
+def test_tiled_precompute_restricted_to_a_mask(predictors, image):
     from micro_sam_tpu.util import precompute_image_embeddings as jax_pre
     from micro_sam_tpu_torch.util import precompute_image_embeddings
     jp, pp = predictors
@@ -127,7 +114,7 @@ def test_tiled_precompute_restricted_to_a_mask(predictors, image, pil_resize):
 
 
 def test_tile_subset_resumes_without_reencoding(predictors, image, jax_tiles, tmp_path,
-                                                monkeypatch, pil_resize):
+                                                monkeypatch):
     """A first call restricted to tiles 1 and 3, not finalized, then the full
     call on the same cache: tiles 1 and 3 are taken from the cache and the
     other six encoded; the result is the whole tiled embedding."""
@@ -217,8 +204,7 @@ def test_reference_tiled_cache_fixture_loads(predictors, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("ndim,tile_id,z", [(2, 0, None), (2, 5, None), (3, 3, 1)],
                          ids=["2d_tile0", "2d_tile5", "3d_tile3_slice1"])
-def test_tiled_prompt_matches_jax(predictors, image, volume, jax_tiles, pil_resize, ndim,
-                                  tile_id, z):
+def test_tiled_prompt_matches_jax(predictors, image, volume, jax_tiles, ndim, tile_id, z):
     """``set_precomputed(..., tile_id=...)`` (and ``i`` for a volume) then one
     point: the port's tile embedding and prediction against the JAX
     package's (a point and its pad token: no power-of-two padding)."""
