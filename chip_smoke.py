@@ -6,24 +6,30 @@
 Phases (any fault ends the run with a non-zero exit, and no result line):
  1. the card: CUDA must be available; prints its name and power limit;
  2. builds the CUDA kernels from micro_sam_tpu_torch/csrc and prints the time,
-    each kernel's ptxas registers and any spill or warning; fails if a gemm
-    or dwconv kernel spills or, where the toolkit has cuobjdump, if a bf16
-    gemm kernel's SASS holds no HGMMA (warpgroup product) or no UTMALDG (TMA
-    load), or a kernel of dwconv's TMA body no UTMALDG;
+    each kernel's ptxas registers and any spill or warning; fails if a gemm,
+    dwconv, tiny_attention or layernorm kernel spills or, where the toolkit
+    has cuobjdump, if a bf16 gemm kernel's SASS holds no HGMMA (warpgroup
+    product) or no UTMALDG (TMA load), or a kernel of dwconv's TMA body or
+    tiny_attention's bf16 kernel no UTMALDG;
  3. holds each kernel (layernorm, gemm, relpos_attention) and the two block
     chains against their plain PyTorch versions on the card, at the vit_b
     shapes, in bf16 and f32, with timings, bounds and a library yardstick
     (relpos_attention's rows with the forward variant each launch takes,
     gemm's with its plan); a chain's launches are counted around one run of
-    it; the host microseconds a gemm call costs;
+    it; layernorm at every shape of the vit_b encode and of K9's grid mode
+    (``layernorm_sweep``: against plain, timed with F.layer_norm, bound,
+    plan, the sums per encode); the host microseconds a gemm and a
+    layernorm call cost;
  4. the main path at full width: get_sam_model("vit_b") with random weights,
     precompute_image_embeddings on a 1024^2 image and a 3-slice volume, then
     SamPredictor.predict with points, a box, box + point, a mask and a batch
     of boxes; checks shapes, finiteness, kernel launch counts and the
     embedding against the same model's plain f32 run on the CPU. One more
-    encode is recorded call by call, and each kernel's launches of it are
-    replayed on their own inputs: checked against the plain version, and
-    timed back to back as the kernel, the plain version and library calls;
+    encode is recorded call by call (its layernorm and tiny_attention
+    shapes checked against the sweeps' tables), and each kernel's launches
+    of it are replayed on their own inputs: checked against the plain
+    version, and timed back to back as the kernel, the plain version and
+    library calls;
  5. holds the backward kernel relpos_attention_backward (K4), handed the
     forward's lse as the training path does, against its plain backward at
     vit_b's training shapes ((50, 12, 196, 64) windows, the (2, 12, 4096, 64)
@@ -53,7 +59,11 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     per encode);
     the gemm at each of the 14 distinct products of the vit_t encode
     (``gemm_sweep``: held against plain, timed with F.linear + epilogue,
-    bound and plan);
+    bound and plan); layernorm at each of its six shapes and tiny_attention
+    at its three stages (``layernorm_sweep``, ``tiny_attention_sweep``:
+    against plain, timed with F.layer_norm / SDPA on the gathered bias,
+    bound, plan, the sums per encode) and the host microseconds a
+    tiny_attention call costs;
     then the same serving path as phase 4 with get_sam_model("vit_t"): launch
     counts per encode (12 dwconv, 10 tiny_attention, 20 layernorm, 44 gemm),
     each chain call's launches counted around it on that path (a chain's
@@ -66,7 +76,8 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     at vit_h's widths (C 1280, N 3840 / 1280 / 5120, K 5120) and the
     attention halves K10 (25, 196, 1280, masked) and K5 (1, 4096, 1280)
     against their plain versions, bf16 and f32, four launches a call; the
-    gemm at the 8 distinct products of the vit_l encode; then the serving
+    gemm at the 8 distinct products of the vit_l encode; layernorm at every
+    shape of the vit_h and vit_l encodes and vit_h's K9; then the serving
     path of phase 4 with
     get_sam_model("vit_h") and get_sam_model("vit_l"): launches per encode
     (64 / 128 / 32 and 48 / 96 / 24 layernorm / gemm / relpos_attention),
@@ -514,29 +525,13 @@ def gemm_sweep(model, seed=4242):
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev, torch.bfloat16)
 
-    rows = []
+    cases = []
     for label, M, N, K, epi, n in GEMM_SHAPES[model]:
         a = (rnd(M, K), rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.1).float(), epi)
         if epi in ("residual", "residual_gelu"):
             a += (rnd(M, N),)
-        kern, _, lib, ref = counterparts("gemm", a, {})
-        err = check(f"gemm {model} {label} ({M}x{K})({K}x{N}) {epi}", kern(), ref(), "bfloat16",
-                    quiet=True)
-        k_ms, l_ms = time_ms(kern), time_ms(lib)
-        b_ms, b_by = bound_of([("gemm", a, {})])
-        rows.append(dict(model=model, shape=f"{label} ({M}x{K})({K}x{N}) {epi}",
-                         launches_per_encode=n, dtype="bfloat16", max_abs_err=err, ms=k_ms,
-                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, plan=gemm_plan_label(a)))
-        log(f"    gemm {model} {rows[-1]['shape']:<44s} x{n:<3d} plan {rows[-1]['plan']}  "
-            f"ms {k_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})  "
-            f"share of bound {b_ms / k_ms:.3f}")
-        del a
-    tot = {k: sum(r[k] * r["launches_per_encode"] for r in rows)
-           for k in ("ms", "library_ms", "bound_ms")}
-    log(f"  gemm {model}, the shapes times their launches per encode: ms {tot['ms']:.4f}  "
-        f"library_ms {tot['library_ms']:.4f}  bound_ms {tot['bound_ms']:.4f}")
-    torch.cuda.empty_cache()
-    return rows
+        cases.append((f"{label} ({M}x{K})({K}x{N}) {epi}", a, n))
+    return sweep_rows("gemm", model, cases)
 
 
 # the depthwise shapes of one batch-1 1024^2 vit_t encode with their launches
@@ -549,32 +544,167 @@ def dwconv_sweep(seed=4343):
     """The bf16 dwconv at each depthwise shape of the vit_t encode
     (``DWCONV_SHAPES``): held against the plain version in f32 on the same
     inputs, timed as the kernel and as cuDNN's depthwise convolution (BN
-    folded, F.gelu), with its bound; then the sums per encode (each shape
-    times its launches)."""
+    folded, F.gelu), with its bound and tile; then the sums per encode (each
+    shape times its launches)."""
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(seed)
-    rows = []
+    cases = []
     for label, H, W, Cc, gelu, n in DWCONV_SHAPES:
         a = ((torch.randn(1, H, W, Cc, generator=g)).to(dev, torch.bfloat16),
              (torch.randn(Cc, 1, 3, 3, generator=g) / 3).to(dev),
              (torch.randn(Cc, generator=g) * 0.2 + 1).to(dev),
              (torch.randn(Cc, generator=g) * 0.1).to(dev), gelu)
-        kern, _, lib, ref = counterparts("dwconv", a, {})
-        shape = f"{label} (1, {H}, {W}, {Cc}){' gelu' if gelu else ''}"
-        err = check(f"dwconv {shape}", kern(), ref(), "bfloat16", quiet=True)
+        cases.append((f"{label} (1, {H}, {W}, {Cc}){' gelu' if gelu else ''}", a, n))
+    return sweep_rows("dwconv", "vit_t", cases)
+
+
+def _vit_layernorm_shapes(width, win_blocks, glob_blocks):
+    """A ViT encode's layernorm shapes: LN1 (masked) and LN2 of the windowed
+    blocks on the window rows, both of the global blocks on the global rows."""
+    return ((f"LN1 ({WIN_ROWS}, {width}) masked", WIN_ROWS, width, "valid", win_blocks),
+            (f"LN2 ({WIN_ROWS}, {width})", WIN_ROWS, width, None, win_blocks),
+            (f"LN1 / LN2 ({GLOB_ROWS}, {width})", GLOB_ROWS, width, None, 2 * glob_blocks))
+
+
+# the layernorm shapes of one batch-1 1024^2 encode of each model, with their
+# launches per encode (the K9 rows: LN1 in the grid mode on the padded maps
+# of the spatial route, per vit_b / vit_h encode and per vit_b 4-tile batch):
+# (label, rows, C, mask: "valid" read, "grid" from the row's position, or
+# None, launches)
+LAYERNORM_SHAPES = {
+    "vit_b": _vit_layernorm_shapes(768, 8, 4),
+    "vit_l": _vit_layernorm_shapes(1024, 20, 4),
+    "vit_h": _vit_layernorm_shapes(1280, 28, 4),
+    "vit_t": (("s1 attention (17689, 128)", 17689, 128, None, 2),
+              ("s1 MLP (16384, 128)", 16384, 128, None, 2),
+              ("s2 attention (4900, 160)", 4900, 160, None, 6),
+              ("s2 MLP (4096, 160)", 4096, 160, None, 6),
+              ("s3 attention (4900, 320)", 4900, 320, None, 2),
+              ("s3 MLP (4096, 320)", 4096, 320, None, 2)),
+    "vit_b K9": (("LN1 (1, 70, 70, 768) grid", 4900, 768, "grid", 8),),
+    "vit_b K9 4-tile batch": (("LN1 (4, 70, 70, 768) grid", 19600, 768, "grid", 8),),
+    "vit_h K9": (("LN1 (1, 70, 70, 1280) grid", 4900, 1280, "grid", 28),),
+}
+
+
+def kernel_plan_label(name, a):
+    """The plan the kernel takes for a gemm, dwconv, layernorm or
+    tiny_attention call (``gemm_plan``, ``dwconv_plan``, ``layernorm_plan``,
+    ``tiny_attention_plan``), or the fixed layout of a package without one."""
+    if name == "gemm":
+        return gemm_plan_label(a)
+    if name == "dwconv":
+        from micro_sam_tpu_torch.ops.dwconv import _alignment, dwconv_plan
+        x = a[0]
+        return str(tuple(dwconv_plan(*x.shape, x.element_size(), _alignment(x))))
+    if name == "layernorm":
+        from micro_sam_tpu_torch.ops import layernorm as mod
+        if not hasattr(mod, "layernorm_plan"):
+            return "a warp a row, 8 a block"
+        from micro_sam_tpu_torch.ops.dwconv import _alignment
+        x, w, b = a[:3]
+        return str(mod.layernorm_plan(*x.shape, x.element_size(), _alignment(x, w, b)))
+    from micro_sam_tpu_torch.ops import tiny_attention as mod
+    qkv, table, (B, Hp, Wp), w = a
+    if qkv.dtype != torch.bfloat16:
+        return "f32 simt"
+    if not hasattr(mod, "tiny_attention_plan"):
+        return "a block of 4 warps per (window, head)"
+    return str(mod.tiny_attention_plan(B, Hp, Wp, qkv.shape[1] // 3, table.shape[0], w))
+
+
+def sweep_rows(name, model, cases):
+    """Each (label, args, launches) call of ``name`` in bf16 against its plain
+    version in f32 on the same inputs, timed as the kernel and as its library
+    call, with its bound and plan; then the sums per encode (each shape times
+    its launches)."""
+    rows = []
+    for label, a, n in cases:
+        kern, _, lib, ref = counterparts(name, a, {})
+        err = check(f"{name} {model} {label}", kern(), ref(), "bfloat16", quiet=True)
         k_ms, l_ms = time_ms(kern), time_ms(lib)
-        b_ms, b_by = bound_of([("dwconv", a, {})])
-        rows.append(dict(model="vit_t", shape=shape, launches_per_encode=n, dtype="bfloat16",
-                         max_abs_err=err, ms=k_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
-        log(f"    dwconv {shape:<32s} x{n:<2d} ms {k_ms:.4f}  library_ms {l_ms:.4f}  "
-            f"bound_ms {b_ms:.4f} ({b_by})  share of bound {b_ms / k_ms:.3f}")
-        del a
+        b_ms, b_by = bound_of([(name, a, {})])
+        rows.append(dict(model=model, shape=label, launches_per_encode=n, dtype="bfloat16",
+                         max_abs_err=err, ms=k_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                         plan=kernel_plan_label(name, a)))
+        log(f"    {name} {model} {label:<44s} x{n:<3d} ms {k_ms:.4f}  library_ms {l_ms:.4f}  "
+            f"bound_ms {b_ms:.4f} ({b_by})  share of bound {b_ms / k_ms:.3f}  plan {rows[-1]['plan']}")
     tot = {k: sum(r[k] * r["launches_per_encode"] for r in rows)
            for k in ("ms", "library_ms", "bound_ms")}
-    log(f"  dwconv vit_t, the shapes times their launches per encode: ms {tot['ms']:.4f}  "
-        f"library_ms {tot['library_ms']:.4f}  bound_ms {tot['bound_ms']:.4f}")
+    log(f"  {name} {model}, the shapes times their launches: ms {tot['ms']:.4f}  "
+        f"library_ms {tot['library_ms']:.4f}  bound_ms {tot['bound_ms']:.4f}  share of bound "
+        f"{tot['bound_ms'] / tot['ms']:.3f}")
     torch.cuda.empty_cache()
     return rows
+
+
+def layernorm_sweep(model, seed=4444):
+    """The bf16 layernorm at each shape of ``model``'s encode
+    (``LAYERNORM_SHAPES``), masked as the encode masks it, against plain,
+    timed with F.layer_norm (times the mask), bound, plan, sums per encode."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cases = []
+    for label, M, Cc, mask, n in LAYERNORM_SHAPES[model]:
+        a = ((torch.randn(M, Cc, generator=g) * 3).to(dev, torch.bfloat16),
+             (torch.randn(Cc, generator=g) * 0.5 + 1).to(dev),
+             (torch.randn(Cc, generator=g) * 0.1).to(dev), 1e-6,
+             (torch.rand(M, generator=g) > 0.2).float().to(dev) if mask == "valid" else None)
+        if mask == "grid":
+            a += ((70, 70, 64, 64),)
+        cases.append((label, a, n))
+    return sweep_rows("layernorm", model, cases)
+
+
+TINY_ATTN_LAUNCHES = {1: 2, 2: 6, 3: 2}  # launches per vit_t encode of each stage
+
+
+def tiny_attention_sweep(seed=4545):
+    """The bf16 tiny_attention at the three stage shapes of the vit_t encode
+    (``TINY_ATTN_SHAPES``) against plain, timed with SDPA (bias gathered),
+    bound, plan, sums per encode."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cases = []
+    for Hp, Cc, nH, w, st in TINY_ATTN_SHAPES:
+        a = (torch.randn(Hp * Hp, 3 * Cc, generator=g).to(dev, torch.bfloat16),
+             (torch.randn(nH, w * w, generator=g) * 0.5).to(dev), (1, Hp, Hp), w)
+        cases.append((f"stage {st} (1, {Hp}, {Hp}, {Cc}) {nH} heads, window {w}", a,
+                      TINY_ATTN_LAUNCHES[st]))
+    return sweep_rows("tiny_attention", "vit_t", cases)
+
+
+def host_us(name, launches=1000):
+    """Host microseconds a gemm, layernorm or tiny_attention call costs
+    (wrapper, plan, tensor maps, launch): a host clock around ``launches``
+    calls of a small bf16 shape on the same inputs (one weight), before the
+    synchronize."""
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    from micro_sam_tpu_torch.ops.layernorm import layernorm
+    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention
+    g = torch.Generator(device="cpu").manual_seed(8)
+    if name == "gemm":
+        x, w = (torch.randn(256, 256, generator=g).to("cuda", torch.bfloat16) for _ in range(2))
+        b = torch.zeros(256, device="cuda")
+        call, shape = lambda: gemm(x, w, b), "(256x256)(256x256)"
+    elif name == "layernorm":
+        x = torch.randn(256, 768, generator=g).to("cuda", torch.bfloat16)
+        w, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+        call, shape = lambda: layernorm(x, w, b, 1e-6), "(256, 768)"
+    else:
+        qkv = torch.randn(14 * 14, 384, generator=g).to("cuda", torch.bfloat16)
+        table = torch.zeros(4, 49, device="cuda")
+        call, shape = lambda: tiny_attention(qkv, table, (1, 14, 14), 7), "(1, 14, 14, 128)"
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        call()
+    us = (time.perf_counter() - t0) / launches * 1e6
+    torch.cuda.synchronize()
+    log(f"  {name} host cost: {us:.2f} us a call (host clock around {launches} calls of {shape})")
+    return us
 
 
 def sass_check(lib, tag, ops):
@@ -609,27 +739,6 @@ def sass_check(lib, tag, ops):
     if not mine or any(0 in v.values() for v in mine.values()):
         raise AssertionError(f"{lib}: a '{tag}' kernel without {ops}: {counts}")
     return mine
-
-
-def gemm_host_us(launches=1000):
-    """Host microseconds a gemm call costs (wrapper, tensor maps, launch): a
-    host clock around ``launches`` calls of a small shape on one x and one
-    weight, before the synchronize."""
-    from micro_sam_tpu_torch.ops.gemm import gemm
-    g = torch.Generator(device="cpu").manual_seed(7)
-    x, w = (torch.randn(256, 256, generator=g).to("cuda", torch.bfloat16) for _ in range(2))
-    b = torch.zeros(256, device="cuda")
-    for _ in range(20):
-        gemm(x, w, b)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(launches):
-        gemm(x, w, b)
-    us = (time.perf_counter() - t0) / launches * 1e6
-    torch.cuda.synchronize()
-    log(f"  gemm host cost: {us:.2f} us a call (host clock around {launches} calls of "
-        f"(256x256)(256x256), one weight)")
-    return us
 
 
 def kernel_phase(counters, width=C, heads=NH, halves=False, attn_heads=()):
@@ -736,8 +845,27 @@ def kernel_phase(counters, width=C, heads=NH, halves=False, attn_heads=()):
     return shapes, chains
 
 
+def swept_shapes_check(model, calls):
+    """The layernorm and tiny_attention shapes of a recorded encode of
+    ``model`` against the sweeps' tables (``LAYERNORM_SHAPES``,
+    ``TINY_ATTN_SHAPES``), launches per shape included: the sweeps time what
+    the encode runs."""
+    import collections
+    want = collections.Counter()
+    for _, M, Cc, _, n in LAYERNORM_SHAPES.get(model, ()):
+        want[("layernorm", M, Cc)] += n
+    if model == "vit_t":
+        for Hp, Cc, _, _, st in TINY_ATTN_SHAPES:
+            want[("tiny_attention", Hp * Hp, 3 * Cc)] += TINY_ATTN_LAUNCHES[st]
+    seen = collections.Counter((c[0],) + tuple(c[1][0].shape) for c in calls
+                               if c[0] in {k[0] for k in want})
+    if seen != want:
+        raise AssertionError(f"{model}: the encode's shapes {dict(seen)} are not the sweeps' "
+                             f"{dict(want)}")
+
+
 def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None,
-                        chain_launches=None):
+                        chain_launches=None, model=None):
     """Records one batch-1 encode of the main path's model and image, then
     replays each kernel's launches of it on their own inputs: against the f32
     plain version (the check), and timed, back to back, as the kernel, as the
@@ -764,6 +892,7 @@ def encode_replay_phase(predictor, x1, counters, launches, n_images, chains=None
     log(f"  launches in one recorded encode: {per_encode}")
     if any(per_encode[k] * n_images != launches[k] for k in counters):
         raise AssertionError("one encode's launches are not the main path's per image")
+    swept_shapes_check(model, rec.calls)
     out = {}
     for name in counters:
         calls = [c for c in rec.calls if c[0] == name]
@@ -809,7 +938,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 
 
 def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
-              host_us):
+              host):
     """One entry per kernel, per vit_t chain and per ViT attention half (K5,
     K10). launches: the count of the path the kernel is on (vit_b serving for
     layernorm, gemm and relpos_attention, whose vit_t, training, vit_h and
@@ -824,8 +953,9 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
     backward at head dim 80 (launches and times of the vit_h training path,
     one vit_h step's calls) and K12 (launches and times of its own path:
     two calls through attention_with_rel_pos, forward and backward). The
-    gemm entry adds the launches per plan of each model's encode and the
-    host microseconds a call costs."""
+    gemm entry adds the launches per plan of each model's encode; the gemm,
+    layernorm and tiny_attention entries the host microseconds a call costs
+    (``host``, by kernel)."""
     sources = {"layernorm": "micro_sam_tpu_torch/csrc/layernorm.cu",
                "gemm": "micro_sam_tpu_torch/csrc/gemm.cu",
                "relpos_attention": "micro_sam_tpu_torch/csrc/relpos_attention.cu"}
@@ -854,7 +984,8 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
             out[-1]["plans"] = {"vit_b": e["plans"], "vit_t": tiny["per_encode"][name]["plans"],
                                 **{m: lh[m]["per_encode"][name]["plans"]
                                    for m in ("vit_h", "vit_l")}}
-            out[-1]["host_us"] = host_us
+        if name in host:
+            out[-1]["host_us"] = host[name]
         out[-1]["max_abs_err"] = max([out[-1]["max_abs_err"]] + [
             r["max_abs_err"] for r in lh["shapes"][name]])
         if name == "relpos_attention":
@@ -931,6 +1062,8 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
             "launches_per_encode": e["launches_per_encode"], "per": vit_t.format("launches"),
             "shapes": tiny["shapes"][name],
         })
+        if name in host:
+            out[-1]["host_us"] = host[name]
     for name, tag, replaces in (
             ("fused_mbconv", "K7", "micro_sam_tpu/ops/fused_mbconv.py:120 (_mbconv_fused_forward "
              ":106 -> fused_mbconv :147, kernel _mbconv_kernel :57)"),
@@ -1077,7 +1210,7 @@ def main_path_phase(counters, model_type="vit_b", chains=None, reference="cpu"):
     prof = profile_step(lambda: (predictor.encode_batch(x1), torch.cuda.synchronize()),
                         SERVE_PROFILE_GROUPS)
     per_encode = encode_replay_phase(predictor, x1, counters, launches, n_images, chains,
-                                     chain_counts.launches)
+                                     chain_counts.launches, model_type)
 
     # the embedding against the same weights' plain f32 run
     px = preprocess(torch.from_numpy(x1))
@@ -2736,6 +2869,8 @@ def main():
                         log(f"  ptxas {n} {entry}: {line.strip()}")
     sass_check("gemm", "wgmma", ("HGMMA", "UTMALDG"))  # the bf16 kernels
     sass_check("dwconv", "dwconv_tma_kernel", ("UTMALDG",))
+    sass_check("tiny_attention", "tiny_attention_tma_kernel", ("UTMALDG",))
+    sass_check("layernorm", "layernorm_vec_kernel", ())
 
     # the profiler's first sessions in a process are the ones seen to record
     # nothing: take them on a throwaway measurement
@@ -2746,7 +2881,11 @@ def main():
     counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention,
                 "dwconv": dwconv, "tiny_attention": tiny_attention}
     shapes, chains = kernel_phase(counters)
-    host_us = gemm_host_us()
+    log("layernorm at every shape of the vit_b encode and K9's grid mode (bf16) against "
+        "F.layer_norm")
+    for m in ("vit_b", "vit_b K9", "vit_b K9 4-tile batch"):
+        shapes["layernorm"] += layernorm_sweep(m)
+    host = {"gemm": host_us("gemm"), "layernorm": host_us("layernorm")}
     log("main path: vit_b, 1024^2, random weights (seed 0), bf16")
     launches, per_encode, e2e = main_path_phase(counters)
     torch.cuda.empty_cache()
@@ -2772,6 +2911,11 @@ def main():
     tiny_shapes["dwconv"] += dwconv_sweep()
     log("gemm at every distinct product of the vit_t encode (bf16)")
     tiny_shapes["gemm"] += gemm_sweep("vit_t")
+    log("layernorm at every shape of the vit_t encode, tiny_attention at its three stages "
+        "(bf16) against F.layer_norm and SDPA")
+    tiny_shapes["layernorm"] = layernorm_sweep("vit_t")
+    tiny_shapes["tiny_attention"] += tiny_attention_sweep()
+    host["tiny_attention"] = host_us("tiny_attention")
     log("main path: vit_t, 1024^2, random weights (seed 0), bf16")
     t_launches, t_per_encode, t_e2e = main_path_phase(counters, "vit_t", chains=TINY_CHAINS)
     tiny = dict(shapes=tiny_shapes, chains=tiny_chains, launches=t_launches,
@@ -2786,6 +2930,9 @@ def main():
                                         attn_heads=((16, 64),))
     log("gemm at every distinct product of the vit_l encode (bf16)")
     lh_shapes["gemm"] += gemm_sweep("vit_l")
+    log("layernorm at every shape of the vit_h and vit_l encodes and vit_h's K9 (bf16)")
+    for m in ("vit_h", "vit_l", "vit_h K9"):
+        lh_shapes["layernorm"] += layernorm_sweep(m)
     lh = dict(shapes=lh_shapes, chains=lh_chains)
     for model_type in ("vit_h", "vit_l"):
         log(f"main path: {model_type}, 1024^2, random weights (seed 0), bf16")
@@ -2808,7 +2955,7 @@ def main():
     p10 = tiled_phase(counters, root)
     log(f"phase 10 (tiled precompute, K9 / K11, head dims): {time.perf_counter() - t10:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
-                     host_us)
+                     host)
     rows += summarize_tiled(p10)
     # the details first, then the kernels line, short: one entry per kernel
     # and chain with the keys of the contract

@@ -6,8 +6,12 @@ compared on one card:
     python3 kernel_replay.py OLD NEW NEW OLD [--model vit_b|vit_h|vit_t] [--out FILE]
     python3 kernel_replay.py OLD NEW NEW OLD --gemm-shapes [--out FILE]
     python3 kernel_replay.py OLD NEW NEW OLD --dwconv-shapes [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD --layernorm-shapes [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD --tiny-attention-shapes [--out FILE]
     python3 kernel_replay.py . --gemm-plans [--out FILE]
     python3 kernel_replay.py . --dwconv-plans [--out FILE]
+    python3 kernel_replay.py . --layernorm-plans [--out FILE]
+    python3 kernel_replay.py . --tiny-attention-plans [--out FILE]
     python3 kernel_replay.py OLD NEW NEW OLD --encode [--model ...] [--out FILE]
 
 Each argument is the root of a checkout (``.`` for this one). Its process
@@ -32,7 +36,7 @@ step); ``--out`` writes all of it to a JSON file. ``--gemm-shapes`` replaces
 both replays by the bf16 ``gemm`` at every distinct shape of the vit_b,
 vit_l, vit_h and vit_t encodes (``gemm_sweep`` of ``chip_smoke.py``: held
 against the plain version, timed with ``F.linear`` + epilogue, the bound and
-the plan) and the host microseconds a ``gemm`` call costs (``gemm_host_us``);
+the plan) and the host microseconds a ``gemm`` call costs (``host_us``);
 ``--gemm-plans`` times the vit_b, vit_h and vit_t shapes under every plan the
 kernel takes (``plan_sweep``), for tuning ``gemm_plan``. ``--dwconv-shapes``
 replaces the replays by the bf16 ``dwconv`` at each depthwise shape of the
@@ -40,6 +44,16 @@ vit_t encode (``dwconv_sweep`` of ``chip_smoke.py``: held against the plain
 version, timed with cuDNN's depthwise convolution, the bound), and sums them
 per encode; ``--dwconv-plans`` times those shapes under tiles of 128 and 256
 threads and 4 to 32 rows (``dwconv_plan_sweep``), for tuning ``dwconv_plan``.
+``--layernorm-shapes`` replaces the replays by the bf16 ``layernorm`` at
+every shape of the vit_b, vit_l, vit_h and vit_t encodes and K9's grid-mode
+shapes (``layernorm_sweep``: against plain, timed with ``F.layer_norm``, the
+bound and the plan), ``--tiny-attention-shapes`` by the bf16
+``tiny_attention`` at the three vit_t stages (``tiny_attention_sweep``:
+timed with SDPA on the gathered bias); each with the host microseconds a
+call costs (``host_us``) and the sums per encode. ``--layernorm-plans`` and
+``--tiny-attention-plans`` time those shapes under other grids (and, for
+``tiny_attention``, other heads a unit), for tuning ``layernorm_plan`` and
+``tiny_attention_plan``.
 ``--encode`` times, instead of any kernel, ``SamPredictor.encode_batch`` of
 ``--model`` on a host clock that ends in a synchronize (1024 x 1024 pixels
 at batch 1 and 8, ``ENCODE_REPS`` runs after two warm-ups, the median per
@@ -71,7 +85,8 @@ def smoke_module():
 
 
 # the sweeps that replace the replays, one flag each (a child runs one)
-SWEEPS = ("gemm-shapes", "gemm-plans", "dwconv-shapes", "dwconv-plans", "encode")
+SWEEPS = ("gemm-shapes", "gemm-plans", "dwconv-shapes", "dwconv-plans", "layernorm-shapes",
+          "layernorm-plans", "tiny-attention-shapes", "tiny-attention-plans", "encode")
 ENCODE_REPS = 10
 
 
@@ -89,13 +104,36 @@ def sweep_child(root: str, smoke, sweep: str) -> dict:
         out["plans"] = dwconv_plan_sweep(smoke)
     elif sweep == "gemm-plans":
         out["plans"] = {m: plan_sweep(smoke, m) for m in PLAN_MODELS}
+    elif sweep == "layernorm-shapes":
+        out["host_us"] = smoke.host_us("layernorm")
+        out["shapes"] = {m: smoke.layernorm_sweep(m) for m in smoke.LAYERNORM_SHAPES}
+    elif sweep == "tiny-attention-shapes":
+        out["host_us"] = smoke.host_us("tiny_attention")
+        out["shapes"] = {"vit_t": smoke.tiny_attention_sweep()}
+    elif sweep == "layernorm-plans":
+        out["plans"] = layernorm_plan_sweep(smoke)
+    elif sweep == "tiny-attention-plans":
+        out["plans"] = tiny_attention_plan_sweep(smoke)
     else:
-        out["host_us"] = smoke.gemm_host_us()
+        out["host_us"] = smoke.host_us("gemm")
         out["shapes"] = {model: smoke.gemm_sweep(model) for model in smoke.GEMM_SHAPES}
     return out
 
 
 PLAN_MODELS = ("vit_b", "vit_h", "vit_t")
+
+
+def timed_plans(smoke, name, label, run, ref, picked, cands) -> dict:
+    """Each plan of ``cands`` (with ``picked``) held against ``ref`` and timed;
+    one row: ms per plan, the picked one and the best."""
+    ms = {}
+    for p in sorted(set(cands) | {picked}):
+        smoke.check(f"{name} {label} {p}", run(p), ref, "bfloat16", quiet=True)
+        ms[str(tuple(p))] = smoke.time_ms(lambda: run(p))
+    best = min(ms, key=ms.get)
+    print(f"  {name} {label}: picked {tuple(picked)} {ms[str(tuple(picked))]:.4f} ms; best "
+          f"{best} {ms[best]:.4f} ms", flush=True)
+    return {"shape": label, "ms": ms, "picked": str(tuple(picked)), "best": best}
 
 
 def dwconv_plan_sweep(smoke) -> list:
@@ -104,32 +142,81 @@ def dwconv_plan_sweep(smoke) -> list:
     against the plain version; one row per shape: ms per tile and the tile
     ``dwconv_plan`` picks."""
     import torch
-    from micro_sam_tpu_torch.ops.dwconv import DwconvPlan, dwconv, dwconv_plain, dwconv_plan
+    from micro_sam_tpu_torch.ops.dwconv import dwconv, dwconv_plain, dwconv_plan
     g = torch.Generator().manual_seed(6)
     rows = []
     for label, H, W, C, gelu, n in smoke.DWCONV_SHAPES:
         x = torch.randn(1, H, W, C, generator=g).to("cuda", torch.bfloat16)
         w = (torch.randn(C, 1, 3, 3, generator=g) / 3).to("cuda")
         s, t = (torch.rand(C, generator=g) + 0.5).cuda(), (torch.randn(C, generator=g) * 0.1).cuda()
-        ref = dwconv_plain(x.float(), w, s, t, gelu)
         picked = dwconv_plan(1, H, W, C, 2)
-        cands = {picked}
+        cands = []
         for threads in (128, 256):
             for th in (4, 8, 16, 32):
                 tw = min(W, 128, threads // (picked.ct // picked.vec))
                 slot = -(-(th + 2) * (tw + 2) * picked.ct * 2 // 128) * 128
                 if 2 * slot + 144 <= 232448:  # two halo slots within a block's shared memory
-                    cands.add(picked._replace(th=min(th, H), tw=tw))
-        ms = {}
-        for p in sorted(cands):
-            smoke.check(f"dwconv {label} {p}", dwconv(x, w, s, t, gelu, plan=p), ref, "bfloat16",
-                        quiet=True)
-            ms[str(tuple(p))] = smoke.time_ms(lambda: dwconv(x, w, s, t, gelu, plan=p))
-        best = min(ms, key=ms.get)
-        rows.append({"shape": f"{label} (1, {H}, {W}, {C})", "launches_per_encode": n, "ms": ms,
-                     "picked": str(tuple(picked)), "best": best})
-        print(f"  dwconv {rows[-1]['shape']}: picked {tuple(picked)} {ms[str(tuple(picked))]:.4f} "
-              f"ms; best {best} {ms[best]:.4f} ms", flush=True)
+                    cands.append(picked._replace(th=min(th, H), tw=tw))
+        rows.append(timed_plans(smoke, "dwconv", f"{label} (1, {H}, {W}, {C})",
+                                lambda p: dwconv(x, w, s, t, gelu, plan=p),
+                                dwconv_plain(x.float(), w, s, t, gelu), picked, cands))
+        rows[-1]["launches_per_encode"] = n
+    return rows
+
+
+def layernorm_plan_sweep(smoke) -> list:
+    """The bf16 layernorm at each vit_b / vit_h / vit_t shape under persistent
+    grids of 1 to 4 blocks an SM and a block per 8 row groups."""
+    import torch
+    from micro_sam_tpu_torch.ops.layernorm import WARPS, layernorm, layernorm_plain, layernorm_plan
+    g = torch.Generator().manual_seed(7)
+    rows = []
+    for model in ("vit_b", "vit_h", "vit_t"):
+        for label, M, C, mask, _ in smoke.LAYERNORM_SHAPES[model]:
+            x = (torch.randn(M, C, generator=g) * 3).to("cuda", torch.bfloat16)
+            w, b = (torch.rand(C, generator=g) + 0.5).cuda(), torch.randn(C, generator=g).cuda()
+            ref = layernorm_plain(x.float(), w, b, 1e-6)
+            picked = layernorm_plan(M, C, 2, 16)
+            groups = -(-M // picked.rows_per_warp)
+            most = -(-groups // WARPS)
+            cands = [picked._replace(grid=min(most, 132 * k)) for k in (1, 2, 3, 4)]
+            cands.append(picked._replace(grid=most))
+            rows.append(timed_plans(smoke, "layernorm", f"{model} {label}",
+                                    lambda p: layernorm(x, w, b, 1e-6, plan=p), ref, picked,
+                                    cands))
+    return rows
+
+
+def tiny_attention_plan_sweep(smoke) -> list:
+    """The bf16 tiny_attention at the three vit_t stages, batch 1 and 8, under
+    every heads a unit that fits and persistent grids of 1 to 8 blocks an SM
+    (and a block per unit)."""
+    import torch
+    from micro_sam_tpu_torch.ops.tiny_attention import (MAX_WARPS, TinyAttentionPlan,
+                                                        blocks_per_sm, smem_bytes,
+                                                        tiny_attention, tiny_attention_plain,
+                                                        tiny_attention_plan)
+    g = torch.Generator().manual_seed(8)
+    rows = []
+    for B in (1, 8):
+        for Hp, C, nH, w, st in smoke.TINY_ATTN_SHAPES:
+            qkv = torch.randn(B * Hp * Hp, 3 * C, generator=g).to("cuda", torch.bfloat16)
+            table = (torch.randn(nH, w * w, generator=g) * 0.5).cuda()
+            ref = tiny_attention_plain(qkv.float(), table, (B, Hp, Hp), w)
+            picked = tiny_attention_plan(B, Hp, Hp, C, nH, w)
+            groups = -(-w * w // 16)
+            cands = []
+            for heads in (d for d in range(1, nH + 1) if nH % d == 0):
+                if heads * groups > MAX_WARPS[w]:
+                    continue
+                units = B * (Hp // w) ** 2 * nH // heads
+                per_sm = blocks_per_sm(w, heads, nH)
+                for grid in {min(units, 132 * k) for k in range(1, per_sm + 1)} | {units}:
+                    cands.append(TinyAttentionPlan(heads, heads * groups, units, grid, 2,
+                                                   smem_bytes(w, heads, nH), per_sm))
+            rows.append(timed_plans(smoke, "tiny_attention", f"stage {st} batch {B}",
+                                    lambda p: tiny_attention(qkv, table, (B, Hp, Hp), w, plan=p),
+                                    ref, picked, cands))
     return rows
 
 

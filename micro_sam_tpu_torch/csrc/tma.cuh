@@ -1,8 +1,9 @@
 // The mbarrier and TMA pieces shared by the kernels that load tiles with the
-// Tensor Memory Accelerator (gemm.cu, dwconv.cu): barrier waits that trap
-// instead of hanging, 2-d and 4-d tile loads completing on a barrier's
-// transaction count, and cuTensorMapEncodeTiled (a CUDA entry point outside
-// the runtime) reached through cudaGetDriverEntryPoint (no -lcuda).
+// Tensor Memory Accelerator (gemm.cu, dwconv.cu, tiny_attention.cu): barrier
+// waits that trap instead of hanging, 2-d, 3-d and 4-d tile loads completing
+// on a barrier's transaction count, and cuTensorMapEncodeTiled (a CUDA entry
+// point outside the runtime) reached through cudaGetDriverEntryPoint (no
+// -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -49,6 +50,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// one 3-d TMA load of a box at (c0, c1, c2), innermost first, into shared
+// memory, completing on the barrier's transaction count
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

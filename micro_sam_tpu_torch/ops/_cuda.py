@@ -46,7 +46,7 @@ _BWD_SIGNATURE = ("msam_relpos_attention_bwd",
                   [_I, _I] + [_P] * 14 + [_LL] + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 6
                   + [_P])
 _SIGNATURES = {
-    "layernorm": ("msam_layernorm", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
+    "layernorm": ("msam_layernorm", [_P] * 5 + [_I, _I, _F] + [_I] * 8 + [_P]),
     "gemm": ("msam_gemm", [_P] * 5 + [_I] * 9 + [_P]),
     **{f"relpos_attention_hd{d}": ("msam_relpos_attention",
                                    [_P] * 8 + [_I] * 6 + [ctypes.POINTER(_LL), _F] + [_I] * 9
@@ -54,11 +54,12 @@ _SIGNATURES = {
        for d in RELPOS_HEAD_DIMS},
     **{f"relpos_attention_bwd_hd{d}": _BWD_SIGNATURE for d in RELPOS_BWD_HEAD_DIMS},
     "dwconv": ("msam_dwconv", [_P] * 5 + [_I] * 11 + [_P]),
-    "tiny_attention": ("msam_tiny_attention", [_P] * 3 + [_I] * 6 + [_F, _I, _P]),
+    "tiny_attention": ("msam_tiny_attention", [_P] * 3 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
 }
 # a library's other exports: name -> [(function, argtypes, restype)]
 _MORE = {"gemm": [("msam_gemm_maps_encoded", [_I], _I)],
-         "dwconv": [("msam_dwconv_maps_encoded", [], _I)]}
+         "dwconv": [("msam_dwconv_maps_encoded", [], _I)],
+         "tiny_attention": [("msam_tiny_attention_maps_encoded", [], _I)]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -153,7 +154,14 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{fn_name} failed: CUDA error {code} ({msg.decode()})")
 
 
+# the current stream's raw handle, without building a Stream object a call
+# (torch.cuda.current_stream(...).cuda_stream where torch lacks it)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -49,6 +49,117 @@ def test_layernorm_matches_plain(dev, dtype, masked):
     _held(got, layernorm_plain(x.float(), w, b, 1e-6, v), dtype)
 
 
+# every layernorm shape of the vit_b, vit_l, vit_h and vit_t encodes (rows, C)
+LN_ENCODE_SHAPES = [(4900, 768), (4096, 768), (4900, 1024), (4096, 1024), (4900, 1280),
+                    (4096, 1280), (17689, 128), (16384, 128), (4900, 160), (4096, 160),
+                    (4900, 320), (4096, 320)]
+
+
+def _ln_case(dev, dtype, M, C, masked, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(M, C, generator=g) * 3).to(dev, dtype)
+    w = (torch.randn(C, generator=g) * 0.5 + 1).to(dev)
+    b = (torch.randn(C, generator=g) * 0.1).to(dev)
+    v = (torch.rand(M, generator=g) > 0.2).float().to(dev) if masked else None
+    return x, w, b, v
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("M,C", LN_ENCODE_SHAPES)
+def test_layernorm_encode_shapes_match_plain(dev, dtype, masked, M, C):
+    from micro_sam_tpu_torch.ops.layernorm import layernorm, layernorm_plain
+    x, w, b, v = _ln_case(dev, dtype, M, C, masked)
+    n = layernorm.launches
+    got = layernorm(x, w, b, 1e-6, v)
+    torch.cuda.synchronize()
+    assert layernorm.launches == n + 1
+    _held(got, layernorm_plain(x.float(), w, b, 1e-6, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,C", [(1, 768), (4, 768), (1, 1280)])
+def test_layernorm_grid_mode_equals_the_read_mask(dev, dtype, B, C):
+    """K9's grid mode against plain, and to the bit against the same rows
+    with the mask read (the default route's LN1)."""
+    from micro_sam_tpu_torch.ops.layernorm import grid_mask, layernorm, layernorm_plain
+    grid = (70, 70, 64, 64)
+    x, w, b, _ = _ln_case(dev, dtype, B * 4900, C, False, seed=1)
+    got = layernorm(x, w, b, 1e-6, grid=grid)
+    torch.cuda.synchronize()
+    _held(got, layernorm_plain(x.float(), w, b, 1e-6, grid=grid), dtype)
+    assert torch.equal(got, layernorm(x, w, b, 1e-6, grid_mask(x.shape[0], grid, dev)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [72, 100, 1000, 1001, 1536, 256])
+def test_layernorm_general_widths_match_plain(dev, dtype, C):
+    """Widths without a vector instantiation, not multiples of 8, the widest."""
+    from micro_sam_tpu_torch.ops.layernorm import layernorm, layernorm_plain, layernorm_plan
+    x, w, b, v = _ln_case(dev, dtype, 777, C, True, seed=2)
+    assert layernorm_plan(777, C, x.element_size(), 16).variant == "general"
+    got = layernorm(x, w, b, 1e-5, v)
+    torch.cuda.synchronize()
+    _held(got, layernorm_plain(x.float(), w, b, 1e-5, v), dtype)
+
+
+@pytest.mark.parametrize("C", [128, 768, 1280])
+def test_layernorm_misaligned_input_matches_plain(dev, C):
+    """An input 2 bytes past a 16-byte boundary takes the general variant."""
+    from micro_sam_tpu_torch.ops.layernorm import layernorm, layernorm_plain
+    M = 300
+    x0, w, b, v = _ln_case(dev, torch.bfloat16, M, C, True, seed=3)
+    buf = torch.empty(M * C + 1, device=dev, dtype=torch.bfloat16)
+    x = buf[1:].view(M, C)
+    x.copy_(x0)
+    assert x.data_ptr() % 16 == 2
+    got = layernorm(x, w, b, 1e-6, v)
+    torch.cuda.synchronize()
+    _held(got, layernorm_plain(x0.float(), w, b, 1e-6, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("C", [128, 160, 320, 768, 1024, 1280])
+@pytest.mark.parametrize("M", [1, 3, 7, 9, 17, 63])
+def test_layernorm_rows_that_fill_no_block_match_plain(dev, C, M):
+    from micro_sam_tpu_torch.ops.layernorm import layernorm, layernorm_plain
+    x, w, b, v = _ln_case(dev, torch.bfloat16, M, C, True, seed=M)
+    got = layernorm(x, w, b, 1e-6, v)
+    torch.cuda.synchronize()
+    _held(got, layernorm_plain(x.float(), w, b, 1e-6, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("C", [128, 160, 320, 768, 1024, 1280])
+def test_layernorm_vec_variant_on_any_grid_matches_plain(dev, C):
+    """One block walking every row (the next rows' loads in flight), and the
+    general variant at the same width, against plain."""
+    from micro_sam_tpu_torch.ops.layernorm import (LayernormPlan, layernorm, layernorm_plain,
+                                                   layernorm_plan)
+    M = 4900
+    x, w, b, v = _ln_case(dev, torch.bfloat16, M, C, True, seed=4)
+    ref = layernorm_plain(x.float(), w, b, 1e-6, v)
+    plan = layernorm_plan(M, C, 2, 16)
+    assert plan.variant == "vec"
+    for p in (plan._replace(grid=1), plan._replace(grid=3),
+              LayernormPlan("general", 32, -(-C // 32), 1, -(-M // 8))):
+        got = layernorm(x, w, b, 1e-6, v, plan=p)
+        torch.cuda.synchronize()
+        _held(got, ref, torch.bfloat16)
+
+
+def test_layernorm_refuses_what_the_plan_would_not_choose(dev):
+    from micro_sam_tpu_torch.ops.layernorm import layernorm, layernorm_plan
+    x, w, b, _ = _ln_case(dev, torch.float32, 64, 768, False)
+    vec = layernorm_plan(64, 768, 2, 16)
+    with pytest.raises(RuntimeError):  # no f32 vector variant
+        layernorm(x, w, b, 1e-6, plan=vec)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(RuntimeError):  # the lanes of another width
+        layernorm(xb, w, b, 1e-6, plan=vec._replace(lanes=16))
+    xo = torch.zeros(64 * 72, device=dev, dtype=torch.bfloat16).view(64, 72)
+    with pytest.raises(RuntimeError):  # a width without a vector instantiation
+        layernorm(xo, w[:72], b[:72], 1e-6, plan=vec)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("epilogue", ["none", "gelu", "residual", "residual_gelu"])
 @pytest.mark.parametrize("M,K,N", [
@@ -776,6 +887,73 @@ def test_tiny_attention_matches_plain(dev, dtype, B, Hp, Wp, C, nH, w):
     torch.cuda.synchronize()
     assert tiny_attention.launches == n + 1
     _held(got, tiny_attention_plain(qkv.float(), table, (B, Hp, Wp), w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("Hp,C,nH,w", [(133, 128, 4, 7), (70, 160, 5, 14), (70, 320, 10, 7)],
+                         ids=["stage1", "stage2", "stage3"])
+def test_tiny_attention_batch2_matches_plain(dev, dtype, Hp, C, nH, w):
+    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention, tiny_attention_plain
+    g = torch.Generator().manual_seed(10)
+    qkv = torch.randn(2 * Hp * Hp, 3 * C, generator=g).to(dev, dtype)
+    table = (torch.randn(nH, w * w, generator=g) * 0.5).to(dev)
+    got = tiny_attention(qkv, table, (2, Hp, Hp), w)
+    torch.cuda.synchronize()
+    _held(got, tiny_attention_plain(qkv.float(), table, (2, Hp, Hp), w), dtype)
+
+
+@pytest.mark.parametrize("case", ["grid1", "grid7", "one_head", "warps_in_turns"])
+@pytest.mark.parametrize("Hp,C,nH,w", [(133, 128, 4, 7), (70, 160, 5, 14), (70, 320, 10, 7)],
+                         ids=["stage1", "stage2", "stage3"])
+def test_tiny_attention_other_layouts_match_plain(dev, case, Hp, C, nH, w):
+    """The bf16 kernel under layouts the plan does not pick: one block or 7
+    walking every unit through the load ring, a head a unit, fewer warps than
+    (head, row group) pairs."""
+    from micro_sam_tpu_torch.ops.tiny_attention import (TinyAttentionPlan, smem_bytes,
+                                                        tiny_attention, tiny_attention_plain,
+                                                        tiny_attention_plan)
+    g = torch.Generator().manual_seed(11)
+    qkv = torch.randn(Hp * Hp, 3 * C, generator=g).to(dev, torch.bfloat16)
+    table = (torch.randn(nH, w * w, generator=g) * 0.5).to(dev)
+    plan = tiny_attention_plan(1, Hp, Hp, C, nH, w)
+    groups = -(-w * w // 16)
+    if case == "grid1":
+        plan = plan._replace(grid=1)
+    elif case == "grid7":
+        plan = plan._replace(grid=7)
+    elif case == "one_head":
+        units = (Hp // w) ** 2 * nH
+        plan = TinyAttentionPlan(1, groups, units, min(units, 132), 2, smem_bytes(w, 1, nH), 1)
+    else:
+        plan = plan._replace(warps=max(1, plan.warps // 3))
+    got = tiny_attention(qkv, table, (1, Hp, Hp), w, plan=plan)
+    torch.cuda.synchronize()
+    _held(got, tiny_attention_plain(qkv.float(), table, (1, Hp, Hp), w), torch.bfloat16)
+
+
+def test_tiny_attention_reuses_its_tensor_map(dev):
+    from micro_sam_tpu_torch.ops import _cuda
+    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention
+    qkv = torch.randn(70 * 70, 480, device=dev).to(torch.bfloat16)
+    table = torch.randn(5, 196, device=dev)
+    tiny_attention(qkv, table, (1, 70, 70), 14)
+    lib = _cuda.library("tiny_attention")
+    n = lib.msam_tiny_attention_maps_encoded()
+    for _ in range(3):
+        tiny_attention(qkv, table, (1, 70, 70), 14)
+    torch.cuda.synchronize()
+    assert lib.msam_tiny_attention_maps_encoded() == n
+
+
+def test_tiny_attention_refuses_more_warps_than_built(dev):
+    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention, tiny_attention_plan
+    qkv = torch.randn(70 * 70, 480, device=dev).to(torch.bfloat16)
+    table = torch.randn(5, 196, device=dev)
+    plan = tiny_attention_plan(1, 70, 70, 160, 5, 14)
+    with pytest.raises(RuntimeError):
+        tiny_attention(qkv, table, (1, 70, 70), 14, plan=plan._replace(warps=14))
+    with pytest.raises(RuntimeError):  # heads not dividing nH
+        tiny_attention(qkv, table, (1, 70, 70), 14, plan=plan._replace(heads=2))
 
 
 def _tiny_vit(dtype, dev):
