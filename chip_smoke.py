@@ -123,8 +123,24 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     reloaded lazily and a tile_subset call resumed with no launch; one
     encode of each opt-in route replayed per kernel and per chain; vit_h
     through K9 against its default route. Prints the phase's wall time;
-11. prints one JSON line of details (per-shape rows, chains, end-to-end and
-    training numbers, the tiled routes), then the kernels line (one entry
+11. the prompt layer and AMG: (a) get_sam_model("vit_b") (bf16, seed 0) on a
+    1024^2 synthetic_data image: segment_from_points / _box / _mask /
+    _box_and_points, batched_inference over the objects' boxes at batch 32,
+    AutomaticMaskGenerator (32 x 32 points, 64 a batch, no floors): one
+    encode's launches during initialize (24 layernorm, 48 gemm, 12
+    relpos_attention) and none during generate, initialize timed and split
+    (encode, decode + reduction, host copy + RLE), candidates/s, generate
+    timed in two modes, one initialize profiled; TiledAutomaticMaskGenerator
+    (16 x 16) and batched_tiled_inference over phase 10's tiled 2048^2
+    embeddings, every tile decoded once; (b) the trained fixture SAM
+    (tests/fixtures/bench_sam_tiny1024.npz, f32): AMG with the default
+    floors on the card against the same on the CPU (the port's plain path, in
+    a process started at the phase's start), records matched by point (mask
+    IoU >= 0.99, scores within 1e-3, at most 2 % unmatched, each at a cut),
+    and the floors against none at the default thresholds. Prints the
+    phase's wall time;
+12. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers, the tiled routes, the AMG numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
@@ -2542,14 +2558,15 @@ def spatial_costs():
 
 
 def tiled_data():
-    """A 2048 x 2048 synthetic_data image (seed 0) and a (4, 1536, 1536)
-    volume of its crops, shifted 128 / 96 pixels a slice."""
+    """A 2048 x 2048 synthetic_data image (seed 0), a (4, 1536, 1536) volume
+    of its crops, shifted 128 / 96 pixels a slice, and the image's
+    segmentation (phase 11's tiled prompts)."""
     from micro_sam_tpu_torch.sample_data import synthetic_data
     t0 = time.perf_counter()
-    image = synthetic_data((2048, 2048), seed=0)[0]
+    image, seg = synthetic_data((2048, 2048), seed=0)
     volume = np.stack([image[128 * z:128 * z + 1536, 96 * z:96 * z + 1536] for z in range(4)])
     log(f"  data: image {image.shape}, volume {volume.shape} ({time.perf_counter() - t0:.1f} s)")
-    return image, volume
+    return image, volume, seg
 
 
 def rel_max(got, ref):
@@ -2643,7 +2660,7 @@ def tiled_route_run(predictor, counters, route, image, volume, crops, default=No
             f"incl. resize, median of {TILE_REPS}): {tps:.3f} (all {[round(t, 4) for t in ts]} s)")
     feats = {2: {t: v["features"] for t, v in emb2["features"].items()},
              3: {t: v["features"] for t, v in emb3["features"].items()}}
-    return feats, dict(launches=launches, launches_per_batch=l2, chain_launches=dict(cc.launches),
+    return feats, emb2, dict(launches=launches, launches_per_batch=l2, chain_launches=dict(cc.launches),
                        chain_calls=dict(cc.calls), tile_rel_vs_crop=err_crop,
                        tile_rel_vs_default=err_default if default is not None else None,
                        tiles_per_s=tps, tiles_s=ts)
@@ -2730,7 +2747,7 @@ def tiled_phase(counters, root):
     log("  K9 / K11 vs their plain versions and the partitioned K2 chain")
     window_rows = window_routes_kernel_phase(counters)
     costs = spatial_costs()
-    image, volume = tiled_data()
+    image, volume, seg = tiled_data()
     predictor = get_sam_model("vit_b", seed=0)
     blocking = Blocking((0, 0), image.shape, TILE)
     blocking3 = Blocking((0, 0), volume.shape[1:], TILE)
@@ -2744,10 +2761,10 @@ def tiled_phase(counters, root):
                          t, HALO).outer_block.slicing], batch_size=TILE_BATCH,
                      verbose=False)["features"] for t in range(len(blocking3))}}
     log(f"  untiled crops of every tile encoded ({time.perf_counter() - t0:.1f} s)")
-    feats, runs = {}, {}
+    feats, runs, embs = {}, {}, {}
     for route in ROUTES:
-        feats[route], runs[route] = tiled_route_run(predictor, counters, route, image, volume,
-                                                    crops, feats.get("default"))
+        feats[route], embs[route], runs[route] = tiled_route_run(
+            predictor, counters, route, image, volume, crops, feats.get("default"))
     cache = tiled_cache_checks(predictor, counters, image, root)
     # the 2d path's one batch: its 4 tiles resized to 1024^2, as _compute_tiled_2d encodes them
     x4 = np.stack([_resize_for_encoder(predictor, image[blocking.get_block_with_halo(
@@ -2769,7 +2786,8 @@ def tiled_phase(counters, root):
     torch.cuda.empty_cache()
     vit_h = vit_h_spatial_check(counters)
     return dict(head_dim_sweep=sweep, window_routes=window_rows, costs=costs, routes=runs,
-                cache=cache, replays=replays, vit_h_k9=vit_h)
+                cache=cache, replays=replays, vit_h_k9=vit_h,
+                amg_inputs=dict(image=image, seg=seg, emb=embs["default"]))
 
 
 def summarize_tiled(p10):
@@ -2816,6 +2834,390 @@ def summarize_tiled(p10):
             "shapes": rows,
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the prompt layer and automatic mask generation
+# ---------------------------------------------------------------------------
+
+AMG_SIDE, AMG_BATCH = 32, 64
+FIXTURE = os.path.join("tests", "fixtures", "bench_sam_tiny1024.npz")
+FIXTURE_IMAGE = dict(shape=(1024, 1024), seed=200, n_objects=20, radius_range=(30, 110))
+FIXTURE_FLOORS = (0.5, 0.5)
+# processes sharing the CPU reference: its decode's passes over the 64 prompts'
+# copies of the embedding scale poorly over one process's threads
+FIXTURE_SHARDS = 4
+AMG_PROFILE_GROUPS = SERVE_PROFILE_GROUPS[:-1] + (
+    ("mask upscale (bilinear)", ("upsample",)),
+    ("copies to the host", ("Memcpy",)),
+) + SERVE_PROFILE_GROUPS[-1:]
+
+
+def fixture_amg(root, device, prefilters=(FIXTURE_FLOORS,), side=AMG_SIDE, batch=AMG_BATCH,
+                shard=(0, 1)):
+    """The trained fixture SAM (f32) on ``device``: AMG ``initialize`` over
+    ``side`` x ``side`` points, ``batch`` a batch, on the fixture's synthetic
+    image, once per prefilter. ``shard=(k, n)`` takes the k-th of n equal
+    parts of the grid, in whole batches, so that n processes share the CPU
+    reference (each with its share of the CPU's threads; their states joined
+    in order are the whole grid's). Returns, per prefilter, the state
+    (``get_state``), the survivors of each batch's device decode and the
+    seconds ``initialize`` took."""
+    sys.path.insert(0, root)
+    torch.set_grad_enabled(False)
+    import micro_sam_tpu_torch.instance_segmentation as inst
+    from micro_sam_tpu_torch.models.convert import params_from_flat_npz
+    from micro_sam_tpu_torch.models.sam import Sam
+    from micro_sam_tpu_torch.ops.amg_utils import build_point_grid
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    k, n = shard
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+    cfg, sd = params_from_flat_npz(os.path.join(root, FIXTURE), compute_dtype="float32")
+    sam = Sam(cfg)
+    sam.load_state_dict(sd)
+    predictor = SamPredictor(sam.to(device).eval())
+    image = synthetic_data(**FIXTURE_IMAGE)[0]
+    grid = build_point_grid(side)
+    part = len(grid) // n
+    assert part * n == len(grid) and part % batch == 0, (len(grid), n, batch)
+    runs = []
+    for prefilter in prefilters:
+        amg = inst.AutomaticMaskGenerator(predictor, points_per_side=None,
+                                          point_grids=[grid[k * part:(k + 1) * part]],
+                                          points_per_batch=batch, prefilter_thresholds=prefilter)
+        survivors = []
+        decode = amg._decode_batch
+
+        def counted(points, im_size):
+            out = decode(points, im_size)
+            survivors.append(int(out["order"].numel()))
+            return out
+        amg._decode_batch = counted
+        t0 = time.perf_counter()
+        amg.initialize(image)
+        runs.append(dict(state=amg.get_state(), survivors=survivors,
+                         initialize_s=time.perf_counter() - t0))
+    return runs
+
+
+def fixture_records(shards):
+    """The records of ``generate`` ("rle" mode) at the default thresholds and
+    at the floors, from the states of ``shards`` (``fixture_amg`` runs of
+    one prefilter, in grid order) joined into one."""
+    import micro_sam_tpu_torch.instance_segmentation as inst
+    from micro_sam_tpu_torch.ops.amg_utils import MaskData
+    crop = MaskData()
+    for run in shards:
+        crop.cat(run["state"]["crop_list"][0])
+    state = dict(shards[0]["state"], crop_list=[crop])
+    amg = inst.AutomaticMaskGenerator(None, points_per_side=AMG_SIDE)
+    amg.set_state(state)
+    return dict(records=amg.generate(output_mode="rle"),
+                records_at_floors=amg.generate(*FIXTURE_FLOORS, output_mode="rle"),
+                survivors=sum((run["survivors"] for run in shards), []),
+                candidates=len(crop), initialize_s=max(run["initialize_s"] for run in shards))
+
+
+def match_fixture_records(card, cpu, thresholds=(0.88, 0.95), floors=(0.5, 0.5), nms=0.7,
+                          tol=1e-3):
+    """Pairs the card's and the CPU's records by point; every pair's mask IoU
+    >= 0.99 and scores within ``tol``; at most 2 % unmatched, each with a
+    score within ``tol`` of a floor or a threshold, or suppressed in the
+    other run by a box whose IoU with its own lies within ``tol`` of the NMS
+    threshold. Returns the numbers of the check."""
+    from micro_sam_tpu_torch.ops.amg_utils import rle_to_mask
+    key = lambda r: tuple(r["point_coords"][0])  # noqa: E731
+    a, b = {key(r): r for r in card}, {key(r): r for r in cpu}
+    worst_iou, worst_score = 1.0, 0.0
+    for k in a.keys() & b.keys():
+        ma, mb = rle_to_mask(a[k]["segmentation"]), rle_to_mask(b[k]["segmentation"])
+        iou = float((ma & mb).sum() / max((ma | mb).sum(), 1))
+        worst_iou = min(worst_iou, iou)
+        worst_score = max(worst_score, abs(a[k]["predicted_iou"] - b[k]["predicted_iou"]),
+                          abs(a[k]["stability_score"] - b[k]["stability_score"]))
+    if worst_iou < 0.99 or worst_score > tol:
+        raise AssertionError(f"fixture AMG: matched records differ (IoU {worst_iou:.5f}, "
+                             f"scores {worst_score:.3e})")
+
+    def xyxy(r):
+        x, y, w, h = r["bbox"]
+        return np.array([x, y, x + w, y + h], np.float64)
+
+    def box_iou(p, q):
+        lt, rb = np.maximum(p[:2], q[:2]), np.minimum(p[2:], q[2:])
+        inter = np.prod(np.clip(rb - lt, 0, None))
+        return inter / max(np.prod(p[2:] - p[:2]) + np.prod(q[2:] - q[:2]) - inter, 1e-9)
+
+    unmatched = []
+    for mine, other in ((a, b), (b, a)):
+        for k in mine.keys() - other.keys():
+            r = mine[k]
+            near_cut = (min(abs(r["predicted_iou"] - t) for t in (thresholds[0], floors[0])) <= tol
+                        or min(abs(r["stability_score"] - t)
+                               for t in (thresholds[1], floors[1])) <= tol)
+            near_nms = any(abs(box_iou(xyxy(r), xyxy(o)) - nms) <= tol for o in other.values())
+            if not (near_cut or near_nms):
+                raise AssertionError(f"fixture AMG: record at {k} only in one run, and not at "
+                                     f"a cut: {r['predicted_iou']:.4f} "
+                                     f"{r['stability_score']:.4f}")
+            unmatched.append(k)
+    n = max(len(a), len(b))
+    if len(unmatched) > 0.02 * n:
+        raise AssertionError(f"fixture AMG: {len(unmatched)} of {n} records unmatched")
+    return dict(records_card=len(a), records_cpu=len(b), matched=len(a.keys() & b.keys()),
+                unmatched=len(unmatched), min_mask_iou=worst_iou, max_score_diff=worst_score)
+
+
+class Timed:
+    """Host-clock seconds of every call of ``obj.name``, the card synchronized
+    after each, while the block runs."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.seconds = obj, name, []
+
+    def __enter__(self):
+        fn = self.saved = getattr(self.obj, self.name)
+
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        setattr(self.obj, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.saved)
+
+
+def prompt_layer_checks(predictor, image, seg, emb):
+    """The four segment_from_* entry points on one object of ``seg``, and
+    batched_inference over the boxes of every object, at batch 32."""
+    from micro_sam_tpu_torch import prompt_based_segmentation as pbs
+    from micro_sam_tpu_torch.inference import batched_inference
+    from micro_sam_tpu_torch.util import get_centers_and_bounding_boxes
+    centers, bboxes = get_centers_and_bounding_boxes(seg)
+    ids = sorted(bboxes)
+    obj = max(ids, key=lambda i: (seg == i).sum())
+    (y0, y1), (x0, x1) = bboxes[obj]
+    box = np.array([y0, x0, y1, x1])
+    center = np.array([[round(centers[obj][0]), round(centers[obj][1])]])
+    t0 = time.perf_counter()
+    outs = {
+        "segment_from_points": pbs.segment_from_points(
+            predictor, center, np.array([1]), image_embeddings=emb, return_all=True),
+        "segment_from_box": pbs.segment_from_box(predictor, box, image_embeddings=emb,
+                                                 return_all=True),
+        "segment_from_mask": pbs.segment_from_mask(predictor, seg == obj, image_embeddings=emb,
+                                                   return_all=True),
+        "segment_from_box_and_points": pbs.segment_from_box_and_points(
+            predictor, box, center, np.array([1]), image_embeddings=emb, return_all=True),
+    }
+    t_prompts = time.perf_counter() - t0
+    for name, (m, scores, logits) in outs.items():
+        if m.shape != (1,) + seg.shape or m.dtype != bool or not (
+                np.isfinite(scores).all() and np.isfinite(logits).all()):
+            raise AssertionError(f"{name}: masks {m.shape} {m.dtype}, scores finite "
+                                 f"{np.isfinite(scores).all()}")
+        log(f"  {name}: mask {m.shape} fg {float(m.mean()):.4f} scores "
+            f"{np.round(np.ravel(scores), 4).tolist()}")
+    boxes = np.array([[bboxes[i][1][0], bboxes[i][0][0], bboxes[i][1][1], bboxes[i][0][1]]
+                      for i in ids], np.float64)
+    t0 = time.perf_counter()
+    inst = batched_inference(predictor, None, 32, boxes=boxes)
+    t_batched = time.perf_counter() - t0
+    if inst.shape != seg.shape or inst.dtype != np.uint32:
+        raise AssertionError(f"batched_inference: {inst.shape} {inst.dtype}")
+    log(f"  batched_inference: {len(boxes)} boxes at batch 32 -> instance segmentation "
+        f"{inst.shape} with {len(np.unique(inst)) - 1} objects ({t_batched:.3f} s host clock; "
+        f"the four segment_from_* {t_prompts:.3f} s)")
+    return dict(segment_from_s=t_prompts, batched_inference_s=t_batched, boxes=len(boxes),
+                objects=int(len(np.unique(inst)) - 1))
+
+
+def amg_vit_b(counters, predictor, image):
+    """AMG at vit_b full width: launches during initialize (one encode's) and
+    generate (none), initialize timed and split, generate timed in two
+    modes, one initialize profiled."""
+    import micro_sam_tpu_torch.instance_segmentation as inst
+    from micro_sam_tpu_torch import util
+    amg = inst.AutomaticMaskGenerator(predictor, points_per_side=AMG_SIDE,
+                                      points_per_batch=AMG_BATCH, prefilter_thresholds=None)
+    for c in counters.values():
+        c.launches = 0
+    amg.initialize(image)
+    torch.cuda.synchronize()
+    init_launches = {k: c.launches for k, c in counters.items() if c.launches}
+    for c in counters.values():
+        c.launches = 0
+    out = {}
+    for mode in ("instance_segmentation", "binary_mask"):
+        t0 = time.perf_counter()
+        out[mode] = amg.generate(output_mode=mode)
+        out[f"{mode}_s"] = time.perf_counter() - t0
+    gen_launches = {k: c.launches for k, c in counters.items() if c.launches}
+    expect = {"layernorm": 24, "gemm": 48, "relpos_attention": 12}
+    log(f"  AMG launches: initialize {init_launches} (expected {expect}), generate "
+        f"{gen_launches or 0}")
+    if init_launches != expect or gen_launches:
+        raise AssertionError("AMG did not encode once through the kernels, or generate "
+                             "launched a kernel")
+    seg = out["instance_segmentation"]
+    if seg.shape != image.shape[:2] or seg.dtype != np.uint32 or not isinstance(
+            out["binary_mask"], list):
+        raise AssertionError(f"AMG generate: {seg.shape} {seg.dtype}")
+    n_cand = len(amg.crop_list[0])
+    if n_cand != AMG_SIDE ** 2 * 3:
+        raise AssertionError(f"AMG kept {n_cand} candidates without floors, not "
+                             f"{AMG_SIDE ** 2 * 3}")
+    # one initialize, timed: encode, decode + reduction, host copy + RLE
+    with Timed(util, "precompute_image_embeddings") as enc, \
+            Timed(amg, "_decode_batch") as dec, Timed(amg, "_batch_data") as host:
+        t0 = time.perf_counter()
+        amg.initialize(image)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+    split = {"encode_ms": 1e3 * sum(enc.seconds), "decode_reduce_ms": 1e3 * sum(dec.seconds),
+             "copy_rle_ms": 1e3 * sum(host.seconds)}
+    split["other_ms"] = 1e3 * t_init - sum(split.values())
+    log(f"  AMG initialize ({AMG_SIDE} x {AMG_SIDE} points, {AMG_BATCH} a batch, 1024^2, host "
+        f"clock, the card "
+        f"synchronized after each part): {1e3 * t_init:.3f} ms = "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; {n_cand / t_init:.1f} candidates/s; generate: instance_segmentation "
+        f"{1e3 * out['instance_segmentation_s']:.3f} ms, binary_mask "
+        f"{1e3 * out['binary_mask_s']:.3f} ms ({len(out['binary_mask'])} records)")
+    log("  one AMG initialize under torch.profiler:")
+    prof = profile_step(lambda: (amg.initialize(image), torch.cuda.synchronize()),
+                        AMG_PROFILE_GROUPS)
+    return dict(initialize_ms=1e3 * t_init, split_ms=split, candidates=n_cand,
+                candidates_per_s=n_cand / t_init,
+                generate_ms={m: 1e3 * out[f"{m}_s"] for m in ("instance_segmentation",
+                                                               "binary_mask")},
+                records=len(out["binary_mask"]), launches_initialize=init_launches,
+                profiled_initialize=prof)
+
+
+def tiled_amg_checks(predictor, image, seg, emb):
+    """TiledAutomaticMaskGenerator(points_per_side=16) and one
+    batched_tiled_inference with boxes over phase 10's tiled embeddings:
+    shapes, and no tile decoded twice."""
+    import micro_sam_tpu_torch.instance_segmentation as inst
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.inference import batched_tiled_inference
+    from micro_sam_tpu_torch.util import get_centers_and_bounding_boxes
+    n_tiles = len(emb["features"])
+    tamg = inst.TiledAutomaticMaskGenerator(predictor, points_per_side=16)
+    crops = []
+    process = tamg._process_crop
+
+    def seen(image_, crop_box, *a, **k):
+        crops.append(tuple(crop_box))
+        return process(image_, crop_box, *a, **k)
+    tamg._process_crop = seen
+    with Timed(tamg, "_decode_batch") as dec:
+        t0 = time.perf_counter()
+        tamg.initialize(image, image_embeddings=emb)
+        t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tseg = tamg.generate()
+    t_gen = time.perf_counter() - t0
+    if len(crops) != n_tiles or len(set(crops)) != n_tiles or len(dec.seconds) != n_tiles * 4:
+        raise AssertionError(f"tiled AMG decoded tiles {crops} in {len(dec.seconds)} batches")
+    if tseg.shape != image.shape[:2] or tseg.dtype != np.uint32:
+        raise AssertionError(f"tiled AMG: {tseg.shape} {tseg.dtype}")
+    _, bboxes = get_centers_and_bounding_boxes(seg)
+    boxes = np.array([[b[1][0], b[0][0], b[1][1], b[0][1]] for b in bboxes.values()],
+                     np.float64)[::8]
+    tiles = []
+    install = util.set_precomputed
+
+    def record(p, e, i=None, tile_id=None):
+        tiles.append(tile_id)
+        return install(p, e, i=i, tile_id=tile_id)
+    util.set_precomputed = record
+    try:
+        t0 = time.perf_counter()
+        bseg = batched_tiled_inference(predictor, None, 32, image_embeddings=emb, boxes=boxes)
+        t_bt = time.perf_counter() - t0
+    finally:
+        util.set_precomputed = install
+    if len(tiles) != len(set(tiles)) or bseg.shape != image.shape[:2]:
+        raise AssertionError(f"batched_tiled_inference: tiles {tiles}, {bseg.shape}")
+    log(f"  tiled AMG (16 x 16 points a tile, {n_tiles} tiles of phase 10's 2048^2 "
+        f"embeddings): crops {crops}, {len(dec.seconds)} decode batches, "
+        f"{sum(len(c) for c in tamg.crop_list)} candidates over the floors; initialize {1e3 * t_init:.3f} ms, generate {1e3 * t_gen:.3f} ms, "
+        f"{len(np.unique(tseg)) - 1} objects; batched_tiled_inference {len(boxes)} boxes over "
+        f"tiles {tiles}: {len(np.unique(bseg)) - 1} objects ({1e3 * t_bt:.3f} ms)")
+    return dict(tiles=n_tiles, decode_batches=len(dec.seconds), initialize_ms=1e3 * t_init,
+                generate_ms=1e3 * t_gen, batched_tiled_inference_ms=1e3 * t_bt,
+                boxes=len(boxes), tiles_decoded=tiles)
+
+
+def amg_phase(counters, root, p10):
+    """Phase 11: (a) the prompt layer, batched and tiled inference, AMG and
+    tiled AMG at vit_b full width (bf16, random weights, seed 0); (b) the
+    trained fixture's AMG records on the card (f32) against the port's plain
+    path on the CPU (f32, in a process of its own, started first so that it
+    runs beside part (a))."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings
+    with ProcessPoolExecutor(FIXTURE_SHARDS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = [pool.submit(fixture_amg, root, "cpu", (FIXTURE_FLOORS,), AMG_SIDE, AMG_BATCH,
+                                (k, FIXTURE_SHARDS)) for k in range(FIXTURE_SHARDS)]
+        log("  (a) vit_b, 1024^2, random weights (seed 0), bf16")
+        predictor = get_sam_model("vit_b", seed=0)
+        image, seg = synthetic_data((1024, 1024), seed=0)
+        emb = precompute_image_embeddings(predictor, image, verbose=False)
+        prompts = prompt_layer_checks(predictor, image, seg, emb)
+        amg = amg_vit_b(counters, predictor, image)
+        inputs = p10["amg_inputs"]
+        tiled = tiled_amg_checks(predictor, inputs["image"], inputs["seg"], inputs["emb"])
+        del predictor
+        torch.cuda.empty_cache()
+        log(f"  (b) the trained fixture (f32): AMG {AMG_SIDE} x {AMG_SIDE}, {AMG_BATCH} a batch, "
+            f"floors (0.5, 0.5), on the card and on the CPU")
+        floors, no_floors = (fixture_records([run]) for run in fixture_amg(
+            root, "cuda", (FIXTURE_FLOORS, None), AMG_SIDE, AMG_BATCH))
+
+        def records(run):
+            return [(r["point_coords"], [int(c) for c in r["segmentation"]["counts"]])
+                    for r in run["records"]]
+        if records(floors) != records(no_floors):
+            raise AssertionError("fixture AMG: the floors changed the records at the default "
+                                 "thresholds")
+        t0 = time.perf_counter()
+        cpu = fixture_records([run.result()[0] for run in cpu_runs])
+        log(f"  waited {time.perf_counter() - t0:.1f} s for the CPU run ({FIXTURE_SHARDS} "
+            f"processes, 1/{FIXTURE_SHARDS} of the grid each; the longest initialize "
+            f"{cpu['initialize_s']:.1f} s)")
+    check = match_fixture_records(floors["records"], cpu["records"])
+    at_floors = match_fixture_records(floors["records_at_floors"], cpu["records_at_floors"],
+                                      thresholds=FIXTURE_FLOORS)
+    areas = [int(sum(r["segmentation"]["counts"][1::2])) for r in floors["records"]]
+    log(f"  fixture AMG: {len(floors['records'])} records on the card, {len(cpu['records'])} on "
+        f"the CPU, {check['matched']} matched (min mask IoU {check['min_mask_iou']:.5f}, max "
+        f"score difference {check['max_score_diff']:.3e}), {check['unmatched']} unmatched; at "
+        f"the floors' thresholds {at_floors['records_card']} / {at_floors['records_cpu']}, "
+        f"{at_floors['matched']} matched (min IoU {at_floors['min_mask_iou']:.5f}, scores "
+        f"{at_floors['max_score_diff']:.3e}), {at_floors['unmatched']} unmatched; "
+        f"floors and no floors equal at the default thresholds; survivors per batch "
+        f"{floors['survivors']} of {3 * AMG_BATCH} (CPU {cpu['survivors']}); mean mask area "
+        f"{float(np.mean(areas)) if areas else 0.0:.1f} px; card initialize "
+        f"{1e3 * floors['initialize_s']:.3f} ms with floors, "
+        f"{1e3 * no_floors['initialize_s']:.3f} ms without")
+    return dict(prompt_layer=prompts, amg_vit_b=amg, tiled=tiled,
+                fixture=dict(check, at_floors=at_floors, survivors=floors["survivors"],
+                             survivors_cpu=cpu["survivors"],
+                             mean_area=float(np.mean(areas)) if areas else 0.0,
+                             initialize_ms_floors=1e3 * floors["initialize_s"],
+                             initialize_ms_no_floors=1e3 * no_floors["initialize_s"]))
 
 
 def main():
@@ -2954,6 +3356,14 @@ def main():
     counters["relpos_attention_spatial"] = relpos_attention_spatial
     p10 = tiled_phase(counters, root)
     log(f"phase 10 (tiled precompute, K9 / K11, head dims): {time.perf_counter() - t10:.1f} s")
+    # phase 11: the prompt layer and AMG
+    t11 = time.perf_counter()
+    log("the prompt layer and AMG: segment_from_*, batched and tiled inference, "
+        "AutomaticMaskGenerator and its tiled form (vit_b, bf16), the trained fixture's AMG "
+        "(f32) on the card against the CPU")
+    p11 = amg_phase(counters, root, p10)
+    p11["wall_s"] = time.perf_counter() - t11
+    log(f"phase 11 (the prompt layer and AMG): {p11['wall_s']:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
@@ -2969,7 +3379,8 @@ def main():
                                 "training_vit_h": ft["vit_h"]["training"],
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
-                                                             "costs", "replays")}}}))
+                                                             "costs", "replays")},
+                                "amg": p11}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
                                                                   "plans")
                                   if k in r}

@@ -284,16 +284,10 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], config: SamConfig) -> dic
     return listify(tree)
 
 
-def load_native_checkpoint(path: str, model_type: Optional[str] = None,
-                           config: Optional[SamConfig] = None
-                           ) -> Tuple[SamConfig, Dict[str, torch.Tensor]]:
-    """The JAX package's native ``.npz`` / ``.msam`` checkpoint (flat npz whose
-    keys are '/'-joined parameter-tree paths) -> (config, state dict). The
-    config is the named model type's unless one is given."""
-    data = np.load(path, allow_pickle=False)
-    if config is None:
-        config = get_config(model_type or str(data["__model_type__"]))
-
+def _unflatten(data) -> dict:
+    """A flat npz whose keys are '/'-joined parameter-tree paths
+    (``a/b/0/c``) -> the nested tree, lists where the keys are indices.
+    Keys starting with ``__`` (metadata) are left out."""
     tree: dict = {}
     for key in data.files:
         if key.startswith("__"):
@@ -312,4 +306,34 @@ def load_native_checkpoint(path: str, model_type: Optional[str] = None,
             return [out[str(i)] for i in range(len(out))]
         return out
 
-    return config, params_from_jax(listify(tree), config)
+    return listify(tree)
+
+
+def load_native_checkpoint(path: str, model_type: Optional[str] = None,
+                           config: Optional[SamConfig] = None
+                           ) -> Tuple[SamConfig, Dict[str, torch.Tensor]]:
+    """The JAX package's native ``.npz`` / ``.msam`` checkpoint (flat npz whose
+    keys are '/'-joined parameter-tree paths) -> (config, state dict). The
+    config is the named model type's unless one is given."""
+    data = np.load(path, allow_pickle=False)
+    if config is None:
+        config = get_config(model_type or str(data["__model_type__"]))
+    return config, params_from_jax(_unflatten(data), config)
+
+
+def params_from_flat_npz(path: str, compute_dtype: str = "float32"
+                         ) -> Tuple[SamConfig, Dict[str, torch.Tensor]]:
+    """A flat npz of a parameter tree with its config as JSON under
+    ``__config__`` (the layout of the trained AMG fixture,
+    ``tests/fixtures/bench_sam_tiny1024.npz``: model_type, embed_dim, depth,
+    num_heads, global_attn_indexes, img_size, window_size) -> (config, the
+    port's state dict, float32)."""
+    import json
+    data = np.load(path, allow_pickle=False)
+    meta = json.loads(str(data["__config__"]))
+    config = SamConfig(model_type=meta["model_type"], embed_dim=meta["embed_dim"],
+                       depth=meta["depth"], num_heads=meta["num_heads"],
+                       global_attn_indexes=tuple(meta["global_attn_indexes"]),
+                       img_size=meta["img_size"], window_size=meta["window_size"],
+                       compute_dtype=compute_dtype)
+    return config, params_from_jax(_unflatten(data), config)

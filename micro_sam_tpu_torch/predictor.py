@@ -10,12 +10,13 @@ the result.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .models.sam import MASK_THRESHOLD, Sam, postprocess_masks, preprocess
+from .ops.amg_utils import batched_mask_to_box, calculate_stability_score
 from .utils.transforms import ResizeLongestSide, get_preprocess_shape
 
 
@@ -81,17 +82,17 @@ class SamPredictor:
     # ------------------------------------------------------------------
     # prompt side
     # ------------------------------------------------------------------
-    def _pack_prompts(self, point_coords, point_labels, box, mask_input):
-        """-> (points (B, P, 2), labels (B, P), mask (B, s, s, 1), has_mask (B,), batched)."""
-        batched = True
-        if point_coords is not None and np.asarray(point_coords).ndim == 2:
-            batched = False
-        if point_coords is None and box is not None and np.asarray(box).ndim == 1:
-            batched = False
-        if (point_coords is None and box is None and mask_input is not None
-                and np.asarray(mask_input).ndim == 3):
-            batched = False
+    @staticmethod
+    def _is_batched(point_coords, box, mask_input) -> bool:
+        """Whether the prompts carry a batch axis (the outputs keep it)."""
+        if point_coords is not None:
+            return np.asarray(point_coords).ndim != 2
+        if box is not None:
+            return np.asarray(box).ndim != 1
+        return not (mask_input is not None and np.asarray(mask_input).ndim == 3)
 
+    def _pack_prompts(self, point_coords, point_labels, box, mask_input):
+        """-> (points (B, P, 2), labels (B, P), mask (B, s, s, 1), has_mask (B,))."""
         pts_list, lbl_list = [], []
         B = 1
         if point_coords is not None:
@@ -140,20 +141,18 @@ class SamPredictor:
         else:
             mi = None
             has_mask = np.zeros((B,), bool)
-        return points, labels, mi, has_mask, batched
+        return points, labels, mi, has_mask
 
     @torch.no_grad()
-    def predict(self, point_coords: Optional[np.ndarray] = None,
-                point_labels: Optional[np.ndarray] = None, box: Optional[np.ndarray] = None,
-                mask_input: Optional[np.ndarray] = None, multimask_output: bool = True,
-                return_logits: bool = False):
-        """Prediction from prompts in original-image coordinates.
-
-        Returns (masks (C, H, W), iou_predictions (C,), low_res_masks (C, 256, 256))
-        for unbatched prompts, with a leading batch axis otherwise."""
+    def predict_torch(self, point_coords: Optional[np.ndarray] = None,
+                      point_labels: Optional[np.ndarray] = None, box: Optional[np.ndarray] = None,
+                      mask_input: Optional[np.ndarray] = None, multimask_output: bool = True):
+        """``predict`` without the copy to the host: (mask logits (B, C, H, W),
+        iou (B, C), low-res logits (B, C, 256, 256)) as float32 tensors on the
+        predictor's device, batched whatever the prompts' shape."""
         if not self.is_image_set:
             raise RuntimeError("An image must be set with .set_image(...) before prediction.")
-        points, labels, mi, has_mask, batched = self._pack_prompts(
+        points, labels, mi, has_mask = self._pack_prompts(
             point_coords, point_labels, box, mask_input)
         dev = self.device
         low_res, iou = self.model.decode_masks(
@@ -165,13 +164,25 @@ class SamPredictor:
             low_res, iou = low_res[:, 1:], iou[:, 1:]
         else:
             low_res, iou = low_res[:, 0:1], iou[:, 0:1]
+        low_res, iou = low_res.float(), iou.float()
         masks = postprocess_masks(low_res, self.input_size, self.original_size,
                                   self.model.config.img_size)
-        masks = masks.cpu().numpy()
-        iou, low_res = iou.float().cpu().numpy(), low_res.cpu().numpy()
+        return masks, iou, low_res
+
+    def predict(self, point_coords: Optional[np.ndarray] = None,
+                point_labels: Optional[np.ndarray] = None, box: Optional[np.ndarray] = None,
+                mask_input: Optional[np.ndarray] = None, multimask_output: bool = True,
+                return_logits: bool = False):
+        """Prediction from prompts in original-image coordinates.
+
+        Returns (masks (C, H, W), iou_predictions (C,), low_res_masks (C, 256, 256))
+        for unbatched prompts, with a leading batch axis otherwise."""
+        masks, iou, low_res = self.predict_torch(point_coords, point_labels, box, mask_input,
+                                                 multimask_output)
         if not return_logits:
             masks = masks > MASK_THRESHOLD
-        if not batched:
+        masks, iou, low_res = masks.cpu().numpy(), iou.cpu().numpy(), low_res.cpu().numpy()
+        if not self._is_batched(point_coords, box, mask_input):
             return masks[0], iou[0], low_res[0]
         return masks, iou, low_res
 
@@ -179,3 +190,64 @@ class SamPredictor:
                         mask_input=None, multimask_output=True, return_logits=False):
         return self.predict(point_coords, point_labels, boxes, mask_input,
                             multimask_output, return_logits)
+
+
+# ---------------------------------------------------------------------------
+# The AMG decode: grid prompts -> packed masks and their scores, on the device
+# ---------------------------------------------------------------------------
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def packbits(bits: torch.Tensor) -> torch.Tensor:
+    """``numpy.packbits`` along the last axis, most significant bit first, on
+    the tensor's device; the last axis is zero-padded to a multiple of 8."""
+    pad = (-bits.shape[-1]) % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=bits.device)
+    groups = bits.reshape(*bits.shape[:-1], -1, 8).to(torch.uint8)
+    return (groups * w).sum(dim=-1, dtype=torch.uint8)
+
+
+@torch.no_grad()
+def amg_decode(predictor: SamPredictor, points_xy, mask_threshold: float = MASK_THRESHOLD,
+               stability_offset: float = 1.0,
+               prefilter: Optional[Tuple[float, float]] = None) -> Dict[str, torch.Tensor]:
+    """Decode one batch of AMG grid prompts and reduce it on the device.
+
+    points_xy: (B, 2) xy points in the encoder's frame (``transform.apply_coords``).
+    Each point is packed as upstream SAM packs it, the point and one pad
+    point of label -1, and decoded with multimask output; the three masks of
+    each point (channel 0 dropped before the upscale) are upscaled to the
+    predictor's original size and reduced in float32 whatever the compute
+    dtype: the stability score, the threshold, the XYXY boxes, and the masks
+    transposed and bit-packed, (N, W, ceil(H/8)) uint8, the layout
+    ``native.rle_from_packed`` reads. ``prefilter=(iou_floor, stability_floor)``
+    keeps the candidates with iou > floor and stability >= floor (the
+    comparisons of ``AMGBase``'s filters), in their order.
+
+    Returns the kept rows on the device: ``packed``, ``iou`` (n,),
+    ``stability`` (n,), ``boxes`` (n, 4) int32 and ``order`` (n,), each row's
+    index among the B * 3 candidates (point-major)."""
+    dev = predictor.device
+    pts = torch.as_tensor(np.asarray(points_xy, dtype=np.float32), device=dev)
+    B = pts.shape[0]
+    points = torch.cat([pts[:, None], torch.zeros(B, 1, 2, device=dev)], dim=1)
+    labels = torch.tensor([[1, -1]], dtype=torch.int64, device=dev).expand(B, 2)
+    low_res, iou = predictor.model.decode_masks(predictor.features, points, labels)
+    masks = postprocess_masks(low_res[:, 1:].float(), predictor.input_size,
+                              predictor.original_size, predictor.model.config.img_size)
+    iou = iou[:, 1:].float().reshape(-1)
+    stability = calculate_stability_score(masks, mask_threshold, stability_offset).reshape(-1)
+    binary = masks > mask_threshold
+    del masks
+    boxes = batched_mask_to_box(binary).reshape(-1, 4)
+    H, W = binary.shape[-2:]
+    packed = packbits(binary.transpose(-1, -2).reshape(-1, W, H))
+    if prefilter is None:
+        order = torch.arange(iou.shape[0], device=dev)
+    else:
+        order = torch.nonzero((iou > prefilter[0]) & (stability >= prefilter[1])).reshape(-1)
+    return {"packed": packed[order], "iou": iou[order], "stability": stability[order],
+            "boxes": boxes[order], "order": order}

@@ -601,3 +601,228 @@ def load_image_data(path: str, key: Optional[str] = None):
     import h5py
     with h5py.File(path, "r") as fh:
         return fh[key][...]
+
+
+# -----------------------------------------------------------------------------
+# Mask records -> instance segmentation, NMS over records
+# -----------------------------------------------------------------------------
+
+def mask_data_to_segmentation(
+    masks: List[Dict[str, Any]],
+    shape: Optional[Tuple[int, int]] = None,
+    min_object_size: int = 0,
+    max_object_size: Optional[int] = None,
+    label_masks: bool = True,
+    with_background: bool = False,
+    merge_exclusively: bool = True,
+) -> np.ndarray:
+    """Paint mask records (from AMG or batched inference) into an instance
+    segmentation, the largest first: exclusively (a mask takes only free
+    pixels) or on top. Records need "segmentation" (a binary mask) and
+    "area", optionally "seg_id", and "bbox" + "global_bbox" (XYWH) for masks
+    that live in a tile's frame. Then connected components, the components
+    under ``min_object_size`` dropped (and with ``with_background`` the
+    largest), ids made consecutive."""
+    from . import native
+
+    def xywh_to_slices(box):
+        x, y, w, h = (int(v) for v in box)
+        return np.s_[y:y + h, x:x + w]
+
+    def size_ok(area):
+        if area < min_object_size:
+            return False
+        return max_object_size is None or area <= max_object_size
+
+    by_area = sorted(masks, key=lambda rec: rec["area"], reverse=True)
+    if shape is None:
+        shape = by_area[0]["segmentation"].shape
+    canvas = np.zeros(shape, dtype="uint32")
+
+    next_id = 1
+    for record in by_area:
+        if not size_ok(record["area"]):
+            continue
+        write_id = record.get("seg_id", next_id)
+        binary = np.asarray(record["segmentation"])
+        if "global_bbox" in record:
+            # a mask in its tile's frame: its bbox crop goes to the global bbox
+            binary = binary[xywh_to_slices(record["bbox"])]
+            target = canvas[xywh_to_slices(record["global_bbox"])]
+        else:
+            target = canvas
+        if merge_exclusively:
+            binary = binary & (target == 0)
+        target[binary] = write_id
+        next_id = write_id + 1
+
+    if label_masks:
+        canvas = native.label(canvas)
+    ids, counts = native.unique(canvas, return_counts=True)
+    discard = list(ids[counts < min_object_size])
+    if with_background:
+        discard.append(ids[np.argmax(counts)])
+    if discard:
+        canvas[native.isin(canvas, np.asarray(discard))] = 0
+    return native.relabel_consecutive(canvas)[0]
+
+
+def _overlap_matrix(boxes: np.ndarray) -> np.ndarray:
+    """Pairwise "the XYXY boxes intersect"."""
+    x1 = np.maximum(boxes[:, None, 0], boxes[None, :, 0])
+    y1 = np.maximum(boxes[:, None, 1], boxes[None, :, 1])
+    x2 = np.minimum(boxes[:, None, 2], boxes[None, :, 2])
+    y2 = np.minimum(boxes[:, None, 3], boxes[None, :, 3])
+    return (np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)) > 0
+
+
+def _calculate_ious_between_pred_masks(masks, boxes, diagonal_value=1.0):
+    """Pairwise mask IoU, over the pairs whose boxes intersect."""
+    n = masks.shape[0]
+    m = np.zeros((n, n), dtype=np.float64)
+    overlap_m = _overlap_matrix(boxes)
+    masks = np.asarray(masks, dtype=bool)
+    for i in range(n):
+        js = np.nonzero(overlap_m[i])[0]
+        js = js[js > i]
+        if len(js) > 0:
+            inter = np.logical_and(masks[i], masks[js]).sum(axis=(1, 2))
+            union = np.logical_or(masks[i], masks[js]).sum(axis=(1, 2))
+            m[i, js] = inter / np.maximum(union, 1)
+    m = m + m.T
+    np.fill_diagonal(m, diagonal_value)
+    return m
+
+
+def _calculate_iomin_between_pred_masks(masks, boxes, eps=1e-6):
+    """Pairwise intersection over the smaller mask's area."""
+    overlap_m = _overlap_matrix(boxes)
+    n = masks.shape[0]
+    flat = np.asarray(masks, dtype=np.float32).reshape(n, -1)
+    areas = flat.sum(axis=1)
+    iomin = (flat @ flat.T) / (np.minimum(areas[:, None], areas[None, :]) + eps)
+    iomin[~overlap_m] = 0
+    return iomin
+
+
+def _pairwise_overlap_varshape(masks, offsets, boxes, intersection_over_min, eps=1e-6):
+    """Pairwise mask IoU / IoMin of masks in different frames (the tiles of a
+    tiled prediction, border tiles smaller). offsets: (N, 2) the global (x, y)
+    of each mask's frame; boxes: (N, 4) global XYXY. Each pair is compared on
+    its boxes' intersection, which lies inside both frames."""
+    n = len(masks)
+    out = np.eye(n)
+    candidates = _overlap_matrix(boxes)
+    areas = np.array([int(np.count_nonzero(m)) for m in masks], dtype=np.float64)
+    for i in range(n):
+        for j in np.nonzero(candidates[i])[0]:
+            if j <= i:
+                continue
+            x1, y1 = int(max(boxes[i, 0], boxes[j, 0])), int(max(boxes[i, 1], boxes[j, 1]))
+            x2, y2 = int(min(boxes[i, 2], boxes[j, 2])), int(min(boxes[i, 3], boxes[j, 3]))
+            win_i = masks[i][y1 - offsets[i, 1]:y2 - offsets[i, 1],
+                             x1 - offsets[i, 0]:x2 - offsets[i, 0]]
+            win_j = masks[j][y1 - offsets[j, 1]:y2 - offsets[j, 1],
+                             x1 - offsets[j, 0]:x2 - offsets[j, 0]]
+            inter = float(np.count_nonzero(win_i & win_j))
+            denom = (min(areas[i], areas[j]) if intersection_over_min
+                     else areas[i] + areas[j] - inter) + eps
+            out[i, j] = out[j, i] = inter / denom
+    return out
+
+
+def _batched_mask_nms(masks, boxes, scores, nms_thresh, intersection_over_min, offsets=None):
+    boxes = np.asarray(boxes, dtype=np.float64)
+    scores = np.asarray(scores, dtype=np.float64)
+    if offsets is not None:
+        iou_matrix = _pairwise_overlap_varshape(masks, offsets, boxes, intersection_over_min)
+    elif intersection_over_min:
+        iou_matrix = _calculate_iomin_between_pred_masks(np.asarray(masks), boxes)
+    else:
+        iou_matrix = _calculate_ious_between_pred_masks(np.asarray(masks), boxes)
+    sorted_indices = np.argsort(-scores, kind="stable")
+    keep = []
+    while len(sorted_indices) > 0:
+        i = sorted_indices[0]
+        keep.append(int(i))
+        if len(sorted_indices) == 1:
+            break
+        iou_values = iou_matrix[i, sorted_indices[1:]]
+        sorted_indices = sorted_indices[1:][iou_values <= nms_thresh]
+    return np.asarray(keep, dtype=np.int64)
+
+
+def apply_nms(
+    predictions: List[Dict[str, Any]],
+    min_size: int,
+    shape: Optional[Tuple[int, int]] = None,
+    perform_box_nms: bool = False,
+    nms_thresh: float = 0.9,
+    max_size: Optional[int] = None,
+    intersection_over_min: bool = False,
+) -> np.ndarray:
+    """Mask (or box) NMS over prediction records, scored by predicted IoU x
+    stability, then painted into an instance segmentation."""
+    from .ops.amg_utils import MaskData, batched_nms
+
+    if len(predictions) == 0:
+        return np.zeros(shape if shape is not None else (1, 1), dtype="uint32")
+
+    mask_list = [np.asarray(pred["segmentation"]) for pred in predictions]
+    uniform = len({m.shape for m in mask_list}) == 1
+    data = MaskData(
+        # masks of unequal (border) tiles do not stack: a list, compared by frame offsets
+        masks=np.stack(mask_list) if uniform else mask_list,
+        iou_preds=np.array([pred["predicted_iou"] for pred in predictions]),
+    )
+    data["boxes"] = np.array([pred["bbox"] for pred in predictions])
+    data["area"] = [int(np.asarray(m).sum()) for m in data["masks"]]
+    data["stability_scores"] = np.array([pred["stability_score"] for pred in predictions])
+
+    is_tiled = "global_bbox" in predictions[0]
+    if is_tiled:
+        if shape is None:
+            raise ValueError("The output shape 'shape' has to be passed for tiled predictions.")
+        data["global_boxes"] = np.array([pred["global_bbox"] for pred in predictions])
+
+    if min_size > 0:
+        data.filter(np.array([i for i, a in enumerate(data["area"]) if a > min_size],
+                             dtype=np.int64))
+    if max_size is not None:
+        data.filter(np.array([i for i, a in enumerate(data["area"]) if a < max_size],
+                             dtype=np.int64))
+    if len(data) == 0:
+        return np.zeros(shape if shape is not None else predictions[0]["segmentation"].shape,
+                        dtype="uint32")
+
+    def xywh_to_xyxy(b):
+        b = np.asarray(b, dtype=np.float64).copy()
+        b[:, 2] += b[:, 0]
+        b[:, 3] += b[:, 1]
+        return b
+
+    scores = data["iou_preds"] * data["stability_scores"]
+    nms_boxes = xywh_to_xyxy(data["global_boxes"] if is_tiled else data["boxes"])
+    if perform_box_nms:
+        assert not intersection_over_min  # not implemented
+        keep_by_nms = batched_nms(nms_boxes, scores, None, iou_threshold=nms_thresh)
+    else:
+        offsets = None
+        if is_tiled:  # compare the tiles' masks at global coordinates
+            offsets = (np.asarray(data["global_boxes"])[:, :2]
+                       - np.asarray(data["boxes"])[:, :2]).astype(np.int64)
+        keep_by_nms = _batched_mask_nms(
+            masks=data["masks"], boxes=nms_boxes, scores=scores, nms_thresh=nms_thresh,
+            intersection_over_min=intersection_over_min, offsets=offsets)
+    data.filter(keep_by_nms)
+
+    mask_data = [{"segmentation": m, "area": a, "bbox": b}
+                 for m, a, b in zip(data["masks"], data["area"], data["boxes"])]
+    if is_tiled:
+        for rec, gb in zip(mask_data, data["global_boxes"]):
+            rec["global_bbox"] = gb
+    if shape is None:
+        shape = predictions[0]["segmentation"].shape
+    if not mask_data:
+        return np.zeros(shape, dtype="uint32")
+    return mask_data_to_segmentation(mask_data, shape=shape, min_object_size=min_size)
