@@ -139,8 +139,24 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     IoU >= 0.99, scores within 1e-3, at most 2 % unmatched, each at a cut),
     and the floors against none at the default thresholds. Prints the
     phase's wall time;
-12. prints one JSON line of details (per-shape rows, chains, end-to-end and
-    training numbers, the tiled routes, the AMG numbers), then the kernels line (one entry
+12. decoder-based instance segmentation: get_sam_model("vit_b") (bf16, seed
+    0) and the UNETR decoder at published widths (random weights from seed 0,
+    BN statistics randomized as tests/make_golden.py does) through
+    get_predictor_and_segmenter on phase 11's 1024^2 image: AIS initialize
+    with one encode's launches and none in generate, timed and split
+    (encode, decoder, crop + resize, copy to the host), profiled by layer;
+    AIS and APG on maps built from the image's truth (>= 90 % of the objects
+    at IoU >= 0.8; one prompt per object, +-10 %); the decoder (both
+    upsampler kinds) on the card against the CPU (f32 rel 1e-3, TF32 off;
+    bf16 against f32 within max(3e-2, 2x the CPU's own bf16 drift)), with
+    its device time, operations and bound; tiled AIS at batch 4 over phase
+    10's embeddings (tiles/s, canvases equal to the batch's decoder output
+    pasted per tile, each tile's batch-1 decode within the bf16 bound) and
+    tiled APG with optimize_memory; automatic_instance_segmentation in the
+    modes ais, apg and amg, and cache_amg_state written and reloaded. Prints
+    the phase's wall time;
+13. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers, the tiled routes, the AMG and AIS numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
@@ -3220,6 +3236,474 @@ def amg_phase(counters, root, p10):
                              initialize_ms_no_floors=1e3 * no_floors["initialize_s"]))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: decoder-based instance segmentation (AIS, APG) and the automatic
+# segmentation entry points
+# ---------------------------------------------------------------------------
+
+AIS_REPS = 3
+AIS_CPU_THREADS = 4   # each of the two CPU reference processes (one per upsampler kind)
+AIS_MATCH_IOU, AIS_MATCH_SHARE = 0.8, 0.9
+APG_PROMPT_SLACK = 0.1
+TILED_APG_POINTS = 50
+DECODER_F32_TOL = 1e-3
+# the decoder's stage functions (models/unetr.py), each timed under a profiler range
+UNETR_STAGES = ("conv", "conv_transpose", "upsample2x", "instance_norm", "bn_relu",
+                "postprocess_decoder_output")
+AIS_LAYERS = (("convolutions (cuDNN)", ("conv", "conv_transpose")),
+              ("InstanceNorm", ("instance_norm",)), ("BN + ReLU", ("bn_relu",)),
+              ("resize (bilinear x2 upsamplers; crop + resize to the original size)",
+               ("upsample2x", "postprocess_decoder_output")))
+
+
+def random_unetr(use_conv_transpose=True, seed=0):
+    """The UNETR decoder at published widths (embed 256, features 512 / 256 /
+    128 / 64, 3 outputs), random weights from ``seed``, BN running statistics
+    randomized as tests/make_golden.py::build_unetr_torch does (means 0.5 x
+    N(0, 1), variances U(0.5, 1.5), from seed 99); on the CPU."""
+    from micro_sam_tpu_torch.models.common import BatchNorm
+    from micro_sam_tpu_torch.models.unetr import UNETRDecoder
+    model = UNETRDecoder(use_conv_transpose=use_conv_transpose).init_(
+        torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(99)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.running_mean.copy_(0.5 * torch.randn(m.running_mean.shape, generator=g))
+            m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    return model.eval()
+
+
+def unetr_cpu_reference(root, feats, use_conv_transpose, threads):
+    """The decoder on the CPU (a process of its own): f32 and bf16 outputs
+    on ``feats`` (1, 64, 64, 256) NHWC f32, and the seconds each took."""
+    sys.path.insert(0, root)
+    torch.set_grad_enabled(False)
+    torch.set_num_threads(threads)
+    model = random_unetr(use_conv_transpose)
+    x = torch.from_numpy(feats).permute(0, 3, 1, 2)
+    t0 = time.perf_counter()
+    y32 = model(x).numpy()
+    t1 = time.perf_counter()
+    y16 = model(x.to(torch.bfloat16)).float().numpy()
+    return y32, y16, t1 - t0, time.perf_counter() - t1
+
+
+def unetr_flops(model, x):
+    """Operations of one decoder call on ``x``: 2 x the multiply-adds of its
+    convolutions and transposed convolutions, from the shapes they run at."""
+    from micro_sam_tpu_torch.models import unetr as um
+    total = [0]
+
+    def conv(m, inp, out):
+        taps = m.kernel_size[0] * m.kernel_size[1]
+        total[0] += 2 * out.numel() * m.in_channels // m.groups * taps
+
+    def conv_t(m, inp, out):
+        total[0] += 2 * inp[0].numel() * m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+    hooks = [m.register_forward_hook(conv_t if isinstance(m, um.ConvTranspose2d) else conv)
+             for m in model.modules() if isinstance(m, (um.ConvTranspose2d, um.Conv2d))]
+    try:
+        model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+class StageRanges:
+    """Runs every stage function of models/unetr.py under a profiler range
+    ``unetr.<stage>`` while the block runs."""
+
+    def __enter__(self):
+        from micro_sam_tpu_torch.models import unetr as um
+        self.um, self.saved = um, {n: getattr(um, n) for n in UNETR_STAGES}
+        for n, fn in self.saved.items():
+            def ranged(*a, _fn=fn, _n=n, **k):
+                with torch.profiler.record_function(f"unetr.{_n}"):
+                    return _fn(*a, **k)
+            setattr(um, n, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.um, n, fn)
+
+
+def profile_ais(step):
+    """One AIS ``initialize`` under torch.profiler: the device's busy and idle
+    share, and device time by layer (the decoder's stages by their ranges,
+    the encode's port kernels by name, the copies to the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    with StageRanges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the device's own spans of the ranges (GPU user annotations) double the
+    # kernels under them: kernels only; each range's kernel time from its
+    # host-side event (the kernels of the ops it ran)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.key.startswith("unetr.")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        log("  profiled initialize: the profiler saw no device time (not measured)")
+        return None
+    ranges = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("unetr."):
+            name = e.name[len("unetr."):]
+            ranges[name] = ranges.get(name, 0.0) + e.device_time_total / 1e3
+    layers = {name: sum(ranges.get(s, 0.0) for s in stages) for name, stages in AIS_LAYERS}
+    port = [pat for name, pats in SERVE_PROFILE_GROUPS if "port kernel" in name for pat in pats]
+    layers["the encode's port kernels"] = sum(e.self_device_time_total for e in kernels
+                                              if any(p in e.key for p in port)) / 1e3
+    layers["copies to the host"] = sum(e.self_device_time_total for e in kernels
+                                       if "Memcpy DtoH" in e.key) / 1e3
+    layers["other (the encode's other ops, joins, sigmoid)"] = busy - sum(layers.values())
+    log(f"  profiled AIS initialize (torch.profiler): host clock {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms (idle share {1 - busy / wall:.3f})")
+    for name, ms in layers.items():
+        log(f"    {name}: {ms:.3f} ms")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    return {"host_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "by_layer_ms": layers, "stage_ranges_ms": ranges,
+            "top_kernels": [[e.key[:110], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def decoder_checks(feats, cpu_runs):
+    """The decoder on the card against the CPU (f32, TF32 off) and bf16
+    against f32 on the card, for both upsampler kinds; the bf16 decoder's
+    device time at batch 1 and its operations."""
+    rows = {}
+    x32 = torch.from_numpy(feats).cuda().permute(0, 3, 1, 2)
+    x16 = x32.to(torch.bfloat16)
+    for use_ct, run in zip((True, False), cpu_runs):
+        kind = "conv-transpose" if use_ct else "bilinear + 1x1"
+        model = random_unetr(use_ct).cuda()
+        y32 = model(x32).float().cpu().numpy()
+        y16 = model(x16).float().cpu().numpy()
+        ref32, ref16, t32, t16 = run.result()
+        scale = float(np.abs(ref32).max())
+        err32 = float(np.abs(y32 - ref32).max()) / scale
+        drift_card = float(np.abs(y16 - y32).max()) / float(np.abs(y32).max())
+        drift_cpu = float(np.abs(ref16 - ref32).max()) / scale
+        bf16_tol = max(3e-2, 2 * drift_cpu)
+        ok = np.isfinite(y16).all() and err32 <= DECODER_F32_TOL and drift_card <= bf16_tol
+        log(f"  decoder ({kind} upsamplers) {y32.shape}: card f32 vs CPU f32 rel "
+            f"{err32:.3e} (tol {DECODER_F32_TOL:g}); card bf16 vs card f32 rel {drift_card:.3e} "
+            f"(tol max(3e-2, 2 x the CPU's own bf16 drift {drift_cpu:.3e}) = {bf16_tol:.3e}) "
+            f"{'ok' if ok else 'FAIL'}; CPU f32 {t32:.1f} s, bf16 {t16:.1f} s")
+        if not ok:
+            raise AssertionError(f"the decoder ({kind}) on the card disagrees with the CPU")
+        flops = unetr_flops(model, x16)
+        ms = time_ms(lambda: model(x16), iters=10)
+        bound = flops / PEAK_BF16 * 1e3
+        log(f"    bf16 decoder at batch 1: {ms:.3f} ms device time, {flops / 1e9:.1f} GFLOP, "
+            f"bound {bound:.3f} ms (operations at the dense bf16 peak): {bound / ms:.1%} of it")
+        rows[kind] = dict(f32_rel_err=err32, bf16_drift=drift_card, bf16_drift_cpu=drift_cpu,
+                          bf16_tol=bf16_tol, ms=ms, gflop=flops / 1e9, bound_ms=bound,
+                          cpu_f32_s=t32, cpu_bf16_s=t16)
+        del model
+    return rows
+
+
+def truth_maps(seg):
+    """AIS maps from an instance segmentation: the foreground, and as both
+    distance maps 1 - d / max d over each object (d the distance to the
+    object's outside): 0 at its deepest point, about 1 at its boundary, 1 in
+    the background."""
+    from scipy import ndimage
+    from micro_sam_tpu_torch.ops.host_ops import regionprops
+    dist = np.ones(seg.shape, np.float32)
+    for prop in regionprops(seg):
+        sl = tuple(slice(max(s.start - 1, 0), s.stop + 1) for s in prop.slices)
+        inside = seg[sl] == prop.label
+        d = ndimage.distance_transform_edt(np.pad(inside, 1))[1:-1, 1:-1]
+        dist[sl][inside] = (1 - d / d.max())[inside]
+    return {"foreground": (seg > 0).astype(np.float32), "center_distances": dist,
+            "boundary_distances": dist.copy()}
+
+
+def match_objects(got, truth, iou_min):
+    """(truth objects matched by an object of ``got`` at IoU >= iou_min, truth
+    objects)."""
+    ids = [int(i) for i in np.unique(truth) if i != 0]
+    n = 0
+    for i in ids:
+        inside = truth == i
+        cand, counts = np.unique(got[inside], return_counts=True)
+        best = max((c / (inside.sum() + (got == g).sum() - c) for g, c in zip(cand, counts)
+                    if g != 0), default=0.0)
+        n += int(best >= iou_min)
+    return n, len(ids)
+
+
+def ais_vit_b(counters, predictor, segmenter, image):
+    """AIS initialize (one encode's launches, timed and split, profiled) and
+    generate on the random decoder's maps."""
+    from micro_sam_tpu_torch import instance_segmentation as inst
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.models import unetr as um
+    from micro_sam_tpu_torch.utils import zarr_lite
+    for c in counters.values():
+        c.launches = 0
+    segmenter.initialize(image)  # the warm-up
+    torch.cuda.synchronize()
+    init_launches = {k: c.launches for k, c in counters.items() if c.launches}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    seg = segmenter.generate()
+    t_gen = time.perf_counter() - t0
+    gen_launches = {k: c.launches for k, c in counters.items() if c.launches}
+    expect = {"layernorm": 24, "gemm": 48, "relpos_attention": 12}
+    log(f"  AIS launches: initialize {init_launches} (expected {expect}), generate "
+        f"{gen_launches or 0}")
+    if init_launches != expect or gen_launches:
+        raise AssertionError("AIS did not encode once through the kernels, or generate "
+                             "launched a kernel")
+    maps = segmenter.get_state()
+    if any(m.shape != image.shape[:2] or m.dtype != np.float32 or not np.isfinite(m).all()
+           for m in maps.values()) or seg.shape != image.shape[:2] or seg.dtype != np.uint32:
+        raise AssertionError("AIS: maps or segmentation of the wrong shape / dtype")
+    runs = []
+    for _ in range(AIS_REPS):
+        with Timed(util, "precompute_image_embeddings") as enc, \
+                Timed(util, "_resize_for_encoder") as resize, \
+                Timed(predictor, "encode_batch") as encode, \
+                Timed(zarr_lite.Group, "create_dataset") as cache, \
+                Timed(segmenter._decoder, "_forward_impl") as dec, \
+                Timed(um, "postprocess_decoder_output") as post, \
+                Timed(inst.DecoderAdapter, "__call__") as call:
+            t0 = time.perf_counter()
+            segmenter.initialize(image)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        split = {"encode_ms": 1e3 * sum(enc.seconds),
+                 "of_it_normalize_resize_ms": 1e3 * sum(resize.seconds),
+                 "of_it_encode_batch_ms": 1e3 * sum(encode.seconds),
+                 "of_it_cache_write_ms": 1e3 * sum(cache.seconds),
+                 "decoder_ms": 1e3 * sum(dec.seconds),
+                 "crop_resize_ms": 1e3 * sum(post.seconds)}
+        split["copy_to_host_ms"] = 1e3 * sum(call.seconds) - split["decoder_ms"] \
+            - split["crop_resize_ms"]
+        split["other_ms"] = 1e3 * total - sum(v for k, v in split.items()
+                                              if not k.startswith("of_it"))
+        runs.append((1e3 * total, split))
+    runs.sort(key=lambda r: r[0])
+    t_init, split = runs[len(runs) // 2]
+    log(f"  AIS initialize (1024^2, host clock, median of {AIS_REPS} after a warm-up, the card "
+        f"synchronized after each part): {t_init:.3f} ms = "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; generate (defaults, random maps) {1e3 * t_gen:.3f} ms, "
+        f"{len(np.unique(seg)) - 1} objects")
+    prof = profile_ais(lambda: (segmenter.initialize(image), torch.cuda.synchronize()))
+    return dict(initialize_ms=t_init, split_ms=split, generate_ms=1e3 * t_gen,
+                launches_initialize=init_launches, profiled_initialize=prof)
+
+
+def truth_checks(predictor, ais, apg, seg, emb):
+    """AIS and APG on maps built from the truth: AIS matches >= 90 % of the
+    objects at IoU >= 0.8; APG derives one prompt per object (+-10 %) and
+    ends in a uint32 label image."""
+    from micro_sam_tpu_torch import instance_segmentation as inst
+    from micro_sam_tpu_torch import util
+    maps = truth_maps(seg)
+    ais.set_state(maps)
+    t0 = time.perf_counter()
+    out = ais.generate()
+    t_ais = time.perf_counter() - t0
+    matched, n = match_objects(out, seg, AIS_MATCH_IOU)
+    log(f"  AIS on the truth's maps: {len(np.unique(out)) - 1} objects, {matched} of {n} truth "
+        f"objects matched at IoU >= {AIS_MATCH_IOU} (need {AIS_MATCH_SHARE:.0%}); generate "
+        f"{1e3 * t_ais:.3f} ms")
+    if matched < AIS_MATCH_SHARE * n:
+        raise AssertionError("AIS on the truth's maps missed objects")
+    util.set_precomputed(predictor, emb)
+    apg.set_state(maps)
+    derive, prompts = inst._derive_point_prompts, []
+
+    def counted(*a, **k):
+        out_ = derive(*a, **k)
+        prompts.append(0 if out_ is None else len(out_["points"]))
+        return out_
+    inst._derive_point_prompts = counted
+    try:
+        t0 = time.perf_counter()
+        apg_out = apg.generate()
+        t_apg = time.perf_counter() - t0
+    finally:
+        inst._derive_point_prompts = derive
+    log(f"  APG on the truth's maps: {prompts} prompts for {n} objects (need within "
+        f"{APG_PROMPT_SLACK:.0%}), label image {apg_out.shape} {apg_out.dtype} with "
+        f"{len(np.unique(apg_out)) - 1} objects (SAM's weights are random: not scored); "
+        f"generate {1e3 * t_apg:.3f} ms")
+    if prompts != [prompts[0]] or abs(prompts[0] - n) > APG_PROMPT_SLACK * n or \
+            apg_out.shape != seg.shape or apg_out.dtype != np.uint32:
+        raise AssertionError("APG on the truth's maps: wrong prompts or result")
+    return dict(objects=n, ais_matched=matched, ais_generate_ms=1e3 * t_ais,
+                apg_prompts=prompts[0], apg_generate_ms=1e3 * t_apg,
+                apg_objects=int(len(np.unique(apg_out)) - 1))
+
+
+def tiled_ais_checks(predictor, decoder, inputs, bf16_tol):
+    """Tiled AIS over phase 10's tiled 2048^2 embeddings at batch 4: tiles/s;
+    the canvases equal to the bit to each tile's maps from the batch's
+    decoder output pasted into its inner block, and within the bf16 bound of
+    each tile's own untiled decode; tiled APG with optimize_memory and about
+    50 points."""
+    from micro_sam_tpu_torch import instance_segmentation as inst
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.models.unetr import postprocess_decoder_output
+    from micro_sam_tpu_torch.util import get_centers_and_bounding_boxes
+    from micro_sam_tpu_torch.utils.blocking import Blocking
+    image, seg, emb = inputs["image"], inputs["seg"], inputs["emb"]
+    tiles = sorted(emb["features"])
+    tais = inst.get_instance_segmentation_generator(predictor, True, decoder, "ais")
+    tais.initialize(image, image_embeddings=emb, batch_size=4)
+    times = []
+    for _ in range(AIS_REPS):
+        t0 = time.perf_counter()
+        tais.initialize(image, image_embeddings=emb, batch_size=4)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_init = statistics.median(times)
+    tiling = Blocking([0, 0], image.shape[:2], tuple(emb["tile_shape"]))
+    halo = list(emb["halo"])
+    feats = []  # each tile's features as the segmenter gets them: installed on the predictor
+    for t in tiles:
+        feats.append(util.set_precomputed(predictor, emb, tile_id=t).features)
+    out = decoder._forward_impl(torch.cat(feats)).float()
+    canvases = np.zeros((3,) + image.shape[:2], np.float32)
+    worst = 0.0
+    for k, t in enumerate(tiles):
+        tile = emb["features"][t]
+        maps = postprocess_decoder_output(out[k:k + 1], tile["input_size"],
+                                          tile["original_size"])[0].cpu().numpy()
+        block = tiling.get_block_with_halo(t, halo)
+        inner = (slice(None),) + block.inner_block_local.slicing
+        canvases[(slice(None),) + block.inner_block.slicing] = maps[inner]
+        alone = decoder(feats[k], tile["input_size"], tile["original_size"])[0]
+        worst = max(worst, float(np.abs(alone[inner] - maps[inner]).max()))
+    got = np.stack([tais._foreground, tais._center_distances, tais._boundary_distances])
+    equal = bool(np.array_equal(got, canvases))
+    log(f"  tiled AIS ({len(tiles)} tiles of phase 10's 2048^2 embeddings, batch 4): initialize "
+        f"{1e3 * t_init:.3f} ms (median of {AIS_REPS}), {len(tiles) / t_init:.2f} tiles/s; "
+        f"canvases equal to the batch's decoder output pasted per tile: {equal}; each tile's "
+        f"own untiled decode (batch 1) within {worst:.3e} of it (tol {bf16_tol:.3e})")
+    if not equal or worst > bf16_tol:
+        raise AssertionError("tiled AIS canvases disagree with the tiles' decodes")
+    centers, _ = get_centers_and_bounding_boxes(seg)
+    pts = np.array([[[c[1], c[0]]] for c in list(centers.values())[:TILED_APG_POINTS]])
+
+    def fifty(*a, **k):
+        return {"points": pts, "point_labels": np.ones((len(pts), 1))}
+    tapg = inst.get_instance_segmentation_generator(predictor, True, decoder, "apg")
+    tapg.set_state(dict(tais.get_state(), image_embeddings=emb))
+    t0 = time.perf_counter()
+    tseg = tapg.generate(prompt_function=fifty, optimize_memory=True)
+    t_apg = time.perf_counter() - t0
+    log(f"  tiled APG (optimize_memory, {len(pts)} points at the truth's centers): "
+        f"{tseg.shape} {tseg.dtype}, {len(np.unique(tseg)) - 1} objects, generate "
+        f"{1e3 * t_apg:.3f} ms")
+    if tseg.shape != image.shape[:2] or tseg.dtype != np.uint32:
+        raise AssertionError(f"tiled APG: {tseg.shape} {tseg.dtype}")
+    return dict(tiles=len(tiles), initialize_ms=1e3 * t_init, tiles_per_s=len(tiles) / t_init,
+                canvases_equal=equal, untiled_max_abs_diff=worst, apg_points=len(pts),
+                apg_generate_ms=1e3 * t_apg)
+
+
+def end_to_end_checks(predictor, state, image, seg, root):
+    """automatic_instance_segmentation in the modes ais, apg (a point at each
+    truth center: the random decoder's maps would give thousands) and amg
+    (16 x 16 points); cache_amg_state through the pickle store, reloaded into
+    a fresh segmenter with an equal generate."""
+    import shutil
+    from micro_sam_tpu_torch.automatic_segmentation import (automatic_instance_segmentation,
+                                                            get_predictor_and_segmenter)
+    from micro_sam_tpu_torch.precompute_state import cache_amg_state
+    from micro_sam_tpu_torch.util import get_centers_and_bounding_boxes
+    centers, _ = get_centers_and_bounding_boxes(seg)
+    pts = np.array([[[c[1], c[0]]] for c in centers.values()])
+    gen = {"ais": {}, "apg": dict(prompt_function=lambda *a, **k: {
+        "points": pts, "point_labels": np.ones((len(pts), 1))}), "amg": {}}
+    out = {}
+    for mode in ("ais", "apg", "amg"):
+        init = dict(points_per_side=16) if mode == "amg" else {}
+        _, segmenter = get_predictor_and_segmenter("vit_b", predictor=predictor, state=state,
+                                                   segmentation_mode=mode, **init)
+        t0 = time.perf_counter()
+        res = automatic_instance_segmentation(predictor, segmenter, image, ndim=2,
+                                              verbose=False, **gen[mode])
+        out[f"{mode}_ms"] = 1e3 * (time.perf_counter() - t0)
+        out[f"{mode}_objects"] = int(len(np.unique(res)) - 1)
+        if res.shape != image.shape[:2] or res.dtype != np.uint32:
+            raise AssertionError(f"automatic_instance_segmentation ({mode}): {res.shape} "
+                                 f"{res.dtype}")
+    cache = os.path.join(root, "build", "chip_smoke_ais")
+    shutil.rmtree(cache, ignore_errors=True)
+    from micro_sam_tpu_torch.util import precompute_image_embeddings
+    emb = precompute_image_embeddings(predictor, image, verbose=False)
+    first = cache_amg_state(predictor, image, emb, cache, verbose=False, points_per_side=16)
+    again = cache_amg_state(predictor, image, emb, cache, verbose=False, points_per_side=16)
+    same = bool(np.array_equal(first.generate(), again.generate()))
+    out["amg_state_reloaded_equal"] = same
+    log("  automatic_instance_segmentation (ndim=2): " + ", ".join(
+        f"{m} {out[f'{m}_objects']} objects in {out[f'{m}_ms']:.1f} ms"
+        for m in ("ais", "apg", "amg")) + f"; cache_amg_state written to "
+        f"{os.path.relpath(cache, root)}/amg_state/state.pkl and reloaded: generate equal "
+        f"{same}; the AIS h5 store (is_state.h5) needs h5py, which this machine lacks: it is "
+        f"covered by the CPU tests (tests/test_torch_automatic_segmentation.py)")
+    if not same:
+        raise AssertionError("cache_amg_state: the reloaded state generates otherwise")
+    return out
+
+
+def ais_phase(counters, root, p10):
+    """Phase 12: the UNETR decoder on the card against the CPU, AIS and APG
+    (vit_b bf16, random weights from seed 0, the decoder at published widths
+    with random BN statistics) on phase 11's 1024^2 image, on maps built from
+    its truth, tiled over phase 10's embeddings, and the automatic
+    segmentation entry points end to end."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from micro_sam_tpu_torch.automatic_segmentation import get_predictor_and_segmenter
+    from micro_sam_tpu_torch.instance_segmentation import get_instance_segmentation_generator
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings, set_precomputed
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        predictor = get_sam_model("vit_b", seed=0)
+        image, seg = synthetic_data(**FIXTURE_IMAGE)
+        emb = precompute_image_embeddings(predictor, image, verbose=False)
+        feats = set_precomputed(predictor, emb).features.float().cpu().numpy()
+        cpu_runs = [pool.submit(unetr_cpu_reference, root, feats, use_ct, AIS_CPU_THREADS)
+                    for use_ct in (True, False)]
+        state = {"decoder_state": random_unetr(True).state_dict()}
+        _, ais = get_predictor_and_segmenter("vit_b", predictor=predictor, state=state,
+                                             segmentation_mode="ais")
+        log(f"  (a) AIS, vit_b bf16 on a 1024^2 synthetic_data image (seed "
+            f"{FIXTURE_IMAGE['seed']}), decoder of random weights")
+        a = ais_vit_b(counters, predictor, ais, image)
+        log("  (b) AIS and APG on maps built from the image's truth")
+        apg = get_instance_segmentation_generator(predictor, False, ais._decoder, "apg")
+        truth = truth_checks(predictor, ais, apg, seg, emb)
+        log("  (c) the decoder on the card against the CPU (two processes, started after the "
+            "encode)")
+        t0 = time.perf_counter()
+        rows = decoder_checks(feats, cpu_runs)
+        log(f"  (waited {time.perf_counter() - t0:.1f} s for the CPU references and the checks)")
+        log("  (d) tiled AIS and APG over phase 10's tiled embeddings")
+        tiled = tiled_ais_checks(predictor, ais._decoder, p10["amg_inputs"],
+                                 rows["conv-transpose"]["bf16_tol"])
+        log("  (e) the automatic segmentation entry points")
+        e2e = end_to_end_checks(predictor, state, image, seg, root)
+    del predictor, ais, apg
+    torch.cuda.empty_cache()
+    return dict(decoder=rows, ais=a, truth=truth, tiled=tiled, end_to_end=e2e)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
@@ -3364,6 +3848,14 @@ def main():
     p11 = amg_phase(counters, root, p10)
     p11["wall_s"] = time.perf_counter() - t11
     log(f"phase 11 (the prompt layer and AMG): {p11['wall_s']:.1f} s")
+    # phase 12: decoder-based instance segmentation
+    t12 = time.perf_counter()
+    log("decoder-based instance segmentation: the UNETR decoder on the card against the CPU, "
+        "AIS and APG, their tiled forms, automatic_instance_segmentation and cache_amg_state "
+        "(vit_b, bf16)")
+    p12 = ais_phase(counters, root, p10)
+    p12["wall_s"] = time.perf_counter() - t12
+    log(f"phase 12 (decoder-based instance segmentation): {p12['wall_s']:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
@@ -3380,7 +3872,7 @@ def main():
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")},
-                                "amg": p11}}))
+                                "amg": p11, "ais": p12}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
                                                                   "plans")
                                   if k in r}

@@ -1,13 +1,23 @@
-"""Automatic instance segmentation by grid prompts (AMG), untiled and tiled.
+"""Automatic instance segmentation: by grid prompts (AMG), by the UNETR
+decoder's maps and a seeded watershed (AIS), and by prompts derived from those
+maps (APG); each untiled and tiled.
 
-Counterpart of the AMG half of ``micro_sam_tpu/instance_segmentation.py``.
-``initialize(image, image_embeddings, i, ...)`` does the expensive part once:
-every batch of grid points is decoded and reduced on the predictor's device
-(``predictor.amg_decode``: stability scores, boxes, bit-packed masks, and the
-candidates under the prefilter floors dropped there), its survivors are
-copied to the host and run-length encoded by the native library.
-``generate(**params)`` is the cheap host postprocessing (filters, NMS,
-painting) that can be re-run with other thresholds.
+Counterpart of ``micro_sam_tpu/instance_segmentation.py``. Every segmenter
+splits its work the same way: ``initialize(image, image_embeddings, i, ...)``
+does the expensive part once, ``generate(**params)`` the cheap host
+postprocessing that can be re-run with other thresholds.
+
+- AMG: every batch of grid points is decoded and reduced on the predictor's
+  device (``predictor.amg_decode``: stability scores, boxes, bit-packed masks,
+  and the candidates under the prefilter floors dropped there); the survivors
+  are copied to the host and run-length encoded by the native library;
+  ``generate`` filters, runs NMS and paints.
+- AIS: the decoder runs on the device over the installed embeddings, its
+  maps are cropped and resized there and copied to the host once
+  (``DecoderAdapter``); ``generate`` smooths them and floods the C++ seeded
+  watershed from the thresholded distance maps.
+- APG: the AIS maps give one point prompt per object core; ``generate``
+  decodes them in batches (``batched_inference``) and runs mask NMS.
 """
 from __future__ import annotations
 
@@ -19,10 +29,17 @@ import numpy as np
 import torch
 
 from . import native, util
+from .inference import batched_inference, batched_tiled_inference
+from .models import unetr as unetr_mod
+from .models.build_sam import resolve_device
+from .models.convert import unetr_params_from_jax
 from .ops import amg_utils
 from .ops.amg_utils import MaskData, batched_nms
+from .ops.host_ops import find_boundaries_outer, gaussian_smooth, regionprops
 from .predictor import SamPredictor, amg_decode
 from .utils.blocking import Blocking
+
+DEFAULT_SEGMENTATION_MODE_WITH_DECODER = "ais"
 
 MASK_THRESHOLD = 0.0
 
@@ -468,3 +485,539 @@ class TiledAutomaticMaskGenerator(AutomaticMaskGenerator):
         self._is_initialized = True
         self._crop_list = mask_data
         self._crop_boxes = crop_boxes
+
+
+#
+# AIS: decoder-based instance segmentation
+#
+
+class DecoderAdapter:
+    """The UNETR decoder over installed embeddings. ``__call__`` runs it on the
+    decoder's device, crops and resizes its output there, and copies the
+    (B, C, H, W) float32 maps to the host once."""
+
+    def __init__(self, unetr: unetr_mod.UNETRDecoder):
+        self.unetr = unetr.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.unetr.parameters()).device
+
+    @torch.no_grad()
+    def _forward_impl(self, features) -> torch.Tensor:
+        """(B, h, w, C) NHWC or (B, C, h, w) NCHW features -> (B, out, 16h, 16w)
+        on the device, in the features' dtype (numpy features: float32)."""
+        f = features if torch.is_tensor(features) else torch.from_numpy(np.asarray(features))
+        if f.dim() == 3:
+            f = f[None]
+        emb = self.unetr.embed_dim
+        if not (f.shape[-1] != emb and f.shape[1] == emb):
+            f = f.permute(0, 3, 1, 2)  # NHWC: a channels-last NCHW view, no copy
+        return self.unetr(f.to(self.device))
+
+    @torch.no_grad()
+    def __call__(self, features, input_shape, original_shape) -> np.ndarray:
+        """(B, C, *original_shape) float32 numpy maps."""
+        out = self._forward_impl(features).float()
+        out = unetr_mod.postprocess_decoder_output(out, tuple(input_shape), tuple(original_shape))
+        return out.cpu().numpy()
+
+
+def get_unetr(image_encoder=None, decoder_state=None, device=None, out_channels: int = 3,
+              flexible_load_checkpoint: bool = False, final_activation="Sigmoid",
+              embed_dim: int = 256, seed: int = 0) -> unetr_mod.UNETRDecoder:
+    """The UNETR decoder on ``device`` (None: the GPU, raising without one).
+
+    decoder_state: a torch_em UNETR state dict (a zoo ``*_decoder``
+    checkpoint's), the JAX package's UNETR pytree (a native trainer
+    checkpoint's), or None for random weights from ``seed``. The widths come
+    from the state."""
+    dev = resolve_device(device)
+    if decoder_state is not None:
+        model = _merge_decoder_state(decoder_state, flexible_load_checkpoint)
+    else:
+        model = unetr_mod.UNETRDecoder(embed_dim=embed_dim, out_channels=out_channels)
+        model.init_(torch.Generator().manual_seed(seed))
+    model.final_activation = final_activation is not None
+    return model.to(dev).eval()
+
+
+def _random_decoder() -> unetr_mod.UNETRDecoder:
+    return unetr_mod.UNETRDecoder().init_(torch.Generator().manual_seed(0))
+
+
+def _merge_decoder_state(decoder_state, flexible: bool) -> unetr_mod.UNETRDecoder:
+    """A decoder holding a saved decoder state (on the CPU)."""
+    if unetr_mod.is_torch_decoder_state(decoder_state):
+        try:
+            return unetr_mod.decoder_from_state(unetr_mod.clean_torch_em_state(decoder_state))
+        except Exception as e:
+            if flexible:
+                warnings.warn(f"Decoder state conversion failed ({e}); keeping random "
+                              "initialization.")
+                return _random_decoder()
+            raise
+    if isinstance(decoder_state, dict) and "deconv1" in decoder_state:
+        return unetr_mod.decoder_from_state(unetr_params_from_jax(decoder_state))
+    if flexible:
+        warnings.warn("Unrecognized decoder state format; keeping random initialization.")
+        return _random_decoder()
+    raise ValueError("Unrecognized decoder state format. Expected a torch_em UNETR state dict "
+                     "or the JAX package's UNETR parameter tree.")
+
+
+def get_decoder(image_encoder=None, decoder_state=None, device=None) -> DecoderAdapter:
+    """The decoder that predicts the maps of automatic instance segmentation."""
+    return DecoderAdapter(get_unetr(image_encoder, decoder_state, device))
+
+
+def get_predictor_and_decoder(model_type: str, checkpoint_path=None, device=None,
+                              peft_kwargs: Optional[Dict] = None
+                              ) -> Tuple[SamPredictor, DecoderAdapter]:
+    """SAM predictor and segmentation decoder from one checkpoint."""
+    if peft_kwargs:
+        raise NotImplementedError("PEFT models are not ported yet (ROADMAP Queue 1 item 15).")
+    predictor, state = util.get_sam_model(model_type=model_type, checkpoint_path=checkpoint_path,
+                                          device=device, return_state=True)
+    if "decoder_state" not in state:
+        raise ValueError(f"The checkpoint at '{checkpoint_path}' or the chosen model "
+                         f"'{model_type}' does not contain a decoder state")
+    return predictor, get_decoder(None, state["decoder_state"], device)
+
+
+def watershed_from_center_and_boundary_distances(
+    center_distances: np.ndarray,
+    boundary_distances: np.ndarray,
+    foreground_map: np.ndarray,
+    center_distance_threshold: float = 0.5,
+    boundary_distance_threshold: float = 0.5,
+    foreground_threshold: float = 0.5,
+    distance_smoothing: float = 1.6,
+    min_size: int = 0,
+) -> np.ndarray:
+    """Seeded watershed from thresholded distance maps: markers where both
+    smoothed distances are under their thresholds inside the foreground,
+    flooded over the smoothed boundary distance within the foreground."""
+    from scipy import ndimage
+    cd = gaussian_smooth(center_distances, distance_smoothing)
+    bd = gaussian_smooth(boundary_distances, distance_smoothing)
+    fg_mask = foreground_map > foreground_threshold
+    markers, _ = ndimage.label((cd < center_distance_threshold)
+                               & (bd < boundary_distance_threshold) & fg_mask)
+    segmentation = native.seeded_watershed(bd.astype(np.float32), markers.astype(np.uint32),
+                                           mask=fg_mask)
+    if min_size > 0:
+        segmentation = native.size_filter(segmentation, min_size=min_size)
+    return segmentation.astype(np.uint32)
+
+
+class InstanceSegmentationWithDecoder:
+    """Decoder-based instance segmentation (AIS). The decoder predicts three
+    maps (foreground probability, center distance, boundary distance):
+    ``initialize`` computes them once, ``generate`` is a re-tunable watershed
+    over them."""
+
+    # decoder channel -> the attribute its map is stored under
+    _MAP_ATTRS = ("_foreground", "_center_distances", "_boundary_distances")
+    # state keys of the h5 / pickle cache layout
+    _STATE_KEYS = ("foreground", "center_distances", "boundary_distances")
+
+    def __init__(self, predictor: SamPredictor, decoder: DecoderAdapter) -> None:
+        self._predictor = predictor
+        self._decoder = decoder
+        self._is_initialized = False
+        self._store_maps(None)
+
+    def _store_maps(self, maps) -> None:
+        for channel, attr in enumerate(self._MAP_ATTRS):
+            setattr(self, attr, None if maps is None else maps[channel])
+
+    @property
+    def is_initialized(self):
+        return self._is_initialized
+
+    def initialize(
+        self,
+        image: np.ndarray,
+        image_embeddings=None,
+        i: Optional[int] = None,
+        verbose: bool = False,
+        pbar_init=None,
+        pbar_update=None,
+        ndim: int = 2,
+    ) -> None:
+        """Compute the decoder's maps for ``image`` (encoding it unless its
+        embeddings are given)."""
+        pbar_init, pbar_update, pbar_close = util.handle_pbar(verbose, pbar_init, pbar_update)
+        pbar_init(1, "Initialize instance segmentation with decoder")
+        if image_embeddings is None:
+            image_embeddings = util.precompute_image_embeddings(self._predictor, image, ndim=ndim,
+                                                                verbose=verbose)
+        self._predictor = util.set_precomputed(self._predictor, image_embeddings, i=i)
+        maps = self._decoder(self._predictor.features, self._predictor.input_size,
+                             self._predictor.original_size)[0]
+        assert maps.shape[0] == len(self._MAP_ATTRS), maps.shape
+        pbar_update(1)
+        pbar_close()
+        self._store_maps(maps)
+        self._i = i
+        self._is_initialized = True
+
+    @staticmethod
+    def _to_masks(segmentation, output_mode):
+        """Label image -> binary-mask records (bbox as [x, w, y, h(, z, d)])."""
+        if output_mode != "binary_mask":
+            raise ValueError(f"Output mode {output_mode} is not supported. "
+                             "Choose one of 'instance_segmentation', 'binary_mask'.")
+        ndim = segmentation.ndim
+        assert ndim in (2, 3)
+        # the whole image as the crop box, innermost axis first: [0, W, 0, H(, 0, D)]
+        crop_box = [v for size in segmentation.shape[::-1] for v in (0, size)]
+
+        def record(prop):
+            lo, hi = prop.bbox[:ndim], prop.bbox[ndim:]
+            if ndim == 2:
+                (y0, x0), (y1, x1) = lo, hi
+                bbox = [x0, x1 - x0, y0, y1 - y0]
+            else:
+                (z0, y0, x0), (z1, y1, x1) = lo, hi
+                # depth measured from y0, as the JAX package's record has it
+                bbox = [x0, x1 - x0, y0, y1 - y0, z0, z1 - y0]
+            return {"segmentation": segmentation == prop.label, "area": prop.area,
+                    "bbox": bbox, "crop_box": crop_box, "seg_id": prop.label}
+
+        return [record(prop) for prop in regionprops(segmentation)]
+
+    def generate(
+        self,
+        center_distance_threshold: float = 0.5,
+        boundary_distance_threshold: float = 0.5,
+        foreground_threshold: float = 0.5,
+        foreground_smoothing: float = 1.0,
+        distance_smoothing: float = 1.6,
+        min_size: int = 0,
+        output_mode: str = "instance_segmentation",
+        tile_shape: Optional[Tuple[int, int]] = None,
+        halo: Optional[Tuple[int, int]] = None,
+        n_threads: Optional[int] = None,
+        optimize_memory: bool = False,
+        segmentation: Optional[np.ndarray] = None,
+    ) -> Union[List[Dict[str, Any]], np.ndarray]:
+        """The watershed over the initialized maps (cheap, re-tunable)."""
+        if not self.is_initialized:
+            raise RuntimeError("InstanceSegmentationWithDecoder has not been initialized. "
+                               "Call initialize first.")
+        fg = self._foreground
+        if foreground_smoothing > 0:
+            fg = gaussian_smooth(fg, foreground_smoothing)
+        segmentation = watershed_from_center_and_boundary_distances(
+            self._center_distances, self._boundary_distances, fg,
+            center_distance_threshold=center_distance_threshold,
+            boundary_distance_threshold=boundary_distance_threshold,
+            foreground_threshold=foreground_threshold, distance_smoothing=distance_smoothing,
+            min_size=min_size)
+        if output_mode != "instance_segmentation":
+            segmentation = self._to_masks(segmentation, output_mode)
+        return segmentation
+
+    def get_state(self) -> Dict[str, Any]:
+        if not self.is_initialized:
+            raise RuntimeError("The state has not been computed yet. Call initialize first.")
+        return {key: getattr(self, f"_{key}") for key in self._STATE_KEYS}
+
+    def set_state(self, state: Dict[str, Any]) -> None:
+        for key in self._STATE_KEYS:
+            setattr(self, f"_{key}", state[key])
+        self._is_initialized = True
+
+    def clear_state(self):
+        self._store_maps(None)
+        self._is_initialized = False
+
+    # shared by the APG classes: prompts derived from the maps
+    def _derive_prompts(self, prompt_function, foreground_threshold, center_distance_threshold,
+                        boundary_distance_threshold):
+        derive = prompt_function or _derive_point_prompts
+        return derive(self._foreground, self._center_distances, self._boundary_distances,
+                      foreground_threshold=foreground_threshold,
+                      center_distance_threshold=center_distance_threshold,
+                      boundary_distance_threshold=boundary_distance_threshold)
+
+    @staticmethod
+    def _empty_result(shape, output_mode):
+        if output_mode == "instance_segmentation":
+            return np.zeros(shape, dtype="uint32")
+        return []
+
+
+class TiledInstanceSegmentationWithDecoder(InstanceSegmentationWithDecoder):
+    """AIS over tiled embeddings: the decoder runs over ``batch_size`` tiles at
+    a time, and each tile's inner block is pasted into full-size maps."""
+
+    def _predict_decoder(self, batched_embeddings, input_shapes, original_shapes):
+        """One decoder run over the tiles' features (on the device), then per
+        tile the crop and resize there and one copy to the host."""
+        output = self._decoder._forward_impl(torch.cat(list(batched_embeddings), dim=0)).float()
+        out = []
+        for k, (input_shape, original_shape) in enumerate(zip(input_shapes, original_shapes)):
+            x = unetr_mod.postprocess_decoder_output(output[k:k + 1], input_shape, original_shape)
+            out.append(x[0].cpu().numpy())
+        return out
+
+    def _decode_tile_batch(self, tile_ids, i):
+        """Install each tile's embeddings, run the decoder over them batched,
+        return the tiles' (3, h, w) maps."""
+        feats, in_shapes, out_shapes = [], [], []
+        for tile_id in tile_ids:
+            self._predictor = util.set_precomputed(self._predictor, self._image_embeddings, i=i,
+                                                   tile_id=int(tile_id))
+            feats.append(self._predictor.features)
+            in_shapes.append(tuple(self._predictor.input_size))
+            out_shapes.append(tuple(self._predictor.original_size))
+        return self._predict_decoder(feats, in_shapes, out_shapes)
+
+    def initialize(
+        self,
+        image: np.ndarray,
+        image_embeddings=None,
+        i: Optional[int] = None,
+        tile_shape: Optional[Tuple[int, int]] = None,
+        halo: Optional[Tuple[int, int]] = None,
+        verbose: bool = False,
+        pbar_init=None,
+        pbar_update=None,
+        batch_size: int = 1,
+        mask: Optional[np.ndarray] = None,
+    ) -> None:
+        original_size = image.shape[:2]
+        self._image_embeddings, tile_shape, halo, tiles_in_mask = _process_tiled_embeddings(
+            self._predictor, image, image_embeddings, tile_shape, halo, verbose=verbose,
+            batch_size=batch_size, mask=mask, i=i)
+        tiling = Blocking([0, 0], original_size, tile_shape)
+        tile_ids = (list(range(len(tiling))) if tiles_in_mask is None
+                    else [int(t) for t in tiles_in_mask])
+
+        pbar_init, pbar_update, pbar_close = util.handle_pbar(verbose, pbar_init, pbar_update)
+        pbar_init(len(tile_ids), "Initialize tiled instance segmentation with decoder")
+        # one full-size canvas per decoder channel; the inner blocks partition the image
+        canvases = np.zeros((len(self._MAP_ATTRS),) + tuple(original_size), dtype="float32")
+        n_batches = int(np.ceil(len(tile_ids) / batch_size))
+        for chunk in np.array_split(tile_ids, n_batches):
+            for tile_id, maps in zip(chunk, self._decode_tile_batch(chunk, i)):
+                assert maps.shape[0] == len(self._MAP_ATTRS)
+                block = tiling.get_block_with_halo(int(tile_id), list(halo))
+                canvases[(slice(None),) + block.inner_block.slicing] = \
+                    maps[(slice(None),) + block.inner_block_local.slicing]
+                pbar_update(1)
+        pbar_close()
+        self._i = i
+        self._store_maps(canvases)
+        self._is_initialized = True
+
+
+#
+# APG: prompts derived from the decoder's maps, then NMS
+#
+
+def _get_centers(segmentation, avoid_image_border=True):
+    """One interior point per object: the maximum of the distance to the
+    object's outer boundary (and, by default, the image border) inside it."""
+    interior = find_boundaries_outer(segmentation > 0) == 0
+    if avoid_image_border:
+        for edge in (np.s_[0, :], np.s_[-1, :], np.s_[:, 0], np.s_[:, -1]):
+            interior[edge] = False
+    depth = native.distance_transform(interior)
+    centers = []
+    for prop in regionprops(segmentation):
+        y0, x0, y1, x1 = prop.bbox
+        window = np.s_[y0:y1, x0:x1]
+        local_depth = np.where(segmentation[window] == prop.label, depth[window], 0)
+        dy, dx = np.unravel_index(np.argmax(local_depth), local_depth.shape)
+        centers.append((y0 + dy, x0 + dx))
+    return np.array(centers) if centers else np.zeros((0, 2), dtype=np.int64)
+
+
+def _derive_point_prompts(
+    foreground: np.ndarray,
+    center_distances: np.ndarray,
+    boundary_distances: np.ndarray,
+    foreground_threshold: float = 0.5,
+    center_distance_threshold: float = 0.5,
+    boundary_distance_threshold: float = 0.5,
+):
+    """Decoder maps -> one positive point per object core: the connected
+    components of the low-distance foreground, each at its deepest point."""
+    core = ((center_distances < center_distance_threshold)
+            & (boundary_distances < boundary_distance_threshold)
+            & (foreground >= foreground_threshold))
+    centers_yx = _get_centers(native.label(core.astype(np.uint32)))
+    if len(centers_yx) == 0:
+        return None
+    return {"points": centers_yx[:, None, ::-1].astype(np.float64),  # yx -> xy
+            "point_labels": np.ones((len(centers_yx), 1))}
+
+
+def _derive_box_prompts(predictions, box_extension, bbox_key="bbox", shape=None):
+    """Slightly extended XYXY boxes around predicted masks, for a refinement
+    round. ``bbox_key="global_bbox"`` reads the image-frame boxes of tiled
+    predictions, with ``shape`` bounding the extension."""
+    if shape is None:
+        shape = predictions[0]["segmentation"].shape
+    height, width = shape[:2]
+    prompts = []
+    for pred in predictions:
+        x, y, w, h = pred[bbox_key]
+        # x against the width, y against the height
+        prompts.append([max(x - w * box_extension, 0), max(y - h * box_extension, 0),
+                        min(x + (1 + box_extension) * w, width),
+                        min(y + (1 + box_extension) * h, height)])
+    return {"boxes": np.array(prompts)}
+
+
+class AutomaticPromptGenerator(InstanceSegmentationWithDecoder):
+    """Point prompts derived from the decoder's maps, decoded in batches, then
+    mask NMS."""
+
+    def generate(
+        self,
+        min_size: int = 25,
+        center_distance_threshold: float = 0.5,
+        boundary_distance_threshold: float = 0.5,
+        foreground_threshold: float = 0.5,
+        multimasking: bool = False,
+        batch_size: int = 32,
+        nms_threshold: float = 0.9,
+        intersection_over_min: bool = False,
+        output_mode: str = "instance_segmentation",
+        mask_threshold: Optional[Union[float, str]] = None,
+        refine_with_box_prompts: bool = False,
+        prompt_function: Optional[callable] = None,
+    ) -> Union[List[Dict[str, Any]], np.ndarray]:
+        if not self.is_initialized:
+            raise RuntimeError("AutomaticPromptGenerator has not been initialized. "
+                               "Call initialize first.")
+        prompts = self._derive_prompts(prompt_function, foreground_threshold,
+                                       center_distance_threshold, boundary_distance_threshold)
+        shape = self._foreground.shape
+        if prompts is None:
+            return self._empty_result(shape, output_mode)
+
+        def decode(prompt_dict):
+            return batched_inference(self._predictor, image=None, batch_size=batch_size,
+                                     return_instance_segmentation=False,
+                                     multimasking=multimasking, mask_threshold=mask_threshold,
+                                     i=getattr(self, "_i", None), **prompt_dict)
+
+        predictions = decode(prompts)
+        if refine_with_box_prompts and len(predictions) > 0:
+            # a second round from slightly extended boxes around the masks
+            predictions = decode(_derive_box_prompts(predictions, box_extension=0.01))
+        segmentation = util.apply_nms(predictions, min_size=min_size, nms_thresh=nms_threshold,
+                                      intersection_over_min=intersection_over_min, shape=shape)
+        if output_mode != "instance_segmentation":
+            segmentation = self._to_masks(segmentation, output_mode)
+        return segmentation
+
+
+class TiledAutomaticPromptGenerator(TiledInstanceSegmentationWithDecoder):
+    """APG over tiled embeddings: each prompt is decoded in the tile holding it."""
+
+    def generate(
+        self,
+        min_size: int = 25,
+        center_distance_threshold: float = 0.5,
+        boundary_distance_threshold: float = 0.5,
+        foreground_threshold: float = 0.5,
+        multimasking: bool = False,
+        batch_size: int = 32,
+        nms_threshold: float = 0.9,
+        intersection_over_min: bool = False,
+        output_mode: str = "instance_segmentation",
+        mask_threshold: Optional[Union[float, str]] = None,
+        refine_with_box_prompts: bool = False,
+        prompt_function: Optional[callable] = None,
+        optimize_memory: bool = False,
+    ) -> Union[List[Dict[str, Any]], np.ndarray]:
+        if not self.is_initialized:
+            raise RuntimeError("TiledAutomaticPromptGenerator has not been initialized. "
+                               "Call initialize first.")
+        if optimize_memory and (output_mode != "instance_segmentation" or refine_with_box_prompts):
+            raise ValueError("Invalid settings")
+        prompts = self._derive_prompts(prompt_function, foreground_threshold,
+                                       center_distance_threshold, boundary_distance_threshold)
+        shape = self._foreground.shape
+        if prompts is None:
+            return self._empty_result(shape, output_mode)
+
+        def decode(prompt_dict, **extra):
+            return batched_tiled_inference(
+                self._predictor, image=None, batch_size=batch_size,
+                image_embeddings=self._image_embeddings, return_instance_segmentation=False,
+                multimasking=multimasking, i=getattr(self, "_i", None), **extra, **prompt_dict)
+
+        if optimize_memory:
+            # NMS per tile and stitching inside tiled inference: a finished label image
+            prompts.update(min_size=min_size, nms_thresh=nms_threshold,
+                           intersection_over_min=intersection_over_min)
+            return decode(prompts, optimize_memory=True)
+
+        predictions = decode(prompts)
+        if refine_with_box_prompts and len(predictions) > 0:
+            # the boxes in the image's frame, from each prediction's global_bbox,
+            # routed through tiled inference again
+            predictions = decode(_derive_box_prompts(predictions, box_extension=0.01,
+                                                     bbox_key="global_bbox", shape=shape))
+        segmentation = util.apply_nms(predictions, shape=shape, min_size=min_size,
+                                      nms_thresh=nms_threshold,
+                                      intersection_over_min=intersection_over_min)
+        if output_mode != "instance_segmentation":
+            segmentation = self._to_masks(segmentation, output_mode)
+        return segmentation
+
+    def get_state(self) -> Dict[str, Any]:
+        """The maps, and the embeddings when they are held in memory (a lazily
+        loaded cache leaves None: pass ``image_embeddings=`` to ``set_state``)."""
+        state = super().get_state()
+        feats = self._image_embeddings.get("features")
+        in_memory = isinstance(feats, dict) and all(isinstance(v, dict) for v in feats.values())
+        state["image_embeddings"] = self._image_embeddings if in_memory else None
+        state["i"] = getattr(self, "_i", None)
+        return state
+
+    def set_state(self, state: Dict[str, Any], image_embeddings=None) -> None:
+        emb = image_embeddings if image_embeddings is not None else state.get("image_embeddings")
+        if emb is None:
+            raise ValueError("This tiled APG state does not carry embeddings (they were "
+                             "zarr-backed when saved); pass image_embeddings= to set_state.")
+        super().set_state({k: state[k] for k in self._STATE_KEYS})
+        self._image_embeddings = emb
+        self._i = state.get("i")
+
+
+def get_instance_segmentation_generator(
+    predictor: SamPredictor,
+    is_tiled: bool,
+    decoder: Optional[DecoderAdapter] = None,
+    segmentation_mode: Optional[str] = None,
+    **kwargs,
+):
+    """The segmenter of a mode (amg / ais / apg), tiled or not; without a mode,
+    AIS when a decoder is given, else AMG."""
+    if segmentation_mode is None:
+        segmentation_mode = "amg" if decoder is None else DEFAULT_SEGMENTATION_MODE_WITH_DECODER
+    registry = {  # mode -> ((untiled class, tiled class), needs a decoder)
+        "amg": ((AutomaticMaskGenerator, TiledAutomaticMaskGenerator), False),
+        "ais": ((InstanceSegmentationWithDecoder, TiledInstanceSegmentationWithDecoder), True),
+        "apg": ((AutomaticPromptGenerator, TiledAutomaticPromptGenerator), True),
+    }
+    try:
+        (flat_cls, tiled_cls), needs_decoder = registry[segmentation_mode.lower()]
+    except KeyError:
+        raise ValueError(f"Invalid segmentation_mode: {segmentation_mode}. "
+                         "Choose one of 'amg', 'ais', or 'apg'.") from None
+    cls = tiled_cls if is_tiled else flat_cls
+    if needs_decoder:
+        if decoder is None:
+            raise ValueError(f"segmentation_mode {segmentation_mode!r} needs a decoder.")
+        return cls(predictor, decoder, **kwargs)
+    return cls(predictor, **kwargs)

@@ -23,6 +23,10 @@ column p * C + h * hd + d of the JAX weight; ``params_from_jax`` /
 ``params_to_jax`` permute, so both packages compute the same function on one
 JAX tree. A MobileSAM-layout state dict (``load_torch_checkpoint``) is
 upstream's order already and loads unchanged.
+
+The UNETR decoder of AIS keeps torch_em's keys; ``unetr_params_from_jax`` /
+``unetr_params_to_jax`` map the JAX package's decoder pytree to them and back
+with the same transposes (its upsamplers told apart by structure).
 """
 from __future__ import annotations
 
@@ -337,3 +341,98 @@ def params_from_flat_npz(path: str, compute_dtype: str = "float32"
                        img_size=meta["img_size"], window_size=meta["window_size"],
                        compute_dtype=compute_dtype)
     return config, params_from_jax(_unflatten(data), config)
+
+
+# ---------------------------------------------------------------------------
+# the UNETR decoder (AIS): the JAX package's pytree <-> torch_em's keys
+# ---------------------------------------------------------------------------
+
+def _unetr_layers(params_or_state, from_jax: bool):
+    """(JAX path, torch_em prefix, kind) of every leaf module of the decoder;
+    kind: conv / conv_t / bn / norm. Upsamplers are told apart by structure
+    (a ``conv`` child in the pytree, a ``.conv.`` key in the state dict)."""
+    def has_conv_child(path, prefix):
+        if from_jax:
+            node = params_or_state
+            for part in path:
+                node = node[part]
+            return "conv" in node
+        return f"{prefix}conv.weight" in params_or_state
+
+    def upsampler(path, prefix):
+        if has_conv_child(path, prefix):
+            return [(path + ("conv",), f"{prefix}conv.", "conv")]
+        return [(path, f"{prefix}block.", "conv_t")]
+
+    def conv_block(path, prefix):
+        return [(path + ("norm1",), f"{prefix}block.0.", "norm"),
+                (path + ("conv1",), f"{prefix}block.1.", "conv"),
+                (path + ("norm2",), f"{prefix}block.3.", "norm"),
+                (path + ("conv2",), f"{prefix}block.4.", "conv")]
+
+    layers = []
+    for i in (1, 2, 3, 4):
+        d, p = (f"deconv{i}",), f"deconv{i}.block."
+        layers += upsampler(d + ("up",), f"{p}0.")
+        layers += [(d + ("conv",), f"{p}1.block.", "conv"), (d + ("bn",), f"{p}2.", "bn")]
+    layers += conv_block(("base",), "base.")
+    for i in range(3):
+        layers += upsampler(("decoder", "samplers", i), f"decoder.samplers.{i}.")
+        layers += conv_block(("decoder", "blocks", i), f"decoder.blocks.{i}.")
+    layers += upsampler(("deconv_out",), "deconv_out.")
+    layers += conv_block(("decoder_head",), "decoder_head.")
+    layers.append((("out_conv",), "out_conv.", "conv"))
+    return layers
+
+
+def unetr_params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's UNETR pytree (numpy leaves; ``micro_sam_tpu/models/unetr.py``)
+    -> the port's decoder state dict, torch_em's keys. A conv is HWIO ->
+    OIHW, a conv-transpose (kh, kw, O, I) -> (I, O, kh, kw) (both the same
+    transpose), BN scale / bias / mean / var -> weight / bias / running_mean /
+    running_var; norm scale / bias (present only when affine) -> weight / bias."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, prefix, kind in _unetr_layers(params, from_jax=True):
+        node = params
+        for part in path[:-1]:
+            node = node[part]
+        if kind == "norm" and path[-1] not in node:  # an affine-free norm
+            continue
+        node = node[path[-1]]
+        if kind == "bn":
+            for port, jax_name in _BN:
+                sd[prefix + port] = np.asarray(node[jax_name])
+        elif kind == "norm":
+            sd[prefix + "weight"] = np.asarray(node["scale"])
+            sd[prefix + "bias"] = np.asarray(node["bias"])
+        else:
+            sd[prefix + "weight"] = np.asarray(node["w"]).transpose(3, 2, 0, 1)
+            if "b" in node:
+                sd[prefix + "bias"] = np.asarray(node["b"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def unetr_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The port's decoder state dict -> the JAX package's UNETR pytree
+    (float32 numpy leaves): the inverse of ``unetr_params_from_jax``."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    tree: dict = {}
+    for path, prefix, kind in _unetr_layers(sd, from_jax=False):
+        if kind == "bn":
+            leaf = {jax_name: sd[prefix + port] for port, jax_name in _BN}
+        elif kind == "norm":
+            if prefix + "weight" not in sd:
+                continue
+            leaf = {"scale": sd[prefix + "weight"], "bias": sd[prefix + "bias"]}
+        else:
+            leaf = {"w": sd[prefix + "weight"].transpose(2, 3, 1, 0)}
+            if prefix + "bias" in sd:
+                leaf["b"] = sd[prefix + "bias"]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    dec = tree["decoder"]
+    for name in ("samplers", "blocks"):
+        dec[name] = [dec[name][i] for i in range(len(dec[name]))]
+    return tree

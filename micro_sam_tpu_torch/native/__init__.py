@@ -1,8 +1,8 @@
 """Host-side postprocessing in C++: connected components, RLE, label bookkeeping.
 
 The port's counterpart of ``micro_sam_tpu/native``. ``src/postprocess.cpp`` is
-a copy of the JAX package's source, whole (the seeded watershed and the
-multicut wait for the decoder-based segmentation). It is compiled at first use
+a copy of the JAX package's source, whole (the multicut waits for the
+multi-dimensional segmentation). It is compiled at first use
 with ``g++ -O3 -shared -fPIC`` into ``build/native-<hash>/`` at the root of the
 checkout (the hash covers the source and the command, so an edited source
 rebuilds), to a temporary name first and then renamed, so that processes
@@ -11,8 +11,8 @@ or load raises: nothing stands in for the library.
 
 Each wrapper backed by the library has a numpy twin, ``<name>_plain``, with
 the same results; the tests hold one against the other. The main path never
-selects a twin. ``unique``, ``isin``, ``relabel_consecutive`` and ``overlap``
-are numpy in both packages.
+selects a twin. ``unique``, ``isin``, ``relabel_consecutive``, ``size_filter``,
+``distance_transform`` and ``overlap`` are numpy / scipy in both packages.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ from scipy import ndimage
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "src", "postprocess.cpp")
 COMMAND = ("g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
-# pixel count from which label() takes the strip-parallel kernel
+# pixel count from which label() takes the strip-parallel kernel and
+# seeded_watershed the multithreaded union-find flood
 _PARALLEL_MIN_SIZE = 1 << 22
 
 _lock = threading.Lock()
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "rle_encode_colmajor": ([_P, _P, _I64, _I64], _I64),
     "rle_encode_packed": ([_P, _I64, _P], _I64),
     "rle_encode_packed_cropped": ([_P, _I64, _I64, _I64, _I64, _I64, _I64, _P], _I64),
+    "seeded_watershed_2d": ([_P, _P, _P, _I64, _I64], None),
+    "seeded_watershed_3d": ([_P, _P, _P, _I64, _I64, _I64], None),
+    "watershed_unionfind_2d": ([_P, _P, _P, _I64, _I64, _I64], None),
+    "watershed_unionfind_3d": ([_P, _P, _P, _I64, _I64, _I64, _I64], None),
 }
 
 
@@ -162,6 +167,27 @@ def relabel_consecutive(segmentation: np.ndarray, start_label: int = 1, block_sh
     out = lookup[seg]
     mapping.update({int(i): int(n) for i, n in zip(ids, new_ids)})
     return out, (int(new_ids[-1]) if len(new_ids) else 0), mapping
+
+
+def size_filter(segmentation: np.ndarray, min_size: int = 0,
+                max_size: Optional[int] = None, relabel: bool = True) -> np.ndarray:
+    """Objects under ``min_size`` (or over ``max_size``) pixels set to 0; with
+    ``relabel`` the ids then made consecutive."""
+    seg = np.asarray(segmentation).copy()
+    ids, counts = np.unique(seg, return_counts=True)
+    remove = ids[(counts < min_size) & (ids != 0)]
+    if max_size is not None:
+        remove = np.concatenate([remove, ids[(counts > max_size) & (ids != 0)]])
+    if len(remove):
+        seg[np.isin(seg, remove)] = 0
+    if relabel:
+        seg, _, _ = relabel_consecutive(seg)
+    return seg
+
+
+def distance_transform(mask: np.ndarray, sampling=None) -> np.ndarray:
+    """Euclidean distance of each foreground pixel to the nearest background one."""
+    return ndimage.distance_transform_edt(mask, sampling=sampling)
 
 
 class overlap:
@@ -305,4 +331,87 @@ def rle_from_packed_cropped_plain(packed: np.ndarray, origins: np.ndarray,
         full[:] = False
         full[y0:y0 + ch, x0:x0 + cw] = win
         out.append(mask_to_rle(full))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Seeded watershed
+# ---------------------------------------------------------------------------
+
+def _watershed_inputs(heightmap, seeds, mask):
+    hm = np.ascontiguousarray(heightmap, dtype=np.float32)
+    sd = np.ascontiguousarray(seeds, dtype=np.uint32)
+    msk = (np.ones(hm.shape, dtype=np.uint8) if mask is None
+           else np.ascontiguousarray(mask, dtype=np.uint8))
+    if hm.ndim not in (2, 3) or sd.shape != hm.shape or msk.shape != hm.shape:
+        raise ValueError(f"heightmap {hm.shape}, seeds {sd.shape}, mask {msk.shape}: "
+                         "one 2d or 3d shape expected")
+    return hm, sd, msk
+
+
+def seeded_watershed(heightmap: np.ndarray, seeds: np.ndarray, mask: Optional[np.ndarray] = None,
+                     n_threads: Optional[int] = None, method: Optional[str] = None) -> np.ndarray:
+    """Seeded watershed of integer ``seeds`` over ``heightmap``, restricted to
+    ``mask`` (4- / 6-adjacency). Pixels outside the mask stay 0.
+
+    method:
+      - "priority": the serial priority flood (ties broken first in, first out);
+      - "unionfind": the multithreaded union-find over (height, index)-sorted
+        pixels; the same result for any thread count, and the flood's except
+        on exact height ties;
+      - None: "unionfind" from 4M pixels on, else "priority".
+    """
+    hm, sd, msk = _watershed_inputs(heightmap, seeds, mask)
+    if method is None:
+        method = "unionfind" if hm.size >= _PARALLEL_MIN_SIZE else "priority"
+    if method not in ("priority", "unionfind"):
+        raise ValueError(f"Unknown watershed method {method!r}: 'priority' or 'unionfind'.")
+    lib = library()
+    out = sd.copy()
+    if method == "unionfind":
+        fn = lib.watershed_unionfind_2d if hm.ndim == 2 else lib.watershed_unionfind_3d
+        fn(_ptr(hm), _ptr(out), _ptr(msk), *hm.shape, 0 if n_threads is None else n_threads)
+    else:
+        fn = lib.seeded_watershed_2d if hm.ndim == 2 else lib.seeded_watershed_3d
+        fn(_ptr(hm), _ptr(out), _ptr(msk), *hm.shape)
+    return out
+
+
+def seeded_watershed_plain(heightmap: np.ndarray, seeds: np.ndarray,
+                           mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """Python twin of ``seeded_watershed(method="priority")``: the same
+    priority flood (heap keyed by height, then by push order; neighbours
+    pushed in the order -y, +y, -x, +x, z first in 3d)."""
+    import heapq
+    hm, sd, msk = _watershed_inputs(heightmap, seeds, mask)
+    out = sd.copy()
+    shape = hm.shape
+    visited = (sd != 0) | (msk == 0)
+    offsets = []
+    for d in range(hm.ndim):
+        for s in (-1, 1):
+            off = [0] * hm.ndim
+            off[d] = s
+            offsets.append(tuple(off))
+    heap = []
+    counter = 0
+
+    def push_neighbours(coord, lbl):
+        nonlocal counter
+        for off in offsets:
+            nb = tuple(c + o for c, o in zip(coord, off))
+            if all(0 <= c < n for c, n in zip(nb, shape)) and not visited[nb]:
+                heapq.heappush(heap, (hm[nb], counter, nb, lbl))
+                counter += 1
+
+    for coord in np.column_stack(np.nonzero(sd)):
+        coord = tuple(int(c) for c in coord)
+        push_neighbours(coord, out[coord])
+    while heap:
+        _, _, coord, lbl = heapq.heappop(heap)
+        if visited[coord]:
+            continue
+        visited[coord] = True
+        out[coord] = lbl
+        push_neighbours(coord, lbl)
     return out

@@ -1176,3 +1176,54 @@ def test_relpos_attention_backward_large_grid_matches_plain_rows(dev, dtype, cas
     assert relpos_attention_backward.launches == n + 4 * len(rects)
     _held_grads(got, relpos_attention_backward_plain_rows(q, k, v, out, dout, rh, rw, (H, W),
                                                           rows), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the UNETR decoder of AIS (plain PyTorch: cuDNN convolutions) on the card
+# ---------------------------------------------------------------------------
+
+def _narrow_unetr(use_conv_transpose, seed=0):
+    """The decoder at narrow widths (embed 256, features 64 / 32 / 16 / 8),
+    random weights and BN statistics; on the CPU."""
+    from micro_sam_tpu_torch.models.common import BatchNorm
+    from micro_sam_tpu_torch.models.unetr import UNETRDecoder
+    model = UNETRDecoder(features=(64, 32, 16, 8), use_conv_transpose=use_conv_transpose)
+    model.init_(torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.running_mean.copy_(0.5 * torch.randn(m.running_mean.shape, generator=g))
+            m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    return model.eval()
+
+
+@pytest.mark.parametrize("use_conv_transpose", [True, False], ids=["conv_transpose", "bilinear"])
+def test_unetr_decoder_f32_on_the_card_matches_the_cpu(dev, use_conv_transpose):
+    """f32 with TF32 off: the card's output within 1e-4 of max of the CPU's,
+    from NHWC features handed over as a channels-last view."""
+    model = _narrow_unetr(use_conv_transpose)
+    x = torch.randn(2, 16, 16, 256, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        ref = model(x.permute(0, 3, 1, 2))
+        got = model.to(dev)(x.to(dev).permute(0, 3, 1, 2))
+    assert got.device.type == "cuda" and got.is_contiguous(memory_format=torch.channels_last)
+    _held(got, ref, torch.float32)
+
+
+def test_decoder_adapter_on_the_card(dev):
+    """DecoderAdapter on bf16 features on the card: the decoder's output stays
+    on the card in bf16, the maps reach the host as float32 numpy of the
+    original size."""
+    import numpy as np
+    from micro_sam_tpu_torch.instance_segmentation import DecoderAdapter
+    dec = DecoderAdapter(_narrow_unetr(True).to(dev))
+    x = torch.randn(1, 16, 16, 256, generator=torch.Generator().manual_seed(4)).to(
+        dev, torch.bfloat16)
+    with torch.no_grad():
+        raw = dec._forward_impl(x)
+    assert raw.device.type == "cuda" and raw.dtype == torch.bfloat16
+    assert raw.shape == (1, 3, 256, 256)
+    maps = dec(x, (256, 200), (300, 234))
+    assert isinstance(maps, np.ndarray) and maps.dtype == np.float32
+    assert maps.shape == (1, 3, 300, 234) and np.isfinite(maps).all()
+    assert ((maps >= 0) & (maps <= 1)).all()

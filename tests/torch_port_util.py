@@ -122,3 +122,62 @@ def jax_step_loss(cfg, params, batch, prompt_pad: int):
         return jnp.sum(per * v) / jnp.maximum(v.sum(), 1), low
 
     return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# the UNETR decoder of AIS (tests/test_torch_unetr.py, test_torch_ais.py,
+# test_torch_automatic_segmentation.py)
+# ---------------------------------------------------------------------------
+
+NARROW_UNETR = (64, 32, 16, 8)
+# watershed thresholds that cut the random decoder's maps (noise around 0.5)
+# on the tiny config into a few tens of objects
+AIS_KW = dict(center_distance_threshold=0.37, boundary_distance_threshold=0.55,
+              foreground_threshold=0.385, distance_smoothing=1.0)
+
+
+def unetr_jax_params(use_conv_transpose, affine=False, seed=1, features=NARROW_UNETR,
+                     embed_dim=256):
+    """The JAX package's random decoder with random BN statistics and, when
+    ``affine``, random affine InstanceNorms in every ConvBlock (numpy leaves)."""
+    import jax
+    from micro_sam_tpu.models.unetr import init_unetr_decoder
+    p = jax.tree.map(np.asarray, init_unetr_decoder(
+        jax.random.PRNGKey(seed), embed_dim=embed_dim, out_channels=3, features=features,
+        use_conv_transpose=use_conv_transpose))
+    rng = np.random.RandomState(seed + 10)
+    for i in (1, 2, 3, 4):
+        bn = p[f"deconv{i}"]["bn"]
+        n = bn["mean"].shape[0]
+        bn.update(mean=(0.5 * rng.randn(n)).astype(np.float32),
+                  var=(rng.rand(n) + 0.5).astype(np.float32),
+                  scale=(1 + 0.2 * rng.randn(n)).astype(np.float32),
+                  bias=(0.1 * rng.randn(n)).astype(np.float32))
+    if affine:
+        for blk in [p["base"], p["decoder_head"]] + list(p["decoder"]["blocks"]):
+            for k, n in (("norm1", blk["conv1"]["w"].shape[2]),
+                         ("norm2", blk["conv1"]["w"].shape[3])):
+                blk[k] = {"scale": (1 + 0.3 * rng.randn(n)).astype(np.float32),
+                          "bias": (0.2 * rng.randn(n)).astype(np.float32)}
+    return p
+
+
+def port_unetr(params):
+    """The port's decoder holding the JAX pytree's weights (on the CPU)."""
+    from micro_sam_tpu_torch.models.convert import unetr_params_from_jax
+    from micro_sam_tpu_torch.models.unetr import decoder_from_state
+    return decoder_from_state(unetr_params_from_jax(params))
+
+
+def matched_share(got, ref, iou_min=0.99):
+    """(share of ref's objects matched by one of got's at IoU >= iou_min,
+    ref's objects)."""
+    ids = [i for i in np.unique(ref) if i != 0]
+    n = 0
+    for i in ids:
+        inside = ref == i
+        cand, counts = np.unique(got[inside], return_counts=True)
+        best = max((c / (inside.sum() + (got == g).sum() - c) for g, c in zip(cand, counts)
+                    if g != 0), default=0.0)
+        n += int(best >= iou_min)
+    return n / max(len(ids), 1), len(ids)
