@@ -155,8 +155,31 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     tiled APG with optimize_memory; automatic_instance_segmentation in the
     modes ais, apg and amg, and cache_amg_state written and reloaded. Prints
     the phase's wall time;
-13. prints one JSON line of details (per-shape rows, chains, end-to-end and
-    training numbers, the tiled routes, the AMG and AIS numbers), then the kernels line (one entry
+13. multi-dimensional segmentation and tracking: (a) get_sam_model("vit_b")
+    (bf16, seed 0) on an (8, 512, 512) synthetic_data volume rolled 2 rows a
+    slice: precompute_image_embeddings(ndim=3, batch_size=4) with the
+    launches of its 2 encode calls, segment_mask_in_volume from a truth mask
+    in the five projection modes and a flag dict (a bridge between two truth
+    slices) with no kernel launched, each projected slice's time split into
+    the store read, the copy to the card, the decode and the host, over the
+    in-memory embeddings and over a zarr store read lazily; (b)
+    automatic_instance_segmentation(ndim=3) with AIS (the decoder at published
+    widths) with the encodes' launches only in the embeddings, split into
+    embeddings, per-slice initialize and generate, and the merge, then its
+    tiled form on two 1024^2 slices in 512^2 tiles, halo 128; (c) the truth
+    slices merged back into the truth (every object one 3d id at IoU >=
+    0.95), gap closing filling a removed slice, native.greedy_multicut equal
+    to its Python twin on 3 random graphs, and the trained fixture's
+    segment_mask_in_volume (f32) on the card against the CPU (a process
+    started at the phase's start; every slice's mask IoU >= 0.99, the same z
+    ranges); (d) track_across_frames with the greedy, the learned (scorer on
+    the card) and the auto linker on a HeLa-like sequence, scored against its
+    truth links, the scorer's logits on the card against the CPU (rel <=
+    1e-5, the same links), and automatic_tracking through AIS with the
+    encodes' launches only in the embeddings. Prints the phase's wall time;
+14. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers, the tiled routes, the AMG, AIS and multi-dimensional
+    numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
@@ -3704,6 +3727,498 @@ def ais_phase(counters, root, p10):
     return dict(decoder=rows, ais=a, truth=truth, tiled=tiled, end_to_end=e2e)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: multi-dimensional segmentation and tracking
+# ---------------------------------------------------------------------------
+
+VOLUME = dict(shape=(512, 512), seed=11, n_objects=12)   # tests/test_multi_dimensional_segmentation.py
+VOLUME_SLICES, VOLUME_SHIFT, VOLUME_BATCH = 8, 2, 4      # rows a slice, np.roll along y
+PROJECTION_IOU = 0.5
+# (name, projection, anchors, stop_lower, stop_upper): the five modes walk out
+# of slice 3 under the IoU stop; the flag dict bridges the gap of 3 between two
+# truth slices (two walks, each one step from a truth mask: the random
+# decoder's masks may cover the slice, and a walk that went on from one would
+# derive its next prompt from it) and walks out of both under the IoU stop
+PROJECTION_RUNS = [(m, m, (3,), False, False)
+                   for m in ("box", "mask", "points", "points_and_mask", "single_point")] + [
+    ("flags box + points, bridge", {"use_box": True, "use_mask": False, "use_points": True},
+     (2, 5), False, False)]
+TILED_3D = dict(slices=2, shape=(1024, 1024), tile_shape=(512, 512), halo=(128, 128))
+# the trained fixture over 6 slices of its image rolled 4 rows a slice: the
+# three largest objects from slice 2 in three modes, IoU stop 0.2 (its masks
+# lie 0.5-0.85 from the truth, a stricter stop ends most walks at once)
+FIXTURE_3D = dict(slices=6, shift=4, anchor=2, iou=0.2, modes=("mask", "points", "box"),
+                  objects=3, threads=4)
+TRACKING = dict(n_frames=10, shape=(256, 256), n_cells=6, seed=0)
+SCORER_TOL = 1e-5
+# AIS watershed thresholds at quantiles of the random decoder's maps (center
+# distance, boundary distance, foreground), as tests/test_torch_multi_dimensional_segmentation.py,
+# and a floor on the object size: the random maps' objects are ~80 px, about
+# 1000 a 512^2 slice without it (the merge's greedy multicut re-sums every
+# edge at each contraction: its time grows with the square of the objects)
+AIS_QUANTILES = (0.7, 0.5, 0.3)
+AIS_MIN_SIZE = {"volume": 200, "tracking": 100}
+
+
+class Span(Timed):
+    """``Timed``, and the kernel launches the calls made, summed per kernel."""
+
+    def __init__(self, obj, name, counters):
+        super().__init__(obj, name)
+        self.counters, self.launches = counters, {}
+
+    def __enter__(self):
+        fn = self.saved = getattr(self.obj, self.name)
+
+        def call(*a, **kw):
+            before = {n: c.launches for n, c in self.counters.items()}
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            for n, c in self.counters.items():
+                if c.launches != before[n]:
+                    self.launches[n] = self.launches.get(n, 0) + c.launches - before[n]
+            return out
+        setattr(self.obj, self.name, call)
+        return self
+
+
+def encode_launches(counters, calls):
+    """The launches ``calls`` vit_b encode_batch calls make (a call's launches
+    do not depend on its batch)."""
+    return {k: v * calls for k, v in {"layernorm": 24, "gemm": 48, "relpos_attention": 12}.items()
+            if k in counters}
+
+
+def check_launches(what, got, calls, counters):
+    expect = encode_launches(counters, calls)
+    log(f"  {what}: launches {got or 0} (expected {expect}: {calls} encode calls)")
+    if got != expect:
+        raise AssertionError(f"{what}: the encodes did not go through the kernels as expected")
+
+
+def rolled(image, n, shift):
+    return np.stack([np.roll(image, shift * z, axis=0) for z in range(n)])
+
+
+def unique_per_slice(vol):
+    """Each slice's ids lifted above those of the slices before it."""
+    out = np.zeros(vol.shape, np.uint32)
+    offset = 0
+    for z in range(len(vol)):
+        ids, inv = np.unique(vol[z], return_inverse=True)
+        lut = (np.arange(len(ids)) + offset + (ids[0] != 0)).astype(np.uint32)
+        lut[0] = 0 if ids[0] == 0 else lut[0]
+        out[z] = lut[inv.reshape(vol[z].shape)]
+        offset = max(offset, int(out[z].max()))
+    return out
+
+
+def ais_thresholds(segmenter, image, min_size):
+    segmenter.initialize(image)
+    st = segmenter.get_state()
+    return dict(zip(("center_distance_threshold", "boundary_distance_threshold",
+                     "foreground_threshold"),
+                    (float(np.quantile(st[k], q)) for k, q in zip(
+                        ("center_distances", "boundary_distances", "foreground"),
+                        AIS_QUANTILES))), distance_smoothing=1.0, min_size=min_size)
+
+
+def clear_objects(truth, z):
+    """The objects of slice ``z``, largest first, that stay clear of the top
+    and bottom rows in every slice: np.roll wraps an object there round to
+    the other side, and a prompt from such a mask spans the slice (its
+    derived points then take the quadratic peak suppression of
+    _compute_points_from_mask over a slice-sized crop, tens of seconds a
+    prompt)."""
+    ids, counts = np.unique(truth[z], return_counts=True)
+    out = []
+    for i in ids[1:][np.argsort(-counts[1:])]:
+        rows = np.nonzero((truth == i).any(axis=(0, 2)))[0]
+        if rows.min() > 0 and rows.max() < truth.shape[1] - 1:
+            out.append(int(i))
+    if not out:
+        raise AssertionError("no object of the volume stays clear of its borders")
+    return out
+
+
+def projection_split(spans, wall_s, n):
+    """ms per projected slice: the store read (set_precomputed less the copy),
+    the copy to the card (set_features), the decode (predict, masks back on
+    the host included), and the host (segment_from_mask's prompts and the
+    walk's IoU)."""
+    proj, install, copy, dec = (1e3 * sum(s.seconds) for s in spans)
+    split = {"store_read_ms": (install - copy) / n, "copy_to_card_ms": copy / n,
+             "decode_ms": dec / n, "host_ms": (1e3 * wall_s - install - dec) / n}
+    split["of_host_prompts_ms"] = (proj - install - dec) / n
+    return {"per_slice_ms": 1e3 * wall_s / n, "projected_slices": n, **split}
+
+
+def interactive_3d(counters, predictor, volume, truth, root):
+    """(a) The volume's embeddings, then segment_mask_in_volume in each
+    projection run, launch-free; the split of a projected slice, over the
+    in-memory embeddings and over the lazily read store."""
+    from micro_sam_tpu_torch import multi_dimensional_segmentation as mds
+    from micro_sam_tpu_torch import util
+    out = {}
+    for c in counters.values():
+        c.launches = 0
+    with Span(predictor, "encode_batch", counters) as enc:
+        t0 = time.perf_counter()
+        emb = util.precompute_image_embeddings(predictor, volume, ndim=3,
+                                               batch_size=VOLUME_BATCH, verbose=False)
+        torch.cuda.synchronize()
+        out["embeddings_ms"] = 1e3 * (time.perf_counter() - t0)
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    check_launches(f"precompute_image_embeddings(ndim=3, batch_size={VOLUME_BATCH}) of "
+                   f"{len(volume)} slices", launches, len(enc.seconds), counters)
+    if len(enc.seconds) != -(-len(volume) // VOLUME_BATCH):
+        raise AssertionError(f"{len(enc.seconds)} encode calls for {len(volume)} slices")
+    feats = emb["features"]
+    if feats.shape != (len(volume), 1, 256, 64, 64) or not np.isfinite(feats).all():
+        raise AssertionError(f"volume embeddings {feats.shape}")
+    out["embeddings_ms_per_slice"] = out["embeddings_ms"] / len(volume)
+    obj = clear_objects(truth, 3)[0]
+
+    def project(embeddings, runs):
+        rows = []
+        for c in counters.values():
+            c.launches = 0
+        with Timed(mds, "segment_from_mask") as proj, Timed(util, "set_precomputed") as inst, \
+                Timed(predictor, "set_features") as copy, Timed(predictor, "predict") as dec:
+            for name, projection, anchors, lo, hi in runs:
+                seg = np.zeros(volume.shape, np.uint32)
+                for a in anchors:
+                    seg[a] = truth[a] == obj
+                n0, t0 = len(proj.seconds), time.perf_counter()
+                res, (z0, z1) = mds.segment_mask_in_volume(seg, predictor, embeddings,
+                                                           np.array(anchors), lo, hi,
+                                                           PROJECTION_IOU, projection)
+                wall = time.perf_counter() - t0
+                n = len(proj.seconds) - n0
+                written = [int(z) for z in range(len(res)) if res[z].any()]
+                ok = (0 <= z0 <= anchors[0] and anchors[-1] <= z1 < len(volume)
+                      and all((res[a] == (truth[a] == obj)).all() for a in anchors)
+                      and set(written) <= set(range(z0, z1 + 1)) and res.dtype == np.uint32)
+                rows.append(dict(name=name, z_range=[int(z0), int(z1)], projected=n,
+                                 written=written, ms=1e3 * wall, ok=bool(ok)))
+                log(f"  segment_mask_in_volume {name}: z range ({z0}, {z1}), {n} slices "
+                    f"projected, written {written}, {1e3 * wall:.3f} ms")
+                if not ok:
+                    raise AssertionError(f"segment_mask_in_volume {name}: z range or slices off")
+        during = {k: c.launches for k, c in counters.items() if c.launches}
+        if during:
+            raise AssertionError(f"a port kernel launched during the projection: {during}")
+        total = sum(r["ms"] for r in rows) / 1e3
+        return rows, projection_split((proj, inst, copy, dec), total,
+                                      sum(r["projected"] for r in rows))
+
+    project(emb, PROJECTION_RUNS[:1])  # the warm-up: the decoder's first calls
+    out["runs"], out["split"] = project(emb, PROJECTION_RUNS)
+    log("  ms per projected slice over the in-memory embeddings (host clock, the card "
+        "synchronized after each part): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                      out["split"].items()))
+    # the same projection over the embedding store read lazily, slice by slice
+    import shutil
+    store = os.path.join(root, "build", "chip_smoke_3d", "embeddings.zarr")
+    shutil.rmtree(os.path.dirname(store), ignore_errors=True)
+    for c in counters.values():
+        c.launches = 0
+    with Span(predictor, "encode_batch", counters) as enc:
+        t0 = time.perf_counter()
+        util.precompute_image_embeddings(predictor, volume, ndim=3, batch_size=VOLUME_BATCH,
+                                         save_path=store, verbose=False)
+        out["store_write_ms"] = 1e3 * (time.perf_counter() - t0)
+    check_launches("the same to a zarr store", {k: c.launches for k, c in counters.items()
+                                                if c.launches}, len(enc.seconds), counters)
+    lazy = util.precompute_image_embeddings(predictor, volume, ndim=3, save_path=store,
+                                            lazy_loading=True, verbose=False)
+    _, out["split_lazy_store"] = project(lazy, PROJECTION_RUNS[:1])
+    log("  ms per projected slice over the store read lazily: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["split_lazy_store"].items()))
+    return out, emb
+
+
+def automatic_3d(counters, predictor, ais, tiled_ais, volume, kw):
+    """(b) automatic_instance_segmentation(ndim=3) with AIS: the encodes only
+    during the embeddings; the split of embeddings, per-slice initialize +
+    generate and the merge. Then its tiled form once."""
+    from micro_sam_tpu_torch import multi_dimensional_segmentation as mds
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.automatic_segmentation import automatic_instance_segmentation
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    out = {}
+    for segmenter, vol, tiling, tag in (
+            (ais, volume, {}, "untiled"),
+            (tiled_ais, rolled(synthetic_data(shape=TILED_3D["shape"], seed=5)[0],
+                               TILED_3D["slices"], VOLUME_SHIFT),
+             dict(tile_shape=TILED_3D["tile_shape"], halo=TILED_3D["halo"]), "tiled")):
+        for c in counters.values():
+            c.launches = 0
+        with Span(predictor, "encode_batch", counters) as enc, \
+                Span(util, "precompute_image_embeddings", counters) as emb, \
+                Span(segmenter, "initialize", counters) as init, \
+                Span(segmenter, "generate", counters) as gen, \
+                Span(mds, "merge_instance_segmentation_3d", counters) as merge:
+            t0 = time.perf_counter()
+            seg = automatic_instance_segmentation(predictor, segmenter, vol, ndim=3,
+                                                  verbose=False, **tiling, **kw)
+            torch.cuda.synchronize()
+            total = 1e3 * (time.perf_counter() - t0)
+        check_launches(f"automatic_instance_segmentation(ndim=3, {tag}): embeddings",
+                       emb.launches, len(enc.seconds), counters)
+        outside = {k: v for s in (init, gen, merge) for k, v in s.launches.items()}
+        if outside or (tag == "untiled" and len(enc.seconds) != len(vol)):
+            raise AssertionError(f"automatic 3d ({tag}): launches outside the embeddings "
+                                 f"{outside}, or {len(enc.seconds)} encode calls")
+        if seg.shape != vol.shape or seg.dtype != np.uint32:
+            raise AssertionError(f"automatic 3d ({tag}): {seg.shape} {seg.dtype}")
+        row = {"ms": total, "embeddings_ms": 1e3 * sum(emb.seconds),
+               "initialize_ms_per_slice": 1e3 * sum(init.seconds) / len(vol),
+               "generate_ms_per_slice": 1e3 * sum(gen.seconds) / len(vol),
+               "merge_ms": 1e3 * sum(merge.seconds), "encode_calls": len(enc.seconds),
+               "slices": len(vol), "objects_3d": int(len(np.unique(seg)) - 1)}
+        row["other_ms"] = total - row["embeddings_ms"] - row["merge_ms"] - len(vol) * (
+            row["initialize_ms_per_slice"] + row["generate_ms_per_slice"])
+        out[tag] = row
+        log(f"  automatic 3d ({tag}, {len(vol)} slices of {vol.shape[1]}^2"
+            + (f" in {tiling['tile_shape'][0]}^2 tiles, halo {tiling['halo'][0]}" if tiling
+               else "") + "): " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                                            f"{k} {v}" for k, v in row.items()))
+    return out
+
+
+def fixture_projection(root, device, threads=None):
+    """The trained fixture SAM (f32) on ``device``: the embeddings of
+    FIXTURE_3D's volume, then segment_mask_in_volume for each of its
+    objects and modes. Returns {(object, mode): (bit-packed masks, z range)}
+    and the seconds it took."""
+    sys.path.insert(0, root)
+    torch.set_grad_enabled(False)
+    if threads:
+        torch.set_num_threads(threads)
+    from micro_sam_tpu_torch.models.convert import params_from_flat_npz
+    from micro_sam_tpu_torch.models.sam import Sam
+    from micro_sam_tpu_torch.multi_dimensional_segmentation import segment_mask_in_volume
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.util import precompute_image_embeddings
+    t0 = time.perf_counter()
+    cfg, sd = params_from_flat_npz(os.path.join(root, FIXTURE), compute_dtype="float32")
+    sam = Sam(cfg)
+    sam.load_state_dict(sd)
+    predictor = SamPredictor(sam.to(device).eval())
+    image, seg = synthetic_data(**FIXTURE_IMAGE)
+    volume = rolled(image, FIXTURE_3D["slices"], FIXTURE_3D["shift"])
+    truth = rolled(seg, FIXTURE_3D["slices"], FIXTURE_3D["shift"])
+    emb = precompute_image_embeddings(predictor, volume, ndim=3, batch_size=2, verbose=False)
+    a = FIXTURE_3D["anchor"]
+    objects = clear_objects(truth, a)[:FIXTURE_3D["objects"]]
+    runs = {}
+    for obj in objects:
+        for mode in FIXTURE_3D["modes"]:
+            s = np.zeros(volume.shape, np.uint32)
+            s[a] = truth[a] == obj
+            res, z_range = segment_mask_in_volume(s, predictor, emb, np.array([a]), False, False,
+                                                  FIXTURE_3D["iou"], mode)
+            runs[(obj, mode)] = (np.packbits(res > 0), tuple(int(z) for z in z_range))
+    return runs, time.perf_counter() - t0
+
+
+def fixture_checks(root, cpu_run):
+    """(c) The fixture's projections on the card against the CPU: every
+    slice's mask within IoU 0.99, the same z range."""
+    card, card_s = fixture_projection(root, "cuda")
+    t0 = time.perf_counter()
+    cpu, cpu_s = cpu_run.result()
+    waited = time.perf_counter() - t0
+    n = FIXTURE_3D["slices"] * FIXTURE_IMAGE["shape"][0] * FIXTURE_IMAGE["shape"][1]
+    worst, ranges = 1.0, {}
+    for key, (bits, z_range) in card.items():
+        got = np.unpackbits(bits, count=n).reshape(FIXTURE_3D["slices"], -1).astype(bool)
+        ref = np.unpackbits(cpu[key][0], count=n).reshape(FIXTURE_3D["slices"], -1).astype(bool)
+        for z in range(len(got)):
+            union = (got[z] | ref[z]).sum()
+            if union:
+                worst = min(worst, float((got[z] & ref[z]).sum() / union))
+        ranges[f"{key[0]} {key[1]}"] = list(z_range)
+        if z_range != cpu[key][1]:
+            raise AssertionError(f"fixture projection {key}: z range {z_range} on the card, "
+                                 f"{cpu[key][1]} on the CPU")
+    log(f"  trained fixture (f32, TF32 off), segment_mask_in_volume over {FIXTURE_3D['slices']} "
+        f"slices of 1024^2, {len(card)} runs: card {card_s:.1f} s, CPU {cpu_s:.1f} s (waited "
+        f"{waited:.1f} s); worst slice mask IoU card vs CPU {worst:.6f}, z ranges equal: {ranges}")
+    if worst < 0.99:
+        raise AssertionError(f"fixture projection: a slice's mask IoU {worst} < 0.99")
+    return dict(runs=len(card), min_mask_iou=worst, z_ranges=ranges, card_s=card_s, cpu_s=cpu_s,
+                waited_s=waited)
+
+
+def merge_checks(truth):
+    """(c) The truth slices merge back into the 3d truth; gap closing fills a
+    removed slice; the multicut's C++ equals its Python twin."""
+    from micro_sam_tpu_torch import native
+    from micro_sam_tpu_torch.multi_dimensional_segmentation import merge_instance_segmentation_3d
+    t0 = time.perf_counter()
+    merged = merge_instance_segmentation_3d(unique_per_slice(truth), verbose=False)
+    merge_ms = 1e3 * (time.perf_counter() - t0)
+    worst, n_objects = 1.0, 0
+    for i in (int(i) for i in np.unique(truth) if i):
+        inside = truth == i
+        got = np.unique(merged[inside])
+        iou = float(inside.sum() / ((merged == got[0]).sum() + inside.sum()
+                                    - (merged[inside] == got[0]).sum()))
+        if len(got) != 1 or got[0] == 0 or iou < 0.95:
+            raise AssertionError(f"merge of the truth: object {i} got ids {got}, IoU {iou}")
+        worst, n_objects = min(worst, iou), n_objects + 1
+    gap = truth.copy()
+    obj = int(np.unique(truth[3])[1])
+    gap[3][gap[3] == obj] = 0
+    closed = merge_instance_segmentation_3d(unique_per_slice(gap), gap_closing=1, verbose=False)
+    both = (truth[2] == obj) & (truth[4] == obj)
+    own = np.unique(closed[2][truth[2] == obj])
+    filled = float((closed[3][both] == own[0]).mean()) if len(own) == 1 else 0.0
+    if filled != 1.0 or both.sum() < 0.8 * (truth[3] == obj).sum():
+        raise AssertionError(f"gap closing: {filled} of the removed slice's pixels filled")
+    rng = np.random.RandomState(7)
+    graphs = []
+    for _ in range(3):
+        uv = rng.randint(0, 200, size=(1000, 2))
+        uv = uv[uv[:, 0] != uv[:, 1]]
+        costs = rng.randn(len(uv)) + 0.3
+        t0 = time.perf_counter()
+        got = native.greedy_multicut(200, uv, costs)
+        t1 = time.perf_counter()
+        ref = native.greedy_multicut_plain(200, uv, costs)
+        t2 = time.perf_counter()
+        if not np.array_equal(got, ref):
+            raise AssertionError("greedy_multicut: the C++ and its Python twin differ")
+        graphs.append(dict(clusters=int(got.max()) + 1, cpp_ms=1e3 * (t1 - t0),
+                           plain_ms=1e3 * (t2 - t1)))
+    log(f"  merge of the {len(truth)} truth slices (ids unique per slice): {n_objects} objects, "
+        f"each one 3d id, worst IoU {worst:.4f}, {merge_ms:.1f} ms; gap closing filled the "
+        f"removed slice ({int(both.sum())} pixels); greedy_multicut C++ = plain on 3 graphs of "
+        f"200 nodes / {len(uv)} edges: {graphs}")
+    return dict(objects=n_objects, min_iou=worst, merge_ms=merge_ms, gap_filled_px=int(both.sum()),
+                multicut=graphs)
+
+
+def tracked_links(segs, tracked, lineages):
+    """{(frame, object id): track id} and {child track: parent track} of a
+    tracking result, for evaluate_tracking."""
+    node_to_track = {}
+    for t in range(len(segs)):
+        for oid in np.unique(segs[t]):
+            if oid:
+                tr = np.bincount(tracked[t][segs[t] == oid]).argmax()
+                if tr:
+                    node_to_track[(t, int(oid))] = int(tr)
+    parents = {c: p for lin in lineages for p, children in lin.items() for c in children}
+    return node_to_track, parents
+
+
+def tracking_checks(counters, predictor, ais):
+    """(d) track_across_frames with the greedy, the learned (scorer on the card)
+    and the auto linker on a HeLa-like sequence, the scorer on the card against
+    the CPU, then automatic_tracking through AIS."""
+    from micro_sam_tpu_torch import learned_tracking as lt
+    from micro_sam_tpu_torch import multi_dimensional_segmentation as mds
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.automatic_segmentation import automatic_tracking
+    images, segs, links = lt.hela_like_tracking_sequence(**TRACKING)
+    out = {}
+    for name, tracker in (("greedy", None), ("learned", "learned"), ("auto", "auto")):
+        t0 = time.perf_counter()
+        tracked, lineages = mds.track_across_frames(images, segs, verbose=False, tracker=tracker)
+        ms = 1e3 * (time.perf_counter() - t0)
+        m = lt.evaluate_tracking(segs, links, *tracked_links(segs, tracked, lineages))
+        out[name] = dict(ms=ms, tracks=int(len(np.unique(tracked)) - 1),
+                         lineages=len(lineages), **m)
+        log(f"  track_across_frames ({name}): {ms:.1f} ms, {out[name]['tracks']} tracks, "
+            f"{len(lineages)} lineages; link f1 {m['link_f1']:.3f}, division f1 "
+            f"{m['division_f1']:.3f} against the truth links")
+    params = lt.load_linker(lt._PACKAGED_WEIGHTS)
+    card, cpu = lt.LearnedTracker(params), lt.LearnedTracker(params, device="cpu")
+    worst = 0.0
+    for t in range(len(segs) - 1):
+        _, _, got = card.score_frames(segs[t], segs[t + 1], images[t], images[t + 1])
+        _, _, ref = cpu.score_frames(segs[t], segs[t + 1], images[t], images[t + 1])
+        worst = max(worst, float(np.abs(got - ref).max() / np.abs(ref).max()))
+    same = card.link(segs, images) == cpu.link(segs, images)
+    log(f"  the scorer on {card.device} against the CPU (f32, TF32 off): logits rel "
+        f"{worst:.3e} (<= {SCORER_TOL}), links identical {same}")
+    if worst > SCORER_TOL or not same:
+        raise AssertionError("the learned scorer on the card differs from the CPU")
+    out["scorer_rel_err"], out["scorer_links_identical"] = worst, same
+    kw = ais_thresholds(ais, images[0], AIS_MIN_SIZE["tracking"])
+    for c in counters.values():
+        c.launches = 0
+    with Span(predictor, "encode_batch", counters) as enc, \
+            Span(util, "precompute_image_embeddings", counters) as emb, \
+            Span(ais, "initialize", counters) as init, Span(ais, "generate", counters) as gen, \
+            Span(mds, "track_across_frames", counters) as track:
+        t0 = time.perf_counter()
+        tracked, lineages = automatic_tracking(predictor, ais, images, output_path=None,
+                                               verbose=False, **kw)
+        total = 1e3 * (time.perf_counter() - t0)
+    check_launches(f"automatic_tracking of {len(images)} frames: embeddings", emb.launches,
+                   len(enc.seconds), counters)
+    outside = {k: v for s in (init, gen, track) for k, v in s.launches.items()}
+    if outside or len(enc.seconds) != len(images) or tracked.shape != images.shape:
+        raise AssertionError(f"automatic_tracking: launches outside the embeddings {outside}, "
+                             f"{len(enc.seconds)} encode calls, {tracked.shape}")
+    row = {"ms": total, "embeddings_ms": 1e3 * sum(emb.seconds),
+           "initialize_ms_per_frame": 1e3 * sum(init.seconds) / len(images),
+           "generate_ms_per_frame": 1e3 * sum(gen.seconds) / len(images),
+           "tracking_ms": 1e3 * sum(track.seconds), "frames": len(images),
+           "tracks": int(len(np.unique(tracked)) - 1), "lineages": len(lineages)}
+    out["automatic_tracking"] = row
+    log(f"  automatic_tracking (AIS, {len(images)} frames of {images.shape[1]}^2): " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()))
+    return out
+
+
+def multi_dim_phase(counters, root):
+    """Phase 13: multi-dimensional segmentation and tracking on vit_b bf16
+    (random weights, seed 0) with the UNETR decoder at published widths; the
+    checks that do not depend on random weights; the trained fixture on the
+    card against the CPU."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from micro_sam_tpu_torch.automatic_segmentation import get_predictor_and_segmenter
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.util import get_sam_model
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_run = pool.submit(fixture_projection, root, "cpu", FIXTURE_3D["threads"])
+        predictor = get_sam_model("vit_b", seed=0)
+        image, seg = synthetic_data(**VOLUME)
+        volume = rolled(image, VOLUME_SLICES, VOLUME_SHIFT)
+        truth = rolled(seg, VOLUME_SLICES, VOLUME_SHIFT).astype(np.uint32)
+        log(f"  (a) interactive 3d: vit_b bf16, a ({VOLUME_SLICES}, {VOLUME['shape'][0]}, "
+            f"{VOLUME['shape'][1]}) synthetic_data volume rolled {VOLUME_SHIFT} rows a slice")
+        a, _ = interactive_3d(counters, predictor, volume, truth, root)
+        state = {"decoder_state": random_unetr(True).state_dict()}
+        _, ais = get_predictor_and_segmenter("vit_b", predictor=predictor, state=state,
+                                             segmentation_mode="ais")
+        _, tiled_ais = get_predictor_and_segmenter("vit_b", predictor=predictor, state=state,
+                                                   segmentation_mode="ais", is_tiled=True)
+        log("  (b) automatic 3d segmentation (AIS, the decoder at published widths, thresholds "
+            f"at the quantiles {AIS_QUANTILES} of slice 0's maps)")
+        kw = ais_thresholds(ais, volume[0], AIS_MIN_SIZE["volume"])
+        b = automatic_3d(counters, predictor, ais, tiled_ais, volume, kw)
+        log("  (c) checks that do not depend on random weights")
+        c = merge_checks(truth)
+        c["fixture"] = fixture_checks(root, cpu_run)
+        log("  (d) tracking: a HeLa-like sequence "
+            f"({TRACKING['n_frames']} frames of {TRACKING['shape'][0]}^2, {TRACKING['n_cells']} "
+            "cells)")
+        d = tracking_checks(counters, predictor, ais)
+    del predictor, ais, tiled_ais
+    torch.cuda.empty_cache()
+    return dict(interactive=a, automatic_3d=b, checks=c, tracking=d)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
@@ -3856,6 +4371,15 @@ def main():
     p12 = ais_phase(counters, root, p10)
     p12["wall_s"] = time.perf_counter() - t12
     log(f"phase 12 (decoder-based instance segmentation): {p12['wall_s']:.1f} s")
+    # phase 13: multi-dimensional segmentation and tracking
+    t13 = time.perf_counter()
+    log("multi-dimensional segmentation and tracking: segment_mask_in_volume, automatic 3d "
+        "segmentation (AIS, tiled and untiled), the 3d merge, the greedy, learned and auto "
+        "trackers, automatic_tracking (vit_b, bf16); the trained fixture's projection (f32) "
+        "on the card against the CPU")
+    p13 = multi_dim_phase(counters, root)
+    p13["wall_s"] = time.perf_counter() - t13
+    log(f"phase 13 (multi-dimensional segmentation and tracking): {p13['wall_s']:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
@@ -3872,7 +4396,7 @@ def main():
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")},
-                                "amg": p11, "ais": p12}}))
+                                "amg": p11, "ais": p12, "multi_dim": p13}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
                                                                   "plans")
                                   if k in r}

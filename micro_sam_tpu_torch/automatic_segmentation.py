@@ -1,11 +1,11 @@
 """Automatic segmentation: model loading, the segmenter, the embeddings, file IO
 and the command line ``micro_sam_tpu_torch.automatic_segmentation``.
 
-Counterpart of ``micro_sam_tpu/automatic_segmentation.py`` for 2d inputs,
-tiled and untiled, with ``mask``. Volumes and timeseries need the
-multi-dimensional segmentation, which is not ported yet (ROADMAP Queue 1 item
-13): the 3d branch and ``automatic_tracking`` raise ``NotImplementedError``.
-``annotate=True`` needs the napari annotator, not ported either (item 17).
+Counterpart of ``micro_sam_tpu/automatic_segmentation.py``: 2d images (tiled
+and untiled, with ``mask``), volumes (``ndim=3``: each slice segmented, then
+merged into 3d by ``multi_dimensional_segmentation.automatic_3d_segmentation``)
+and timeseries (``automatic_tracking``). ``annotate=True`` needs the napari
+annotator, which is not ported (ROADMAP Queue 1 item 17).
 The entry points run on the GPU unless ``device="cpu"`` (``-d cpu``) is given.
 """
 from __future__ import annotations
@@ -21,10 +21,9 @@ from . import util
 from .instance_segmentation import (DEFAULT_SEGMENTATION_MODE_WITH_DECODER, AMGBase,
                                     InstanceSegmentationWithDecoder, get_decoder,
                                     get_instance_segmentation_generator)
+from .multi_dimensional_segmentation import (automatic_3d_segmentation,
+                                             automatic_tracking_implementation)
 from .predictor import SamPredictor
-
-_NOT_PORTED_3D = ("3d segmentation and tracking need the multi-dimensional segmentation, "
-                  "which the port does not have yet (ROADMAP Queue 1 item 13).")
 
 
 def get_predictor_and_segmenter(
@@ -79,10 +78,45 @@ def _add_suffix_to_output_path(output_path, suffix: str) -> str:
     return str(fpath.with_name(f"{fpath.stem}{suffix}{fext}"))
 
 
-def automatic_tracking(predictor: SamPredictor, segmenter, input_path, output_path=None,
-                       embedding_path=None, key: Optional[str] = None, **kwargs):
-    """Automatic tracking of a timeseries: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED_3D)
+def automatic_tracking(
+    predictor: SamPredictor,
+    segmenter,
+    input_path,
+    output_path=None,
+    embedding_path=None,
+    key: Optional[str] = None,
+    tile_shape: Optional[Tuple[int, int]] = None,
+    halo: Optional[Tuple[int, int]] = None,
+    verbose: bool = True,
+    return_embeddings: bool = False,
+    annotate: bool = False,
+    batch_size: int = 1,
+    **generate_kwargs,
+):
+    """Automatic tracking of a timeseries (an array or a file): each frame
+    segmented, then linked over time. ``gap_closing`` and ``min_time_extent``
+    among ``generate_kwargs`` go to the tracking, the rest to ``generate``.
+    ``output_path`` is a folder for the cell-tracking-challenge export (it
+    needs ``imageio``). Returns (segmentation, lineages)."""
+    image_data = (util.load_image_data(input_path, key)
+                  if isinstance(input_path, (str, os.PathLike)) else input_path)
+    if image_data.ndim != 3 and not (image_data.ndim == 4 and image_data.shape[-1] == 3):
+        raise ValueError(f"The inputs does not match the shape expectation of 3d inputs: "
+                         f"{image_data.shape}")
+
+    gap_closing = generate_kwargs.pop("gap_closing", None)
+    min_time_extent = generate_kwargs.pop("min_time_extent", None)
+    segmentation, lineage, image_embeddings = automatic_tracking_implementation(
+        image_data, predictor, segmenter, embedding_path=embedding_path,
+        gap_closing=gap_closing, min_time_extent=min_time_extent,
+        tile_shape=tile_shape, halo=halo, verbose=verbose, batch_size=batch_size,
+        return_embeddings=True, output_folder=output_path, **generate_kwargs)
+    if annotate:
+        raise NotImplementedError("Annotation after running the automated tracking is "
+                                  "currently not supported.")
+    if return_embeddings:
+        return segmentation, lineage, image_embeddings
+    return segmentation, lineage
 
 
 def automatic_instance_segmentation(
@@ -103,11 +137,12 @@ def automatic_instance_segmentation(
     batch_size: int = 1,
     **generate_kwargs,
 ) -> np.ndarray:
-    """Automatic instance segmentation of a 2d image (an array or a file): the
-    embeddings (tiled with ``tile_shape`` / ``halo``, cached at
-    ``embedding_path``), ``initialize``, then ``generate(**generate_kwargs)``.
-    The result goes to ``output_path`` as a tif when given; an existing result
-    there is left as it is and None returned."""
+    """Automatic instance segmentation of a 2d image or a volume (an array or
+    a file): the embeddings (tiled with ``tile_shape`` / ``halo``, cached at
+    ``embedding_path``), ``initialize``, then ``generate(**generate_kwargs)``;
+    a volume (``ndim=3``) slice by slice, merged into 3d. The result goes to
+    ``output_path`` as a tif when given; an existing result there is left as
+    it is and None returned."""
     if annotate:
         raise NotImplementedError("annotate=True needs the napari annotator, which the port "
                                   "does not have yet (ROADMAP Queue 1 item 17).")
@@ -121,24 +156,34 @@ def automatic_instance_segmentation(
     image_data = (util.load_image_data(input_path, key)
                   if isinstance(input_path, (str, os.PathLike)) else input_path)
     ndim = image_data.ndim if ndim is None else ndim
-    if ndim != 2:
-        raise NotImplementedError(_NOT_PORTED_3D)
-    if image_data.ndim != 2 and not (image_data.ndim == 3 and image_data.shape[-1] == 3):
-        raise ValueError(f"The inputs does not match the shape expectation of 2d inputs: "
-                         f"{image_data.shape}")
     mask = (util.load_image_data(mask_path, mask_key)
             if isinstance(mask_path, (str, os.PathLike)) else mask_path)
 
-    image_embeddings = util.precompute_image_embeddings(
-        predictor=predictor, input_=image_data, save_path=embedding_path, ndim=ndim,
-        tile_shape=tile_shape, halo=halo, verbose=verbose, batch_size=batch_size, mask=mask)
-    initialize_kwargs = dict(image=image_data, image_embeddings=image_embeddings, verbose=verbose)
-    if mask is not None:
-        initialize_kwargs["mask"] = mask
-    if isinstance(segmenter, InstanceSegmentationWithDecoder) and tile_shape is not None:
-        initialize_kwargs["batch_size"] = batch_size
-    segmenter.initialize(**initialize_kwargs)
-    instances = segmenter.generate(**generate_kwargs)
+    if ndim == 2:
+        if image_data.ndim != 2 and not (image_data.ndim == 3 and image_data.shape[-1] == 3):
+            raise ValueError(f"The inputs does not match the shape expectation of 2d inputs: "
+                             f"{image_data.shape}")
+        image_embeddings = util.precompute_image_embeddings(
+            predictor=predictor, input_=image_data, save_path=embedding_path, ndim=ndim,
+            tile_shape=tile_shape, halo=halo, verbose=verbose, batch_size=batch_size, mask=mask)
+        initialize_kwargs = dict(image=image_data, image_embeddings=image_embeddings,
+                                 verbose=verbose)
+        if mask is not None:
+            initialize_kwargs["mask"] = mask
+        if isinstance(segmenter, InstanceSegmentationWithDecoder) and tile_shape is not None:
+            initialize_kwargs["batch_size"] = batch_size
+        segmenter.initialize(**initialize_kwargs)
+        instances = segmenter.generate(**generate_kwargs)
+    else:
+        if image_data.ndim != 3 and not (image_data.ndim == 4 and image_data.shape[-1] == 3):
+            raise ValueError(f"The inputs does not match the shape expectation of 3d inputs: "
+                             f"{image_data.shape}")
+        if mask is not None:
+            raise NotImplementedError("A mask is supported for 2d inputs only.")
+        instances, image_embeddings = automatic_3d_segmentation(
+            volume=image_data, predictor=predictor, segmentor=segmenter,
+            embedding_path=embedding_path, tile_shape=tile_shape, halo=halo, verbose=verbose,
+            return_embeddings=True, batch_size=batch_size, **generate_kwargs)
 
     if output_path is not None:
         _write_tif(output_path, instances)
@@ -224,7 +269,7 @@ def main():
                         help="cuda (the default) or cpu.")
     parser.add_argument("-v", "--verbose", action="store_true")
     parser.add_argument("--tracking", action="store_true",
-                        help="Run automatic tracking instead of segmentation (not ported yet).")
+                        help="Run automatic tracking instead of segmentation.")
 
     args, extra = parser.parse_known_args()
     init_kwargs, generate_kwargs = _split_kwargs(extra)

@@ -1,8 +1,7 @@
 """Host-side postprocessing in C++: connected components, RLE, label bookkeeping.
 
 The port's counterpart of ``micro_sam_tpu/native``. ``src/postprocess.cpp`` is
-a copy of the JAX package's source, whole (the multicut waits for the
-multi-dimensional segmentation). It is compiled at first use
+a copy of the JAX package's source, whole. It is compiled at first use
 with ``g++ -O3 -shared -fPIC`` into ``build/native-<hash>/`` at the root of the
 checkout (the hash covers the source and the command, so an edited source
 rebuilds), to a temporary name first and then renamed, so that processes
@@ -48,6 +47,7 @@ _SIGNATURES = {
     "seeded_watershed_3d": ([_P, _P, _P, _I64, _I64, _I64], None),
     "watershed_unionfind_2d": ([_P, _P, _P, _I64, _I64, _I64], None),
     "watershed_unionfind_3d": ([_P, _P, _P, _I64, _I64, _I64, _I64], None),
+    "greedy_multicut": ([_I64, _P, _P, _I64, _P], None),
 }
 
 
@@ -415,3 +415,65 @@ def seeded_watershed_plain(heightmap: np.ndarray, seeds: np.ndarray,
         out[coord] = lbl
         push_neighbours(coord, lbl)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Greedy multicut (the 3d merge)
+# ---------------------------------------------------------------------------
+
+def _multicut_inputs(n_nodes, uv_ids, costs):
+    uv = np.ascontiguousarray(uv_ids, dtype=np.int64).reshape(-1, 2)
+    cs = np.ascontiguousarray(costs, dtype=np.float64).reshape(-1)
+    if len(uv) != len(cs):
+        raise ValueError(f"{len(uv)} edges, {len(cs)} costs")
+    if len(uv) and (uv.min() < 0 or uv.max() >= n_nodes):
+        raise ValueError(f"edge ids outside [0, {n_nodes})")
+    return uv, cs
+
+
+def greedy_multicut(n_nodes: int, uv_ids: np.ndarray, costs: np.ndarray) -> np.ndarray:
+    """Greedy additive edge contraction over a graph of ``n_nodes`` nodes:
+    duplicate edges are summed; the attractive edges (cost > 0) are taken
+    from the highest cost down, and each joins its two clusters if the summed
+    cost of all edges between them is still positive. Returns (n_nodes,)
+    int64 labels, consecutive from 0 in the order of each cluster's smallest
+    node."""
+    uv, cs = _multicut_inputs(n_nodes, uv_ids, costs)
+    out = np.zeros(int(n_nodes), dtype=np.int64)
+    library().greedy_multicut(int(n_nodes), _ptr(uv), _ptr(cs), len(uv), _ptr(out))
+    return out
+
+
+def greedy_multicut_plain(n_nodes: int, uv_ids: np.ndarray, costs: np.ndarray) -> np.ndarray:
+    """Python twin of ``greedy_multicut``: the same contraction on a heap of
+    (-cost, u, v). A cluster's root is its smallest node, so the labels come
+    in the same order as the library's."""
+    import heapq
+    uv, cs = _multicut_inputs(n_nodes, uv_ids, costs)
+    parent = np.arange(n_nodes, dtype=np.int64)
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    edge_costs: Dict[Tuple[int, int], float] = {}
+    for (u, v), c in zip(uv.tolist(), cs.tolist()):
+        key = (min(u, v), max(u, v))
+        edge_costs[key] = edge_costs.get(key, 0.0) + c
+    heap = [(-c, u, v) for (u, v), c in edge_costs.items() if c > 0]
+    heapq.heapify(heap)
+    while heap:
+        _, u, v = heapq.heappop(heap)
+        ru, rv = find(u), find(v)
+        if ru == rv:
+            continue
+        cost = sum(c for (a, b), c in edge_costs.items() if {find(a), find(b)} == {ru, rv})
+        if cost <= 0:
+            continue
+        parent[max(ru, rv)] = min(ru, rv)
+    roots = np.array([find(i) for i in range(n_nodes)], dtype=np.int64)
+    return np.unique(roots, return_inverse=True)[1].reshape(-1).astype(np.int64)

@@ -587,6 +587,14 @@ def get_centers_and_bounding_boxes(segmentation: np.ndarray
     return center_coordinates, bbox_coordinates
 
 
+def compute_iou(mask1: np.ndarray, mask2: np.ndarray) -> float:
+    """Intersection over union of the pixels equal to 1 in two masks."""
+    overlap = np.logical_and(mask1 == 1, mask2 == 1).sum()
+    union = np.logical_or(mask1 == 1, mask2 == 1).sum()
+    eps = 1e-7
+    return float(overlap) / (float(union) + eps)
+
+
 # -----------------------------------------------------------------------------
 # Image files
 # -----------------------------------------------------------------------------

@@ -162,15 +162,19 @@ def test_tiled_with_mask_matches_jax(models, image):
 
 
 def test_volumes_and_tracking_are_not_ported(models, image):
+    """What is still not ported raises: a mask with a volume, the annotator.
+    Volumes and timeseries themselves run (tests/test_torch_multi_dimensional_segmentation.py);
+    inputs of the wrong shape raise."""
     from micro_sam_tpu_torch import automatic_segmentation as pas
     _, pp, state = models
     _, seg = pas.get_predictor_and_segmenter("vit_b", predictor=pp, state=state)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pas.automatic_instance_segmentation(pp, seg, np.stack([image] * 2), verbose=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="2d inputs only"):
+        pas.automatic_instance_segmentation(pp, seg, np.stack([image] * 2),
+                                            mask_path=np.ones((2,) + image.shape), verbose=False)
+    with pytest.raises(ValueError, match="shape expectation of 3d"):
         pas.automatic_instance_segmentation(pp, seg, image, ndim=3, verbose=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pas.automatic_tracking(pp, seg, np.stack([image] * 2))
+    with pytest.raises(ValueError, match="shape expectation of 3d"):
+        pas.automatic_tracking(pp, seg, image)
     with pytest.raises(NotImplementedError, match="item 17"):
         pas.automatic_instance_segmentation(pp, seg, image, annotate=True, verbose=False)
     with pytest.raises(ValueError, match="shape expectation"):

@@ -1227,3 +1227,55 @@ def test_decoder_adapter_on_the_card(dev):
     assert isinstance(maps, np.ndarray) and maps.dtype == np.float32
     assert maps.shape == (1, 3, 300, 234) and np.isfinite(maps).all()
     assert ((maps >= 0) & (maps <= 1)).all()
+
+
+# ---------------------------------------------------------------------------
+# multi-dimensional segmentation and tracking
+# ---------------------------------------------------------------------------
+
+def test_link_scorer_on_the_card_matches_the_cpu(dev):
+    """The packaged tracker weights: the scorer's f32 logits on the card
+    within rel 1e-5 of the CPU's (TF32 off), and the same links."""
+    import numpy as np
+    from micro_sam_tpu_torch import learned_tracking as lt
+    params = lt.load_linker(lt._PACKAGED_WEIGHTS)
+    images, segs, _ = lt.hela_like_tracking_sequence(n_frames=6, shape=(256, 256), n_cells=6,
+                                                     seed=0)
+    card, cpu = lt.LearnedTracker(params, device="cuda"), lt.LearnedTracker(params, device="cpu")
+    assert card.scorer.fc1.weight.device.type == "cuda"
+    for t in range(len(segs) - 1):
+        _, _, got = card.score_frames(segs[t], segs[t + 1], images[t], images[t + 1])
+        _, _, ref = cpu.score_frames(segs[t], segs[t + 1], images[t], images[t + 1])
+        assert isinstance(got, np.ndarray) and got.dtype == np.float32
+        assert float(np.abs(got - ref).max()) <= 1e-5 * float(np.abs(ref).max())
+    assert card.link(segs, images) == cpu.link(segs, images)
+
+
+def test_segment_mask_in_volume_on_the_card_matches_the_cpu(dev):
+    """A narrow vit_b (64 wide, 2 blocks, 128 px, random weights) in f32 with
+    TF32 off: every projected slice within IoU 0.99 of the CPU's, the same z
+    range."""
+    import numpy as np
+    from micro_sam_tpu_torch.models.sam import Sam, SamConfig
+    from micro_sam_tpu_torch.multi_dimensional_segmentation import segment_mask_in_volume
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.util import precompute_image_embeddings
+    cfg = SamConfig(embed_dim=64, depth=2, num_heads=2, global_attn_indexes=(1,), img_size=128)
+    image, seg = synthetic_data(shape=(128, 128), seed=11, n_objects=5)
+    volume = np.stack([np.roll(image, 2 * z, axis=0) for z in range(6)])
+    truth = np.stack([np.roll(seg, 2 * z, axis=0) for z in range(6)])
+    runs = []
+    for device in ("cpu", "cuda"):
+        sam = Sam(cfg).init_(torch.Generator().manual_seed(5)).eval()
+        predictor = SamPredictor(sam.to(device))
+        emb = precompute_image_embeddings(predictor, volume, ndim=3, verbose=False, batch_size=3)
+        out = np.zeros(volume.shape, np.uint32)
+        out[2] = truth[2] == 1
+        runs.append(segment_mask_in_volume(out, predictor, emb, np.array([2]), False, False, 0.0,
+                                           "mask"))
+    (ref, ref_range), (got, got_range) = runs
+    assert got_range == ref_range == (0, 5)
+    for z in range(6):
+        union = np.logical_or(got[z], ref[z]).sum()
+        assert union == 0 or np.logical_and(got[z], ref[z]).sum() / union >= 0.99, z

@@ -44,6 +44,20 @@ def test_no_jax_or_jax_package_import_in_port_sources():
     assert not hits, "\n".join(hits)
 
 
+def test_no_networkx_import_in_port_sources():
+    """The GPU machine has no networkx: the port finds its lineage components
+    itself (multi_dimensional_segmentation._connected_components)."""
+    pattern = re.compile(r"^\s*(from\s+networkx(?=[\s.])|import\s+networkx(?=[\s.,]|$))", re.M)
+    assert pattern.search("    import networkx as nx") and not pattern.search("# networkx")
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if pattern.search(line):
+                    hits.append(f"{os.path.relpath(path, ROOT)}:{n}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -52,7 +66,8 @@ def test_importing_every_port_module_loads_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'micro_sam_tpu' or m.startswith('micro_sam_tpu.'))\n"
+        "             or m == 'micro_sam_tpu' or m.startswith('micro_sam_tpu.')\n"
+        "             or m == 'networkx')\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
         "new = {'micro_sam_tpu_torch.training', 'micro_sam_tpu_torch.training.sam_trainer',\n"
@@ -62,7 +77,9 @@ def test_importing_every_port_module_loads_no_jax():
         "       'micro_sam_tpu_torch.models.tiny_vit', 'micro_sam_tpu_torch.ops.dwconv',\n"
         "       'micro_sam_tpu_torch.ops.tiny_attention', 'micro_sam_tpu_torch.ops.fused_mbconv',\n"
         "       'micro_sam_tpu_torch.ops.fused_tiny_attention',\n"
-        "       'micro_sam_tpu_torch.ops.fused_tiny_tail'}\n"
+        "       'micro_sam_tpu_torch.ops.fused_tiny_tail',\n"
+        "       'micro_sam_tpu_torch.multi_dimensional_segmentation',\n"
+        "       'micro_sam_tpu_torch.learned_tracking'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )
