@@ -177,9 +177,29 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     truth links, the scorer's logits on the card against the CPU (rel <=
     1e-5, the same links), and automatic_tracking through AIS with the
     encodes' launches only in the embeddings. Prints the phase's wall time;
-14. prints one JSON line of details (per-shape rows, chains, end-to-end and
-    training numbers, the tiled routes, the AMG, AIS and multi-dimensional
-    numbers), then the kernels line (one entry
+14. joint finetuning and the other trainers, on phase 6's 512^2 patches:
+    (a) train_sam("smoke_joint", "vit_b", n_iterations=2) at its default (SAM
+    and the UNETR decoder at published widths) on default_sam_loader with
+    distance targets, counted from zero (2 x (24 + 12) K1 and 2 x 48 K4
+    launches, 12 K1 in validation), its best.pkl through
+    export_instance_segmentation_model into get_predictor_and_segmenter (the
+    decoder equal to the trainer's, bitwise), AIS initialize and generate;
+    (g) export_custom_sam_model and save_native_checkpoint of that checkpoint
+    loaded back by get_sam_model (embedding within the bf16 bound); (b)
+    JointSamTrainer steps at train_sam's defaults, 3 warm-up and 5 timed,
+    split into the SAM step and the decoder step, images/s, peak memory,
+    launches per step asserted (36 K1, 48 K4), one joint step and one
+    decoder step profiled by layer; (c) one f32 decoder step (published
+    widths, (1, 32, 32, 256) features, 512^2 targets) on the card against the
+    CPU (loss rel 1e-5, gradients rel 1e-3 of each tensor's max); (d)
+    train_instance_segmentation (every SAM tensor bitwise unchanged, every
+    decoder parameter moved); (e) train_sam_for_configuration("A100") at its
+    default (vit_h and the decoder) with its peak memory; (f)
+    SimpleSamTrainer, MedSAMTrainer and SemanticSamTrainer (3 classes), 2
+    steps each. Prints the phase's wall time;
+15. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers, the tiled routes, the AMG, AIS, multi-dimensional and
+    joint-training numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
@@ -4219,6 +4239,443 @@ def multi_dim_phase(counters, root):
     return dict(interactive=a, automatic_3d=b, checks=c, tracking=d)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: joint finetuning (SAM and the UNETR decoder) and the other trainers
+# ---------------------------------------------------------------------------
+
+JOINT_PROFILE_GROUPS = PROFILE_GROUPS[:2] + (
+    ("matrix products and convolutions (cuBLAS / cuDNN; SAM and the decoder)",
+     ("gemm", "nvjet", "sm90", "xmma", "cutlass", "conv", "Conv")),
+    ("LayerNorm (PyTorch)", ("layer_norm",)),
+    ("InstanceNorm statistics (Welford reductions, forward)", ("Welford",)),
+    ("bilinear resizes (SAM's mask upscaling, the decoder's x2 and output resize)",
+     ("upsample", "bilinear")),
+    ("dtype casts and copies", ("copy_kernel",)),
+)
+DECODER_STEP_F32_TOL = 1e-3   # every decoder gradient, of its tensor's max
+DECODER_LOSS_F32_TOL = 1e-5
+
+
+class JointSeen:
+    """Patches the ``JointSamTrainer`` that ``training/training.py`` builds
+    with a subclass that keeps each trainer it builds, with copies of its SAM
+    and decoder states as they were built."""
+
+    def __enter__(self):
+        from micro_sam_tpu_torch.training import training as tr
+        self.tr, self.saved, self.trainers = tr, tr.JointSamTrainer, []
+        seen = self
+
+        class Seen(self.saved):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.sam0 = {k: v.clone() for k, v in self.model.sam.state_dict().items()}
+                self.unetr0 = {k: v.clone() for k, v in self.unetr.state_dict().items()}
+                seen.trainers.append(self)
+        tr.JointSamTrainer = Seen
+        return self
+
+    def __exit__(self, *exc):
+        self.tr.JointSamTrainer = self.saved
+
+
+def joint_loaders(imgs, segs):
+    """default_sam_loader at its default (with the distance targets) over
+    phase 6's patches: 4 for training (2 batches of 2), 2 for validation."""
+    from micro_sam_tpu_torch.training import default_sam_loader
+
+    def loader(train):
+        return default_sam_loader(
+            raw_paths=imgs[:4] if train else imgs[4:], raw_key=None,
+            label_paths=segs[:4] if train else segs[4:], label_key=None, patch_shape=(512, 512),
+            n_samples=4 if train else 2, is_train=train, batch_size=2)
+    return loader(True), loader(False)
+
+
+def counted(counters, fn):
+    """(fn's result, the launches it made): the counts set to 0 just before
+    and read just after (the card synchronized)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def expect_launches(what, got, expect):
+    log(f"  {what}: launches {got} (expected {expect})")
+    if got != expect:
+        raise AssertionError(f"{what} did not go through the kernels as expected")
+
+
+def joint_whole_path(counters, imgs, segs, save_root):
+    """(a) train_sam at its default (the decoder on) for 2 steps, best.pkl
+    through export_instance_segmentation_model into get_predictor_and_segmenter,
+    AIS initialize and generate; the exported decoder equals the trainer's."""
+    from micro_sam_tpu_torch.automatic_segmentation import get_predictor_and_segmenter
+    from micro_sam_tpu_torch.training import export_instance_segmentation_model, train_sam
+    train_loader, val_loader = joint_loaders(imgs, segs)
+    t0 = time.perf_counter()
+    with JointSeen() as seen, torch.enable_grad():
+        _, launches = counted(counters, lambda: train_sam(
+            "smoke_joint", "vit_b", train_loader, val_loader, n_iterations=2, device="cuda",
+            save_root=save_root))
+    train_s = time.perf_counter() - t0
+    (trainer,) = seen.trainers
+    depth = trainer.model.config.depth
+    expect_launches("train_sam (default: the decoder on; 2 steps, validation)", launches,
+                    {"relpos_attention": 2 * (2 * depth + depth) + depth,
+                     "relpos_attention_backward": 2 * 4 * depth})
+    moved = [k for k, v in trainer.unetr.state_dict().items() if not torch.equal(v, trainer.unetr0[k])]
+    n_par = len(list(trainer.unetr.parameters()))
+    log(f"  train_sam: {train_s:.1f} s; decoder tensors moved {len(moved)} of {n_par} parameters; "
+        f"losses {[round(m['train_loss'], 5) for m in trainer.train_metrics]}")
+    if len(moved) != n_par or not np.isfinite(trainer.train_metrics[-1]["train_loss"]):
+        raise AssertionError("the joint training did not train the decoder or its loss is not finite")
+    best = os.path.join(save_root, "smoke_joint", "best.pkl")
+    exported = os.path.join(save_root, "smoke_joint_exported.pkl")
+    export_instance_segmentation_model(best, exported, "vit_b")
+    predictor, ais = get_predictor_and_segmenter("vit_b", checkpoint=exported,
+                                                 segmentation_mode="ais")
+    same = all(torch.equal(v, trainer.unetr.state_dict()[k])
+               for k, v in ais._decoder.unetr.state_dict().items())
+    (_, init_launches) = counted(counters, lambda: ais.initialize(imgs[0]))
+    t0 = time.perf_counter()
+    seg = ais.generate()
+    gen_ms = 1e3 * (time.perf_counter() - t0)
+    maps = ais.get_state()
+    log(f"  best.pkl -> export_instance_segmentation_model -> get_predictor_and_segmenter: "
+        f"decoder equal to the trainer's (bitwise) {same}; AIS initialize launches "
+        f"{init_launches}, generate {gen_ms:.1f} ms, {len(np.unique(seg)) - 1} objects")
+    if not same:
+        raise AssertionError("the exported decoder differs from the trained one")
+    if seg.shape != imgs[0].shape[:2] or seg.dtype != np.uint32 or any(
+            m.shape != imgs[0].shape[:2] or not np.isfinite(m).all() for m in maps.values()):
+        raise AssertionError("AIS from the exported joint model: maps or segmentation wrong")
+    state = {"train_sam_s": train_s, "launches": launches, "ais_initialize_launches": init_launches,
+             "ais_objects": int(len(np.unique(seg)) - 1), "decoder_equal": same}
+    sam_state = {k: v.detach().clone() for k, v in trainer.model.sam.state_dict().items()}
+    cfg = trainer.model.config
+    del seen, trainer, train_loader, val_loader
+    return state, best, predictor, sam_state, cfg
+
+
+def joint_timed_steps(counters, batches):
+    """(b) JointSamTrainer steps at train_sam's defaults (batch 2, 25 objects,
+    8 rounds, lr 1e-5, bf16 compute with f32 weights; the decoder at
+    published widths): TRAIN_WARMUP warm-up and TRAIN_REPS timed, each split
+    into the SAM step and the decoder step (the card synchronized after
+    each), the attention launches per step asserted, peak memory, one joint
+    step profiled by layer and one decoder step alone."""
+    from micro_sam_tpu_torch.instance_segmentation import get_unetr
+    from micro_sam_tpu_torch.training import JointSamTrainer, get_trainable_sam_model
+    model = get_trainable_sam_model("vit_b", device="cuda")
+    trainer = JointSamTrainer("timing", None, None, model, unetr=get_unetr(device="cuda"),
+                              n_sub_iteration=8, n_objects_per_batch=25, lr=1e-5, logger=False)
+    parts = {}
+
+    def step(i):
+        x, y, t = batches[i % len(batches)]
+        use_points, use_box, multimask, n_pos, n_neg = \
+            trainer._get_prompt_and_multimasking_choices(trainer._iteration)
+        b = trainer._prepare_batch(x, y, use_points, use_box, n_pos, n_neg, batch_idx=i)
+        if b[1].shape[:2] != (2, 25):
+            raise AssertionError(f"the trainer sampled {tuple(b[1].shape[:2])} objects, not (2, 25)")
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = trainer.train_step(b, use_points, use_box, multimask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        inst = trainer.instance_step(b[0], t)
+        torch.cuda.synchronize()
+        parts.update(sam_ms=1e3 * (t1 - t0), decoder_ms=1e3 * (time.perf_counter() - t1),
+                     loss=float(loss), instance_loss=float(inst), batch=b, targets=t)
+
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for c in counters.values():
+        c.launches = 0
+    for i in range(TRAIN_REPS):
+        t0 = time.perf_counter()
+        step(TRAIN_WARMUP + i)
+        rows.append(dict(step_ms=1e3 * (time.perf_counter() - t0),
+                         **{k: parts[k] for k in ("sam_ms", "decoder_ms", "loss", "instance_loss")}))
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: c.launches / TRAIN_REPS for k, c in counters.items() if c.launches}
+    depth = model.config.depth
+    expect_launches(f"joint steps (per step: {depth} blocks x (2 forward with the recompute + 1 "
+                    "in the decoder step's encode), x 4 backward)", per_step,
+                    {"relpos_attention": 3 * depth, "relpos_attention_backward": 4 * depth})
+    losses = [r["loss"] for r in rows] + [r["instance_loss"] for r in rows]
+    if not np.isfinite(losses).all():
+        raise AssertionError("a joint step's loss is not finite")
+    med = {k: statistics.median(r[k] for r in rows) for k in ("step_ms", "sam_ms", "decoder_ms")}
+    log(f"  joint step ms (host clock, median of {TRAIN_REPS}, prompt sampling outside the "
+        f"parts): step {med['step_ms']:.3f} = SAM step {med['sam_ms']:.3f} + decoder step "
+        f"{med['decoder_ms']:.3f} (+ host); images/s {2e3 / med['step_ms']:.3f}; peak memory "
+        f"{peak / 2**30:.3f} GiB; losses SAM {[round(r['loss'], 4) for r in rows]}, decoder "
+        f"{[round(r['instance_loss'], 4) for r in rows]}")
+    prof = profile_step(lambda: step(TRAIN_WARMUP + TRAIN_REPS), JOINT_PROFILE_GROUPS)
+    b, t = parts["batch"], parts["targets"]
+    log("  the decoder step alone:")
+    prof_dec = profile_step(lambda: (trainer.instance_step(b[0], t), torch.cuda.synchronize()),
+                            JOINT_PROFILE_GROUPS)
+    del trainer, model, parts
+    torch.cuda.empty_cache()
+    return {"model": "vit_b", "batch": 2, "objects_per_image": 25, "n_sub_iteration": 8,
+            "patch": 512, "compute_dtype": "bfloat16", "decoder_features": [512, 256, 128, 64],
+            **med, "images_per_s": 2e3 / med["step_ms"], "steps": rows, "peak_memory_bytes": peak,
+            "launches_per_step": per_step, "profiled_step": prof, "profiled_decoder_step": prof_dec}
+
+
+DECODER_STEP_CPU_THREADS = 4
+
+
+def decoder_step_grads(seg, device, dtype, root=None, threads=None):
+    """(loss, {name: gradient as float64 numpy}, seconds) of one decoder step
+    (``unetr_loss``; the UNETR at published widths with random BN statistics,
+    ``random_unetr``) on (1, 32, 32, 256) features from seed 1414 and the
+    512^2 distance targets of ``seg``, in ``dtype`` on ``device``. Also the
+    CPU reference's process (``root`` / ``threads`` given)."""
+    if root is not None:
+        sys.path.insert(0, root)
+    if threads:
+        torch.set_num_threads(threads)
+    from micro_sam_tpu_torch.training import PerObjectDistanceTransform
+    from micro_sam_tpu_torch.training.joint_sam_trainer import unetr_loss
+    feats = torch.randn(1, 32, 32, 256, generator=torch.Generator().manual_seed(1414))
+    targets = torch.from_numpy(PerObjectDistanceTransform()(seg)[None])
+    model = random_unetr(True).to(device, dtype)
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = unetr_loss(model, feats.to(device, dtype), targets.to(device, dtype))
+        loss.backward()
+    grads = {n: p.grad.double().cpu().numpy() for n, p in model.named_parameters()}
+    return float(loss.detach()), grads, time.perf_counter() - t0
+
+
+DECODER_STEP_F64_TOL = 1e-6   # every gradient of the f64 step, card against CPU
+
+
+def decoder_step_check(seg, cpu_runs):
+    """(c) The decoder step on the card against the same step on the CPU in
+    float64 (``cpu_runs``: the futures of the CPU's f32 and f64 steps, in a
+    process started at the phase's start), TF32 off. In float64 on the card:
+    the loss within rel 1e-9 and every gradient within rel 1e-6 of its
+    tensor's max (the same function, computed exactly). In float32 on the
+    card: the loss within rel 1e-5; every gradient within rel 1e-3 of its
+    tensor's max, or within twice the CPU f32 step's largest distance from
+    float64 over all gradients (the f32 rounding this random decoder
+    amplifies: the CPU's own f32 step lies up to about 1e-2 of some small
+    tensors' max from float64). Gradients that are zero in the exact
+    arithmetic (biases whose output meets an InstanceNorm, below 1e-6 of the
+    largest in f64) are held below that on the card."""
+    loss32g, g32g, s32g = decoder_step_grads(seg, "cuda", torch.float32)
+    loss64g, g64g, s64g = decoder_step_grads(seg, "cuda", torch.float64)
+    (loss32, g32, s32), (loss64, g64, s64) = (r.result() for r in cpu_runs)
+    g_max = max(float(np.abs(v).max()) for v in g64.values())
+    noise = [n for n, v in g64.items() if float(np.abs(v).max()) <= 1e-6 * g_max]
+    held = [n for n in g64 if n not in noise]
+    for name in noise:
+        if max(float(np.abs(g[name]).max()) for g in (g32g, g64g)) > 1e-6 * g_max:
+            raise AssertionError(f"decoder step: {name} should have no gradient")
+    err = lambda g, n: float(np.abs(g[n] - g64[n]).max())
+    floor = 2 * max(err(g32, n) for n in held)
+    rel64 = max(err(g64g, n) / float(np.abs(g64[n]).max()) for n in held)
+    rel32 = {n: err(g32g, n) / float(np.abs(g64[n]).max()) for n in held}
+    by_floor = [n for n in held if rel32[n] > DECODER_STEP_F32_TOL]
+    bad = [n for n in by_floor if err(g32g, n) > floor]
+    worst = max(held, key=lambda n: rel32[n])
+    loss_rel32, loss_rel64 = abs(loss32g - loss64) / abs(loss64), abs(loss64g - loss64) / abs(loss64)
+    log(f"  decoder step against the CPU in f64 (card f32 {1e3 * s32g:.1f} ms, f64 "
+        f"{1e3 * s64g:.1f} ms; CPU f32 {s32:.1f} s, f64 {s64:.1f} s): card f64 loss rel "
+        f"{loss_rel64:.2e}, worst gradient rel {rel64:.2e} (tol {DECODER_STEP_F64_TOL:g}); card "
+        f"f32 loss rel {loss_rel32:.2e} (tol {DECODER_LOSS_F32_TOL:g}; CPU f32 "
+        f"{abs(loss32 - loss64) / abs(loss64):.2e}), worst gradient rel {rel32[worst]:.3e} "
+        f"({worst}; CPU f32 {err(g32, worst) / float(np.abs(g64[worst]).max()):.3e}); "
+        f"{len(held) - len(by_floor)} of {len(held)} tensors within rel "
+        f"{DECODER_STEP_F32_TOL:g}, the other {len(by_floor)} within the f32 floor "
+        f"{floor / g_max:.3e} of the largest gradient: {len(bad)} beyond; {len(noise)} zero by "
+        f"symmetry")
+    if loss_rel64 > 1e-9 or rel64 > DECODER_STEP_F64_TOL:
+        raise AssertionError("the f64 decoder step on the card disagrees with the CPU")
+    if loss_rel32 > DECODER_LOSS_F32_TOL or bad:
+        raise AssertionError(f"the f32 decoder step on the card disagrees with the CPU: {bad}")
+    return {"f64_loss_rel": loss_rel64, "f64_grad_rel": rel64, "f32_loss_rel": loss_rel32,
+            "f32_worst_grad_rel": rel32[worst], "f32_worst_tensor": worst,
+            "f32_floor_of_max": floor / g_max, "held_by_floor": by_floor,
+            "cpu_f32_grad_rel": {n: err(g32, n) / float(np.abs(g64[n]).max()) for n in held},
+            "card_f32_grad_rel": rel32, "zero_by_symmetry": noise}
+
+
+def instance_only_check(counters, imgs, segs, save_root):
+    """(d) train_instance_segmentation for 2 steps: every SAM tensor bitwise
+    unchanged, every decoder parameter moved; the SAM step runs its forward
+    only."""
+    from micro_sam_tpu_torch.training import train_instance_segmentation
+    train_loader, val_loader = joint_loaders(imgs, segs)
+    t0 = time.perf_counter()
+    with JointSeen() as seen, torch.enable_grad():
+        _, launches = counted(counters, lambda: train_instance_segmentation(
+            "smoke_inst", "vit_b", train_loader, val_loader, n_iterations=2, device="cuda",
+            save_root=save_root))
+    wall = time.perf_counter() - t0
+    (tr,) = seen.trainers
+    depth = tr.model.config.depth
+    expect_launches("train_instance_segmentation (2 steps: the SAM forward and the decoder "
+                    "step's encode; validation)", launches,
+                    {"relpos_attention": 2 * 2 * depth + depth})
+    sam_same = all(torch.equal(v, tr.sam0[k]) for k, v in tr.model.sam.state_dict().items())
+    moved = sum(not torch.equal(v, tr.unetr0[k]) for k, v in tr.unetr.named_parameters())
+    n_par = len(list(tr.unetr.parameters()))
+    log(f"  train_instance_segmentation: {wall:.1f} s; SAM bitwise unchanged {sam_same}; "
+        f"decoder parameters moved {moved} of {n_par}")
+    if not sam_same or moved != n_par or tr.optimizer is not None:
+        raise AssertionError("train_instance_segmentation moved SAM or left the decoder")
+    del seen, tr
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "launches": launches, "sam_unchanged": sam_same,
+            "decoder_moved": moved}
+
+
+def preset_joint_check(counters, imgs, segs, save_root):
+    """(e) train_sam_for_configuration("A100") at its default: vit_h and the
+    decoder, 2 steps; launches and peak memory."""
+    import gc
+    from micro_sam_tpu_torch.models import build_sam
+    from micro_sam_tpu_torch.training import train_sam_for_configuration
+    train_loader, val_loader = joint_loaders(imgs, segs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with JointSeen() as seen, torch.enable_grad():
+        _, launches = counted(counters, lambda: train_sam_for_configuration(
+            "smoke_h_joint", "A100", train_loader, val_loader, n_iterations=2, device="cuda",
+            save_root=save_root))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    (tr,) = seen.trainers
+    cfg = build_sam.SAM_CONFIGS["vit_h"]
+    got = (tr.model.config.model_type, tr.model.config.embed_dim, tr.n_objects_per_batch)
+    depth = cfg.depth
+    expect_launches("train_sam_for_configuration('A100') (vit_h and the decoder, 2 steps, "
+                    "validation)", launches,
+                    {"relpos_attention": 2 * 3 * depth + depth,
+                     "relpos_attention_backward": 2 * 4 * depth})
+    moved = sum(not torch.equal(v, tr.unetr0[k]) for k, v in tr.unetr.named_parameters())
+    log(f"  A100 preset with the decoder: {wall:.1f} s for 2 steps, validation and checkpoints; "
+        f"trainer {got}; peak memory {peak / 2**30:.3f} GiB; decoder parameters moved {moved}")
+    if got != ("vit_h", cfg.embed_dim, 25) or moved != len(list(tr.unetr.parameters())):
+        raise AssertionError("the A100 preset did not train vit_h and the decoder")
+    del seen, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "launches": launches, "peak_memory_bytes": peak}
+
+
+def other_trainers_check(imgs, segs):
+    """(f) SimpleSamTrainer, MedSAMTrainer and SemanticSamTrainer (3 classes)
+    on one vit_b, 2 steps each: finite losses, weights moved."""
+    import random
+    from micro_sam_tpu_torch.training import (MedSAMTrainer, SemanticSamTrainer,
+                                              SimpleSamTrainer, get_trainable_sam_model)
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    random.seed(0)
+    model = get_trainable_sam_model("vit_b", device="cuda")
+    loader = SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4), batch_size=2)
+    batches = list(loader)
+    semantic = [(x, (y % 3).astype(np.int64)) for x, y in batches]
+    out = {}
+    for cls, data, kw in ((SimpleSamTrainer, batches, {}), (MedSAMTrainer, batches, {}),
+                          (SemanticSamTrainer, semantic, {"num_classes": 3})):
+        tr = cls(cls.__name__, data, None, model, logger=False, **kw)
+        before = {n: p.detach().clone() for n, p in model.sam.named_parameters()}
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = tr._run_epoch(train=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = sum(not torch.equal(before[n], p) for n, p in model.sam.named_parameters())
+        log(f"  {cls.__name__}: 2 steps in {wall:.2f} s, mean loss {loss:.5f}, {moved} of "
+            f"{len(before)} parameter tensors moved")
+        if tr._iteration != 2 or not np.isfinite(loss) or moved < 0.5 * len(before):
+            raise AssertionError(f"{cls.__name__} did not train")
+        out[cls.__name__] = {"loss": loss, "moved": moved, "wall_s": wall}
+        del before, tr
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def writers_check(predictor, best, sam_state, cfg, image, save_root):
+    """(g) export_custom_sam_model and save_native_checkpoint of (a)'s
+    checkpoint, loaded back by get_sam_model: their embeddings against the
+    exported joint model's, within the bf16 bound."""
+    from micro_sam_tpu_torch.util import (_to_image, export_custom_sam_model, get_sam_model,
+                                          save_native_checkpoint)
+    pt = os.path.join(save_root, "smoke_joint_sam.pt")
+    native = os.path.join(save_root, "smoke_joint.msam")
+    export_custom_sam_model(best, "vit_b", pt)
+    save_native_checkpoint(native, sam_state, cfg)
+    img = _to_image(image)
+    predictor.set_image(img)
+    ref = predictor.get_image_embedding()
+    out = {}
+    for name, path in (("export_custom_sam_model", pt), ("save_native_checkpoint", native)):
+        p = get_sam_model("vit_b", checkpoint_path=path)
+        p.set_image(img)
+        emb = p.get_image_embedding()
+        rel = float(np.abs(emb - ref).max() / np.abs(ref).max())
+        out[name] = rel
+        log(f"  {name} -> get_sam_model: embedding rel {rel:.3e} of the trainer's "
+            f"(tol {BF16_TOL:g}); {os.path.getsize(path) / 2**20:.1f} MiB")
+        if not np.isfinite(emb).all() or rel > BF16_TOL:
+            raise AssertionError(f"{name}: the written model does not give the trained embedding")
+        del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def joint_phase(counters, root):
+    """Phase 14: joint finetuning (SAM and the UNETR decoder at published
+    widths) through train_sam's default and its exports, timed joint steps,
+    the f32 decoder step on the card against the CPU, decoder-only training,
+    the A100 preset with the decoder, the other trainers and the writers."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    save_root = os.path.join(root, "build", "chip_smoke_joint")
+    shutil.rmtree(save_root, ignore_errors=True)
+    imgs, segs = training_data()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = [pool.submit(decoder_step_grads, segs[0], "cpu", dt, root,
+                                DECODER_STEP_CPU_THREADS) for dt in (torch.float32, torch.float64)]
+        log("  (a) train_sam('smoke_joint', 'vit_b') at its default (the decoder on), exported, "
+            "AIS")
+        a, best, predictor, sam_state, cfg = joint_whole_path(counters, imgs, segs, save_root)
+        log("  (g) the writers")
+        g = writers_check(predictor, best, sam_state, cfg, imgs[0], save_root)
+        del predictor, sam_state
+        torch.cuda.empty_cache()
+        log("  (b) timed joint steps at train_sam's defaults")
+        train_loader, _ = joint_loaders(imgs, segs)
+        b = joint_timed_steps(counters, list(train_loader))
+        log("  (c) the decoder step on the card in f64 and f32 (TF32 off) against the CPU in f64")
+        c = decoder_step_check(segs[0], cpu_runs)
+    log("  (d) train_instance_segmentation")
+    d = instance_only_check(counters, imgs, segs, save_root)
+    log("  (e) the A100 preset at its default (vit_h and the decoder)")
+    e = preset_joint_check(counters, imgs, segs, save_root)
+    log("  (f) the other trainers")
+    f = other_trainers_check(imgs, segs)
+    shutil.rmtree(save_root, ignore_errors=True)
+    return dict(whole_path=a, timed=b, decoder_step_f32=c, instance_only=d, a100_joint=e,
+                other_trainers=f, writers=g)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
@@ -4380,6 +4837,15 @@ def main():
     p13 = multi_dim_phase(counters, root)
     p13["wall_s"] = time.perf_counter() - t13
     log(f"phase 13 (multi-dimensional segmentation and tracking): {p13['wall_s']:.1f} s")
+    # phase 14: joint finetuning and the other trainers
+    t14 = time.perf_counter()
+    log("joint finetuning and the other trainers: train_sam at its default (SAM and the UNETR "
+        "decoder), its exports into AIS, timed joint steps, the f32 decoder step against the "
+        "CPU, train_instance_segmentation, the A100 preset with the decoder, SimpleSamTrainer / "
+        "MedSAMTrainer / SemanticSamTrainer, export_custom_sam_model / save_native_checkpoint")
+    p14 = joint_phase(counters, root)
+    p14["wall_s"] = time.perf_counter() - t14
+    log(f"phase 14 (joint finetuning and the other trainers): {p14['wall_s']:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
@@ -4396,7 +4862,7 @@ def main():
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")},
-                                "amg": p11, "ais": p12, "multi_dim": p13}}))
+                                "amg": p11, "ais": p12, "multi_dim": p13, "joint": p14}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
                                                                   "plans")
                                   if k in r}

@@ -144,9 +144,11 @@ class BatchNorm(nn.Module):
 
 
 def fold_bn(bn: BatchNorm):
-    """The BN as a per-channel (scale, shift) in float32: bn(x) = x * scale + shift."""
-    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    return scale, bn.bias.float() - bn.running_mean.float() * scale
+    """The BN as a per-channel (scale, shift) in float32 (float64 for a float64
+    BN): bn(x) = x * scale + shift."""
+    acc = torch.promote_types(bn.weight.dtype, torch.float32)
+    scale = bn.weight.to(acc) * torch.rsqrt(bn.running_var.to(acc) + bn.eps)
+    return scale, bn.bias.to(acc) - bn.running_mean.to(acc) * scale
 
 
 class KeepsDerived(nn.Module):

@@ -73,13 +73,15 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 def instance_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
-    """Per-sample, per-channel normalization over H, W in float32 (biased
-    variance, as InstanceNorm2d), the optional affine in float32, cast back."""
-    x32 = x.float()
-    var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True, correction=0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
+    """Per-sample, per-channel normalization over H, W in float32 (float64
+    input in float64; biased variance, as InstanceNorm2d), the optional
+    affine in the same, cast back."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xa = x.to(acc)
+    var, mean = torch.var_mean(xa, dim=(2, 3), keepdim=True, correction=0)
+    y = (xa - mean) * torch.rsqrt(var + eps)
     if weight is not None:
-        y = y * weight.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)
+        y = y * weight.to(acc).view(1, -1, 1, 1) + bias.to(acc).view(1, -1, 1, 1)
     return y.to(x.dtype)
 
 

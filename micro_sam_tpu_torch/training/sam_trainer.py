@@ -38,10 +38,11 @@ from .util import ConvertToSamInputs
 
 
 def dice_score(pred_sigmoid: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
-    """Soft dice over the trailing two axes; the sums accumulate in float32."""
-    f32 = torch.float32
-    num = 2.0 * (pred_sigmoid * target).sum(dim=(-2, -1), dtype=f32)
-    den = (pred_sigmoid ** 2).sum(dim=(-2, -1), dtype=f32) + (target ** 2).sum(dim=(-2, -1), dtype=f32)
+    """Soft dice over the trailing two axes; the sums accumulate in float32
+    (float64 inputs in float64)."""
+    acc = torch.promote_types(torch.promote_types(pred_sigmoid.dtype, target.dtype), torch.float32)
+    num = 2.0 * (pred_sigmoid * target).sum(dim=(-2, -1), dtype=acc)
+    den = (pred_sigmoid ** 2).sum(dim=(-2, -1), dtype=acc) + (target ** 2).sum(dim=(-2, -1), dtype=acc)
     return num / (den + eps)
 
 
@@ -82,11 +83,16 @@ def _bbox_ring(gt: torch.Tensor, df: int = 3) -> torch.Tensor:
     return in_box & (gt <= 0)
 
 
-def make_optimizer(model: TrainableSAM, lr: float = 1e-5) -> torch.optim.AdamW:
-    """AdamW with optax.adamw's defaults (torch's own weight decay is 1e-2);
-    frozen parameters are left out, so they get no update and no decay."""
-    params = [p for p in model.sam.parameters() if p.requires_grad]
+def adamw(params, lr: float = 1e-5) -> torch.optim.AdamW:
+    """AdamW with optax.adamw's defaults (torch's own weight decay is 1e-2)."""
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+def make_optimizer(model: TrainableSAM, lr: float = 1e-5) -> Optional[torch.optim.AdamW]:
+    """``adamw`` over the SAM parameters that train; frozen parameters are
+    left out, so they get no update and no decay. None when nothing trains."""
+    params = [p for p in model.sam.parameters() if p.requires_grad]
+    return adamw(params, lr) if params else None
 
 
 class SamTrainer:
@@ -98,7 +104,9 @@ class SamTrainer:
             image (B, H, W, C) raw, labels (B, H, W) instance masks.
         model: TrainableSAM.
         optimizer: a torch optimizer over the model's trainable parameters
-            (default ``make_optimizer(model, lr)``).
+            (default ``make_optimizer(model, lr)``; with no trainable
+            parameter, none: each step then runs the forward only, so the
+            loss is logged and the sampling streams advance as in training).
         n_sub_iteration: Prompting rounds per step.
         n_objects_per_batch: Objects sampled per image.
         convert_inputs: Ground truth -> prompts converter.
@@ -109,7 +117,8 @@ class SamTrainer:
         seed: Seeds the object / prompt sampling and the device generator of
             the corrective points and the mask coin.
         logger: "tensorboard" or None (TensorBoard when
-            ``torch.utils.tensorboard`` imports), or False for none.
+            ``torch.utils.tensorboard`` imports), a ``SamLogger`` (class or
+            instance) whose writer takes the scalars, or False for none.
     """
 
     def __init__(self, name: str, train_loader, val_loader, model: TrainableSAM, optimizer=None,
@@ -138,13 +147,12 @@ class SamTrainer:
         self._best_metric = np.inf
         self.train_metrics: list = []
         self._tb = None
-        if logger in ("tensorboard", None):
-            try:
-                from torch.utils.tensorboard import SummaryWriter
-            except ImportError:
-                SummaryWriter = None
-            if SummaryWriter is not None:
-                self._tb = SummaryWriter(os.path.join(self.save_root, self.name, "logs"))
+        if isinstance(logger, type) and issubclass(logger, SamLogger):
+            logger = logger(self, self.save_root)
+        if isinstance(logger, SamLogger):
+            self._tb = logger.tb
+        elif logger in ("tensorboard", None):
+            self._tb = _summary_writer(os.path.join(self.save_root, self.name, "logs"))
 
     # ------------------------------------------------------------------
     # prompt schedule (upstream sam_trainer.py)
@@ -285,21 +293,34 @@ class SamTrainer:
         return tuple(t.to(self.device) for t in batch)
 
     def train_step(self, batch, use_points: bool, use_box: bool, multimask: bool):
-        """One optimizer step on a prepared batch; returns (loss, mean IoU) tensors."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, miou = self._loss(*batch, use_points, use_box, multimask)
-        loss.backward()
-        self.optimizer.step()
+        """One optimizer step on a prepared batch; returns (loss, mean IoU)
+        tensors. Without an optimizer (no SAM parameter trains) the forward
+        only, without autograd."""
+        if self.optimizer is None:
+            with torch.no_grad():
+                loss, miou = self._loss(*batch, use_points, use_box, multimask)
+        else:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, miou = self._loss(*batch, use_points, use_box, multimask)
+            loss.backward()
+            self.optimizer.step()
         self._iteration += 1
         return loss.detach(), miou
+
+    def _after_train_step(self, prepared, batch) -> None:
+        """Called after each training step with the prepared batch and the
+        loader's batch (a subclass trains more on them); nothing here."""
 
     # ------------------------------------------------------------------
     # training loop
     # ------------------------------------------------------------------
     def _run_epoch(self, train: bool = True):
+        """One pass over a loader of (image, labels) batches; a third element
+        (the decoder's targets) is left to ``_after_train_step``."""
         loader = self.train_loader if train else self.val_loader
         losses, ious = [], []
-        for batch_idx, (image, labels) in enumerate(loader):
+        for batch_idx, loader_batch in enumerate(loader):
+            image, labels = loader_batch[0], loader_batch[1]
             choose = (self._get_prompt_and_multimasking_choices if train
                       else self._get_prompt_and_multimasking_choices_for_val)
             use_points, use_box, multimask, n_pos, n_neg = choose(self._iteration)
@@ -309,6 +330,7 @@ class SamTrainer:
                 continue
             if train:
                 loss, miou = self.train_step(batch, use_points, use_box, multimask)
+                self._after_train_step(batch, loader_batch)
             else:
                 with torch.no_grad():
                     loss, miou = self._loss(*batch, use_points, use_box, multimask)
@@ -383,3 +405,62 @@ class SamTrainer:
         self._iteration = state.get("iteration", 0)
         self._epoch = state.get("epoch", 0)
         return state
+
+
+def _summary_writer(log_dir: str):
+    """A TensorBoard writer on ``log_dir``, or None where tensorboard does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
+
+
+class SamLogger:
+    """TensorBoard logging with the reference's surface: ``add_image``,
+    ``log_train``, ``log_validation``. Pass the class or an instance as
+    ``SamTrainer(logger=...)``; the trainer then writes its scalars through
+    this writer (``tb``, None without tensorboard). Takes numpy or torch
+    arrays."""
+
+    def __init__(self, trainer, save_root, **unused_kwargs):
+        root = "./logs" if save_root is None else os.path.join(save_root, "logs")
+        self.log_dir = os.path.join(root, getattr(trainer, "name", "sam"))
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.log_image_interval = getattr(trainer, "log_image_interval", 100)
+        self.tb = _summary_writer(self.log_dir)
+
+    @staticmethod
+    def _chw(img):
+        img = np.asarray(img.detach().cpu() if torch.is_tensor(img) else img, dtype=np.float32)
+        return img[None] if img.ndim == 2 else img
+
+    def add_image(self, x, y, samples, name, step):
+        if self.tb is None or x is None:
+            return
+        self.tb.add_image(f"{name}/input", self._chw(x[0]), step)
+        if y is not None:
+            self.tb.add_image(f"{name}/target", self._chw(y[0]), step)
+        for i, sample in enumerate((samples or [])[:4]):
+            self.tb.add_image(f"{name}/samples/{i}", self._chw(sample[0]), step)
+
+    def _scalars(self, prefix, step, **values):
+        for tag, value in values.items():
+            if value is not None:
+                self.tb.add_scalar(f"{prefix}/{tag}", float(value), step)
+
+    def log_train(self, step, loss, lr, x=None, y=None, samples=None,
+                  mask_loss=None, iou_regression_loss=None, model_iou=None):
+        if self.tb is None:
+            return
+        self._scalars("train", step, loss=loss, mask_loss=mask_loss, iou_loss=iou_regression_loss,
+                      model_iou=model_iou, learning_rate=lr)
+        if step % self.log_image_interval == 0:
+            self.add_image(x, y, samples, "train", step)
+
+    def log_validation(self, step, metric, loss, x=None, y=None, samples=None,
+                       mask_loss=None, iou_regression_loss=None, model_iou=None):
+        if self.tb is None:
+            return
+        self._scalars("validation", step, loss=loss, metric=metric, mask_loss=mask_loss,
+                      iou_loss=iou_regression_loss, model_iou=model_iou)

@@ -14,6 +14,11 @@ from .trainable_sam import TrainableSAM
 FREEZABLE = ("image_encoder", "prompt_encoder", "mask_decoder")
 
 
+def identity(x):
+    """The identity transform."""
+    return x
+
+
 def require_8bit(x):
     """Scale data in [0, 1) to the 8-bit range."""
     if x.max() < 1:
@@ -39,6 +44,88 @@ def normalize_to_8bit(raw):
 def normalize_percentile(raw, lower=1.0, upper=99.0):
     v_lower, v_upper = np.percentile(raw, [lower, upper])
     return normalize(raw, v_lower, v_upper)
+
+
+def to_rgb(image: np.ndarray) -> np.ndarray:
+    """A channel-first 3-channel image: a 2d or 1-channel image repeated."""
+    image = np.asarray(image)
+    if image.ndim == 2:
+        image = image[None]
+    if image.shape[0] == 1:
+        image = np.concatenate([image] * 3, axis=0)
+    return image
+
+
+def _percentile_to_8bit(raw):
+    return np.clip(normalize_percentile(raw), 0, 1) * 255
+
+
+def get_raw_transform(preprocess: Optional[str] = None):
+    """The raw-data transform: ``None`` passes 8-bit data through
+    (``require_8bit``), ``normalize_minmax`` / ``normalize_percentile``
+    rescale to [0, 255]."""
+    if preprocess is None:
+        return require_8bit
+    if preprocess == "normalize_minmax":
+        return normalize_to_8bit
+    if preprocess == "normalize_percentile":
+        return _percentile_to_8bit
+    raise ValueError(f"'{preprocess}' is not a supported preprocessing.")
+
+
+def _center_pad_width(desired_shape, shape):
+    """Per axis (before, after): the larger half of the gap before."""
+    out = []
+    for want, have in zip(desired_shape, shape):
+        gap = max(want - have, 0)
+        out.append((int(np.ceil(gap / 2)), gap // 2))
+    return out
+
+
+class ResizeRawTrafo:
+    """Raw data padded (and with ``do_rescaling`` rescaled to [0, 255] by
+    percentiles) to ``desired_shape``; 3 channels first when ``ensure_rgb``."""
+
+    def __init__(self, desired_shape: Tuple[int, ...], do_rescaling: bool = False,
+                 valid_channels=None, padding: str = "constant", ensure_rgb: bool = True):
+        self.desired_shape = tuple(desired_shape)
+        self.do_rescaling = do_rescaling
+        self.valid_channels = valid_channels
+        self.padding = padding
+        self.ensure_rgb = ensure_rgb
+
+    def __call__(self, raw: np.ndarray) -> np.ndarray:
+        raw = np.asarray(raw)
+        if self.ensure_rgb:
+            raw = to_rgb(raw)
+        if self.do_rescaling:
+            raw = normalize(normalize_percentile(raw)) * 255
+        raw = np.pad(raw, _center_pad_width(self.desired_shape, raw.shape), mode=self.padding)
+        if raw.shape != self.desired_shape:
+            raise ValueError(f"raw data of shape {raw.shape} does not pad to {self.desired_shape}")
+        return raw
+
+
+class ResizeLabelTrafo:
+    """Labels -> the four channels of ``PerObjectDistanceTransform(instances=
+    True)`` (instances, foreground, center and boundary distances), padded to
+    the 2d ``desired_shape``."""
+
+    def __init__(self, desired_shape: Tuple[int, ...], min_size: int = 0,
+                 padding: str = "constant"):
+        self.desired_shape = tuple(desired_shape)
+        self.min_size = min_size
+        self.padding = padding
+
+    def __call__(self, labels: np.ndarray) -> np.ndarray:
+        from .training import PerObjectDistanceTransform
+        channels = PerObjectDistanceTransform(instances=True, min_size=self.min_size)(labels)
+        pad = [(0, 0)] + _center_pad_width(self.desired_shape, channels.shape[1:])
+        channels = np.pad(channels, pad, mode=self.padding)
+        if channels.shape[1:] != self.desired_shape:
+            raise ValueError(f"targets of shape {channels.shape} do not pad to "
+                             f"{self.desired_shape}")
+        return channels
 
 
 def get_trainable_sam_model(model_type: str = util._DEFAULT_MODEL, device: Optional[str] = None,
@@ -169,3 +256,20 @@ class ConvertToSamInputs:
                 boxes[b, :k] = np.asarray(bx)[:k]
         return tuple(torch.from_numpy(a) for a in
                      (x.astype(np.float32), gt_out, valid, points, plabels, boxes))
+
+
+class ConvertToSemanticSamInputs:
+    """Inputs of semantic training: no prompts, the labels are per-pixel class
+    maps. Returns (images (B, H, W, 3) float32, labels) torch tensors on the
+    CPU."""
+
+    def __call__(self, x, y):
+        x = np.asarray(x)
+        if x.ndim == 3:
+            x = x[..., None]
+        if x.shape[1] in (1, 3) and x.shape[-1] not in (1, 3):
+            x = np.moveaxis(x, 1, -1)  # NCHW -> NHWC
+        if x.shape[-1] == 1:
+            x = np.repeat(x, 3, axis=-1)
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)), \
+            torch.from_numpy(np.asarray(y))

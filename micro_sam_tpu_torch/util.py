@@ -20,7 +20,8 @@ import torch
 
 from . import __version__
 from .models.build_sam import build_sam, default_compute_dtype, get_config, resolve_device
-from .models.convert import load_native_checkpoint, load_torch_checkpoint, params_from_jax
+from .models.convert import (load_native_checkpoint, load_torch_checkpoint, params_from_jax,
+                             params_to_jax)
 from .models.sam import Sam, SamConfig
 from .predictor import SamPredictor
 from .utils import zarr_lite
@@ -128,6 +129,45 @@ def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None
     if return_state:
         return predictor, state
     return predictor
+
+
+def save_native_checkpoint(path: str, state_dict: Dict[str, torch.Tensor], config: SamConfig
+                           ) -> None:
+    """Write a SAM's weights as the JAX package's native checkpoint: a flat
+    compressed npz whose keys are the '/'-joined paths of its parameter tree
+    (``params_to_jax``), the model type under ``__model_type__``. The file is
+    written at exactly ``path`` (no ``.npz`` is appended)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if not k.startswith("_"):
+                    rec(f"{prefix}/{k}" if prefix else k, v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                rec(f"{prefix}/{i}", v)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    rec("", params_to_jax(state_dict, config))
+    with open(path, "wb") as f:
+        np.savez_compressed(f, __model_type__=np.array(config.model_type), **flat)
+
+
+def export_custom_sam_model(checkpoint_path: str, model_type: str, save_path: str,
+                            with_segmentation_decoder: bool = False, prefix: str = "sam.") -> None:
+    """A checkpoint -> a plain segment_anything-layout SAM state dict of
+    float32 tensors, written with ``torch.save`` (the keys and values the JAX
+    package's export writes). As in the JAX package, the decoder is not
+    exported whatever ``with_segmentation_decoder`` says, and ``prefix`` is
+    only warned about. A conversion of the weights on the host."""
+    if prefix != "sam.":
+        warnings.warn(f"Non-default prefix {prefix!r} is ignored: checkpoint key prefixes are "
+                      "normalized automatically on load.")
+    sam, _, _ = load_sam(model_type, "cpu", checkpoint_path, "float32", weight_dtype=torch.float32)
+    torch.save({k: v.detach().float().contiguous() for k, v in sam.state_dict().items()},
+               save_path)
 
 
 # -----------------------------------------------------------------------------

@@ -1279,3 +1279,91 @@ def test_segment_mask_in_volume_on_the_card_matches_the_cpu(dev):
     for z in range(6):
         union = np.logical_or(got[z], ref[z]).sum()
         assert union == 0 or np.logical_and(got[z], ref[z]).sum() / union >= 0.99, z
+
+
+# ---------------------------------------------------------------------------
+# joint finetuning: the UNETR decoder's training step
+# ---------------------------------------------------------------------------
+
+def test_decoder_step_f32_on_the_card_matches_the_cpu(dev):
+    """The decoder's loss (``unetr_loss``: published widths on (1, 16, 16,
+    256) features, 256^2 distance targets) and its gradients on the card
+    against the same step on the CPU in float64, TF32 off. In float64 on the
+    card every gradient within rel 1e-6 of its tensor's max. In float32 the
+    loss within rel 1e-5, and every gradient within rel 1e-3 of its max or
+    within twice the CPU f32 step's largest distance from float64 over all
+    gradients: the random decoder's gradients are ill-conditioned, and f32
+    rounding alone moves some small ones by more than 1e-3 of their max.
+    Gradients zero in the exact arithmetic (biases whose output meets an
+    InstanceNorm) stay below 1e-6 of the largest."""
+    from micro_sam_tpu_torch.models.unetr import UNETRDecoder
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.training import PerObjectDistanceTransform
+    from micro_sam_tpu_torch.training.joint_sam_trainer import unetr_loss
+    feats = torch.randn(1, 16, 16, 256, generator=torch.Generator().manual_seed(5))
+    seg = synthetic_data((256, 256), seed=3, n_objects=12, radius_range=(8, 20))[1]
+    targets = torch.from_numpy(PerObjectDistanceTransform()(seg)[None])
+    runs = {}
+    for d, dt in (("cpu", torch.float64), ("cpu", torch.float32), (dev, torch.float64),
+                  (dev, torch.float32)):
+        model = UNETRDecoder().init_(torch.Generator().manual_seed(0)).to(d, dt)
+        with torch.enable_grad():
+            loss = unetr_loss(model, feats.to(d, dt), targets.to(d, dt))
+            loss.backward()
+        runs[(str(d), dt)] = (float(loss.detach()), {n: p.grad.double().cpu()
+                                                     for n, p in model.named_parameters()})
+    ref_loss, ref = runs[("cpu", torch.float64)]
+    cpu32 = runs[("cpu", torch.float32)][1]
+    g_max = max(float(g.abs().max()) for g in ref.values())
+    held = [n for n, r in ref.items() if float(r.abs().max()) > 1e-6 * g_max]
+    floor = 2 * max(float((cpu32[n] - ref[n]).abs().max()) for n in held)
+    for dt, loss_tol in ((torch.float64, 1e-9), (torch.float32, 1e-5)):
+        loss, got = runs[(str(dev), dt)]
+        assert abs(loss - ref_loss) <= loss_tol * abs(ref_loss)
+        for name, r in ref.items():
+            err = float((got[name] - r).abs().max())
+            if name not in held:
+                assert float(got[name].abs().max()) <= 1e-6 * g_max, name
+            elif dt == torch.float64:
+                assert err <= 1e-6 * float(r.abs().max()), name
+            else:
+                assert err <= max(1e-3 * float(r.abs().max()), floor), name
+
+
+def test_joint_step_bf16_on_the_card(dev, monkeypatch):
+    """One JointSamTrainer step on the card (vit_b width, 2 blocks, 256 px,
+    bf16 compute over f32 weights; the decoder at published widths): finite
+    losses, the SAM and decoder weights moved, the attention through K1 (2
+    forward with the recompute and 1 in the decoder step's encode a block)
+    and K4 (4 a block)."""
+    import dataclasses
+    from micro_sam_tpu_torch.instance_segmentation import get_unetr
+    from micro_sam_tpu_torch.models import build_sam
+    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                          relpos_attention_backward)
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.training import (JointSamTrainer, PerObjectDistanceTransform,
+                                              get_trainable_sam_model)
+    import numpy as np
+    monkeypatch.setitem(build_sam.SAM_CONFIGS, "vit_b", dataclasses.replace(
+        build_sam.SAM_CONFIGS["vit_b"], depth=2, global_attn_indexes=(1,), img_size=256))
+    model = get_trainable_sam_model("vit_b")
+    assert model.device.type == "cuda" and model.config.dtype == torch.bfloat16
+    trainer = JointSamTrainer("t", None, None, model, unetr=get_unetr(), n_sub_iteration=2,
+                              n_objects_per_batch=4, logger=False)
+    data = [synthetic_data((128, 128), seed=s, n_objects=10, radius_range=(6, 12)) for s in (1, 2)]
+    x = np.stack([d[0] for d in data]).astype(np.float32)
+    y = np.stack([d[1] for d in data])
+    t = np.stack([PerObjectDistanceTransform()(s) for s in y])
+    sam0 = model.sam.mask_decoder.iou_token.weight.detach().clone()
+    dec0 = trainer.unetr.out_conv.weight.detach().clone()
+    f0, b0 = relpos_attention.launches, relpos_attention_backward.launches
+    batch = trainer._prepare_batch(x, y, True, False)
+    with torch.enable_grad():
+        loss, _ = trainer.train_step(batch, True, False, True)
+    inst = trainer.instance_step(batch[0], t)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss)) and np.isfinite(float(inst))
+    assert (relpos_attention.launches - f0, relpos_attention_backward.launches - b0) == (6, 8)
+    assert not torch.equal(sam0, model.sam.mask_decoder.iou_token.weight)
+    assert not torch.equal(dec0, trainer.unetr.out_conv.weight)

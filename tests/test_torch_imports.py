@@ -79,7 +79,10 @@ def test_importing_every_port_module_loads_no_jax():
         "       'micro_sam_tpu_torch.ops.fused_tiny_attention',\n"
         "       'micro_sam_tpu_torch.ops.fused_tiny_tail',\n"
         "       'micro_sam_tpu_torch.multi_dimensional_segmentation',\n"
-        "       'micro_sam_tpu_torch.learned_tracking'}\n"
+        "       'micro_sam_tpu_torch.learned_tracking',\n"
+        "       'micro_sam_tpu_torch.training.joint_sam_trainer',\n"
+        "       'micro_sam_tpu_torch.training.simple_sam_trainer',\n"
+        "       'micro_sam_tpu_torch.training.semantic_sam_trainer'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )

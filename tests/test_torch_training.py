@@ -8,6 +8,7 @@ prompts, and ``test_padded_round0_diverges`` pins the difference from the JAX
 trainer's fixed-capacity, -1-padded prompt arrays.
 """
 import dataclasses
+import pickle
 import sys
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import jax_params, jax_step_loss, port_sam, rel_err
+from torch_port_util import (jax_params, jax_step_loss, joint_checkpoint, one_thread, port_sam,
+                             rel_err)
 
 
 def _cfg(img_size=128):
@@ -286,8 +288,9 @@ def test_fit_checkpoint_loads_in_both_packages(tmp_path):
 
 
 def test_train_sam_on_the_cpu(tmp_path, monkeypatch):
-    """train_sam end to end with device="cpu" at the tiny geometry; the joint
-    trainer is not ported and raises; without a GPU device=None raises."""
+    """train_sam end to end with device="cpu" at the tiny geometry, with the
+    segmentation decoder (the joint trainer, a loader with targets) and
+    without; without a GPU device=None raises."""
     from micro_sam_tpu_torch.models import build_sam
     from micro_sam_tpu_torch.models.sam import SamConfig
     from micro_sam_tpu_torch.training import get_trainable_sam_model, train_sam
@@ -297,8 +300,17 @@ def test_train_sam_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # no logger, as on the card
     image, seg = synthetic_data((160, 160), seed=9)
     loader = SamLoader(SamDataset([image], [seg], (96, 96), n_samples=2), batch_size=1)
-    with pytest.raises(NotImplementedError, match="UNETR"):
+    joint = SamLoader(SamDataset([image], [seg], (96, 96), n_samples=2,
+                                 with_segmentation_decoder=True), batch_size=1)
+    with pytest.raises(ValueError, match="distance_targets"):
         train_sam("joint", "vit_b", loader, loader, with_segmentation_decoder=True, device="cpu")
+    with one_thread():
+        train_sam("joint", "vit_b", joint, joint, with_segmentation_decoder=True, n_iterations=1,
+                  n_sub_iteration=2, n_objects_per_batch=2, device="cpu",
+                  save_root=str(tmp_path),
+                  checkpoint_path=joint_checkpoint(tmp_path / "start.pkl", _cfg()))
+    with open(tmp_path / "joint" / "best.pkl", "rb") as f:
+        assert "deconv1" in pickle.load(f)["decoder_state"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             get_trainable_sam_model("vit_b")

@@ -11,6 +11,7 @@ and its gradients rel 2e-5 of each tensor's max (as
 tests/test_torch_backward.py).
 """
 import dataclasses
+import pickle
 import sys
 
 import jax
@@ -19,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import jax_params, jax_step_loss, port_sam, rel_err
+from torch_port_util import (jax_params, jax_step_loss, joint_checkpoint, one_thread, port_sam,
+                             rel_err)
 
 
 def _vit_h_class(img_size=128):
@@ -137,8 +139,8 @@ def _write_sources(kind, imgs, segs, tmp_path):
 def test_default_sam_loader_matches_jax(source, tmp_path):
     """The same patches and labels as the JAX package's loader for the same
     images (train and validation seeds), given as arrays, HDF5 files with a
-    key or a directory with a glob pattern; the segmentation decoder's
-    targets are not ported and raise."""
+    key or a directory with a glob pattern; at its default (with the
+    segmentation decoder) the same distance targets too."""
     from micro_sam_tpu.training.training import default_sam_loader as jax_loader
     from micro_sam_tpu_torch.training import default_sam_loader
     imgs, segs = _images(2, size=160, seed=7)
@@ -152,15 +154,19 @@ def test_default_sam_loader_matches_jax(source, tmp_path):
         for (ra, rb), (ga, gb) in zip(ref, got):
             np.testing.assert_array_equal(ra, ga)
             np.testing.assert_array_equal(rb, gb)
-    with pytest.raises(NotImplementedError, match="UNETR"):
-        default_sam_loader(raw_paths=raw, raw_key=raw_key, label_paths=labels,
-                           label_key=label_key, patch_shape=(96, 96))
+    kw = dict(raw_paths=raw, raw_key=raw_key, label_paths=labels, label_key=label_key,
+              patch_shape=(96, 96), n_samples=2, batch_size=2)
+    (ref,), (got,) = list(jax_loader(**kw)), list(default_sam_loader(**kw))
+    assert len(got) == 3 and got[2].shape == (2, 3, 96, 96)
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
 
 
 def test_train_sam_for_configuration_a100_on_the_cpu(tmp_path, monkeypatch):
     """The GPU preset end to end with ``device="cpu"``, vit_h patched to the
     vit_h-class width: the trainer gets vit_h and 25 objects per image, and
-    best.pkl loads in both packages with the same embedding (rel 1e-4)."""
+    best.pkl loads in both packages with the same embedding (rel 1e-4); at
+    its default the preset also trains the segmentation decoder."""
     from micro_sam_tpu.util import get_sam_model as jax_get_sam_model
     from micro_sam_tpu_torch.models import build_sam
     from micro_sam_tpu_torch.models.sam import SamConfig
@@ -171,27 +177,40 @@ def test_train_sam_for_configuration_a100_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # no logger, as on the card
     seen = {}
 
-    class Recording(training.SamTrainer):
-        def _prepare_batch(self, *a, **kw):
-            batch = super()._prepare_batch(*a, **kw)
-            seen.setdefault("objects", set()).add(batch[1].shape[1])
-            seen["model"] = (self.model.config.model_type, self.model.config.embed_dim,
-                             self.model.config.num_heads)
-            return batch
-    monkeypatch.setattr(training, "SamTrainer", Recording)
+    def recording(base):
+        class Recording(base):
+            def _prepare_batch(self, *a, **kw):
+                batch = super()._prepare_batch(*a, **kw)
+                seen.setdefault("objects", set()).add(batch[1].shape[1])
+                seen["model"] = (self.model.config.model_type, self.model.config.embed_dim,
+                                 self.model.config.num_heads)
+                seen["trainer"] = base.__name__
+                return batch
+        return Recording
+    monkeypatch.setattr(training, "SamTrainer", recording(training.SamTrainer))
+    monkeypatch.setattr(training, "JointSamTrainer", recording(training.JointSamTrainer))
     imgs, segs = _images(3, seed=11)
     loader = lambda train: default_sam_loader(
         raw_paths=imgs[:2] if train else imgs[2:], raw_key=None,
         label_paths=segs[:2] if train else segs[2:], label_key=None, patch_shape=(128, 128),
         with_segmentation_decoder=False, is_train=train, n_samples=2 if train else 1)
-    with pytest.raises(NotImplementedError, match="UNETR"):
-        training.train_sam_for_configuration("joint", "A100", loader(True), loader(False),
-                                             device="cpu")
+    joint = lambda train: default_sam_loader(
+        raw_paths=imgs[:2] if train else imgs[2:], raw_key=None,
+        label_paths=segs[:2] if train else segs[2:], label_key=None, patch_shape=(128, 128),
+        is_train=train, n_samples=1)
+    with one_thread():
+        training.train_sam_for_configuration(
+            "joint", "A100", joint(True), joint(False), n_iterations=1, n_sub_iteration=2,
+            device="cpu", save_root=str(tmp_path),
+            checkpoint_path=joint_checkpoint(tmp_path / "start.pkl", _vit_h_class()))
+    assert seen["trainer"] == "JointSamTrainer"
+    with open(tmp_path / "joint" / "best.pkl", "rb") as f:
+        assert "deconv1" in pickle.load(f)["decoder_state"]
     training.train_sam_for_configuration("cfg_h", "A100", loader(True), loader(False),
                                          with_segmentation_decoder=False, n_iterations=2,
                                          n_sub_iteration=2, device="cpu",
                                          save_root=str(tmp_path))
-    assert seen == {"objects": {25}, "model": ("vit_h", 160, 2)}
+    assert seen == {"objects": {25}, "model": ("vit_h", 160, 2), "trainer": "SamTrainer"}
     path = str(tmp_path / "cfg_h" / "best.pkl")
     pp = get_sam_model("vit_h", device="cpu", checkpoint_path=path)
     jp = jax_get_sam_model(model_type="vit_h", checkpoint_path=path, compute_dtype="float32")

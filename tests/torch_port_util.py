@@ -1,6 +1,7 @@
 """Shared set-up for the tests of the PyTorch port (tests/test_torch_*.py):
 one set of weights and inputs, made with numpy / the JAX package's init, fed to
 both packages."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -181,3 +182,43 @@ def matched_share(got, ref, iou_min=0.99):
                     if g != 0), default=0.0)
         n += int(best >= iou_min)
     return n / max(len(ids), 1), len(ids)
+
+
+def joint_checkpoint(path, cfg, seed=0):
+    """A trainer checkpoint to start joint training from at CI cost, built by
+    the port alone: a random Sam of ``cfg`` (seed ``seed``) as the JAX
+    pytree under ``model_state``, its config, and a random decoder at
+    ``NARROW_UNETR`` widths as the JAX pytree under ``decoder_state``
+    (``train_sam`` builds its decoder from the checkpoint's state). Returns
+    the path."""
+    import dataclasses
+    import pickle
+    import torch
+    from micro_sam_tpu_torch.models.convert import params_to_jax, unetr_params_to_jax
+    from micro_sam_tpu_torch.models.sam import Sam, SamConfig
+    from micro_sam_tpu_torch.models.unetr import UNETRDecoder
+    pcfg = SamConfig(**dataclasses.asdict(cfg))
+    sam = Sam(pcfg).init_(torch.Generator().manual_seed(seed))
+    dec = UNETRDecoder(features=NARROW_UNETR).init_(torch.Generator().manual_seed(seed + 1))
+    state = {"model_state": params_to_jax(sam.state_dict(), pcfg), "model_type": pcfg.model_type,
+             "model_config": dataclasses.asdict(pcfg),
+             "decoder_state": unetr_params_to_jax(dec.state_dict())}
+    with open(path, "wb") as f:
+        pickle.dump(state, f)
+    return str(path)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread for the block. Tier-1 runs six test
+    processes on the machine's cores, and torch's thread pool in each then
+    oversubscribes them: a trainer step's many small ops wait on each
+    other's threads, which costs such a test many times its time alone
+    (ROADMAP.md, Budgets)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
