@@ -95,12 +95,11 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     backward, at (1, 4096, 12, 64) and (25, 196, 16, 80)) against their plain
     versions, bf16 and f32, with timings, bounds and SDPA yardsticks, and
     counts K12's launches on its own path (two calls through
-    attention_with_rel_pos); then the GPU preset's path,
-    train_sam_for_configuration("smoke_h", "A100", ...) on default_sam_loader
-    over phase 6's patches (vit_h and 25 objects per image asserted, launches
-    2 x 32 x (2 + 4) and a validation forward), its best.pkl predicting;
-    timed SamTrainer steps of vit_h (5) and vit_l (3) at train_sam's
-    defaults, launches per step 64 / 128 and 48 / 96, one profiled step and
+    attention_with_rel_pos); then timed SamTrainer steps of vit_h (5; the
+    "A100" preset's model and objects, on default_sam_loader over phase 6's
+    patches; the preset itself runs with the decoder in phase 14(e)) and of
+    vit_l at full width cut to 6 blocks (3; global at 5) at train_sam's
+    defaults, launches per step 64 / 128 and 12 / 24, one profiled step and
     one step's K4 calls replayed each; and one f32 step of a full-width vit_h
     cut to 4 blocks (global at 3) on the card against the CPU. Prints the
     phase's wall time;
@@ -197,16 +196,41 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     default (vit_h and the decoder) with its peak memory; (f)
     SimpleSamTrainer, MedSAMTrainer and SemanticSamTrainer (3 classes), 2
     steps each. Prints the phase's wall time;
-15. prints one JSON line of details (per-shape rows, chains, end-to-end and
-    training numbers, the tiled routes, the AMG, AIS, multi-dimensional and
-    joint-training numbers), then the kernels line (one entry
+15. PEFT, the 3d wrappers and vit_t finetuning (bf16, seed 0; CPU references
+    in two processes started at the phase's start): (f) get_sam_3d_model
+    ("vit_b", d_size=8, its depth convolutions redrawn) and
+    get_simple_sam_3d_model("vit_b") on an (8, 1024, 1024) volume: one
+    forward's launches (24 / 48 / 12: the slices share each launch), its
+    time, the encoder against its plain version in f32 on the card (3e-2);
+    (b) train_sam(peft_kwargs={"rank": 4}) for 2 steps (48 + 12 K1, 96 K4;
+    every base encoder tensor bitwise unchanged, every LoRA b moved), then
+    timed LoRA steps by phase 6's protocol (the full step's in this run);
+    (a) get_sam_model("vit_b", peft_kwargs={"rank": 4}) with its LoRA b
+    redrawn: one encode's launches (every block's chain, K1 on its qkv rows
+    with the LoRA updates: 24 / 48 / 12), the embedding against the CPU's f32
+    run (3e-2) and against the base model's (moved by at least 0.12), the
+    encode's time against the base model's; (c) QLoRA: train_sam with
+    {"rank": 4, "quantize": True} for a step (the base frozen), the int4
+    base's bytes, the int4 against the dense embedding, export_custom_qlora_
+    model into get_sam_model against its checkpoint (2e-2); (d)
+    get_predictor_and_decoder(peft_kwargs=...) on (b)'s checkpoint with a
+    decoder state (the LoRA bitwise, set_image's launches, the maps); (e)
+    train_sam_for_configuration("Minimal") at its default (vit_t and the
+    decoder; 5 encodes' chain launches), timed vit_t steps at the preset's
+    settings (12 / 10 / 20 / 44 dwconv / tiny_attention / layernorm / gemm a
+    step), peak memory, a profiled step, one f32 vit_t step on the card
+    against the CPU. Prints the phase's wall time;
+16. prints one JSON line of details (per-shape rows, chains, end-to-end and
+    training numbers, the tiled routes, the AMG, AIS, multi-dimensional,
+    joint-training and PEFT numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
     launches per plan of each model's encode; for the
     backward its stages, launches per stage variant and head dims; for
     relpos_attention also its launches per forward variant in one vit_b
-    encode) and, last, the device line.
+    encode; phase 15's counts as ``launches_lora_*`` / ``launches_qlora_*``
+    / ``launches_vit_t_training_step``) and, last, the device line.
 """
 import json
 import os
@@ -1405,7 +1429,8 @@ def chain_work(name, a):
         weights = 12 * C * C * s + 2 * w * w * hd * s + 13 * C * 4
         weights += M * 4 if name == "fused_window_stack" and a[1] is not None else 0
     elif name in ("fused_window_attn", "fused_global_attn"):  # LN1, qkv, attention, proj
-        valid, blk, (H, W), nH = (a[1], a[2], a[3], a[4]) if len(a) == 5 else (None, *a[1:])
+        valid, blk, (H, W), nH = (a[1:5] if name == "fused_window_attn"
+                                  else (None, *a[1:4]))
         Bn, N = x.shape[0], x.shape[1]
         hd = C // nH
         ops = 8 * M * C * C + Bn * nH * (4 * N * N * hd + 2 * N * (H + W) * hd)
@@ -1447,7 +1472,8 @@ def chain_counterparts(name, a, kw):
         return whole_block_counterparts(name, a)
     if name in VIT_CHAINS:
         kern, plain = getattr(fwb, name), getattr(fwb, f"{name}_plain")
-        blk = a[-1] if name == "mlp_half" else a[-3]
+        off = 1 if name == "fused_window_attn" else 0  # its valid mask
+        blk = a[1] if name == "mlp_half" else a[1 + off]
         Cx = x.shape[-1]
         f32_args = (x.float(),) + tuple(a[1:])
         if name == "mlp_half":
@@ -1460,7 +1486,7 @@ def chain_counterparts(name, a, kw):
                 return x + F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2)
         else:
             valid = a[1] if name == "fused_window_attn" else None
-            hw, nH = a[-2], a[-1]
+            hw, nH = a[2 + off], a[3 + off]
             Bn, N = x.shape[0], x.shape[1]
             attn = blk.attn
             n1w, n1b, bq, bp = (t.to(dt) for t in (blk.norm1.weight, blk.norm1.bias,
@@ -1566,7 +1592,7 @@ def whole_block_counterparts(name, a):
     x = a[0]
     dt = x.dtype
     if name == "fused_window_block_spatial":
-        _, blk, w, (H, W), nH = a
+        blk, w, (H, W), nH = a[1:5]
         B, Hp, Wp, C = x.shape
         vmap = torch.zeros(B, Hp, Wp, 1, device=x.device, dtype=dt)
         vmap[:, :H, :W] = 1
@@ -1577,7 +1603,7 @@ def whole_block_counterparts(name, a):
         def lib():
             return window_unpartition(run(part()).reshape(-1, w, w, C), w, (Hp, Wp), (Hp, Wp))
     else:
-        _, valid, blk, (w, _), nH, _ = a
+        valid, blk, (w, _), nH = a[1:5]
         run = window_block_library(x, None if valid is None else valid.to(dt), blk, w, nH)
         lib = lambda: run(x)
     return (lambda: kern(*a), lambda: plain(*a), lib, lambda: plain(x.float(), *a[1:]))
@@ -1938,10 +1964,10 @@ PROFILE_GROUPS = (  # kernel-name patterns -> the layer they belong to
 
 SERVE_PROFILE_GROUPS = (  # the port's kernels first: cuBLAS names contain "gemm" too
     ("gemm (port kernel)", ("gemm_wgmma_kernel", "gemm_f32_kernel")),
-    ("layernorm (port kernel)", ("layernorm_kernel",)),
+    ("layernorm (port kernel)", ("layernorm_vec_kernel", "layernorm_general_kernel")),
     ("relpos_attention (port kernel)", ("relpos_attention_bf16_kernel",)),
-    ("dwconv (port kernel)", ("dwconv3x3_kernel",)),
-    ("tiny_attention (port kernel)", ("tiny_attention_bf16_kernel",)),
+    ("dwconv (port kernel)", ("dwconv_tma_kernel", "dwconv_plain_kernel")),
+    ("tiny_attention (port kernel)", ("tiny_attention_tma_kernel", "tiny_attention_f32_kernel")),
     ("convolutions and products (cuDNN / cuBLAS)", ("conv", "nvjet", "sm90", "xmma", "cutlass",
                                                     "gemm")),
 )
@@ -2032,18 +2058,19 @@ def check_checkpoint(path, model_type, image, steps=2):
 
 
 def timed_steps(counters, model_type, train_loader, val_loader, batches, save_root,
-                reps=TRAIN_REPS):
+                reps=TRAIN_REPS, peft_kwargs=None):
     """SamTrainer steps of ``model_type`` at train_sam's defaults (batch 2, 25
     objects, 8 rounds, lr 1e-5, bf16 compute, f32 weights): TRAIN_WARMUP
     warm-up and ``reps`` timed steps, the attention launches per step held to
     2 forward (with the recompute) and 4 backward per block, one profiled
     step, and one step's K4 calls recorded and replayed as the kernel, the
     plain version and SDPA backward; ``batches`` are the loader's, drawn
-    once. Returns (k4, stats, the counters just after the timed steps)."""
+    once. With ``peft_kwargs`` the model of that PEFT surgery (its base
+    frozen). Returns (k4, stats, the counters just after the timed steps)."""
     from micro_sam_tpu_torch.ops import relpos_attention as rpa
     from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
     t_build = time.perf_counter()
-    model = get_trainable_sam_model(model_type, device="cuda")
+    model = get_trainable_sam_model(model_type, device="cuda", peft_kwargs=peft_kwargs)
     log(f"  {model_type}: trainable model built in {time.perf_counter() - t_build:.1f} s")
     trainer = SamTrainer("timing", train_loader, val_loader, model, n_sub_iteration=8,
                          n_objects_per_batch=25, lr=1e-5, logger=False, save_root=save_root)
@@ -2062,7 +2089,7 @@ def timed_steps(counters, model_type, train_loader, val_loader, batches, save_ro
 
     for i in range(TRAIN_WARMUP):
         step(i)
-    before = {n: p.detach().clone() for n, p in model.sam.named_parameters()}
+    before = {n: p.detach().clone() for n, p in model.sam.named_parameters() if p.requires_grad}
     counts0 = {k: c.launches for k, c in counters.items()}
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
@@ -2082,11 +2109,12 @@ def timed_steps(counters, model_type, train_loader, val_loader, batches, save_ro
             per_step[k] for k in counters if k not in expect):
         raise AssertionError("a training step did not go through the attention kernels as expected")
     grads_ok = all(torch.isfinite(p.grad).all() for p in model.sam.parameters() if p.grad is not None)
-    moved = sum(not torch.equal(before[n], p.detach()) for n, p in model.sam.named_parameters())
+    moved = sum(not torch.equal(before[n], p.detach()) for n, p in model.sam.named_parameters()
+                if n in before)
     n_params = len(before)
     del before
     log(f"  bf16 steps: losses {losses}; grads finite {grads_ok}; {moved} of {n_params} "
-        f"parameter tensors moved")
+        f"trainable parameter tensors moved")
     if not (np.isfinite(losses).all() and grads_ok and moved >= 0.9 * n_params):
         raise AssertionError("the bf16 training steps are not finite or did not move the weights")
     step_ms = statistics.median(times)
@@ -2117,20 +2145,30 @@ def timed_steps(counters, model_type, train_loader, val_loader, batches, save_ro
         f"ms {k_ms:.4f}  plain_ms {p_ms:.4f}  library_ms {l_ms:.4f}  bound_ms {b_ms:.4f} ({b_by})")
     del calls, rec, trainer, model
     torch.cuda.empty_cache()
-    stats = {"model": model_type, "batch": 2, "objects_per_image": 25, "n_sub_iteration": 8,
+    stats = {"model": model_type, "depth": depth, "peft": peft_kwargs,
+             "batch": 2, "objects_per_image": 25, "n_sub_iteration": 8,
              "patch": 512, "compute_dtype": "bfloat16", "step_ms": step_ms, "step_ms_all": times,
              "images_per_s": 2e3 / step_ms, "peak_memory_bytes": peak,
              "launches_per_step": per_step, "losses": losses, "profiled_step": prof}
     return k4, stats, launches
 
 
-def f32_step_check(x, y, model_type="vit_b"):
+def f32_step_grads_cpu(root, threads, x, y, model_type):
+    """``f32_step_grads`` on the CPU in a process of its own (``threads``)."""
+    sys.path.insert(0, root)
+    torch.set_num_threads(threads)
+    return f32_step_grads("cpu", x, y, model_type)
+
+
+def f32_step_check(x, y, model_type="vit_b", cpu_run=None):
     """One f32 step of ``model_type`` on the card against the same step on the
-    CPU: every gradient within rel 1e-3 of its max, the loss within 1e-4.
-    Returns (worst gradient rel, loss rel)."""
+    CPU (here, or ``cpu_run``: the future of ``f32_step_grads_cpu`` on the
+    same inputs): every gradient within rel 1e-3 of its max, the loss within
+    1e-4. Returns (worst gradient rel, loss rel)."""
     t0 = time.perf_counter()
     loss_gpu, g_gpu = f32_step_grads("cuda", x, y, model_type)
-    loss_cpu, g_cpu = f32_step_grads("cpu", x, y, model_type)
+    loss_cpu, g_cpu = cpu_run.result() if cpu_run is not None else \
+        f32_step_grads("cpu", x, y, model_type)
     g_max = max(float(g.abs().max()) for g in g_cpu.values())
     worst, worst_name, n_held = 0.0, "", 0
     for name, ref in g_cpu.items():
@@ -2283,46 +2321,20 @@ def k12_phase(counters):
     return rows, entry
 
 
-class TrainerSeen:
-    """Patches the ``SamTrainer`` that ``training/training.py`` builds with a
-    subclass that notes each trainer's model (type, width, depth, heads) and
-    the (images, objects) of every batch it prepares."""
-
-    def __enter__(self):
-        from micro_sam_tpu_torch.training import training as tr
-        self.tr, self.saved = tr, tr.SamTrainer
-        self.models, self.objects = set(), set()
-        seen = self
-
-        class Seen(self.saved):
-            def __init__(self, *a, **kw):
-                super().__init__(*a, **kw)
-                cfg = self.model.config
-                seen.models.add((cfg.model_type, cfg.embed_dim, cfg.depth, cfg.num_heads))
-
-            def _prepare_batch(self, *a, **kw):
-                b = super()._prepare_batch(*a, **kw)
-                if b is not None:
-                    seen.objects.add(tuple(b[1].shape[:2]))
-                return b
-        tr.SamTrainer = Seen
-        return self
-
-    def __exit__(self, *exc):
-        self.tr.SamTrainer = self.saved
+VIT_L_TIMED_DEPTH = 6   # vit_l's timed steps: one period of its blocks (global at 5)
 
 
 def finetuning_phase(counters, root):
     """vit_h / vit_l finetuning: K4 at head dim 80 and K12 against their plain
-    versions; the GPU preset's path (train_sam_for_configuration(..., "A100"):
-    vit_h, 25 objects) on default_sam_loader over phase 6's patches, counted
-    from zero to the last timed vit_h step, its best.pkl predicting; timed
-    vit_h and vit_l steps; one f32 step of a full-width vit_h cut to 4 blocks
-    on the card against the CPU."""
+    versions; timed vit_h steps (the "A100" preset's model and objects, on
+    default_sam_loader over phase 6's patches; the preset itself runs with
+    the decoder in phase 14(e)) and vit_l steps at full width cut to
+    ``VIT_L_TIMED_DEPTH`` blocks; one f32 step of a full-width vit_h cut to 4
+    blocks on the card against the CPU."""
     import dataclasses
     import gc
     from micro_sam_tpu_torch.models import build_sam
-    from micro_sam_tpu_torch.training import default_sam_loader, train_sam_for_configuration
+    from micro_sam_tpu_torch.training import default_sam_loader
 
     log("  K4 at head dim 80 (vit_h's training shapes, batch 2) vs plain backward "
         "(bf16: within 3e-2 of the f32 plain result)")
@@ -2342,46 +2354,28 @@ def finetuning_phase(counters, root):
     train_loader, val_loader = loader(True), loader(False)
     save_root = os.path.join(root, "build", "chip_smoke_training")
 
+    batches = list(train_loader)
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
-    with TrainerSeen() as seen, torch.enable_grad():
-        train_sam_for_configuration("smoke_h", "A100", train_loader, val_loader,
-                                    with_segmentation_decoder=False, n_iterations=2,
-                                    device="cuda", save_root=save_root)
-    torch.cuda.synchronize()
-    preset_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    preset = {k: c.launches for k, c in counters.items() if c.launches}
-    depth = build_sam.SAM_CONFIGS["vit_h"].depth
-    expect = {"relpos_attention": 2 * 2 * depth + depth,
-              "relpos_attention_backward": 2 * 4 * depth}
-    log(f"  train_sam_for_configuration('A100'): {preset_s:.1f} s for 2 steps, validation and "
-        f"checkpoints; trainer models {seen.models}, (images, objects) per batch {seen.objects}; "
-        f"launches {preset} (expected {expect}: 2 steps x {depth} blocks x (2 forward + 4 "
-        f"backward), one validation forward)")
-    cfg = build_sam.SAM_CONFIGS["vit_h"]
-    if seen.models != {(cfg.model_type, cfg.embed_dim, cfg.depth, cfg.num_heads)} or \
-            seen.objects != {(2, 25)}:
-        raise AssertionError("the A100 preset did not train vit_h on 25 objects per image")
-    if preset != expect:
-        raise AssertionError("the preset's training path did not go through the kernels as "
-                             "expected")
-
-    batches = list(train_loader)
     k4_h, stats_h, launches_h = timed_steps(counters, "vit_h", train_loader, val_loader, batches,
                                             save_root)
-    log(f"  launches in the vit_h training path (the preset's run and {TRAIN_WARMUP} + "
-        f"{TRAIN_REPS} steps): {launches_h}")
-    check_checkpoint(os.path.join(save_root, "smoke_h", "best.pkl"), "vit_h", imgs[0])
+    log(f"  launches in the vit_h training path ({TRAIN_WARMUP} + {TRAIN_REPS} steps): "
+        f"{launches_h}")
     gc.collect()
     torch.cuda.empty_cache()
 
     for c in counters.values():
         c.launches = 0
-    k4_l, stats_l, launches_l = timed_steps(counters, "vit_l", train_loader, val_loader, batches,
-                                            save_root, reps=TRAIN_REPS_VIT_L)
+    saved_l = build_sam.SAM_CONFIGS["vit_l"]
+    build_sam.SAM_CONFIGS["vit_l"] = dataclasses.replace(
+        saved_l, depth=VIT_L_TIMED_DEPTH, global_attn_indexes=(VIT_L_TIMED_DEPTH - 1,))
+    try:
+        log(f"  vit_l at full width (1024, 16 heads of 64), {VIT_L_TIMED_DEPTH} blocks (global "
+            f"at {VIT_L_TIMED_DEPTH - 1})")
+        k4_l, stats_l, launches_l = timed_steps(counters, "vit_l", train_loader, val_loader,
+                                                batches, save_root, reps=TRAIN_REPS_VIT_L)
+    finally:
+        build_sam.SAM_CONFIGS["vit_l"] = saved_l
     log(f"  launches in the vit_l training path ({TRAIN_WARMUP} + {TRAIN_REPS_VIT_L} steps): "
         f"{launches_l}")
     gc.collect()
@@ -2395,7 +2389,7 @@ def finetuning_phase(counters, root):
         worst, loss_rel = f32_step_check(batches[0][0][:1], batches[0][1][:1], "vit_h")
     finally:
         build_sam.SAM_CONFIGS["vit_h"] = saved
-    stats_h.update(preset_s=preset_s, preset_launches=preset, f32_step_cut_to_4_blocks_grad_rel=worst,
+    stats_h.update(f32_step_cut_to_4_blocks_grad_rel=worst,
                    f32_step_cut_to_4_blocks_loss_rel=loss_rel)
     return dict(bwd_rows=bwd_rows, k12_rows=k12_rows, k12=k12,
                 vit_h=dict(k4=k4_h, training=stats_h, launches=launches_h),
@@ -4256,27 +4250,32 @@ DECODER_STEP_F32_TOL = 1e-3   # every decoder gradient, of its tensor's max
 DECODER_LOSS_F32_TOL = 1e-5
 
 
-class JointSeen:
-    """Patches the ``JointSamTrainer`` that ``training/training.py`` builds
-    with a subclass that keeps each trainer it builds, with copies of its SAM
-    and decoder states as they were built."""
+class TrainersKept:
+    """Patches the trainer class ``name`` that ``training/training.py`` builds
+    (``SamTrainer`` or ``JointSamTrainer``) with a subclass that keeps each
+    trainer it builds, with copies of its SAM's state (``sam0``) and, where it
+    has one, its decoder's (``unetr0``) as they were built."""
+
+    def __init__(self, name):
+        self.name = name
 
     def __enter__(self):
         from micro_sam_tpu_torch.training import training as tr
-        self.tr, self.saved, self.trainers = tr, tr.JointSamTrainer, []
+        self.tr, self.saved, self.trainers = tr, getattr(tr, self.name), []
         seen = self
 
         class Seen(self.saved):
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)
                 self.sam0 = {k: v.clone() for k, v in self.model.sam.state_dict().items()}
-                self.unetr0 = {k: v.clone() for k, v in self.unetr.state_dict().items()}
+                if hasattr(self, "unetr"):
+                    self.unetr0 = {k: v.clone() for k, v in self.unetr.state_dict().items()}
                 seen.trainers.append(self)
-        tr.JointSamTrainer = Seen
+        setattr(tr, self.name, Seen)
         return self
 
     def __exit__(self, *exc):
-        self.tr.JointSamTrainer = self.saved
+        setattr(self.tr, self.name, self.saved)
 
 
 def joint_loaders(imgs, segs):
@@ -4316,7 +4315,7 @@ def joint_whole_path(counters, imgs, segs, save_root):
     from micro_sam_tpu_torch.training import export_instance_segmentation_model, train_sam
     train_loader, val_loader = joint_loaders(imgs, segs)
     t0 = time.perf_counter()
-    with JointSeen() as seen, torch.enable_grad():
+    with TrainersKept("JointSamTrainer") as seen, torch.enable_grad():
         _, launches = counted(counters, lambda: train_sam(
             "smoke_joint", "vit_b", train_loader, val_loader, n_iterations=2, device="cuda",
             save_root=save_root))
@@ -4517,7 +4516,7 @@ def instance_only_check(counters, imgs, segs, save_root):
     from micro_sam_tpu_torch.training import train_instance_segmentation
     train_loader, val_loader = joint_loaders(imgs, segs)
     t0 = time.perf_counter()
-    with JointSeen() as seen, torch.enable_grad():
+    with TrainersKept("JointSamTrainer") as seen, torch.enable_grad():
         _, launches = counted(counters, lambda: train_instance_segmentation(
             "smoke_inst", "vit_b", train_loader, val_loader, n_iterations=2, device="cuda",
             save_root=save_root))
@@ -4551,7 +4550,7 @@ def preset_joint_check(counters, imgs, segs, save_root):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with JointSeen() as seen, torch.enable_grad():
+    with TrainersKept("JointSamTrainer") as seen, torch.enable_grad():
         _, launches = counted(counters, lambda: train_sam_for_configuration(
             "smoke_h_joint", "A100", train_loader, val_loader, n_iterations=2, device="cuda",
             save_root=save_root))
@@ -4674,6 +4673,423 @@ def joint_phase(counters, root):
     shutil.rmtree(save_root, ignore_errors=True)
     return dict(whole_path=a, timed=b, decoder_step_f32=c, instance_only=d, a100_joint=e,
                 other_trainers=f, writers=g)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: PEFT (LoRA, QLoRA), the 3d wrappers, vit_t finetuning
+# ---------------------------------------------------------------------------
+
+PEFT = {"rank": 4}
+QLORA = {"rank": 4, "quantize": True}
+PEFT_CPU_THREADS = 3   # each of the two CPU reference processes
+VIT_B_BLOCK_LINEARS = 12 * (768 * 2304 + 768 * 768 + 768 * 3072 + 3072 * 768)  # weights
+TINY_ENCODE = {"dwconv": 12, "tiny_attention": 10, "layernorm": 20, "gemm": 44}
+VIT_B_ENCODE = {"layernorm": 24, "gemm": 48, "relpos_attention": 12}
+VOLUME_SLICES = 8
+SIDE = 1024   # the images and slices of phase 15
+
+
+def redraw_lora_(sam, seed=1515, scale=0.1):
+    """Non-zero LoRA ``b`` in every block (a fresh ``b`` is zero and would
+    hide the update), drawn on the CPU from ``seed``; at this scale the
+    update moves the embedding far more than (a)'s tolerance (checked
+    there)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in sam.image_encoder.named_parameters():
+            if ".lora." in name and name.endswith(".b"):
+                p.copy_(torch.randn(p.shape, generator=g) * scale)
+
+
+def peft_pixels():
+    """One preprocessed SIDE^2 image of random grey levels (seed 15), float32."""
+    from micro_sam_tpu_torch.models.sam import preprocess
+    img = np.random.RandomState(15).randint(0, 256, (1, SIDE, SIDE, 3)).astype(np.float32)
+    return preprocess(torch.from_numpy(img), SIDE)
+
+
+def lora_cpu_reference(root, threads):
+    """(The LoRA vit_b's embedding (seed 0, ``b`` redrawn) in f32 on the CPU,
+    seconds): the reference of (a), in a process started at the phase's start."""
+    sys.path.insert(0, root)
+    torch.set_num_threads(threads)
+    from micro_sam_tpu_torch.util import get_sam_model
+    model = get_sam_model("vit_b", device="cpu", seed=0, peft_kwargs=PEFT).model
+    redraw_lora_(model)
+    t0 = time.perf_counter()
+    emb = model.encode_image(peft_pixels()).float().numpy()
+    return emb, time.perf_counter() - t0
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock ms of ``fn`` (the card synchronized), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def lora_serving(counters, cpu_ref):
+    """(a) get_sam_model("vit_b", peft_kwargs={"rank": 4}), bf16, b redrawn:
+    one encode's launches (every block's chain, K1 on its qkv rows with the
+    LoRA updates), the embedding against the CPU's f32 run and against the
+    base model's (the update must move it well beyond the tolerance), the
+    encode's time against the base model's."""
+    from micro_sam_tpu_torch.util import get_sam_model
+    px = peft_pixels().cuda()
+    model = get_sam_model("vit_b", seed=0, peft_kwargs=PEFT).model
+    redraw_lora_(model)
+    emb, launches = counted(counters, lambda: model.encode_image(px))
+    expect_launches("LoRA vit_b encode (12 PEFT blocks)", launches, VIT_B_ENCODE)
+    ref, cpu_s = cpu_ref.result()
+    got = emb.float().cpu().numpy()
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    lora_ms = host_ms(lambda: model.encode_image(px))
+    base = get_sam_model("vit_b", seed=0).model
+    base_ms = host_ms(lambda: base.encode_image(px))
+    plain = base.encode_image(px).float()
+    moved = float((emb.float() - plain).abs().max() / plain.abs().max())
+    log(f"  LoRA embedding vs the CPU's f32 run ({cpu_s:.1f} s there): rel {rel:.3e} (tol "
+        f"{BF16_TOL * 1.5:g}); vs the base model's: rel {moved:.3e} (at least "
+        f"{4 * 1.5 * BF16_TOL:g}); encode b1 host ms LoRA {lora_ms:.3f}, base {base_ms:.3f}")
+    if not np.isfinite(got).all() or rel > 1.5 * BF16_TOL:
+        raise AssertionError("the LoRA embedding disagrees with the CPU")
+    if moved < 4 * 1.5 * BF16_TOL:
+        raise AssertionError("the LoRA update does not move the card's embedding")
+    del model, base
+    torch.cuda.empty_cache()
+    return {"launches": launches, "embedding_rel": rel, "lora_vs_base_rel": moved,
+            "encode_ms_b1": lora_ms, "base_encode_ms_b1": base_ms, "cpu_reference_s": cpu_s}
+
+
+def frozen_base_check(trainer, what):
+    """After training: every base encoder tensor bitwise as built, every LoRA
+    ``b`` moved; returns (LoRA tensors moved, of)."""
+    from micro_sam_tpu_torch.models.convert import is_peft_key
+    now = trainer.model.sam.state_dict()
+    base = [k for k in now if k.startswith("image_encoder.") and not is_peft_key(k)]
+    changed = [k for k in base if not torch.equal(now[k], trainer.sam0[k])]
+    lora = [k for k in now if ".lora." in k]
+    moved = [k for k in lora if not torch.equal(now[k], trainer.sam0[k])]
+    b_moved = all(k in moved for k in lora if k.endswith(".b"))
+    log(f"  {what}: base encoder tensors changed {len(changed)} of {len(base)}; LoRA tensors "
+        f"moved {len(moved)} of {len(lora)}")
+    if changed or not b_moved:
+        raise AssertionError(f"{what}: the base moved or the LoRA did not train")
+    return len(moved), len(lora)
+
+
+def lora_training(counters, imgs, segs, save_root):
+    """(b) train_sam(peft_kwargs={"rank": 4}) for 2 steps (the base frozen,
+    LoRA moved, K1 / K4 launches), then timed LoRA steps at train_sam's
+    defaults, the protocol of phase 6's full SAM steps in this run."""
+    from micro_sam_tpu_torch.training import train_sam
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    train_loader = SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4), batch_size=2)
+    val_loader = SamLoader(SamDataset(imgs[4:], segs[4:], (512, 512), n_samples=2, seed=1),
+                           batch_size=2)
+    t0 = time.perf_counter()
+    with TrainersKept("SamTrainer") as seen, torch.enable_grad():
+        _, launches = counted(counters, lambda: train_sam(
+            "smoke_lora", "vit_b", train_loader, val_loader, with_segmentation_decoder=False,
+            n_iterations=2, device="cuda", save_root=save_root, peft_kwargs=PEFT))
+    wall = time.perf_counter() - t0
+    (tr,) = seen.trainers
+    depth = tr.model.config.depth
+    expect_launches("train_sam(peft_kwargs={'rank': 4}) (2 steps, validation)", launches,
+                    {"relpos_attention": 2 * 2 * depth + depth,
+                     "relpos_attention_backward": 2 * 4 * depth})
+    moved = frozen_base_check(tr, "LoRA train_sam")
+    n_train = sum(p.numel() for p in tr.model.sam.parameters() if p.requires_grad)
+    del seen, tr
+    torch.cuda.empty_cache()
+    k4, stats, _ = timed_steps(counters, "vit_b", train_loader, val_loader, list(train_loader),
+                               save_root, peft_kwargs=PEFT)
+    return {"train_sam_s": wall, "launches": launches, "lora_moved": moved,
+            "trainable_parameters": n_train, "timed": stats, "k4_replay": k4}
+
+
+def qlora_checks(counters, imgs, segs, save_root):
+    """(c) QLoRA: train_sam(peft_kwargs={"rank": 4, "quantize": True}) for a
+    step (K1 / K4 launches, the base frozen), the int4 base's bytes, the
+    quantized model's embedding against the dense one's (same weights and
+    LoRA), and export_custom_qlora_model of its checkpoint into
+    get_sam_model: the embedding against the checkpoint's own."""
+    from micro_sam_tpu_torch.training import train_sam
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    from micro_sam_tpu_torch.util import export_custom_qlora_model, get_sam_model
+    loader = SamLoader(SamDataset(imgs[:2], segs[:2], (512, 512), n_samples=2), batch_size=2)
+    with TrainersKept("SamTrainer") as seen, torch.enable_grad():
+        _, launches = counted(counters, lambda: train_sam(
+            "smoke_qlora", "vit_b", loader, loader, with_segmentation_decoder=False,
+            n_iterations=1, device="cuda", save_root=save_root, peft_kwargs=QLORA))
+    (tr,) = seen.trainers
+    depth = tr.model.config.depth
+    expect_launches("train_sam(peft_kwargs={'rank': 4, 'quantize': True}) (1 step, validation)",
+                    launches, {"relpos_attention": 2 * depth + depth,
+                               "relpos_attention_backward": 4 * depth})
+    frozen_base_check(tr, "QLoRA train_sam")
+    int4 = sum(b.numel() * b.element_size() for n, b in tr.model.sam.named_buffers()
+               if n.endswith(".w_q4") or n.endswith(".w_scale"))
+    bf16 = 2 * VIT_B_BLOCK_LINEARS
+    log(f"  QLoRA base: {int4} bytes of int4 values and bf16 scales, against {bf16} bytes in "
+        f"bf16 ({int4 / bf16:.4f})")
+    if int4 != VIT_B_BLOCK_LINEARS // 2 + 2 * VIT_B_BLOCK_LINEARS // 64:
+        raise AssertionError("the QLoRA base is not packed int4 with one bf16 scale per 64 rows")
+    del seen, tr
+    px = peft_pixels().cuda()
+    embs = {}
+    for name, kw in (("dense", PEFT), ("int4", QLORA)):
+        m = get_sam_model("vit_b", seed=0, peft_kwargs=kw).model
+        redraw_lora_(m)
+        embs[name], launches_e = counted(counters, lambda: m.encode_image(px).float())
+        expect_launches(f"{name} LoRA encode", launches_e, VIT_B_ENCODE)
+        del m
+    drift = float((embs["int4"] - embs["dense"]).abs().max() / embs["dense"].abs().max())
+    best = os.path.join(save_root, "smoke_qlora", "best.pkl")
+    exported = os.path.join(save_root, "smoke_qlora_exported.pkl")
+    export_custom_qlora_model(None, best, "vit_b", exported)
+    trained = get_sam_model("vit_b", checkpoint_path=best, peft_kwargs=PEFT).model
+    dense = get_sam_model("vit_b", checkpoint_path=exported, peft_kwargs=PEFT).model
+    if not trained.image_encoder.blocks[0].attn.qkv.quantized or \
+            dense.image_encoder.blocks[0].attn.qkv.quantized:
+        raise AssertionError("the checkpoint should load as int4, its export as dense weights")
+    e_t, e_d = trained.encode_image(px).float(), dense.encode_image(px).float()
+    export_rel = float((e_d - e_t).abs().max() / e_t.abs().max())
+    log(f"  int4 vs dense embedding (same weights and LoRA): rel {drift:.3e}; the export "
+        f"({os.path.getsize(exported) / 2**20:.1f} MiB) vs its checkpoint "
+        f"({os.path.getsize(best) / 2**20:.1f} MiB) through get_sam_model: rel {export_rel:.3e} "
+        f"(tol {BF16_TOL:g})")
+    if not (torch.isfinite(e_d).all() and export_rel <= BF16_TOL and drift < 0.5):
+        raise AssertionError("the QLoRA export or the int4 embedding is off")
+    del trained, dense, embs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "base_bytes_int4": int4, "base_bytes_bf16": bf16,
+            "int4_vs_dense_rel": drift, "export_vs_checkpoint_rel": export_rel}
+
+
+def peft_decoder_check(counters, save_root):
+    """(d) get_predictor_and_decoder(peft_kwargs=...) on (b)'s checkpoint with
+    a decoder state (the UNETR at published widths, random): the trained
+    LoRA loaded bitwise, one set_image's launches, the decoder's maps."""
+    import pickle
+    from micro_sam_tpu_torch.instance_segmentation import get_predictor_and_decoder
+    from micro_sam_tpu_torch.models.convert import params_from_jax
+    best = os.path.join(save_root, "smoke_lora", "best.pkl")
+    with open(best, "rb") as f:
+        state = pickle.load(f)
+    state["decoder_state"] = random_unetr().state_dict()
+    path = os.path.join(save_root, "smoke_lora_decoder.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(state, f)
+    predictor, decoder = get_predictor_and_decoder("vit_b", path, peft_kwargs=PEFT)
+    want = params_from_jax(state["model_state"], predictor.model.config)
+    got = predictor.model.state_dict()
+    lora = [k for k in want if ".lora." in k]
+    same = all(torch.equal(got[k].cpu(), want[k]) for k in lora)
+    img = np.random.RandomState(16).randint(0, 256, (512, 512, 3)).astype(np.uint8)
+    _, launches = counted(counters, lambda: predictor.set_image(img))
+    maps = decoder(predictor.features, predictor.input_size, predictor.original_size)
+    log(f"  get_predictor_and_decoder(peft_kwargs=...): {len(lora)} LoRA tensors equal to the "
+        f"checkpoint's {same}; set_image launches {launches}; decoder maps {maps.shape}")
+    expect_launches("set_image of the LoRA predictor", launches, VIT_B_ENCODE)
+    if not same or maps.shape != (1, 3, 512, 512) or not np.isfinite(maps).all():
+        raise AssertionError("get_predictor_and_decoder(peft_kwargs=...) is off")
+    del predictor, decoder
+    torch.cuda.empty_cache()
+    return {"lora_equal": same, "launches": launches}
+
+
+def vit_t_f32_batch(imgs, segs):
+    """The first of (e)'s timed batches cut to one patch: the f32 step's input."""
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    x, y = next(iter(SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4),
+                               batch_size=2)))
+    return x[:1], y[:1]
+
+
+def vit_t_training(counters, imgs, segs, save_root, f32_batch, cpu_run):
+    """(e) vit_t finetuning: train_sam_for_configuration("Minimal") at its
+    default (with the decoder) for 2 steps, its launches (each step's SAM and
+    decoder encodes, a validation encode); timed SamTrainer steps at the
+    preset's settings (batch 2 of 512^2, 4 objects, 4 rounds), launches per
+    step asserted, peak memory, one step profiled; one f32 step on
+    ``f32_batch`` on the card against the CPU's (``cpu_run``)."""
+    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
+    from micro_sam_tpu_torch.training.training import (CONFIGURATIONS, SamDataset, SamLoader,
+                                                       train_sam_for_configuration)
+    preset = CONFIGURATIONS["Minimal"]
+    train_loader, val_loader = joint_loaders(imgs, segs)
+    t0 = time.perf_counter()
+    with TrainersKept("JointSamTrainer") as seen, torch.enable_grad():
+        _, launches = counted(counters, lambda: train_sam_for_configuration(
+            "smoke_minimal", "Minimal", train_loader, val_loader, n_iterations=2, device="cuda",
+            save_root=save_root))
+    wall = time.perf_counter() - t0
+    (tr,) = seen.trainers
+    got = (tr.model.config.model_type, tr.n_objects_per_batch, tr.n_sub_iteration)
+    expect_launches("train_sam_for_configuration('Minimal') (vit_t and the decoder, 2 steps, "
+                    "validation: 5 encodes)", launches, {k: 5 * v for k, v in TINY_ENCODE.items()})
+    moved = sum(not torch.equal(v, tr.sam0[k]) for k, v in tr.model.sam.state_dict().items())
+    log(f"  Minimal preset: {wall:.1f} s; trainer {got}; SAM tensors moved {moved}")
+    if got != ("vit_t", preset["n_objects_per_batch"], preset["n_sub_iteration"]) or moved == 0:
+        raise AssertionError("the Minimal preset did not train vit_t")
+    del seen, tr
+    torch.cuda.empty_cache()
+
+    model = get_trainable_sam_model("vit_t", device="cuda")
+    trainer = SamTrainer("timing_t", None, None, model, n_sub_iteration=preset["n_sub_iteration"],
+                         n_objects_per_batch=preset["n_objects_per_batch"], logger=False)
+    batches = list(SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4),
+                             batch_size=2))
+
+    def step(i):
+        x, y = batches[i % len(batches)]
+        use_points, use_box, multimask, n_pos, n_neg = \
+            trainer._get_prompt_and_multimasking_choices(trainer._iteration)
+        b = trainer._prepare_batch(x, y, use_points, use_box, n_pos, n_neg, batch_idx=i)
+        with torch.enable_grad():
+            loss, _ = trainer.train_step(b, use_points, use_box, multimask)
+        torch.cuda.synchronize()
+        return float(loss)
+
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    times, losses = [], []
+    for i in range(TRAIN_REPS):
+        t0 = time.perf_counter()
+        losses.append(step(TRAIN_WARMUP + i))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: c.launches / TRAIN_REPS for k, c in counters.items() if c.launches}
+    expect_launches("vit_t training steps (per step: the encoder's chains once, their "
+                    "backward the plain chains')", per_step, TINY_ENCODE)
+    step_ms = statistics.median(times)
+    log(f"  vit_t step ms (host clock, median of {TRAIN_REPS}): {step_ms:.3f} (all "
+        f"{[round(t, 3) for t in times]}); images/s {2e3 / step_ms:.3f}; peak memory "
+        f"{peak / 2**30:.3f} GiB; losses {[round(v, 4) for v in losses]}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("a vit_t training step's loss is not finite")
+    prof = profile_step(lambda: step(TRAIN_WARMUP + TRAIN_REPS), SERVE_PROFILE_GROUPS)
+    x, y = f32_batch
+    del trainer, model
+    torch.cuda.empty_cache()
+    log("  f32 vit_t step on the card vs the CPU")
+    worst, loss_rel = f32_step_check(x, y, "vit_t", cpu_run)
+    return {"preset_s": wall, "preset_launches": launches, "step_ms": step_ms,
+            "step_ms_all": times, "images_per_s": 2e3 / step_ms, "peak_memory_bytes": peak,
+            "launches_per_step": per_step, "losses": losses, "profiled_step": prof,
+            "f32_step_grad_rel": worst, "f32_step_loss_rel": loss_rel,
+            "settings": {"batch": 2, "patch": 512, **preset}}
+
+
+def wrappers_3d(counters):
+    """(f) get_sam_3d_model("vit_b", d_size=8) (its depth convolutions
+    redrawn) and get_simple_sam_3d_model("vit_b") on an 8-slice 1024^2
+    volume, bf16: one forward's launches (the 8 slices in one launch a
+    kernel), its time, and the encoder against its plain version in f32 on
+    the card."""
+    from micro_sam_tpu_torch.models.sam import preprocess
+    from micro_sam_tpu_torch.models.sam_3d_wrapper import (apply_sam_3d_encoder,
+                                                          get_sam_3d_model,
+                                                          get_simple_sam_3d_model)
+    vol = torch.from_numpy(np.random.RandomState(17).randint(
+        0, 256, (1, VOLUME_SLICES, SIDE, SIDE, 3)).astype(np.float32)).cuda()
+    px = preprocess(vol[0], SIDE)
+    model = get_sam_3d_model("vit_b", d_size=VOLUME_SLICES, seed=0)
+    g = torch.Generator().manual_seed(18)
+    with torch.no_grad():
+        for blk in model.sam.image_encoder.blocks:
+            for ad in (blk.adapter_pre, blk.adapter_post):
+                ad.depth_conv.weight.copy_(torch.randn(ad.depth_conv.weight.shape, generator=g) * 0.3)
+    out = {}
+    with torch.no_grad():
+        masks, launches = counted(counters, lambda: model(vol))
+        expect_launches("Sam3DWrapper forward (8 slices)", launches, VIT_B_ENCODE)
+        fwd_ms = host_ms(lambda: model(vol), reps=3)
+        enc = model.sam.image_encoder
+        feats = apply_sam_3d_encoder(enc, px.to(torch.bfloat16), VOLUME_SLICES).float()
+        ref = apply_sam_3d_encoder(enc, px, VOLUME_SLICES, plain=True).float()
+        rel = float((feats - ref).abs().max() / ref.abs().max())
+        log(f"  Sam3DWrapper: masks {tuple(masks.shape)}, forward {fwd_ms:.3f} ms; encoder vs "
+            f"plain f32: rel {rel:.3e} (tol {1.5 * BF16_TOL:g})")
+        if masks.shape != (1, VOLUME_SLICES, 4, SIDE // 4, SIDE // 4) \
+                or not torch.isfinite(masks).all() \
+                or rel > 1.5 * BF16_TOL:
+            raise AssertionError("Sam3DWrapper is off")
+        out["sam_3d"] = {"launches": launches, "forward_ms": fwd_ms, "encoder_rel": rel}
+        del model, masks, feats, ref
+        torch.cuda.empty_cache()
+        simple = get_simple_sam_3d_model("vit_b", seed=0)
+        logits, launches = counted(counters, lambda: simple(vol))
+        expect_launches("SimpleSam3DWrapper forward (8 slices)", launches, VIT_B_ENCODE)
+        fwd_ms = host_ms(lambda: simple(vol), reps=3)
+        feats = simple.sam.encode_image(px).float()
+        ref = apply_sam_3d_encoder(simple.sam.image_encoder, px, VOLUME_SLICES, plain=True).float()
+        rel = float((feats - ref).abs().max() / ref.abs().max())
+        log(f"  SimpleSam3DWrapper: logits {tuple(logits.shape)}, forward {fwd_ms:.3f} ms; "
+            f"encoder vs plain f32: rel {rel:.3e} (tol {1.5 * BF16_TOL:g})")
+        if logits.shape != (1, VOLUME_SLICES, SIDE // 16, SIDE // 16, 1) \
+                or not torch.isfinite(logits).all() \
+                or rel > 1.5 * BF16_TOL:
+            raise AssertionError("SimpleSam3DWrapper is off")
+        out["simple_sam_3d"] = {"launches": launches, "forward_ms": fwd_ms, "encoder_rel": rel}
+    del simple
+    torch.cuda.empty_cache()
+    return out
+
+
+def add_peft_launches(rows, p15):
+    """Phase 15's launch counts on the kernels line's rows: a LoRA vit_b
+    encode, the LoRA train_sam path, a vit_t training step."""
+    peft_keys = {"layernorm", "gemm", "relpos_attention"}
+    for r in rows:
+        name = r["name"]
+        if name in peft_keys:
+            r["launches_lora_encode"] = p15["lora_serving"]["launches"][name]
+        if name in ("relpos_attention", "relpos_attention_backward"):
+            r["launches_lora_train_sam_path"] = p15["lora_training"]["launches"][name]
+            r["launches_qlora_train_sam_path"] = p15["qlora"]["launches"][name]
+        if name in TINY_ENCODE:
+            r["launches_vit_t_training_step"] = p15["vit_t"]["launches_per_step"][name]
+
+
+def peft_phase(counters, root):
+    """Phase 15: LoRA serving and training, QLoRA, get_predictor_and_decoder
+    with PEFT, vit_t finetuning, the 3d wrappers."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    save_root = os.path.join(root, "build", "chip_smoke_peft")
+    shutil.rmtree(save_root, ignore_errors=True)
+    imgs, segs = training_data()
+    f32_batch = vit_t_f32_batch(imgs, segs)
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_ref = pool.submit(lora_cpu_reference, root, PEFT_CPU_THREADS)
+        cpu_step = pool.submit(f32_step_grads_cpu, root, PEFT_CPU_THREADS, *f32_batch, "vit_t")
+        log(f"  (f) Sam3DWrapper and SimpleSam3DWrapper, {VOLUME_SLICES} slices of {SIDE}^2")
+        f = wrappers_3d(counters)
+        log("  (b) train_sam with LoRA, timed LoRA steps")
+        b = lora_training(counters, imgs, segs, save_root)
+        log("  (a) LoRA serving")
+        a = lora_serving(counters, cpu_ref)
+        log("  (c) QLoRA")
+        c = qlora_checks(counters, imgs, segs, save_root)
+        log("  (d) get_predictor_and_decoder with PEFT")
+        d = peft_decoder_check(counters, save_root)
+        log("  (e) vit_t finetuning: the Minimal preset, timed steps, the f32 step")
+        e = vit_t_training(counters, imgs, segs, save_root, f32_batch, cpu_step)
+    shutil.rmtree(save_root, ignore_errors=True)
+    return dict(lora_serving=a, lora_training=b, qlora=c, predictor_and_decoder=d, vit_t=e,
+                wrappers_3d=f)
 
 
 def main():
@@ -4846,9 +5262,18 @@ def main():
     p14 = joint_phase(counters, root)
     p14["wall_s"] = time.perf_counter() - t14
     log(f"phase 14 (joint finetuning and the other trainers): {p14['wall_s']:.1f} s")
+    # phase 15: PEFT, QLoRA, the 3d wrappers, vit_t finetuning
+    t15 = time.perf_counter()
+    log("PEFT and the 3d wrappers: LoRA serving (vit_b) against the CPU, train_sam with LoRA and "
+        "QLoRA, the QLoRA export, get_predictor_and_decoder with PEFT, vit_t finetuning (the "
+        "Minimal preset), Sam3DWrapper / SimpleSam3DWrapper on 8 slices (bf16)")
+    p15 = peft_phase(counters, root)
+    p15["wall_s"] = time.perf_counter() - t15
+    log(f"phase 15 (PEFT, the 3d wrappers, vit_t finetuning): {p15['wall_s']:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
+    add_peft_launches(rows, p15)
     # the details first, then the kernels line, short: one entry per kernel
     # and chain with the keys of the contract
     log(json.dumps({"details": {"kernels": rows, "chains": chains + lh_chains, "card": card,
@@ -4862,7 +5287,8 @@ def main():
                                 "training_vit_l": ft["vit_l"]["training"],
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")},
-                                "amg": p11, "ais": p12, "multi_dim": p13, "joint": p14}}))
+                                "amg": p11, "ais": p12, "multi_dim": p13, "joint": p14,
+                                "peft": p15}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
                                                                   "plans")
                                   if k in r}

@@ -574,11 +574,12 @@ def get_decoder(image_encoder=None, decoder_state=None, device=None) -> DecoderA
 def get_predictor_and_decoder(model_type: str, checkpoint_path=None, device=None,
                               peft_kwargs: Optional[Dict] = None
                               ) -> Tuple[SamPredictor, DecoderAdapter]:
-    """SAM predictor and segmentation decoder from one checkpoint."""
-    if peft_kwargs:
-        raise NotImplementedError("PEFT models are not ported yet (ROADMAP Queue 1 item 15).")
+    """SAM predictor and segmentation decoder from one checkpoint; with
+    ``peft_kwargs`` the SAM of that PEFT surgery, its trained PEFT parameters
+    loaded from the checkpoint."""
     predictor, state = util.get_sam_model(model_type=model_type, checkpoint_path=checkpoint_path,
-                                          device=device, return_state=True)
+                                          device=device, return_state=True,
+                                          peft_kwargs=peft_kwargs)
     if "decoder_state" not in state:
         raise ValueError(f"The checkpoint at '{checkpoint_path}' or the chosen model "
                          f"'{model_type}' does not contain a decoder state")

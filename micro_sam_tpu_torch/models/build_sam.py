@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -41,13 +41,48 @@ def default_compute_dtype(device: torch.device) -> str:
     return "bfloat16" if device.type == "cuda" else "float32"
 
 
+def make_sam(cfg: SamConfig, state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0,
+             weight_dtype: Optional[torch.dtype] = None,
+             peft_kwargs: Optional[Dict[str, Any]] = None) -> Sam:
+    """The one construction of a SAM, on the CPU: float32 weights drawn from
+    ``seed`` (or to be loaded); the PEFT surgery of ``peft_kwargs``
+    (``peft_sam.apply_peft``); ``state_dict`` loaded, its PEFT parameters
+    wherever it has them (a trained LoRA loads as trained, where the JAX
+    package draws it anew) and a linear it holds as int4 as int4;
+    ``quantize`` of ``peft_kwargs`` (on float32 weights, so it quantizes what
+    the JAX package quantizes); last, the encoder blocks' product weights held
+    in ``weight_dtype`` (default: the compute dtype; see ``Sam``)."""
+    from .common import Linear
+    from .convert import is_peft_key
+    from .peft_sam import apply_peft, quantize_encoder_int4
+    kwargs = dict(peft_kwargs or {})
+    quantize = kwargs.pop("quantize", False)
+    sam = Sam(cfg, torch.float32)
+    if state_dict is None:
+        sam.init_(torch.Generator().manual_seed(seed))
+    if peft_kwargs:
+        apply_peft(sam, **kwargs)
+    if state_dict is not None:
+        for name, mod in sam.named_modules():
+            if isinstance(mod, Linear) and f"{name}.w_q4" in state_dict:
+                mod.empty_int4_()
+        missing, unexpected = sam.load_state_dict(state_dict, strict=False)
+        missing = [k for k in missing if not is_peft_key(k)]
+        if missing or unexpected:
+            raise RuntimeError(f"checkpoint does not fit the model: missing {missing[:5]}, "
+                               f"unexpected {unexpected[:5]}")
+    if quantize:
+        quantize_encoder_int4(sam.image_encoder)
+    return sam.hold_weights_in_(weight_dtype or cfg.dtype)
+
+
 def build_sam(model_type: str, seed: int = 0, compute_dtype: Optional[str] = None,
               device: Optional[str] = None, weight_dtype: Optional[torch.dtype] = None) -> Sam:
-    """Random-init SAM (weights drawn on the CPU from ``seed``, then moved).
+    """Random-init SAM (weights drawn on the CPU from ``seed``, then moved;
+    ``make_sam``).
 
     ``device=None`` means the GPU; ``compute_dtype=None`` is bfloat16 there and
     float32 on the CPU; ``weight_dtype`` as in ``Sam``."""
     dev = resolve_device(device)
-    sam = Sam(get_config(model_type, compute_dtype or default_compute_dtype(dev)), weight_dtype)
-    sam.init_(torch.Generator().manual_seed(seed))
-    return sam.to(dev).eval()
+    cfg = get_config(model_type, compute_dtype or default_compute_dtype(dev))
+    return make_sam(cfg, seed=seed, weight_dtype=weight_dtype).to(dev).eval()

@@ -62,15 +62,121 @@ def kaiming_uniform_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -
         return t.copy_(draw)
 
 
-class Linear(nn.Linear):
-    """nn.Linear that runs in its input's dtype."""
+QUANT_BLOCK = 64  # input rows per int4 scale (``micro_sam_tpu/models/peft_sam.py``)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values in [-7, 7], (out, in) of any integer dtype -> (out, in / 2)
+    uint8, two a byte: element 2j in the low nibble, 2j + 1 in the high one,
+    each stored with an offset of 8 (so 1..15)."""
+    n = (q.to(torch.int16) + 8).to(torch.uint8)
+    return n[:, 0::2] | (n[:, 1::2] << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_int4``: (out, in / 2) uint8 -> (out, in) int8."""
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    return torch.stack((lo, hi), dim=-1).reshape(packed.shape[0], -1)
+
+
+def dequantize_packed(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Packed int4 (out, in / 2) and per (input block, output) scales (in /
+    block, out) -> the dense (out, in) weight in the scales' dtype: each value
+    times its scale, rounded once to that dtype (the JAX package's
+    ``dense_weight``)."""
+    q = unpack_int4(packed).to(scale.dtype)
+    block = q.shape[1] // scale.shape[0]
+    return (q.view(q.shape[0], -1, block) * scale.t()[:, :, None]).view(q.shape)
+
+
+class LoRA(nn.Module):
+    """A low-rank update ``(x a) b`` beside a product: a (in, rank), b (rank,
+    out), the JAX package's orientation (keys ``lora.a`` / ``lora.b``)."""
+
+    def __init__(self, in_dim: int, out_dim: int, rank: int):
+        super().__init__()
+        self.a = nn.Parameter(torch.zeros(in_dim, rank))
+        self.b = nn.Parameter(torch.zeros(rank, out_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.weight, self.bias)
+        return (x @ self.a.to(x.dtype)) @ self.b.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """nn.Linear that runs in its input's dtype.
+
+    PEFT (``models/peft_sam.py``) may give it a LoRA update (``lora``), a
+    scale and shift of its output (``ssf_scale`` / ``ssf_shift``), or int4
+    storage of its weight (``quantize_int4_``: the buffers ``w_q4``, packed
+    two a byte, and ``w_scale``, in place of the ``weight`` parameter,
+    dequantized at each read by ``dense_weight``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_module("lora", None)
+        self.register_parameter("ssf_scale", None)
+        self.register_parameter("ssf_shift", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.peft_terms(x, linear(x, self.dense_weight(), self.bias))
+
+    @property
+    def quantized(self) -> bool:
+        return "weight" not in self._parameters
+
+    def dense_weight(self) -> torch.Tensor:
+        """The (out, in) weight; int4 storage dequantized (in bf16, the
+        scales' dtype)."""
+        if self.quantized:
+            return dequantize_packed(self.w_q4, self.w_scale)
+        return self.weight
+
+    def peft_terms(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """y (the product of x and the weight, plus the bias) with the LoRA
+        update added and the SSF scale and shift applied, in float32, back in
+        y's dtype (``micro_sam_tpu/models/common.py::linear``)."""
+        if self.lora is None and self.ssf_scale is None:
+            return y
+        out = y.float()
+        if self.lora is not None:
+            out = out + self.lora(x).float()
+        if self.ssf_scale is not None:
+            out = out * self.ssf_scale + self.ssf_shift
+        return out.to(y.dtype)
+
+    def add_ssf_(self) -> None:
+        dev = self.bias.device
+        self.ssf_scale = nn.Parameter(torch.ones(self.out_features, device=dev))
+        self.ssf_shift = nn.Parameter(torch.zeros(self.out_features, device=dev))
+
+    def quantize_int4_(self, block: int = QUANT_BLOCK) -> None:
+        """Replace the weight by its int4 storage (``quantize_int4`` of the
+        float32 weight; the JAX package's values and scales to the bit)."""
+        if self.quantized:
+            return
+        from .peft_sam import quantize_int4
+        q, scale = quantize_int4(self.weight.detach().float().t(), block)
+        del self._parameters["weight"]
+        self.register_buffer("w_q4", pack_int4(q.t()))
+        self.register_buffer("w_scale", scale)
+
+    def empty_int4_(self, block: int = QUANT_BLOCK) -> None:
+        """int4 storage of zeros, to load a quantized state dict into."""
+        if self.quantized:
+            return
+        dev = self.weight.device
+        del self._parameters["weight"]
+        self.register_buffer("w_q4", torch.zeros(self.out_features, self.in_features // 2,
+                                                 dtype=torch.uint8, device=dev))
+        self.register_buffer("w_scale", torch.zeros(self.in_features // block, self.out_features,
+                                                    dtype=torch.bfloat16, device=dev))
 
     def hold_weight_in_(self, dtype: torch.dtype) -> None:
         """Keep the weight in ``dtype`` (a kernel chain's working type); the
-        bias stays float32."""
+        bias stays float32. int4 storage stays as it is."""
+        if self.quantized:
+            return
         self.weight = nn.Parameter(self.weight.detach().to(dtype),
                                    requires_grad=self.weight.requires_grad)
 
@@ -222,20 +328,40 @@ class Embedding(nn.Module):
             self.weight.normal_(generator=g)
 
 
+class Adapter(nn.Module):
+    """AdaptFormer's bottleneck beside an MLP: ``scale * relu(x down) up``;
+    down (dim, proj), up (proj, dim), scale a scalar (JAX's orientation)."""
+
+    def __init__(self, dim: int, proj: int, scale: float = 1.0):
+        super().__init__()
+        self.down = nn.Parameter(torch.zeros(dim, proj))
+        self.up = nn.Parameter(torch.zeros(proj, dim))
+        self.scale = nn.Parameter(torch.tensor(float(scale)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        down = F.relu(x @ self.down.to(x.dtype))
+        return (self.scale * (down @ self.up.to(x.dtype)).float()).to(x.dtype)
+
+
 class MLPBlock(nn.Module):
-    """lin2(gelu(lin1(x))): the encoder / two-way-transformer MLP."""
+    """lin2(gelu(lin1(x))): the encoder / two-way-transformer MLP; PEFT may
+    add an AdaptFormer ``adapter`` beside it."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.lin1 = Linear(dim, hidden)
         self.lin2 = Linear(hidden, dim)
+        self.register_module("adapter", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_block(self, x)
 
 
 def mlp_block(m: MLPBlock, x: torch.Tensor) -> torch.Tensor:
-    return m.lin2(gelu(m.lin1(x)))
+    y = m.lin2(gelu(m.lin1(x)))
+    if m.adapter is not None:
+        y = y + m.adapter(x)
+    return y
 
 
 class MLP(nn.Module):

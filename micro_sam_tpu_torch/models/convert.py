@@ -24,6 +24,16 @@ column p * C + h * hd + d of the JAX weight; ``params_from_jax`` /
 JAX tree. A MobileSAM-layout state dict (``load_torch_checkpoint``) is
 upstream's order already and loads unchanged.
 
+PEFT parameters (``models/peft_sam.py``) and the 3d wrapper's depth adapters
+(``models/sam_3d_wrapper.py``) carry across under the same names in both
+directions: LoRA ``a`` / ``b``, FacT's ``fact_u`` / ``fact_v`` and scales, SSF's
+``ssf_scale`` / ``ssf_shift``, the AdaptFormer ``adapter`` (JAX orientation
+each); a depth conv ``w`` (3, 1, 1, 1, C) -> ``weight`` (C, 1, 3, 1, 1).
+int4 storage: the JAX package's ``w_q4`` (in, out) int4 (``ml_dtypes``, read
+through int8) <-> the port's ``w_q4`` (out, in / 2) uint8, two values a byte
+(``common.pack_int4``); ``w_scale`` (in / 64, out) stays bf16 in the port and
+is float32 in the tree the port writes (numpy has no bf16).
+
 The UNETR decoder of AIS keeps torch_em's keys; ``unetr_params_from_jax`` /
 ``unetr_params_to_jax`` map the JAX package's decoder pytree to them and back
 with the same transposes (its upsamplers told apart by structure).
@@ -36,6 +46,7 @@ import numpy as np
 import torch
 
 from .build_sam import get_config
+from .common import pack_int4, unpack_int4
 from .sam import SamConfig
 from .tiny_vit import NUM_HEADS as TINY_NUM_HEADS
 
@@ -199,6 +210,105 @@ def _layers(encoder: List[Layer], n_decoder_layers: int, n_hyper: int, n_hyper_l
 
 _BN = (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"), ("running_var", "var"))
 
+_BLOCK_LINEARS = (("attn.qkv", ("attn", "qkv")), ("attn.proj", ("attn", "proj")),
+                  ("mlp.lin1", ("mlp", "lin1")), ("mlp.lin2", ("mlp", "lin2")))
+
+
+def _int4_from_jax(node: dict) -> Dict[str, torch.Tensor]:
+    """A quantized linear's JAX ``w_q4`` / ``w_scale`` -> the port's packed
+    uint8 ``w_q4`` and bf16 ``w_scale``."""
+    q = torch.from_numpy(np.asarray(node["w_q4"]).astype(np.int8))
+    scale = torch.from_numpy(np.asarray(node["w_scale"]).astype(np.float32))
+    return {"w_q4": pack_int4(q.t()), "w_scale": scale.to(torch.bfloat16)}
+
+
+def _peft_leaves(enc: dict):
+    """(port key, JAX path under ``image_encoder``, kind) of the PEFT and
+    depth-adapter leaves present in a JAX encoder tree; kind: "array" (as it
+    is), "lin_w" (transposed), "depth_w" (a depth conv's kernel)."""
+    out = []
+    if "fact_u" in enc:
+        out += [("image_encoder.fact_u", ("fact_u",), "array"),
+                ("image_encoder.fact_v", ("fact_v",), "array")]
+    for i, bp in enumerate(enc["blocks"]):
+        pre, bpath = f"image_encoder.blocks.{i}", ("blocks", i)
+        attn, mlp = bp["attn"], bp["mlp"]
+        for part in attn.get("lora", {}):
+            out += [(f"{pre}.attn.lora.{part}.{m}", bpath + ("attn", "lora", part, m), "array")
+                    for m in ("a", "b")]
+        for m in attn.get("fact", {}):
+            if not m.startswith("_"):
+                out.append((f"{pre}.attn.fact.{m}", bpath + ("attn", "fact", m), "array"))
+        for port, jpath in _BLOCK_LINEARS:
+            node = bp[jpath[0]][jpath[1]]
+            if "lora" in node:
+                out += [(f"{pre}.{port}.lora.{m}", bpath + jpath + ("lora", m), "array")
+                        for m in ("a", "b")]
+            out += [(f"{pre}.{port}.{m}", bpath + jpath + (m,), "array")
+                    for m in ("ssf_scale", "ssf_shift") if m in node]
+        for m in mlp.get("adapter", {}):
+            out.append((f"{pre}.mlp.adapter.{m}", bpath + ("mlp", "adapter", m), "array"))
+        for ad in ("adapter_pre", "adapter_post"):
+            if ad in bp:
+                ap = bpath + (ad,)
+                out += [(f"{pre}.{ad}.depth_conv.weight", ap + ("depth_conv", "w"), "depth_w"),
+                        (f"{pre}.{ad}.norm.weight", ap + ("norm", "scale"), "array"),
+                        (f"{pre}.{ad}.norm.bias", ap + ("norm", "bias"), "array"),
+                        (f"{pre}.{ad}.point.weight", ap + ("point", "w"), "lin_w"),
+                        (f"{pre}.{ad}.point.bias", ap + ("point", "b"), "array")]
+    return out
+
+
+_PEFT_KEY_PARTS = (".lora.", ".fact.", ".ssf_", ".adapter.", ".adapter_pre.", ".adapter_post.",
+                   "image_encoder.fact_")
+
+
+def is_peft_key(key: str) -> bool:
+    """Whether a state-dict name is a PEFT parameter or a depth adapter's
+    (what a checkpoint of the base model lacks)."""
+    return any(p in key for p in _PEFT_KEY_PARTS)
+
+
+def _peft_tree_from_state(sd: Dict[str, np.ndarray]) -> dict:
+    """The inverse of ``_peft_leaves``: the PEFT and depth-adapter entries of
+    a port state dict (numpy) as an ``image_encoder`` subtree to merge."""
+    tree: dict = {}
+
+    def put(path, leaf):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+
+    for key, val in sd.items():
+        if not is_peft_key(key):
+            continue
+        parts = key.split(".")[1:]   # without "image_encoder"
+        if parts[0] != "blocks":
+            put((parts[0],), val)
+            continue
+        i, rest = int(parts[1]), parts[2:]
+        if rest[0] in ("adapter_pre", "adapter_post"):
+            sub, leaf = rest[1], rest[2]
+            if sub == "depth_conv":
+                put(("blocks", i, rest[0], "depth_conv", "w"), val.transpose(2, 3, 4, 1, 0))
+            elif sub == "norm":
+                put(("blocks", i, rest[0], "norm", "scale" if leaf == "weight" else "bias"), val)
+            else:
+                put(("blocks", i, rest[0], "point", "w" if leaf == "weight" else "b"),
+                    val.T if leaf == "weight" else val)
+        else:
+            put(("blocks", i) + tuple(rest), val)
+    return tree
+
+
+def _merge(dst: dict, src: dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _merge(dst[k], v)
+        else:
+            dst[k] = v
+
 
 def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
     """JAX package parameter tree (numpy leaves) -> the port's state dict."""
@@ -210,6 +320,7 @@ def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
     layers = _layers(encoder, len(de["transformer"]["layers"]), len(de["hyper_mlps"]),
                      len(de["hyper_mlps"][0]["layers"]), len(de["iou_head"]["layers"]))
     sd: Dict[str, np.ndarray] = {}
+    packed: Dict[str, torch.Tensor] = {}   # int4 storage, not float32
     for key, path, kind, *heads in layers:
         node = params
         for part in path[:-1]:
@@ -217,7 +328,10 @@ def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
         if isinstance(path[-1], str) and path[-1] not in node:
             continue  # pos_embed of a model without one
         node = node[path[-1]]
-        if kind == "array":
+        if kind == "lin" and "w" not in node and "w_q4" in node:
+            packed.update({f"{key}.{k}": v for k, v in _int4_from_jax(node).items()})
+            sd[f"{key}.bias"] = np.asarray(node["b"])
+        elif kind == "array":
             sd[key] = np.asarray(node)
         elif kind == "emb":
             sd[f"{key}.weight"] = np.asarray(node["w"])
@@ -236,13 +350,24 @@ def params_from_jax(params: dict, config: SamConfig) -> Dict[str, torch.Tensor]:
             if kind == "qkv":
                 for name in ("weight", "bias"):
                     sd[f"{key}.{name}"] = _qkv_thirds_to_heads(sd[f"{key}.{name}"], heads[0])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+    if config.encoder != "tiny_vit":
+        for key, path, kind in _peft_leaves(enc):
+            node = enc
+            for part in path:
+                node = node[part]
+            a = np.asarray(node)
+            sd[key] = a.T if kind == "lin_w" else a.transpose(4, 3, 0, 1, 2) \
+                if kind == "depth_w" else a
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+    out.update(packed)
+    return out
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor], config: SamConfig) -> dict:
     """The port's state dict -> the JAX package's parameter tree (nested dicts
     and lists of float32 numpy arrays): the inverse of ``params_from_jax``."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    sd = {k: (unpack_int4(v.detach().cpu()).t().numpy() if k.endswith(".w_q4")
+              else v.detach().float().cpu().numpy()) for k, v in state_dict.items()}
     n_dec = 1 + max(int(k.split(".")[3]) for k in sd if k.startswith("mask_decoder.transformer.layers."))
     if config.encoder == "tiny_vit":
         depths = [1 + max(int(k.split(".")[4]) for k in sd
@@ -264,6 +389,9 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], config: SamConfig) -> dic
         elif kind == "conv_bn":
             leaf = {"conv": {"w": sd[f"{key}.c.weight"].transpose(2, 3, 1, 0)},
                     "bn": {jax_name: sd[f"{key}.bn.{port}"] for port, jax_name in _BN}}
+        elif f"{key}.w_q4" in sd:   # int4 storage: int8 values (in, out), f32 scales
+            leaf = {"w_q4": sd[f"{key}.w_q4"], "w_scale": sd[f"{key}.w_scale"],
+                    "b": sd[f"{key}.bias"]}
         else:
             w = sd[f"{key}.weight"]
             if kind == "qkv":
@@ -285,7 +413,14 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], config: SamConfig) -> dic
             return [out[i] for i in range(len(out))]
         return out
 
-    return listify(tree)
+    tree = listify(tree)
+    if config.encoder != "tiny_vit":
+        peft = _peft_tree_from_state(sd)
+        blocks = peft.pop("blocks", {})
+        _merge(tree["image_encoder"], peft)
+        for i, sub in blocks.items():
+            _merge(tree["image_encoder"]["blocks"][i], sub)
+    return tree
 
 
 def _unflatten(data) -> dict:

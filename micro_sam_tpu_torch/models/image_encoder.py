@@ -17,11 +17,18 @@ padded map and crops once; ``MSAM_TPU_WINDOW_STACK=1`` (which takes
 precedence, as in JAX) runs each block as ``fused_window_stack`` (K11) over
 the batch's window stacks. Both compute what the default route computes.
 ``forward_train`` always partitions.
+
+A block that PEFT changed (``models/peft_sam.py``: LoRA, FacT, SSF, an
+AdaptFormer adapter, int4 storage) runs the same chains in every route, the
+PEFT terms added around their products (``ops/fused_window_block.py``); in
+training ``train_block`` adds the same terms around ``RelPosAttentionFn``
+(K1 / K4). The encoder's shared FacT core (``fact_u`` / ``fact_v``) is handed
+to every block.
 """
 from __future__ import annotations
 
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +99,32 @@ class Attention(cm.KeepsDerived):
         self.proj = cm.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
+        # PEFT (models/peft_sam.py): LoRA pairs on q / k / v (a ModuleDict),
+        # FacT's per-block scales of the encoder's shared core
+        self.register_module("lora", None)
+        self.register_module("fact", None)
+
+    def qkv_deltas(self, a: torch.Tensor, fact) -> Optional[torch.Tensor]:
+        """The PEFT updates of the qkv product of ``a`` (..., C): LoRA's on
+        q / k / v, FacT's ``(a (u * s)) v`` on q and v with the encoder's
+        shared core ``fact`` = (u, v), placed in the [q | k | v] thirds of the
+        3C columns; None without either (``micro_sam_tpu/models/
+        image_encoder.py::apply_attention``)."""
+        parts = [None, None, None]
+        if self.lora is not None:
+            for i, name in enumerate("qkv"):
+                if name in self.lora:
+                    parts[i] = self.lora[name](a)
+        if self.fact is not None:
+            u, v = fact
+            dt = a.dtype
+            for i, s in ((0, self.fact.q_scale), (2, self.fact.v_scale)):
+                d = (a @ (u * s).to(dt)) @ v.to(dt)
+                parts[i] = d if parts[i] is None else parts[i] + d
+        if all(p is None for p in parts):
+            return None
+        zero = a.new_zeros(a.shape)
+        return torch.cat([zero if p is None else p for p in parts], dim=-1)
 
     def rel_tables(self, hw: Tuple[int, int], dtype: torch.dtype):
         """``get_rel_pos`` over H and over W, in ``dtype``; kept per (H, W,
@@ -128,6 +161,9 @@ class Block(nn.Module):
         self.attn = Attention(dim, num_heads, input_size)
         self.norm2 = cm.LayerNorm(dim)
         self.mlp = cm.MLPBlock(dim, int(dim * mlp_ratio))
+        # the depth adapters of the 3d wrapper (models/sam_3d_wrapper.py)
+        self.register_module("adapter_pre", None)
+        self.register_module("adapter_post", None)
 
     def hold_weights_in_(self, dtype: torch.dtype) -> "Block":
         """Keep the qkv, proj, lin1 and lin2 weights in ``dtype``, the dtype
@@ -137,34 +173,67 @@ class Block(nn.Module):
         return self
 
 
-def apply_block(block: Block, x: torch.Tensor) -> torch.Tensor:
-    """One block in its plain version, with one partition per block
-    (x: (B, H, W, C)); the encoder runs the kernel chain instead."""
-    B, H, W, C = x.shape
+def _block_tokens(block: Block, xt: torch.Tensor, valid, hw: Tuple[int, int], fact,
+                  plain: bool) -> torch.Tensor:
+    """One block over tokens (Bn, N, C) without autograd: the kernel chain, or
+    its plain version with ``plain``."""
     nH = block.attn.num_heads
+    if block.window_size > 0:
+        attn = fwb.fused_window_attn_plain if plain else fwb.fused_window_attn
+        xt = attn(xt, valid, block, hw, nH, fact)
+    else:
+        attn = fwb.fused_global_attn_plain if plain else fwb.fused_global_attn
+        xt = attn(xt, block, hw, nH, fact)
+    return fwb.mlp_half_plain(xt, block) if plain else fwb.mlp_half(xt, block)
+
+
+def run_block(block: Block, x: torch.Tensor, fact=None, plain: bool = False) -> torch.Tensor:
+    """One block with one partition of its own (x: (B, H, W, C)). In autograd
+    ``train_block`` (K1 forward, K4 backward); without, the kernel chain, or
+    with ``plain`` its plain version. ``fact`` is the
+    encoder's shared FacT core (u, v) where FacT is on."""
+    B, H, W, C = x.shape
     ws = block.window_size
     if ws > 0:
-        xw, valid, pad_hw = partition_tokens(x, ws)
-        out = fwb.fused_window_block_plain(xw, valid, block, (ws, ws), nH)
+        xt, valid, pad_hw = partition_tokens(x, ws)
+        hw = (ws, ws)
+    else:
+        xt, valid, hw = x.reshape(B, H * W, C), None, (H, W)
+    if torch.is_grad_enabled() and not plain:
+        out = checkpoint(train_block, block, xt, valid, hw, fact, use_reentrant=False)
+    else:
+        out = _block_tokens(block, xt, valid, hw, fact, plain)
+    if ws > 0:
         return window_unpartition(out.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
-    return fwb.fused_global_block_plain(x.reshape(B, H * W, C), block, (H, W),
-                                        nH).reshape(x.shape)
+    return out.reshape(x.shape)
 
 
-def train_block(block: Block, x: torch.Tensor, valid, hw: Tuple[int, int]) -> torch.Tensor:
+def apply_block(block: Block, x: torch.Tensor, fact=None) -> torch.Tensor:
+    """One block in its plain version, with one partition per block
+    (x: (B, H, W, C)); the encoder runs the kernel chain instead."""
+    return run_block(block, x, fact, plain=True)
+
+
+def train_block(block: Block, x: torch.Tensor, valid, hw: Tuple[int, int],
+                fact=None) -> torch.Tensor:
     """One block for training, in autograd: x (Bn, N, C) tokens in the compute
     dtype (windows or whole images); ``valid`` the (Bn, N, 1) pad mask of
     windows, or None. LN and the products are ``F.layer_norm`` / ``F.linear``
-    (the JAX package leaves them to XLA in training); the attention is
-    ``RelPosAttentionFn`` on the qkv product's rows, the tables' gradient
-    flowing back through ``get_rel_pos``."""
+    (the JAX package leaves them to XLA in training), each with its PEFT
+    terms; the attention is ``RelPosAttentionFn`` on the qkv product's rows
+    (plus the LoRA / FacT updates), the tables' gradient flowing back through
+    ``get_rel_pos``."""
     Bn, N, C = x.shape
     attn = block.attn
     nH = attn.num_heads
     a = block.norm1(x)
     if valid is not None:
         a = a * valid.to(a.dtype)
-    qkv = attn.qkv(a).view(Bn, N, 3, nH, C // nH).permute(0, 2, 3, 1, 4)
+    qkv = attn.qkv(a)
+    d = attn.qkv_deltas(a, fact)
+    if d is not None:
+        qkv = qkv + d
+    qkv = qkv.view(Bn, N, 3, nH, C // nH).permute(0, 2, 3, 1, 4)
     rel_h = get_rel_pos(hw[0], hw[0], attn.rel_pos_h)
     rel_w = get_rel_pos(hw[1], hw[1], attn.rel_pos_w)
     o = RelPosAttentionFn.apply(qkv, rel_h, rel_w, tuple(hw))  # (Bn, nH, N, hd) view
@@ -198,13 +267,27 @@ class ImageEncoderViT(nn.Module):
         for i in range(depth):
             ws = 0 if i in self.global_attn_indexes else window_size
             self.blocks.append(Block(embed_dim, num_heads, mlp_ratio, ws,
-                                     (grid, grid) if ws == 0 else (ws, ws)).hold_weights_in_(dtype))
+                                     (grid, grid) if ws == 0 else (ws, ws)))
+        self.hold_weights_in_(dtype)
         self.neck = nn.Sequential(
             cm.Conv2d(embed_dim, out_chans, 1, bias=False),
             cm.LayerNorm(out_chans),
             cm.Conv2d(out_chans, out_chans, 3, padding=1, bias=False),
             cm.LayerNorm(out_chans),
         )
+        # FacT's core shared by the blocks (models/peft_sam.py)
+        self.register_parameter("fact_u", None)
+        self.register_parameter("fact_v", None)
+
+    def hold_weights_in_(self, dtype: torch.dtype) -> None:
+        """Keep the blocks' product weights in ``dtype`` (int4 storage stays)."""
+        for blk in self.blocks:
+            blk.hold_weights_in_(dtype)
+
+    @property
+    def fact(self):
+        """The shared FacT core (u, v), or None."""
+        return None if self.fact_u is None else (self.fact_u, self.fact_v)
 
     def init_(self, g: torch.Generator) -> None:
         with torch.no_grad():
@@ -229,21 +312,23 @@ class ImageEncoderViT(nn.Module):
         (``fused_window_attn``, K10, or ``fused_global_attn``, K5) and then its
         MLP half (``mlp_half``), called through the module
         ``ops/fused_window_block``; a windowed block is ``fused_window_block_spatial``
-        or ``fused_window_stack`` under the routes' knobs (module docstring)."""
+        or ``fused_window_stack`` under the routes' knobs (module docstring).
+        Each is handed the encoder's shared FacT core, for a block that PEFT
+        changed."""
         x = self._patch_embed(x)
         glob = set(self.global_attn_indexes)
         depth = len(self.blocks)
         nH, ws = self.num_heads, self.window_size
         B, H, W, C = x.shape
+        fact = self.fact
         stack = os.environ.get("MSAM_TPU_WINDOW_STACK", "0") == "1"
         spatial = not stack and os.environ.get("MSAM_TPU_SPATIAL_WINDOW", "0") == "1"
         i = 0
         while i < depth:
             if i in glob or ws <= 0:
                 blk = self.blocks[i]
-                x = fwb.mlp_half(fwb.fused_global_attn(x.reshape(B, H * W, C), blk, (H, W), nH),
-                                 blk)
-                x = x.reshape(B, H, W, C)
+                xt = fwb.fused_global_attn(x.reshape(B, H * W, C), blk, (H, W), nH, fact)
+                x = fwb.mlp_half(xt, blk).reshape(B, H, W, C)
                 i += 1
                 continue
             j = i
@@ -253,16 +338,17 @@ class ImageEncoderViT(nn.Module):
                 pad_h, pad_w = (-H) % ws, (-W) % ws
                 xp = F.pad(x, (0, 0, 0, pad_w, 0, pad_h)) if pad_h or pad_w else x
                 for blk in self.blocks[i:j]:
-                    xp = fwb.fused_window_block_spatial(xp, blk, ws, (H, W), nH)
+                    xp = fwb.fused_window_block_spatial(xp, blk, ws, (H, W), nH, fact)
                 x = xp[:, :H, :W].contiguous() if pad_h or pad_w else xp
                 i = j
                 continue
             xw, valid, pad_hw = partition_tokens(x, ws)
             for blk in self.blocks[i:j]:
                 if stack:
-                    xw = fwb.fused_window_stack(xw, valid, blk, (ws, ws), nH, B)
+                    xw = fwb.fused_window_stack(xw, valid, blk, (ws, ws), nH, B, fact)
                 else:
-                    xw = fwb.mlp_half(fwb.fused_window_attn(xw, valid, blk, (ws, ws), nH), blk)
+                    xw = fwb.fused_window_attn(xw, valid, blk, (ws, ws), nH, fact)
+                    xw = fwb.mlp_half(xw, blk)
             x = window_unpartition(xw.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
             i = j
         return self.neck(x)
@@ -278,11 +364,12 @@ class ImageEncoderViT(nn.Module):
         depth = len(self.blocks)
         ws = self.window_size
         B, H, W, C = x.shape
+        fact = self.fact
         i = 0
         while i < depth:
             if i in glob or ws <= 0:
                 t = checkpoint(train_block, self.blocks[i], x.reshape(B, H * W, C), None, (H, W),
-                               use_reentrant=False)
+                               fact, use_reentrant=False)
                 x = t.reshape(B, H, W, C)
                 i += 1
                 continue
@@ -291,7 +378,7 @@ class ImageEncoderViT(nn.Module):
                 j += 1
             xw, valid, pad_hw = partition_tokens(x, ws)
             for k in range(i, j):
-                xw = checkpoint(train_block, self.blocks[k], xw, valid, (ws, ws),
+                xw = checkpoint(train_block, self.blocks[k], xw, valid, (ws, ws), fact,
                                 use_reentrant=False)
             x = window_unpartition(xw.reshape(-1, ws, ws, C), ws, pad_hw, (H, W))
             i = j

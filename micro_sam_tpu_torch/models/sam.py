@@ -107,14 +107,21 @@ class Sam(nn.Module):
         cm.init_module_(self, generator)
         return self
 
+    def hold_weights_in_(self, dtype: torch.dtype) -> "Sam":
+        """Keep the encoder blocks' product weights in ``dtype`` (what
+        ``weight_dtype`` of the constructor sets)."""
+        self.image_encoder.hold_weights_in_(dtype)
+        return self
+
     @torch.no_grad()
     def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
         """pixels: (B, S, S, 3) preprocessed -> (B, S/16, S/16, 256) in the compute dtype."""
         return self.image_encoder(pixels.to(self.config.dtype))
 
     def encode_image_train(self, pixels: torch.Tensor) -> torch.Tensor:
-        """``encode_image`` in autograd, every block checkpointed
-        (``ImageEncoderViT.forward_train``; the ViT encoders only)."""
+        """``encode_image`` in autograd (``forward_train`` of the encoder: the
+        ViT's blocks checkpointed, TinyViT's chains through their autograd
+        functions)."""
         return self.image_encoder.forward_train(pixels.to(self.config.dtype))
 
     @torch.no_grad()

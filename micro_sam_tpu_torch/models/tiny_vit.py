@@ -14,7 +14,8 @@ zero-padded to window multiples, then cropped) and ``ops/fused_tiny_tail.py``.
 The patch embed, the merges and the neck are convolutions, left to
 PyTorch (cuDNN on the card), as the JAX package leaves them to XLA. The
 blocks' product weights (qkv, proj, fc1, fc2) are held in the dtype the chains
-run in; every other parameter is float32.
+run in (float32 for training, cast at use); every other parameter is
+float32. ``forward_train`` is the same forward in autograd.
 
 The qkv product follows upstream TinyViT: its 3C output channels are per head
 [q | k | v] (head h's q at 96h, k at 96h + 32, v at 96h + 64), where the JAX
@@ -157,10 +158,23 @@ class TinyViT(nn.Module):
             cm.Conv2d(out_chans, out_chans, 3, padding=1, bias=False),
             cm.LayerNorm(out_chans),
         )
+        self.hold_weights_in_(dtype)
+
+    def hold_weights_in_(self, dtype: torch.dtype) -> None:
+        """Keep the attention blocks' product weights in ``dtype``."""
         for layer in self.layers[1:]:
             for blk in layer.blocks:
                 for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
                     lin.hold_weight_in_(dtype)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward: ``forward`` in autograd. Each chain call runs
+        as its autograd function (the kernels forward, the plain chain's
+        gradient backward, ``ops/chain_grad.py``); the patch embed, merges and
+        neck are PyTorch convolutions with the BN folded at each call, so the
+        BN weight and bias train while its statistics stay frozen buffers.
+        Nothing is checkpointed, as in the JAX package."""
+        return self(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, S, S, 3) preprocessed pixels in the compute dtype ->

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .chain_grad import grad_params, recompute_grads
 from .dwconv import dwconv, dwconv_plain
 from .gemm import gemm, gemm_plain
 
@@ -43,8 +44,30 @@ def _chain(x: torch.Tensor, block, plain: bool) -> torch.Tensor:
     return out.view(B, H, W, C)
 
 
+class FusedMBConvFn(torch.autograd.Function):
+    """The MBConv chain in autograd: forward the kernel chain, backward the
+    plain chain's (the JAX package's ``fused_mbconv`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, block, *params):
+        ctx.block, ctx.params = block, params
+        ctx.save_for_backward(x)
+        return _chain(x, block, plain=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        block = ctx.block
+        dx, dps = recompute_grads(lambda t: _chain(t, block, plain=True), x, ctx.params, grad)
+        return (dx, None, *dps)
+
+
 def fused_mbconv(x: torch.Tensor, block) -> torch.Tensor:
-    """x: (B, H, W, C) contiguous; block: a ``models.tiny_vit.MBConv`` -> (B, H, W, C)."""
+    """x: (B, H, W, C) contiguous; block: a ``models.tiny_vit.MBConv`` -> (B, H, W, C).
+    ``FusedMBConvFn`` where autograd needs the call's gradient."""
+    params = grad_params(x, block)
+    if params is not None:
+        return FusedMBConvFn.apply(x, block, *params)
     return _chain(x, block, plain=False)
 
 

@@ -17,11 +17,17 @@ through the kernels' plain versions: the card's oracle for the chain. The JAX
 oracle is ``micro_sam_tpu/ops/fused_tiny_attention.py::_unfused_reference``,
 with the qkv weight permuted between the JAX package's [q | k | v] thirds and
 upstream's per-head order (``models/convert.py``).
+
+The products take their weights cast to the input's dtype (a no-op for the
+weights serving holds in it; training holds them in float32). In autograd,
+``fused_tiny_attention`` runs as ``FusedTinyAttentionFn`` (the JAX package's
+custom_vjp: the plain chain's backward, ``ops/chain_grad.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from .chain_grad import grad_params, recompute_grads
 from .gemm import gemm, gemm_plain
 from .layernorm import layernorm, layernorm_plain
 from .tiny_attention import tiny_attention, tiny_attention_plain
@@ -35,15 +41,37 @@ def _chain(x: torch.Tensor, attn, plain: bool) -> torch.Tensor:
     B, Hp, Wp, C = x.shape
     xf = x.reshape(-1, C)
     a = ln(xf, attn.norm.weight, attn.norm.bias, attn.norm.eps)
-    qkv = mm(a, attn.qkv.weight, attn.qkv.bias)
+    qkv = mm(a, attn.qkv.weight.to(x.dtype), attn.qkv.bias)
     o = att(qkv, attn.attention_biases, (B, Hp, Wp), attn.window)
-    out = mm(o, attn.proj.weight, attn.proj.bias, "residual", xf)
+    out = mm(o, attn.proj.weight.to(x.dtype), attn.proj.bias, "residual", xf)
     return out.view(B, Hp, Wp, C)
+
+
+class FusedTinyAttentionFn(torch.autograd.Function):
+    """The attention half in autograd: forward the kernel chain, backward the
+    plain chain's (the JAX package's ``fused_tiny_attention`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, attn, *params):
+        ctx.attn, ctx.params = attn, params
+        ctx.save_for_backward(x)
+        return _chain(x, attn, plain=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        attn = ctx.attn
+        dx, dps = recompute_grads(lambda t: _chain(t, attn, plain=True), x, ctx.params, grad)
+        return (dx, None, *dps)
 
 
 def fused_tiny_attention(x: torch.Tensor, attn) -> torch.Tensor:
     """x + proj(window-attention(LN(x))). x: (B, Hp, Wp, C) contiguous, zero-padded
-    to multiples of ``attn.window``; attn: a ``models.tiny_vit.TinyAttention``."""
+    to multiples of ``attn.window``; attn: a ``models.tiny_vit.TinyAttention``.
+    ``FusedTinyAttentionFn`` where autograd needs the call's gradient."""
+    params = grad_params(x, attn)
+    if params is not None:
+        return FusedTinyAttentionFn.apply(x, attn, *params)
     return _chain(x, attn, plain=False)
 
 

@@ -50,12 +50,21 @@ JAX package, inference only):
   interface and needs no kernel of its own. The TPU's VMEM gate
   (``window_stack_config``) has no counterpart: the chain keeps nothing
   resident, so it takes every geometry.
+
+A block that PEFT changed (``models/peft_sam.py``) runs the same launches:
+``_product`` reads a linear's dense weight (int4 storage dequantized) and adds
+its LoRA update and SSF scale and shift after the ``gemm``, the LoRA / FacT
+updates of the qkv product go onto its rows before the attention (``fact``,
+the encoder's shared FacT core), and an AdaptFormer adapter is added beside
+the MLP. The PEFT terms are PyTorch around the kernels, as the JAX package
+computes them outside its Pallas kernels (``apply_attention``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .gemm import gemm, gemm_plain
 from .layernorm import layernorm, layernorm_plain
@@ -78,8 +87,30 @@ _PLAIN = (layernorm_plain, gemm_plain, _relpos_attention_plain_into,
           _relpos_attention_spatial_plain_into)
 
 
+def _product(mm, x: torch.Tensor, lin, epilogue: str = "none",
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``lin``'s product of x (M, K): ``mm`` on its dense weight (int4 storage
+    dequantized) in x's dtype, then its PEFT terms where it has any (the LoRA
+    update, the SSF scale and shift: ``Linear.peft_terms``) and the epilogue
+    after them; without, the epilogue stays in the kernel."""
+    w = lin.dense_weight().to(x.dtype)
+    if lin.lora is None and lin.ssf_scale is None:
+        return mm(x, w, lin.bias, epilogue, residual)
+    y = lin.peft_terms(x, mm(x, w, lin.bias))
+    if epilogue == "gelu":
+        return F.gelu(y)
+    return y if residual is None else residual + y
+
+
+def _qkv(mm, a: torch.Tensor, attn, fact) -> torch.Tensor:
+    """The qkv product of LN1's rows a (M, C), plus the LoRA / FacT updates."""
+    qkv = _product(mm, a, attn.qkv)
+    d = attn.qkv_deltas(a, fact)
+    return qkv if d is None else qkv + d
+
+
 def _attn_half(x: torch.Tensor, valid: Optional[torch.Tensor], block, hw: Tuple[int, int],
-               num_heads: int, plain: bool) -> torch.Tensor:
+               num_heads: int, plain: bool, fact=None) -> torch.Tensor:
     """Launches 1-4 of a block: x + proj(attn(LN1(x) * valid)), (Bn, N, C)."""
     ln, mm, att, _ = _PLAIN if plain else _KERNELS
     Bn, N, C = x.shape
@@ -89,48 +120,53 @@ def _attn_half(x: torch.Tensor, valid: Optional[torch.Tensor], block, hw: Tuple[
     xf = x.reshape(M, C).contiguous()
     v_rows = None if valid is None else valid.reshape(M)
     a = ln(xf, block.norm1.weight, block.norm1.bias, block.norm1.eps, v_rows)
-    qkv = mm(a, attn.qkv.weight, attn.qkv.bias)
-    q5 = qkv.view(Bn, N, 3, num_heads, hd)
+    q5 = _qkv(mm, a, attn, fact).view(Bn, N, 3, num_heads, hd)
     q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))  # (Bn, nH, N, hd) views
     rel_h, rel_w = attn.rel_tables(hw, x.dtype)
     o = torch.empty((Bn, N, num_heads, hd), device=x.device, dtype=x.dtype)
     att(q, k, v, rel_h, rel_w, hw, out=o.transpose(1, 2))
-    x1 = mm(o.view(M, C), attn.proj.weight, attn.proj.bias, "residual", xf)
+    x1 = _product(mm, o.view(M, C), attn.proj, "residual", xf)
     return x1.view(Bn, N, C)
 
 
 def _mlp_half(x: torch.Tensor, block, plain: bool) -> torch.Tensor:
-    """Launches 5-7 of a block: x + lin2(gelu(lin1(LN2(x)))), (Bn, N, C)."""
+    """Launches 5-7 of a block: x + lin2(gelu(lin1(LN2(x)))), (Bn, N, C), plus
+    the AdaptFormer adapter of LN2's output where PEFT gave the block one."""
     ln, mm, _, _ = _PLAIN if plain else _KERNELS
     shape = x.shape
     xf = x.reshape(-1, shape[-1]).contiguous()
+    mlp = block.mlp
     b = ln(xf, block.norm2.weight, block.norm2.bias, block.norm2.eps)
-    h = mm(b, block.mlp.lin1.weight, block.mlp.lin1.bias, "gelu")
-    return mm(h, block.mlp.lin2.weight, block.mlp.lin2.bias, "residual", xf).view(shape)
+    h = _product(mm, b, mlp.lin1, "gelu")
+    if mlp.adapter is None:
+        return _product(mm, h, mlp.lin2, "residual", xf).view(shape)
+    return (xf + _product(mm, h, mlp.lin2) + mlp.adapter(b)).view(shape)
 
 
 def fused_window_attn(x: torch.Tensor, valid: Optional[torch.Tensor], block,
-                      hw: Tuple[int, int], num_heads: int) -> torch.Tensor:
+                      hw: Tuple[int, int], num_heads: int, fact=None) -> torch.Tensor:
     """The attention half of a windowed block (K10): x + attn(LN1(x) * valid).
-    x: (BW, N, C) windows; valid: (BW, N, 1) pad mask or None -> (BW, N, C).
-    JAX oracle: ``_unfused_window_attn_half``."""
-    return _attn_half(x, valid, block, hw, num_heads, plain=False)
+    x: (BW, N, C) windows; valid: (BW, N, 1) pad mask or None -> (BW, N, C);
+    ``fact`` the encoder's shared FacT core (u, v) where FacT is on.
+    JAX oracle: ``_unfused_window_attn_half`` (``apply_attention`` for a PEFT
+    block)."""
+    return _attn_half(x, valid, block, hw, num_heads, False, fact)
 
 
-def fused_window_attn_plain(x, valid, block, hw, num_heads):
-    return _attn_half(x, valid, block, hw, num_heads, plain=True)
+def fused_window_attn_plain(x, valid, block, hw, num_heads, fact=None):
+    return _attn_half(x, valid, block, hw, num_heads, True, fact)
 
 
 def fused_global_attn(x: torch.Tensor, block, hw: Tuple[int, int],
-                      num_heads: int) -> torch.Tensor:
+                      num_heads: int, fact=None) -> torch.Tensor:
     """The attention half of a global block (K5): x + attn(LN1(x)) over
     N = H * W tokens. x: (B, N, C) -> (B, N, C). JAX oracle:
     ``_unfused_attn_half``."""
-    return _attn_half(x, None, block, hw, num_heads, plain=False)
+    return _attn_half(x, None, block, hw, num_heads, False, fact)
 
 
-def fused_global_attn_plain(x, block, hw, num_heads):
-    return _attn_half(x, None, block, hw, num_heads, plain=True)
+def fused_global_attn_plain(x, block, hw, num_heads, fact=None):
+    return _attn_half(x, None, block, hw, num_heads, True, fact)
 
 
 def mlp_half(x: torch.Tensor, block) -> torch.Tensor:
@@ -163,7 +199,7 @@ def fused_global_block_plain(x, block, hw, num_heads):
 
 
 def _spatial_block(xp: torch.Tensor, block, window: int, valid_hw: Tuple[int, int],
-                   num_heads: int, plain: bool) -> torch.Tensor:
+                   num_heads: int, plain: bool, fact=None) -> torch.Tensor:
     """The seven launches of a windowed block on the padded map xp
     (B, Hp, Wp, C) -> (B, Hp, Wp, C)."""
     ln, mm, _, att = _PLAIN if plain else _KERNELS
@@ -177,43 +213,44 @@ def _spatial_block(xp: torch.Tensor, block, window: int, valid_hw: Tuple[int, in
     xf = xp.reshape(M, C).contiguous()
     grid = None if (Hp, Wp) == tuple(valid_hw) else (Hp, Wp, *valid_hw)
     a = ln(xf, block.norm1.weight, block.norm1.bias, block.norm1.eps, None, grid)
-    qkv = mm(a, attn.qkv.weight, attn.qkv.bias)
-    q6 = qkv.view(B, Hp, Wp, 3, num_heads, hd)
+    q6 = _qkv(mm, a, attn, fact).view(B, Hp, Wp, 3, num_heads, hd)
     q, k, v = (q6[:, :, :, i] for i in range(3))  # (B, Hp, Wp, nH, hd) map views
     rel_h, rel_w = attn.rel_tables((window, window), xp.dtype)
     o = torch.empty((B, Hp, Wp, num_heads, hd), device=xp.device, dtype=xp.dtype)
     att(q, k, v, rel_h, rel_w, window, out=o)
-    x1 = mm(o.view(M, C), attn.proj.weight, attn.proj.bias, "residual", xf)
+    x1 = _product(mm, o.view(M, C), attn.proj, "residual", xf)
     return _mlp_half(x1, block, plain).view(B, Hp, Wp, C)
 
 
 def fused_window_block_spatial(xp: torch.Tensor, block, window: int,
-                               valid_hw: Tuple[int, int], num_heads: int) -> torch.Tensor:
+                               valid_hw: Tuple[int, int], num_heads: int,
+                               fact=None) -> torch.Tensor:
     """A windowed block (K9) on the padded map: xp (B, Hp, Wp, C), Hp and Wp
     multiples of ``window``, ``valid_hw`` the true (H, W) before padding ->
     (B, Hp, Wp, C). LN1 zeroes the pad rows (y >= H or x >= W), as the
     partitioned chain's mask does. JAX counterpart:
     ``micro_sam_tpu/ops/fused_window_block.py::fused_window_block_spatial``;
     oracle ``_unfused_reference`` on the partitioned windows."""
-    return _spatial_block(xp, block, window, valid_hw, num_heads, plain=False)
+    return _spatial_block(xp, block, window, valid_hw, num_heads, False, fact)
 
 
-def fused_window_block_spatial_plain(xp, block, window, valid_hw, num_heads):
-    return _spatial_block(xp, block, window, valid_hw, num_heads, plain=True)
+def fused_window_block_spatial_plain(xp, block, window, valid_hw, num_heads, fact=None):
+    return _spatial_block(xp, block, window, valid_hw, num_heads, True, fact)
 
 
-def _window_stack(x, valid, block, hw, num_heads, n_images, plain):
+def _window_stack(x, valid, block, hw, num_heads, n_images, plain, fact=None):
     BW = x.shape[0]
     if n_images <= 0 or BW % n_images:
         raise ValueError(f"fused_window_stack: {BW} windows are not n_images = {n_images} "
                          f"equal stacks")
     if hw[0] != hw[1] or x.shape[1] != hw[0] * hw[1]:
         raise ValueError(f"fused_window_stack: windows {tuple(x.shape)} over grid {hw}")
-    return _mlp_half(_attn_half(x, valid, block, hw, num_heads, plain), block, plain)
+    return _mlp_half(_attn_half(x, valid, block, hw, num_heads, plain, fact), block, plain)
 
 
 def fused_window_stack(x: torch.Tensor, valid: Optional[torch.Tensor], block,
-                       hw: Tuple[int, int], num_heads: int, n_images: int) -> torch.Tensor:
+                       hw: Tuple[int, int], num_heads: int, n_images: int,
+                       fact=None) -> torch.Tensor:
     """A windowed block over the window stacks of ``n_images`` images (K11):
     x (n_images * NW, N, C) windows, image by image; valid (.., N, 1) pad mask
     or None -> (n_images * NW, N, C). The seven launches of
@@ -221,8 +258,8 @@ def fused_window_stack(x: torch.Tensor, valid: Optional[torch.Tensor], block,
     module's docstring). JAX counterpart:
     ``micro_sam_tpu/ops/fused_window_block.py::fused_window_stack``; oracle
     ``_unfused_reference``."""
-    return _window_stack(x, valid, block, hw, num_heads, n_images, plain=False)
+    return _window_stack(x, valid, block, hw, num_heads, n_images, False, fact)
 
 
-def fused_window_stack_plain(x, valid, block, hw, num_heads, n_images):
-    return _window_stack(x, valid, block, hw, num_heads, n_images, plain=True)
+def fused_window_stack_plain(x, valid, block, hw, num_heads, n_images, fact=None):
+    return _window_stack(x, valid, block, hw, num_heads, n_images, True, fact)

@@ -27,10 +27,6 @@ class TrainableSAM:
     """Bundles a ``Sam`` with the training-forward functions."""
 
     def __init__(self, sam: Sam):
-        if sam.config.encoder != "vit":
-            raise NotImplementedError(
-                f"{sam.config.model_type}: finetuning the TinyViT encoder is not ported yet "
-                "(it has no training forward; see ROADMAP.md, Queue 1 item 14)")
         self.sam = sam
         self.config = sam.config
 
@@ -51,7 +47,8 @@ class TrainableSAM:
 
     def image_embeddings_oft(self, batched_inputs: torch.Tensor) -> torch.Tensor:
         """One encoder forward for the whole batch: (B, h, w, 3) -> (B, e, e, C)
-        in the compute dtype."""
+        in the compute dtype (the ViT's ``forward_train``, or TinyViT's
+        training forward for vit_t)."""
         return self.sam.encode_image_train(self.preprocess(batched_inputs))
 
     def forward_decoder(self, image_embeddings: torch.Tensor, points: torch.Tensor,

@@ -250,7 +250,7 @@ def train_sam(name: str, model_type: str, train_loader, val_loader, n_epochs: in
               n_iterations: Optional[int] = None, save_every_kth_epoch: Optional[int] = None,
               verify_n_labels_in_loader: Optional[int] = 50,
               box_distortion_factor: Optional[float] = 0.025, overwrite_training: bool = True,
-              compute_dtype: Optional[str] = None) -> None:
+              compute_dtype: Optional[str] = None, peft_kwargs: Optional[Dict] = None) -> None:
     """Finetune SAM with iterative prompting; checkpoints go to
     ``<save_root>/<name>/{latest,best}.pkl`` (the JAX trainer's format).
 
@@ -258,7 +258,8 @@ def train_sam(name: str, model_type: str, train_loader, val_loader, n_epochs: in
     decoder trains beside SAM (``JointSamTrainer``), from the checkpoint's
     decoder state where it has one, and the loaders must yield (raw, labels,
     targets). ``device=None`` is the GPU and raises without one (the tests
-    pass ``device="cpu"``)."""
+    pass ``device="cpu"``). ``peft_kwargs`` finetunes with that PEFT surgery
+    (``get_trainable_sam_model``): the encoder's base weights stay frozen."""
     t_start = time.time()
     if verify_n_labels_in_loader:
         _check_loader(train_loader, with_segmentation_decoder, "train")
@@ -269,7 +270,8 @@ def train_sam(name: str, model_type: str, train_loader, val_loader, n_epochs: in
         return
     model, state = get_trainable_sam_model(model_type=model_type, device=device,
                                            checkpoint_path=checkpoint_path, freeze=freeze,
-                                           compute_dtype=compute_dtype, return_state=True)
+                                           compute_dtype=compute_dtype, return_state=True,
+                                           peft_kwargs=peft_kwargs)
     trainer_kwargs = dict(
         name=name, train_loader=train_loader, val_loader=val_loader, model=model,
         n_sub_iteration=n_sub_iteration,

@@ -131,21 +131,38 @@ class ResizeLabelTrafo:
 def get_trainable_sam_model(model_type: str = util._DEFAULT_MODEL, device: Optional[str] = None,
                             checkpoint_path=None, freeze: Optional[List[str]] = None,
                             return_state: bool = False, compute_dtype: Optional[str] = None,
-                            seed: int = 0) -> Union[TrainableSAM, Tuple[TrainableSAM, Dict]]:
-    """A SAM to finetune: every parameter float32, compute in ``compute_dtype``
-    (bfloat16 on the GPU, float32 on the CPU by default). ``device=None`` is
-    the GPU and raises without one. ``freeze`` lists parts to freeze (of
-    ``FREEZABLE``): their parameters stop requiring grad, so the optimizer
-    neither updates nor decays them."""
+                            seed: int = 0, peft_kwargs: Optional[Dict] = None
+                            ) -> Union[TrainableSAM, Tuple[TrainableSAM, Dict]]:
+    """A SAM to finetune: every parameter float32 (int4 storage aside),
+    compute in ``compute_dtype`` (bfloat16 on the GPU, float32 on the CPU by
+    default). ``device=None`` is the GPU and raises without one. ``freeze``
+    lists parts to freeze (of ``FREEZABLE``): their parameters stop requiring
+    grad, so the optimizer neither updates nor decays them. ``peft_kwargs``
+    applies a PEFT surgery (``util.get_sam_model``) and freezes the encoder's
+    base weights by ``models.peft_sam.get_peft_mask``, as upstream's
+    ``PEFT_Sam`` does (the JAX trainer trains them)."""
     bad = set(freeze or []) - set(FREEZABLE)
     if bad:
         raise ValueError(f"cannot freeze {sorted(bad)}; options: {FREEZABLE}")
     sam, state, _ = util.load_sam(model_type, device, checkpoint_path, compute_dtype, seed,
-                                  weight_dtype=torch.float32)
+                                  weight_dtype=torch.float32, peft_kwargs=peft_kwargs)
+    if peft_kwargs:
+        from ..models.peft_sam import freeze_peft_, get_peft_mask
+        freeze_peft_(sam, get_peft_mask(sam, peft_kwargs.get("peft_module", "lora"),
+                                        peft_kwargs.get("unfreeze_blocks")))
     for part in freeze or []:
         getattr(sam, part).requires_grad_(False)
     trainable = TrainableSAM(sam.train())
     return (trainable, state) if return_state else trainable
+
+
+def freeze_mask(sam, freeze: Optional[List[str]]) -> Dict[str, bool]:
+    """Which of ``sam``'s state-dict entries train under ``freeze``: {name:
+    bool}, False under each frozen top-level part (the JAX package's optax
+    mask under the converter's names). ``freeze`` itself is realized as
+    ``requires_grad_(False)`` (``get_trainable_sam_model``)."""
+    frozen = set(freeze or [])
+    return {k: k.split(".")[0] not in frozen for k in sam.state_dict()}
 
 
 class ConvertToSamInputs:

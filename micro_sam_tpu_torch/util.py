@@ -19,10 +19,10 @@ import numpy as np
 import torch
 
 from . import __version__
-from .models.build_sam import build_sam, default_compute_dtype, get_config, resolve_device
+from .models.build_sam import default_compute_dtype, get_config, make_sam, resolve_device
 from .models.convert import (load_native_checkpoint, load_torch_checkpoint, params_from_jax,
                              params_to_jax)
-from .models.sam import Sam, SamConfig
+from .models.sam import SamConfig
 from .predictor import SamPredictor
 from .utils import zarr_lite
 from .utils.blocking import Blocking
@@ -66,20 +66,21 @@ def _try_load_native_pickle(path: str) -> Optional[Dict[str, Any]]:
 
 def load_sam(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
              checkpoint_path: Optional[str] = None, compute_dtype: Optional[str] = None,
-             seed: int = 0, weight_dtype: Optional[torch.dtype] = None):
+             seed: int = 0, weight_dtype: Optional[torch.dtype] = None,
+             peft_kwargs: Optional[Dict[str, Any]] = None):
     """(Sam on the device in eval mode, state, model hash) for ``get_sam_model``
     and the trainer. Weights come from ``checkpoint_path`` (a zoo ``.pt`` /
     ``.pth``, the JAX package's ``.npz`` / ``.msam``, or a trainer's ``.pkl``),
-    else are drawn at random from ``seed``. ``weight_dtype`` as in ``Sam``."""
+    else are drawn at random from ``seed``. ``weight_dtype`` as in ``Sam``.
+    ``peft_kwargs`` applies a PEFT surgery (``models/peft_sam.apply_peft``)
+    before the checkpoint loads. Every case is built by ``make_sam``."""
     dev = resolve_device(device)
     if compute_dtype is None:
         compute_dtype = default_compute_dtype(dev)
     state: Dict[str, Any] = {}
     if checkpoint_path is None:
-        get_config(model_type)  # validates the name
-        sam = build_sam(model_type, seed=seed, compute_dtype=compute_dtype, device=dev,
-                        weight_dtype=weight_dtype)
-        return sam, state, None
+        cfg = get_config(model_type, compute_dtype)  # validates the name
+        return make_sam(cfg, None, seed, weight_dtype, peft_kwargs).to(dev).eval(), state, None
     path = str(checkpoint_path)
     if not os.path.exists(path):
         raise FileNotFoundError(f"Checkpoint {path} does not exist.")
@@ -99,8 +100,7 @@ def load_sam(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
         cfg, sd, decoder_state = load_torch_checkpoint(path, model_type)
         if decoder_state is not None:
             state["decoder_state"] = decoder_state
-    sam = Sam(replace(cfg, compute_dtype=compute_dtype), weight_dtype)
-    sam.load_state_dict(sd)
+    sam = make_sam(replace(cfg, compute_dtype=compute_dtype), sd, seed, weight_dtype, peft_kwargs)
     state["checkpoint_path"] = path
     return sam.to(dev).eval(), state, f"sha256:{_compute_hash(path)}"
 
@@ -108,15 +108,20 @@ def load_sam(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
 def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
                   checkpoint_path: Optional[str] = None, return_sam: bool = False,
                   return_state: bool = False, compute_dtype: Optional[str] = None,
-                  seed: int = 0) -> Union[SamPredictor, Tuple]:
+                  seed: int = 0, peft_kwargs: Optional[Dict[str, Any]] = None
+                  ) -> Union[SamPredictor, Tuple]:
     """Build a SamPredictor.
 
     ``device=None`` means the GPU (``"cuda"``); without one this raises. Weights
     come from ``checkpoint_path`` (a zoo ``.pt`` / ``.pth``, the JAX
     package's ``.npz`` / ``.msam``, or a trainer checkpoint ``.pkl`` of either
     package), else are drawn at random from ``seed``. ``compute_dtype=None`` is
-    bfloat16 on the GPU and float32 on the CPU."""
-    sam, state, model_hash = load_sam(model_type, device, checkpoint_path, compute_dtype, seed)
+    bfloat16 on the GPU and float32 on the CPU. ``peft_kwargs`` (e.g.
+    ``{"rank": 4}``, ``{"peft_module": "fact"}``, ``{"rank": 4, "quantize":
+    True}``) applies that PEFT surgery and then loads the checkpoint, its
+    PEFT parameters included where it has them."""
+    sam, state, model_hash = load_sam(model_type, device, checkpoint_path, compute_dtype, seed,
+                                      peft_kwargs=peft_kwargs)
     predictor = SamPredictor(sam)
     predictor.model_type = model_type
     predictor.model_name = model_type
@@ -168,6 +173,42 @@ def export_custom_sam_model(checkpoint_path: str, model_type: str, save_path: st
     sam, _, _ = load_sam(model_type, "cpu", checkpoint_path, "float32", weight_dtype=torch.float32)
     torch.save({k: v.detach().float().contiguous() for k, v in sam.state_dict().items()},
                save_path)
+
+
+def export_custom_qlora_model(checkpoint_path: Optional[str], finetuned_path: str,
+                              model_type: str, save_path: str) -> None:
+    """A QLoRA-finetuned trainer checkpoint -> a LoRA checkpoint for
+    ``get_sam_model(peft_kwargs=...)``: every int4 base weight (``w_q4`` /
+    ``w_scale``, the port's int8 values or the JAX package's int4) dequantized
+    to a dense float32 ``w``, every floating leaf float32, the LoRA
+    parameters kept; written as the JAX package's pickle
+    (``model_state``, ``model_type``, ``peft_module``). The JAX package's
+    export keeps the int4 storage, which its docstring says it removes.
+    ``checkpoint_path`` (the base model) is accepted for the reference's
+    signature: the finetuned checkpoint holds every weight. A host-side file
+    conversion: a trusted pickle in, a pickle out."""
+    with open(finetuned_path, "rb") as f:
+        state = pickle.load(f)
+    params = state["model_state"] if "model_state" in state else state
+
+    def dense(node):
+        if isinstance(node, dict):
+            out = {k: dense(v) for k, v in node.items() if k not in ("w_q4", "w_scale")}
+            if "w_q4" in node:
+                q = np.asarray(node["w_q4"]).astype(np.int8).astype(np.float32)
+                s = np.asarray(node["w_scale"]).astype(np.float32)
+                out["w"] = (q.reshape(s.shape[0], -1, q.shape[1]) * s[:, None, :]).reshape(q.shape)
+            return out
+        if isinstance(node, (list, tuple)):
+            return [dense(v) for v in node]
+        arr = np.asarray(node)
+        if arr.dtype.kind == "f" or str(arr.dtype) == "bfloat16":
+            return arr.astype(np.float32)
+        return arr
+
+    out = {"model_state": dense(params), "model_type": model_type, "peft_module": "lora"}
+    with open(save_path, "wb") as f:
+        pickle.dump(out, f)
 
 
 # -----------------------------------------------------------------------------

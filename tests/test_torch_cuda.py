@@ -1367,3 +1367,107 @@ def test_joint_step_bf16_on_the_card(dev, monkeypatch):
     assert (relpos_attention.launches - f0, relpos_attention_backward.launches - b0) == (6, 8)
     assert not torch.equal(sam0, model.sam.mask_decoder.iou_token.weight)
     assert not torch.equal(dec0, trainer.unetr.out_conv.weight)
+
+
+# ---------------------------------------------------------------------------
+# PEFT blocks (the K1 route) and the vit_t chains in autograd
+# ---------------------------------------------------------------------------
+
+def _peft_vit(dev, case, dtype):
+    """A 2-block ViT at vit_b width (block 0 windowed, block 1 global, 256
+    px) with the surgery ``case``, its fresh PEFT parameters redrawn so that
+    they change the output; product weights held in ``dtype``."""
+    import dataclasses
+    from micro_sam_tpu_torch.models.build_sam import get_config
+    from micro_sam_tpu_torch.models.peft_sam import apply_peft
+    from micro_sam_tpu_torch.models.sam import Sam
+    kw = {"lora": dict(rank=4, update_matrices=("q", "k", "v", "mlp")),
+          "int4_lora": dict(rank=4, quantize=True), "fact": dict(rank=4, peft_module="fact"),
+          "ssf": dict(peft_module="ssf"), "adaptformer": dict(peft_module="adaptformer")}[case]
+    cfg = dataclasses.replace(get_config("vit_b", "bfloat16"), depth=2, global_attn_indexes=(1,),
+                              img_size=256)
+    g = torch.Generator().manual_seed(21)
+    sam = Sam(cfg, torch.float32).init_(g)
+    apply_peft(sam, **kw)
+    with torch.no_grad():
+        for name, p in sam.image_encoder.named_parameters():
+            if any(m in name for m in (".lora.", "fact", "ssf_", ".adapter.")):
+                p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    for blk in sam.image_encoder.blocks:
+        blk.hold_weights_in_(dtype)
+    return sam.to(dev).eval()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["lora", "int4_lora", "fact", "ssf", "adaptformer"])
+def test_peft_block_route_matches_plain(dev, dtype, case):
+    """A PEFT block's attention half (``fused_window_attn`` /
+    ``fused_global_attn``: K1 on its qkv rows with the LoRA / FacT updates,
+    the products through gemm) and MLP half against the same halves through
+    the plain versions (f32, on the same inputs): a masked window batch and a
+    global grid; one K1 launch an attention half."""
+    from micro_sam_tpu_torch.ops import fused_window_block as fwb
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    enc = _peft_vit(dev, case, dtype)
+    fact = enc.image_encoder.fact
+    g = torch.Generator().manual_seed(22)
+    win = torch.randn(8, 196, 768, generator=g).to(dev, dtype)
+    valid = (torch.rand(8, 196, 1, generator=g) > 0.2).float().to(dev)
+    glob = torch.randn(1, 256, 768, generator=g).to(dev, dtype)
+    for blk, x, v, hw in ((enc.image_encoder.blocks[0], win, valid, (14, 14)),
+                          (enc.image_encoder.blocks[1], glob, None, (16, 16))):
+        with torch.no_grad():
+            n0 = relpos_attention.launches
+            if v is None:
+                got = fwb.mlp_half(fwb.fused_global_attn(x, blk, hw, 12, fact), blk)
+            else:
+                got = fwb.mlp_half(fwb.fused_window_attn(x, v, blk, hw, 12, fact), blk)
+            torch.cuda.synchronize()
+            assert relpos_attention.launches - n0 == 1
+            xf = x.float()
+            if v is None:
+                ref = fwb.mlp_half_plain(fwb.fused_global_attn_plain(xf, blk, hw, 12, fact), blk)
+            else:
+                ref = fwb.mlp_half_plain(fwb.fused_window_attn_plain(xf, v, blk, hw, 12, fact),
+                                         blk)
+        _held(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("chain", ["K6", "K7", "K8"])
+def test_tiny_chain_functions_on_the_card(dev, dtype, chain):
+    """Each chain's autograd function with float32 master weights: its
+    forward (the kernel chain) against the plain chain in f32 on the same
+    inputs; its backward (the plain chain recomputed in ``dtype``) equal to
+    autograd through the plain chain in ``dtype`` (rel 1e-3 of each max:
+    the same computation), gradients reaching the f32 weights."""
+    from micro_sam_tpu_torch.ops import fused_mbconv as k7, fused_tiny_attention as k6
+    from micro_sam_tpu_torch.ops import fused_tiny_tail as k8
+    enc = _tiny_vit(torch.float32, dev)
+    g = torch.Generator().manual_seed(23)
+    blk = enc.layers[1].blocks[0]
+    if chain == "K7":
+        x, mods = torch.randn(2, 32, 40, 64, generator=g), (enc.layers[0].blocks[0],)
+        fn, plain = k7.fused_mbconv, k7.fused_mbconv_plain
+    elif chain == "K6":
+        x, mods = torch.randn(2, 21, 28, 128, generator=g), (blk.attn,)
+        fn, plain = k6.fused_tiny_attention, k6.fused_tiny_attention_plain
+    else:
+        x, mods = torch.randn(2, 20, 24, 128, generator=g), (blk.local_conv, blk.mlp)
+        fn, plain = k8.fused_tiny_tail, k8.fused_tiny_tail_plain
+    params = [p for m in mods for p in m.parameters()]
+    x = x.to(dev, dtype)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    out = fn(xs[0], *mods)
+    assert type(out.grad_fn).__name__.startswith("Fused")
+    with torch.no_grad():
+        ref = plain(x.float(), *mods)
+    _held(out.detach(), ref, dtype)
+    go = torch.randn(out.shape, generator=g).to(dev, dtype)
+    ga = torch.autograd.grad(out, [xs[0]] + params, go)
+    gb = torch.autograd.grad(plain(xs[1], *mods), [xs[1]] + params, go)
+    torch.cuda.synchronize()
+    for p, a, b in zip([xs[0]] + params, ga, gb):
+        assert a.dtype == p.dtype and torch.isfinite(a).all()
+        err = float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) + 1e-30)
+        assert err <= 1e-3, err

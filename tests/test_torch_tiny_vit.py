@@ -397,14 +397,6 @@ def test_folded_bn_follows_the_parameters():
     assert m.folded(torch.float32)[0].requires_grad
 
 
-def test_vit_t_training_raises():
-    """vit_t finetuning is not ported: the trainer refuses the TinyViT model
-    with a pointer to the roadmap instead of reaching a missing forward_train."""
-    from micro_sam_tpu_torch.training import get_trainable_sam_model
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        get_trainable_sam_model("vit_t", device="cpu")
-
-
 def test_build_sam_vit_t_devices():
     from micro_sam_tpu_torch.models.build_sam import build_sam
     if torch.cuda.is_available():
