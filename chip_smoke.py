@@ -48,8 +48,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     weights), 3 warm-up and 5 timed, with the attention launches per step
     counted (24 forward, 48 backward); one step's K4 calls are recorded and
     replayed as the kernel, the plain version and SDPA backward; one f32 step
-    on the card (batch 1, 4 objects, one round) against the same step on the
-    CPU (gradients within rel 1e-3 of each tensor's max);
+    on the card (batch 1, 4 objects, one round; vit_b cut to 6 blocks, global
+    at 2 and 5) against the same step on the CPU, in a process started at the
+    phase's start (gradients within rel 1e-3 of each tensor's max);
  7. vit_t (TinyViT / MobileSAM): holds the new kernels (tiny_attention at the
     three stage geometries, dwconv at the MBConv and the three tail shapes,
     the gemm's residual_gelu epilogue) and the K6 / K7 / K8 chains against
@@ -100,7 +101,8 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     patches; the preset itself runs with the decoder in phase 14(e)) and of
     vit_l at full width cut to 6 blocks (3; global at 5) at train_sam's
     defaults, launches per step 64 / 128 and 12 / 24, one profiled step and
-    one step's K4 calls replayed each; and one f32 step of a full-width vit_h
+    one step's K4 calls replayed each; and one f32 step (its CPU half in a
+    process started at the phase's start) of a full-width vit_h
     cut to 4 blocks (global at 3) on the card against the CPU. Prints the
     phase's wall time;
 10. tiled precompute, the encoder's K9 / K11 routes and the rel-pos kernels
@@ -120,8 +122,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     precompute of its crop (3e-2 of max) and the opt-in routes against the
     default (2e-2), a tiled prompt, tiles/s; a tiled cache under build/
     reloaded lazily and a tile_subset call resumed with no launch; one
-    encode of each opt-in route replayed per kernel and per chain; vit_h
-    through K9 against its default route. Prints the phase's wall time;
+    encode of each opt-in route replayed per kernel and per chain; vit_h (full
+    width, 8 blocks) through K9 against its default route. Prints the
+    phase's wall time;
 11. the prompt layer and AMG: (a) get_sam_model("vit_b") (bf16, seed 0) on a
     1024^2 synthetic_data image: segment_from_points / _box / _mask /
     _box_and_points, batched_inference over the objects' boxes at batch 32,
@@ -193,7 +196,7 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     CPU (loss rel 1e-5, gradients rel 1e-3 of each tensor's max); (d)
     train_instance_segmentation (every SAM tensor bitwise unchanged, every
     decoder parameter moved); (e) train_sam_for_configuration("A100") at its
-    default (vit_h and the decoder) with its peak memory; (f)
+    default (vit_h, cut to 8 blocks, and the decoder) with its peak memory; (f)
     SimpleSamTrainer, MedSAMTrainer and SemanticSamTrainer (3 classes), 2
     steps each. Prints the phase's wall time;
 15. PEFT, the 3d wrappers and vit_t finetuning (bf16, seed 0; CPU references
@@ -220,9 +223,28 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     settings (12 / 10 / 20 / 44 dwconv / tiny_attention / layernorm / gemm a
     step), peak memory, a profiled step, one f32 vit_t step on the card
     against the CPU. Prints the phase's wall time;
-16. prints one JSON line of details (per-shape rows, chains, end-to-end and
+16. evaluation (bf16 vit_b, seed 0, two 1024^2 synthetic_data images of 20
+    cells): (a) precompute_all_embeddings into a zarr folder under build/;
+    (b) the iterative-prompting loop of the evaluation, 8 iterations from
+    the objects' boxes, with and without masks, over (a)'s cache with no
+    launch: ms an iteration split into decode and host, mSA per iteration
+    scored on the host; (c) run_instance_segmentation_grid_search for AIS
+    (the UNETR at published widths, a 2 x 2 grid at quantiles of its maps)
+    and AMG (16 x 16 points, a 2 x 2 grid) on one image over (a)'s cache,
+    the CSVs written without pandas, the best parameters, ms a combination;
+    (d) segment_slices_from_ground_truth on phase 13's 8-slice volume; (e)
+    compute_object_features and project_embeddings_for_visualization on
+    the card's embeddings, untiled and tiled; the encodes' launches (24 / 48
+    / 12 each) asserted throughout; (f) the trained fixture (f32) on a 512^2
+    image of its kind on the card against the CPU (two processes started at
+    the phase's start): the iterative loop fed the CPU's corrective points
+    (every object's mask at IoU >= 0.99 each iteration, mSA within 1e-3),
+    the AMG grid search's best parameters equal, the features within rel
+    1e-3, the PCA within 1e-3 once signs are aligned. Prints the phase's
+    wall time;
+17. prints one JSON line of details (per-shape rows, chains, end-to-end and
     training numbers, the tiled routes, the AMG, AIS, multi-dimensional,
-    joint-training and PEFT numbers), then the kernels line (one entry
+    joint-training, PEFT and evaluation numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
@@ -2153,11 +2175,14 @@ def timed_steps(counters, model_type, train_loader, val_loader, batches, save_ro
     return k4, stats, launches
 
 
-def f32_step_grads_cpu(root, threads, x, y, model_type):
-    """``f32_step_grads`` on the CPU in a process of its own (``threads``)."""
+def f32_step_grads_cpu(root, threads, x, y, model_type, depth=None, global_attn_indexes=None):
+    """``f32_step_grads`` on the CPU in a process of its own (``threads``),
+    ``model_type`` cut to ``depth`` blocks (``CutDepth``) when given."""
+    import contextlib
     sys.path.insert(0, root)
     torch.set_num_threads(threads)
-    return f32_step_grads("cpu", x, y, model_type)
+    with CutDepth(model_type, depth, global_attn_indexes) if depth else contextlib.nullcontext():
+        return f32_step_grads("cpu", x, y, model_type)
 
 
 def f32_step_check(x, y, model_type="vit_b", cpu_run=None):
@@ -2190,8 +2215,57 @@ def f32_step_check(x, y, model_type="vit_b", cpu_run=None):
     return worst, loss_rel
 
 
+class CutDepth:
+    """``SAM_CONFIGS[model_type]`` at full width cut to its first ``depth``
+    blocks while the block runs, the global ones ``global_attn_indexes``
+    (default: the last): a path run at a smaller depth still takes both block
+    kinds through their kernels."""
+
+    def __init__(self, model_type, depth, global_attn_indexes=None):
+        self.model_type, self.depth = model_type, depth
+        self.globals = tuple(global_attn_indexes or (depth - 1,))
+
+    def __enter__(self):
+        import dataclasses
+        from micro_sam_tpu_torch.models import build_sam
+        self.saved = build_sam.SAM_CONFIGS[self.model_type]
+        cfg = dataclasses.replace(self.saved, depth=self.depth,
+                                  global_attn_indexes=self.globals)
+        build_sam.SAM_CONFIGS[self.model_type] = cfg
+        return cfg
+
+    def __exit__(self, *exc):
+        from micro_sam_tpu_torch.models import build_sam
+        build_sam.SAM_CONFIGS[self.model_type] = self.saved
+
+
+# the f32 parity steps: blocks (global ones) of the cut model; their CPU half
+# runs in a process started at the phase's start
+F32_STEP_CUT = {"vit_b": (6, (2, 5)), "vit_h": (4, (3,))}
+F32_STEP_CPU_THREADS = 4
+
+
+def f32_step_cpu_run(pool, root, batch, model_type):
+    """The CPU half of ``f32_step_check`` on the first item of ``batch``, at
+    F32_STEP_CUT's depth, submitted to ``pool``; returns the future."""
+    depth, globs = F32_STEP_CUT[model_type]
+    return pool.submit(f32_step_grads_cpu, root, F32_STEP_CPU_THREADS, batch[0][:1],
+                       batch[1][:1], model_type, depth, globs)
+
+
+def f32_step_card_check(batch, model_type, cpu_run):
+    """``f32_step_check`` of ``model_type`` cut to F32_STEP_CUT's depth, the
+    CPU half from ``cpu_run``. Returns (worst gradient rel, loss rel, blocks)."""
+    depth, globs = F32_STEP_CUT[model_type]
+    with CutDepth(model_type, depth, globs):
+        log(f"  f32 step of {model_type} at full width, {depth} blocks (global at "
+            f"{', '.join(map(str, globs))})")
+        return f32_step_check(batch[0][:1], batch[1][:1], model_type, cpu_run) + (depth,)
+
+
 def training_phase(counters, root):
-    from micro_sam_tpu_torch.training import train_sam
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
 
     imgs, segs = training_data()
@@ -2199,6 +2273,19 @@ def training_phase(counters, root):
     val_loader = SamLoader(SamDataset(imgs[4:], segs[4:], (512, 512), n_samples=2, seed=1),
                            batch_size=2)
     save_root = os.path.join(root, "build", "chip_smoke_training")
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the f32 step's batch from a loader of its own: train_loader's draws stay as they were
+        f32_batch = next(iter(SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4),
+                                        batch_size=2)))
+        cpu_run = f32_step_cpu_run(pool, root, f32_batch, "vit_b")
+        return training_path(counters, imgs, train_loader, val_loader, save_root, f32_batch,
+                             cpu_run)
+
+
+def training_path(counters, imgs, train_loader, val_loader, save_root, f32_batch, cpu_run):
+    """Phase 6's card work: train_sam, timed steps, the checkpoint, the f32
+    step (its CPU half ``cpu_run``)."""
+    from micro_sam_tpu_torch.training import train_sam
 
     # the training path, counted from train_sam to the last timed step
     for c in counters.values():
@@ -2221,10 +2308,10 @@ def training_phase(counters, root):
     # the checkpoint predicts on the card
     check_checkpoint(best, "vit_b", imgs[0])
 
-    # one f32 step on the card against the same step on the CPU
-    worst, loss_rel = f32_step_check(batches[0][0][:1], batches[0][1][:1])
+    # one f32 step on the card against the same step on the CPU, vit_b cut
+    worst, loss_rel, depth = f32_step_card_check(f32_batch, "vit_b", cpu_run)
     training = {**stats, "train_sam_s": train_sam_s, "f32_step_grad_rel": worst,
-                "f32_step_loss_rel": loss_rel}
+                "f32_step_loss_rel": loss_rel, "f32_step_blocks": depth}
     return launches, k4, training
 
 
@@ -2329,19 +2416,13 @@ def finetuning_phase(counters, root):
     versions; timed vit_h steps (the "A100" preset's model and objects, on
     default_sam_loader over phase 6's patches; the preset itself runs with
     the decoder in phase 14(e)) and vit_l steps at full width cut to
-    ``VIT_L_TIMED_DEPTH`` blocks; one f32 step of a full-width vit_h cut to 4
-    blocks on the card against the CPU."""
-    import dataclasses
+    ``VIT_L_TIMED_DEPTH`` blocks; one f32 step of a full-width vit_h cut to
+    F32_STEP_CUT's depth on the card against the CPU (a process started at
+    the phase's start)."""
     import gc
-    from micro_sam_tpu_torch.models import build_sam
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     from micro_sam_tpu_torch.training import default_sam_loader
-
-    log("  K4 at head dim 80 (vit_h's training shapes, batch 2) vs plain backward "
-        "(bf16: within 3e-2 of the f32 plain result)")
-    with torch.enable_grad():
-        bwd_rows = backward_phase(grids=((50, 14), (2, 64)), nH=16, hd=80, seed=4322)
-    log("  K12 flash_attention_rel_pos vs plain versions")
-    k12_rows, k12 = k12_phase(counters)
 
     imgs, segs = training_data()
 
@@ -2353,44 +2434,40 @@ def finetuning_phase(counters, root):
             batch_size=2)
     train_loader, val_loader = loader(True), loader(False)
     save_root = os.path.join(root, "build", "chip_smoke_training")
-
     batches = list(train_loader)
-    for c in counters.values():
-        c.launches = 0
-    k4_h, stats_h, launches_h = timed_steps(counters, "vit_h", train_loader, val_loader, batches,
-                                            save_root)
-    log(f"  launches in the vit_h training path ({TRAIN_WARMUP} + {TRAIN_REPS} steps): "
-        f"{launches_h}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_run = f32_step_cpu_run(pool, root, batches[0], "vit_h")
+        log("  K4 at head dim 80 (vit_h's training shapes, batch 2) vs plain backward "
+            "(bf16: within 3e-2 of the f32 plain result)")
+        with torch.enable_grad():
+            bwd_rows = backward_phase(grids=((50, 14), (2, 64)), nH=16, hd=80, seed=4322)
+        log("  K12 flash_attention_rel_pos vs plain versions")
+        k12_rows, k12 = k12_phase(counters)
 
-    for c in counters.values():
-        c.launches = 0
-    saved_l = build_sam.SAM_CONFIGS["vit_l"]
-    build_sam.SAM_CONFIGS["vit_l"] = dataclasses.replace(
-        saved_l, depth=VIT_L_TIMED_DEPTH, global_attn_indexes=(VIT_L_TIMED_DEPTH - 1,))
-    try:
-        log(f"  vit_l at full width (1024, 16 heads of 64), {VIT_L_TIMED_DEPTH} blocks (global "
-            f"at {VIT_L_TIMED_DEPTH - 1})")
-        k4_l, stats_l, launches_l = timed_steps(counters, "vit_l", train_loader, val_loader,
-                                                batches, save_root, reps=TRAIN_REPS_VIT_L)
-    finally:
-        build_sam.SAM_CONFIGS["vit_l"] = saved_l
-    log(f"  launches in the vit_l training path ({TRAIN_WARMUP} + {TRAIN_REPS_VIT_L} steps): "
-        f"{launches_l}")
-    gc.collect()
-    torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+        k4_h, stats_h, launches_h = timed_steps(counters, "vit_h", train_loader, val_loader,
+                                                batches, save_root)
+        log(f"  launches in the vit_h training path ({TRAIN_WARMUP} + {TRAIN_REPS} steps): "
+            f"{launches_h}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    cut = dataclasses.replace(build_sam.SAM_CONFIGS["vit_h"], depth=4, global_attn_indexes=(3,))
-    saved = build_sam.SAM_CONFIGS["vit_h"]
-    build_sam.SAM_CONFIGS["vit_h"] = cut
-    try:
-        log("  f32 step of vit_h at full width (1280, 16 heads of 80), 4 blocks (global at 3)")
-        worst, loss_rel = f32_step_check(batches[0][0][:1], batches[0][1][:1], "vit_h")
-    finally:
-        build_sam.SAM_CONFIGS["vit_h"] = saved
-    stats_h.update(f32_step_cut_to_4_blocks_grad_rel=worst,
-                   f32_step_cut_to_4_blocks_loss_rel=loss_rel)
+        for c in counters.values():
+            c.launches = 0
+        with CutDepth("vit_l", VIT_L_TIMED_DEPTH):
+            log(f"  vit_l at full width (1024, 16 heads of 64), {VIT_L_TIMED_DEPTH} blocks "
+                f"(global at {VIT_L_TIMED_DEPTH - 1})")
+            k4_l, stats_l, launches_l = timed_steps(counters, "vit_l", train_loader, val_loader,
+                                                    batches, save_root, reps=TRAIN_REPS_VIT_L)
+        log(f"  launches in the vit_l training path ({TRAIN_WARMUP} + {TRAIN_REPS_VIT_L} "
+            f"steps): {launches_l}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        worst, loss_rel, depth = f32_step_card_check(batches[0], "vit_h", cpu_run)
+    stats_h.update(f32_step_cut_grad_rel=worst, f32_step_cut_loss_rel=loss_rel,
+                   f32_step_blocks=depth)
     return dict(bwd_rows=bwd_rows, k12_rows=k12_rows, k12=k12,
                 vit_h=dict(k4=k4_h, training=stats_h, launches=launches_h),
                 vit_l=dict(k4=k4_l, training=stats_l, launches=launches_l))
@@ -2757,16 +2834,21 @@ def tiled_cache_checks(predictor, counters, image, root):
     return dict(lazy_reload=True, resume_without_launch=True)
 
 
+VIT_H_K9_DEPTH = 8   # vit_h through K9: one period of its blocks (global at 7)
+
+
 def vit_h_spatial_check(counters):
-    """One 1024^2 vit_h encode (full width and depth, bf16, seed 0) through the
-    K9 route against the default route's, within the phase-8 bf16 bound
-    (3e-2 of max); 28 spatial attention launches."""
+    """One 1024^2 vit_h encode (full width cut to VIT_H_K9_DEPTH blocks, bf16,
+    seed 0) through the K9 route against the default route's, within the
+    phase-8 bf16 bound (3e-2 of max); a spatial attention launch for each
+    windowed block."""
     import gc
     from micro_sam_tpu_torch.util import _to_image, get_sam_model
     rng = np.random.RandomState(0)
     x1 = _to_image(rng.randint(0, 256, size=(1024, 1024)).astype(np.uint8))[None].astype(
         np.float32)
-    predictor = get_sam_model("vit_h", seed=0)
+    with CutDepth("vit_h", VIT_H_K9_DEPTH):
+        predictor = get_sam_model("vit_h", seed=0)
     ref = predictor.encode_batch(x1).float().cpu()
     with Route("K9"):
         for c in counters.values():
@@ -2775,9 +2857,9 @@ def vit_h_spatial_check(counters):
         torch.cuda.synchronize()
         launches = {k: c.launches for k, c in counters.items() if c.launches}
     rel = float((got - ref).abs().max() / ref.abs().max())
-    log(f"  vit_h 1024^2 encode through the K9 route vs the default route: rel {rel:.3e} "
-        f"(tol 3e-2); launches {launches}")
-    if rel > 3e-2 or launches.get("relpos_attention_spatial") != 28:
+    log(f"  vit_h ({VIT_H_K9_DEPTH} blocks) 1024^2 encode through the K9 route vs the default "
+        f"route: rel {rel:.3e} (tol 3e-2); launches {launches}")
+    if rel > 3e-2 or launches.get("relpos_attention_spatial") != VIT_H_K9_DEPTH - 1:
         raise AssertionError("vit_h through the K9 route disagrees or missed the spatial kernel")
     del predictor
     gc.collect()
@@ -3726,6 +3808,8 @@ def ais_phase(counters, root, p10):
         log("  (b) AIS and APG on maps built from the image's truth")
         apg = get_instance_segmentation_generator(predictor, False, ais._decoder, "apg")
         truth = truth_checks(predictor, ais, apg, seg, emb)
+        log("  (e) the automatic segmentation entry points (while the CPU references run)")
+        e2e = end_to_end_checks(predictor, state, image, seg, root)
         log("  (c) the decoder on the card against the CPU (two processes, started after the "
             "encode)")
         t0 = time.perf_counter()
@@ -3734,8 +3818,6 @@ def ais_phase(counters, root, p10):
         log("  (d) tiled AIS and APG over phase 10's tiled embeddings")
         tiled = tiled_ais_checks(predictor, ais._decoder, p10["amg_inputs"],
                                  rows["conv-transpose"]["bf16_tol"])
-        log("  (e) the automatic segmentation entry points")
-        e2e = end_to_end_checks(predictor, state, image, seg, root)
     del predictor, ais, apg
     torch.cuda.empty_cache()
     return dict(decoder=rows, ais=a, truth=truth, tiled=tiled, end_to_end=e2e)
@@ -4539,25 +4621,28 @@ def instance_only_check(counters, imgs, segs, save_root):
             "decoder_moved": moved}
 
 
+PRESET_VIT_H_DEPTH = 8   # the A100 preset's vit_h: one period of its blocks (global at 7)
+
+
 def preset_joint_check(counters, imgs, segs, save_root):
-    """(e) train_sam_for_configuration("A100") at its default: vit_h and the
-    decoder, 2 steps; launches and peak memory."""
+    """(e) train_sam_for_configuration("A100") at its default: vit_h (full
+    width cut to PRESET_VIT_H_DEPTH blocks) and the decoder, 2 steps;
+    launches and peak memory."""
     import gc
-    from micro_sam_tpu_torch.models import build_sam
     from micro_sam_tpu_torch.training import train_sam_for_configuration
     train_loader, val_loader = joint_loaders(imgs, segs)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with TrainersKept("JointSamTrainer") as seen, torch.enable_grad():
+    with TrainersKept("JointSamTrainer") as seen, torch.enable_grad(), \
+            CutDepth("vit_h", PRESET_VIT_H_DEPTH) as cfg:
         _, launches = counted(counters, lambda: train_sam_for_configuration(
             "smoke_h_joint", "A100", train_loader, val_loader, n_iterations=2, device="cuda",
             save_root=save_root))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     (tr,) = seen.trainers
-    cfg = build_sam.SAM_CONFIGS["vit_h"]
     got = (tr.model.config.model_type, tr.model.config.embed_dim, tr.n_objects_per_batch)
     depth = cfg.depth
     expect_launches("train_sam_for_configuration('A100') (vit_h and the decoder, 2 steps, "
@@ -4565,8 +4650,9 @@ def preset_joint_check(counters, imgs, segs, save_root):
                     {"relpos_attention": 2 * 3 * depth + depth,
                      "relpos_attention_backward": 2 * 4 * depth})
     moved = sum(not torch.equal(v, tr.unetr0[k]) for k, v in tr.unetr.named_parameters())
-    log(f"  A100 preset with the decoder: {wall:.1f} s for 2 steps, validation and checkpoints; "
-        f"trainer {got}; peak memory {peak / 2**30:.3f} GiB; decoder parameters moved {moved}")
+    log(f"  A100 preset with the decoder (vit_h cut to {depth} blocks): {wall:.1f} s for 2 "
+        f"steps, validation and checkpoints; trainer {got}; peak memory {peak / 2**30:.3f} GiB; "
+        f"decoder parameters moved {moved}")
     if got != ("vit_h", cfg.embed_dim, 25) or moved != len(list(tr.unetr.parameters())):
         raise AssertionError("the A100 preset did not train vit_h and the decoder")
     del seen, tr
@@ -5092,6 +5178,359 @@ def peft_phase(counters, root):
                 wrappers_3d=f)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: evaluation on the card
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGE = dict(shape=(1024, 1024), n_objects=20, radius_range=(30, 110))  # seeds 160, 161
+EVAL_ITERATIONS = 8
+EVAL_AMG = dict(points_per_side=16, points_per_batch=64)
+EVAL_AMG_GRID = {"pred_iou_thresh": [0.6, 0.8], "stability_score_thresh": [0.6, 0.9]}
+# AIS's grid at quantiles of the random decoder's maps (center and boundary
+# distance), the foreground threshold and a size floor fixed
+EVAL_AIS_QUANTILES = {"center_distance_threshold": (0.6, 0.7),
+                      "boundary_distance_threshold": (0.5, 0.6)}
+EVAL_AIS_FIXED = dict(foreground_quantile=0.3, min_size=1000)
+EVAL_TILED = dict(tile_shape=(512, 512), halo=(128, 128), batch_size=4)
+EVAL_CPU_THREADS = 3      # each of the two CPU reference processes
+# the fixture's image at half its side (the encoder resizes it to 1024^2, so
+# its objects keep the sizes it was trained on), 4 iterations: the CPU's
+# share of the phase
+EVAL_FIXTURE_IMAGE = dict(shape=(512, 512), seed=201, n_objects=8, radius_range=(15, 55))
+EVAL_FIXTURE_ITERATIONS = 4
+EVAL_FIXTURE_AMG = dict(points_per_side=8, points_per_batch=64)   # one batch of 64 points
+EVAL_FIXTURE_TOL = dict(mask_iou=0.99, msa=1e-3, features=1e-3, pca=1e-3)
+
+
+def eval_fixture(root, device, threads=None, part="loop", prompts=None):
+    """The trained fixture SAM (f32) on ``device`` over a 512^2 image of its
+    kind (EVAL_FIXTURE_IMAGE). part "loop": the evaluation's iterative loop
+    from the objects' boxes, EVAL_FIXTURE_ITERATIONS rounds without masks, its corrective
+    points drawn from RandomState(0) or, given ``prompts``, replayed from
+    them; "grid": the AMG grid search (EVAL_FIXTURE_AMG, EVAL_AMG_GRID; CSVs under
+    build/chip_smoke_eval/fixture-<device>), then the object features and
+    the PCA projection of the embeddings. Returns (results, seconds)."""
+    sys.path.insert(0, root)
+    torch.set_grad_enabled(False)
+    if threads:
+        torch.set_num_threads(threads)
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.evaluation import instance_segmentation as egs
+    from micro_sam_tpu_torch.evaluation.inference import iterative_prompting_segmentations
+    from micro_sam_tpu_torch.evaluation.matching import mean_segmentation_accuracy
+    from micro_sam_tpu_torch.instance_segmentation import AutomaticMaskGenerator
+    from micro_sam_tpu_torch.models.convert import params_from_flat_npz
+    from micro_sam_tpu_torch.models.sam import Sam
+    from micro_sam_tpu_torch.object_classification import compute_object_features
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.prompt_generators import IterativePromptGenerator
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.visualization import project_embeddings_for_visualization
+    t0 = time.perf_counter()
+    cfg, sd = params_from_flat_npz(os.path.join(root, FIXTURE), compute_dtype="float32")
+    sam = Sam(cfg)
+    sam.load_state_dict(sd)
+    predictor = SamPredictor(sam.to(device).eval())
+    image, gt = synthetic_data(**EVAL_FIXTURE_IMAGE)
+    gt = gt.astype(np.uint32)
+    out = {"encodes": 0}
+    encode = predictor.encode_batch
+
+    def counted_encode(*a, **k):
+        out["encodes"] += 1
+        return encode(*a, **k)
+    predictor.encode_batch = counted_encode
+    emb = util.precompute_image_embeddings(predictor, image, verbose=False)
+    if part == "loop":
+        util.set_precomputed(predictor, emb)
+        drawn, replay = [], list(prompts or [])
+        gen = IterativePromptGenerator(np.random.RandomState(0))
+
+        def corrective(*a, **k):
+            drawn.append(replay.pop(0) if prompts is not None else gen(*a, **k))
+            return drawn[-1]
+        segs = iterative_prompting_segmentations(predictor, gt, True,
+                                                 n_iterations=EVAL_FIXTURE_ITERATIONS,
+                                                 prompt_generator=corrective)
+        out.update(prompts=drawn, segs=np.stack(segs).astype(np.uint8),
+                   msa=[mean_segmentation_accuracy(s, gt) for s in segs])
+    else:
+        import shutil
+        result_dir = os.path.join(root, "build", "chip_smoke_eval", f"fixture-{device}")
+        shutil.rmtree(result_dir, ignore_errors=True)
+        amg = AutomaticMaskGenerator(predictor, **EVAL_FIXTURE_AMG)
+        egs.run_instance_segmentation_grid_search(amg, EVAL_AMG_GRID, [image], [gt], result_dir,
+                                                  None)
+        best, best_msa = egs.evaluate_instance_segmentation_grid_search(result_dir,
+                                                                        list(EVAL_AMG_GRID))
+        ids, feats = compute_object_features(emb, gt, verbose=False)
+        vis, _ = project_embeddings_for_visualization(emb, as_rgb=False)
+        out.update(rows=egs.read_csv(os.path.join(result_dir, "image-0.csv")), best=best,
+                   best_msa=best_msa, ids=ids, features=feats, pca=vis)
+    return out, time.perf_counter() - t0
+
+
+def eval_fixture_checks(counters, root, cpu_loop, cpu_grid):
+    """(f) The fixture on the card against the CPU: the grid search (the same
+    best parameters), the features (rel 1e-3 of max) and the PCA (1e-3 once
+    each component's sign is aligned); the loop fed the CPU's corrective
+    points (every object's mask at IoU >= 0.99 with the CPU's in every
+    iteration, each iteration's mSA within 1e-3); the encodes' launches."""
+    from micro_sam_tpu_torch.models.convert import params_from_flat_npz
+    tol = EVAL_FIXTURE_TOL
+    cfg = params_from_flat_npz(os.path.join(root, FIXTURE))[0]
+    (grid, grid_s), l_grid = counted(counters, lambda: eval_fixture(root, "cuda", part="grid"))
+    t0 = time.perf_counter()
+    ref_grid, cpu_grid_s = cpu_grid.result()
+    ref_loop, cpu_loop_s = cpu_loop.result()
+    waited = time.perf_counter() - t0
+    (loop, loop_s), l_loop = counted(counters, lambda: eval_fixture(
+        root, "cuda", part="loop", prompts=ref_loop["prompts"]))
+    for what, got, n in (("grid", l_grid, grid["encodes"]), ("loop", l_loop, loop["encodes"])):
+        expect_launches(f"the fixture's {what} part ({n} encodes of the 96-wide encoder)", got,
+                        {k: v * n for k, v in expected_launches(cfg).items()})
+    worst = 1.0
+    for g_seg, r_seg in zip(loop["segs"], ref_loop["segs"]):
+        for i in range(1, int(r_seg.max()) + 1):
+            a, b = g_seg == i, r_seg == i
+            union = (a | b).sum()
+            if union:
+                worst = min(worst, float((a & b).sum() / union))
+    msa_diff = float(np.abs(np.subtract(loop["msa"], ref_loop["msa"])).max())
+    feat_rel = rel_max(grid["features"], ref_grid["features"])
+    pca = np.array(grid["pca"], np.float64)
+    ref_pca = np.asarray(ref_grid["pca"], np.float64)
+    for c in range(pca.shape[-1]):  # an SVD fixes each component up to its sign
+        if (pca[..., c] * ref_pca[..., c]).sum() < 0:
+            pca[..., c] *= -1
+    pca_rel = rel_max(pca, ref_pca)
+    rows_diff = max(abs(g["mSA"] - r["mSA"]) for g, r in zip(grid["rows"], ref_grid["rows"]))
+    log(f"  trained fixture (f32, TF32 off; CPU {cpu_loop_s:.1f} / {cpu_grid_s:.1f} s, waited "
+        f"{waited:.1f} s; card {loop_s:.1f} / {grid_s:.1f} s): iterative loop fed the CPU's "
+        f"points, worst object mask IoU card vs CPU {worst:.6f}, per-iteration mSA card "
+        f"{np.round(loop['msa'], 4).tolist()} (largest difference {msa_diff:.2e}); AMG grid "
+        f"best {grid['best']} ({grid['best_msa']:.4f}) vs the CPU's {ref_grid['best']} "
+        f"({ref_grid['best_msa']:.4f}), rows' mSA within {rows_diff:.2e}; features rel "
+        f"{feat_rel:.2e}, PCA (signs aligned) rel {pca_rel:.2e}")
+    if worst < tol["mask_iou"] or msa_diff > tol["msa"]:
+        raise AssertionError("the fixture's iterative loop on the card disagrees with the CPU")
+    if grid["best"] != ref_grid["best"] or not np.array_equal(grid["ids"], ref_grid["ids"]):
+        raise AssertionError("the fixture's grid search picked other parameters on the card")
+    if feat_rel > tol["features"] or pca_rel > tol["pca"] or not np.isfinite(pca).all():
+        raise AssertionError("the fixture's features or PCA disagree with the CPU")
+    return dict(min_mask_iou=worst, msa=loop["msa"], cpu_msa=ref_loop["msa"], msa_diff=msa_diff,
+                best=grid["best"], best_msa=grid["best_msa"], cpu_best_msa=ref_grid["best_msa"],
+                rows_msa_diff=rows_diff, features_rel=feat_rel, pca_rel=pca_rel,
+                launches=dict(grid=l_grid, loop=l_loop), card_s=[loop_s, grid_s],
+                cpu_s=[cpu_loop_s, cpu_grid_s], waited_s=waited)
+
+
+def launched(counters):
+    """The launches since the counts were set to 0, per kernel."""
+    return {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def eval_quiet(counters, what):
+    """No kernel launched since the counts were set to 0 (the work used
+    cached embeddings)."""
+    moved = launched(counters)
+    if moved:
+        raise AssertionError(f"{what} launched kernels: {moved}")
+
+
+def eval_grid_searches(counters, predictor, image, gt, emb, emb_dir, store):
+    """(c) run_instance_segmentation_grid_search for AIS (the UNETR at
+    published widths, its grid at quantiles of the maps) and AMG (EVAL_AMG,
+    EVAL_AMG_GRID) on one image over (a)'s cache: no launch, the CSVs'
+    columns, the best parameters; ms per combination."""
+    from micro_sam_tpu_torch.automatic_segmentation import get_predictor_and_segmenter
+    from micro_sam_tpu_torch.evaluation import instance_segmentation as egs
+    from micro_sam_tpu_torch.instance_segmentation import AutomaticMaskGenerator
+    state = {"decoder_state": random_unetr(True).state_dict()}
+    _, ais = get_predictor_and_segmenter("vit_b", predictor=predictor, state=state,
+                                         segmentation_mode="ais")
+    ais.initialize(image, image_embeddings=emb)
+    maps = ais.get_state()
+    grid_ais = {k: [round(float(np.quantile(maps[k.replace("_threshold", "s")], q)), 4)
+                    for q in qs] for k, qs in EVAL_AIS_QUANTILES.items()}
+    fixed = {"foreground_threshold": round(float(np.quantile(
+        maps["foreground"], EVAL_AIS_FIXED["foreground_quantile"])), 4),
+        "min_size": EVAL_AIS_FIXED["min_size"]}
+    out = {}
+    for name, seg, grid, kw in (("ais", ais, grid_ais, fixed),
+                                ("amg", AutomaticMaskGenerator(predictor, **EVAL_AMG),
+                                 EVAL_AMG_GRID, {})):
+        result_dir = os.path.join(store, name)
+        for c in counters.values():
+            c.launches = 0
+        with Timed(seg, "initialize") as ini, Timed(seg, "generate") as gen:
+            t0 = time.perf_counter()
+            egs.run_instance_segmentation_grid_search(seg, grid, [image], [gt], result_dir,
+                                                      emb_dir, fixed_generate_kwargs=kw)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        eval_quiet(counters, f"the {name} grid search over cached embeddings")
+        best, best_msa = egs.evaluate_instance_segmentation_grid_search(result_dir, list(grid))
+        rows = egs.read_csv(os.path.join(result_dir, "image-0.csv"))
+        if len(rows) != 4 or list(rows[0]) != list(grid) + ["mSA", "SA50", "SA75"] or \
+                set(best) != set(grid) or len(gen.seconds) != 4:
+            raise AssertionError(f"the {name} grid search's table is not the 2 x 2 grid's")
+        out[name] = dict(grid=grid, fixed=kw, best=best, best_msa=best_msa,
+                         msa=[r["mSA"] for r in rows], initialize_ms=1e3 * sum(ini.seconds),
+                         ms_per_combination=1e3 * statistics.mean(gen.seconds), wall_ms=1e3 * wall)
+        log(f"  {name} grid search {grid} ({kw}): best {best} (mSA {best_msa:.4f}); initialize "
+            f"{out[name]['initialize_ms']:.1f} ms, generate + score "
+            f"{out[name]['ms_per_combination']:.1f} ms a combination, {1e3 * wall:.1f} ms in all")
+    return out
+
+
+def eval_iterative(counters, predictor, gt):
+    """(b) The iterative loop from boxes, EVAL_ITERATIONS rounds with and
+    without masks, on the embeddings set on ``predictor``: no launch; ms per
+    iteration split into decode (batched_inference: the decode, the masks'
+    reduction and their copy to the host) and host (the corrective points,
+    the painting); mSA per iteration, scored on the host."""
+    from micro_sam_tpu_torch.evaluation import inference as einf
+    from micro_sam_tpu_torch.evaluation.matching import mean_segmentation_accuracy
+    out = {}
+    for use_masks in (False, True):
+        np.random.seed(0)
+        for c in counters.values():
+            c.launches = 0
+        with Timed(einf, "batched_inference") as dec:
+            t0 = time.perf_counter()
+            segs = einf.iterative_prompting_segmentations(predictor, gt, True,
+                                                          n_iterations=EVAL_ITERATIONS,
+                                                          use_masks=use_masks)
+            wall = time.perf_counter() - t0
+        eval_quiet(counters, "the iterative loop")
+        t1 = time.perf_counter()
+        msa = [mean_segmentation_accuracy(s, gt) for s in segs]
+        score_ms = 1e3 * (time.perf_counter() - t1) / len(segs)
+        n = len(segs)
+        if n != EVAL_ITERATIONS or len(dec.seconds) != n or any(
+                s.shape != gt.shape or s.dtype != np.uint32 for s in segs):
+            raise AssertionError("the iterative loop did not give one segmentation an iteration")
+        key = "with_masks" if use_masks else "without_masks"
+        out[key] = dict(ms_per_iteration=1e3 * wall / n, decode_ms=1e3 * sum(dec.seconds) / n,
+                        host_ms=(1e3 * wall - 1e3 * sum(dec.seconds)) / n, score_ms=score_ms,
+                        msa=msa)
+        log(f"  iterative prompting {key.replace('_', ' ')}, {n} iterations from boxes, "
+            f"{len(np.unique(gt)) - 1} objects: {out[key]['ms_per_iteration']:.1f} ms an "
+            f"iteration = decode {out[key]['decode_ms']:.1f} + host {out[key]['host_ms']:.1f} "
+            f"(scoring {score_ms:.1f} ms more); mSA {np.round(msa, 4).tolist()}")
+    return out
+
+
+def eval_features(counters, predictor, image, gt, emb):
+    """(e) compute_object_features and project_embeddings_for_visualization
+    on the card's embeddings, untiled and tiled (EVAL_TILED: one encode of
+    the 4 tiles)."""
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.object_classification import compute_object_features
+    from micro_sam_tpu_torch.visualization import project_embeddings_for_visualization
+    n_obj = len(np.unique(gt)) - 1
+    for c in counters.values():
+        c.launches = 0
+    with Span(predictor, "encode_batch", counters) as enc:
+        tiled = util.precompute_image_embeddings(predictor, image, verbose=False, **EVAL_TILED)
+    check_launches("tiled embeddings (4 tiles of 768^2, batch 4)", launched(counters),
+                   len(enc.seconds), counters)
+    out = {}
+    for name, e in (("untiled", emb), ("tiled", tiled)):
+        t0 = time.perf_counter()
+        ids, feats = compute_object_features(e, gt, verbose=False)
+        t1 = time.perf_counter()
+        vis, scale = project_embeddings_for_visualization(e)
+        t2 = time.perf_counter()
+        ok = (len(ids) == n_obj and feats.shape == (n_obj, 257) and np.isfinite(feats).all()
+              and vis.ndim == 3 and vis.shape[-1] == 3 and np.isfinite(vis).all()
+              and vis.min() >= 0 and vis.max() <= 1)
+        out[name] = dict(features_ms=1e3 * (t1 - t0), pca_ms=1e3 * (t2 - t1),
+                         vis_shape=list(vis.shape), scale=list(scale))
+        log(f"  {name}: object features {feats.shape} in {1e3 * (t1 - t0):.1f} ms, the PCA "
+            f"projection {vis.shape} in {1e3 * (t2 - t1):.1f} ms")
+        if not ok:
+            raise AssertionError(f"{name} features or projection malformed")
+    return out
+
+
+def eval_phase(counters, root):
+    """Phase 16: evaluation on vit_b bf16 (random weights, seed 0), and the
+    trained fixture on the card against the CPU (two processes started at the
+    phase's start)."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.evaluation import inference as einf
+    from micro_sam_tpu_torch.evaluation.multi_dimensional_segmentation import (
+        segment_slices_from_ground_truth)
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    store = os.path.join(root, "build", "chip_smoke_eval")
+    shutil.rmtree(store, ignore_errors=True)
+    emb_dir = os.path.join(store, "embeddings")
+    out = {}
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_loop = pool.submit(eval_fixture, root, "cpu", EVAL_CPU_THREADS, "loop")
+        cpu_grid = pool.submit(eval_fixture, root, "cpu", EVAL_CPU_THREADS, "grid")
+        predictor = util.get_sam_model("vit_b", seed=0)
+        images = [synthetic_data(seed=160 + i, **EVAL_IMAGE) for i in range(2)]
+        image, gt = images[0][0], images[0][1].astype(np.uint32)
+        log(f"  (a) precompute_all_embeddings of 2 synthetic_data images of 1024^2 into {emb_dir}")
+        for c in counters.values():
+            c.launches = 0
+        with Span(predictor, "encode_batch", counters) as enc:
+            t0 = time.perf_counter()
+            einf.precompute_all_embeddings(predictor, [im for im, _ in images], emb_dir)
+            out["precompute_ms"] = 1e3 * (time.perf_counter() - t0)
+        check_launches("precompute_all_embeddings", launched(counters), len(enc.seconds),
+                       counters)
+        if len(enc.seconds) != 2 or sorted(os.listdir(emb_dir)) != ["image-0.zarr",
+                                                                    "image-1.zarr"]:
+            raise AssertionError("precompute_all_embeddings did not cache each image")
+        for c in counters.values():
+            c.launches = 0
+        emb = util.precompute_image_embeddings(predictor, image,
+                                               os.path.join(emb_dir, "image-0.zarr"),
+                                               verbose=False)
+        eval_quiet(counters, "reading the cached embeddings")
+        util.set_precomputed(predictor, emb)
+        log(f"  (b) iterative prompting (vit_b bf16, {EVAL_ITERATIONS} iterations)")
+        out["iterative"] = eval_iterative(counters, predictor, gt)
+        log("  (c) the grid searches of AIS (the decoder at published widths) and AMG, 2 x 2, "
+            "one image")
+        out["grid_search"] = eval_grid_searches(counters, predictor, image, gt, emb, emb_dir,
+                                                store)
+        log(f"  (d) segment_slices_from_ground_truth on the ({VOLUME_SLICES}, "
+            f"{VOLUME['shape'][0]}, {VOLUME['shape'][1]}) volume of phase 13")
+        vim, vseg = synthetic_data(**VOLUME)
+        volume = rolled(vim, VOLUME_SLICES, VOLUME_SHIFT)
+        truth = rolled(vseg, VOLUME_SLICES, VOLUME_SHIFT).astype(np.uint32)
+        for c in counters.values():
+            c.launches = 0
+        with Span(predictor, "encode_batch", counters) as enc:
+            t0 = time.perf_counter()
+            scores = segment_slices_from_ground_truth(volume, truth, predictor=predictor)
+            wall = time.perf_counter() - t0
+        check_launches("segment_slices_from_ground_truth", launched(counters), len(enc.seconds),
+                       counters)
+        if not 0 <= scores["sa"] <= 1 or len(enc.seconds) != VOLUME_SLICES:
+            raise AssertionError(f"segment_slices_from_ground_truth: {scores}")
+        out["segment_slices"] = dict(ms=1e3 * wall, objects=len(np.unique(truth)) - 1,
+                                     **{k: float(v) for k, v in scores.items()})
+        log(f"  segment_slices_from_ground_truth: {1e3 * wall:.1f} ms for "
+            f"{out['segment_slices']['objects']} objects; scores {out['segment_slices']}")
+        log("  (e) object features and the PCA projection of the card's embeddings")
+        out["features"] = eval_features(counters, predictor, image, gt, emb)
+        del predictor
+        torch.cuda.empty_cache()
+        log("  (f) the trained fixture (f32) on the card against the CPU")
+        out["fixture"] = eval_fixture_checks(counters, root, cpu_loop, cpu_grid)
+    shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
@@ -5270,6 +5709,14 @@ def main():
     p15 = peft_phase(counters, root)
     p15["wall_s"] = time.perf_counter() - t15
     log(f"phase 15 (PEFT, the 3d wrappers, vit_t finetuning): {p15['wall_s']:.1f} s")
+    # phase 16: evaluation
+    t16 = time.perf_counter()
+    log("evaluation: precompute_all_embeddings, iterative prompting, the AIS and AMG grid "
+        "searches, segment_slices_from_ground_truth, object features and the PCA projection "
+        "(vit_b, bf16); the trained fixture (f32) on the card against the CPU")
+    p16 = eval_phase(counters, root)
+    p16["wall_s"] = time.perf_counter() - t16
+    log(f"phase 16 (evaluation): {p16['wall_s']:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
@@ -5288,7 +5735,7 @@ def main():
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")},
                                 "amg": p11, "ais": p12, "multi_dim": p13, "joint": p14,
-                                "peft": p15}}))
+                                "peft": p15, "evaluation": p16}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
                                                                   "plans")
                                   if k in r}

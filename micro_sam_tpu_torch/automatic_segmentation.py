@@ -241,6 +241,7 @@ def main():
     """The command line: ``micro_sam_tpu_torch.automatic_segmentation``."""
     import argparse
 
+    available_models = ", ".join(util.get_model_names())
     parser = argparse.ArgumentParser(description="Run automatic segmentation for an image.")
     parser.add_argument("-i", "--input_path", required=True, nargs="+",
                         help="The filepath(s) to the image data or a directory.")
@@ -251,8 +252,7 @@ def main():
     parser.add_argument("--pattern", default=None, help="Glob pattern for directory inputs.")
     parser.add_argument("-k", "--key", default=None, help="Key for container file formats.")
     parser.add_argument("-m", "--model_type", default=util._DEFAULT_MODEL,
-                        help="The segment anything model: vit_b, vit_l, vit_h, vit_t, or a "
-                        "micro-sam name such as vit_b_lm.")
+                        help=f"The segment anything model to use. One of: {available_models}.")
     parser.add_argument("-c", "--checkpoint", default=None, help="Checkpoint path.")
     parser.add_argument("--mode", "--segmentation_mode", dest="mode", default="auto",
                         choices=("auto", "amg", "ais", "apg"),

@@ -635,9 +635,9 @@ def _export_ctc(tracking_result, lineages, output_folder):
 def _trackastra_impl(timeseries, segmentation, min_time_extent, output_folder):
     """The optional external Trackastra linker (its "general_2d" model in
     greedy mode), taken by ``track_across_frames`` where ``trackastra`` is
-    importable. Trackastra is installed neither where the port's tests run
-    nor on the GPU machine, so this branch is untested; it is kept as the JAX
-    package has it."""
+    importable, as the JAX package has it. Trackastra is installed neither
+    where the port's tests run nor on the GPU machine: tests/test_torch_trackastra.py
+    drives this branch through a stub package."""
     from trackastra.model import Trackastra
     from trackastra.tracking import graph_to_ctc, graph_to_napari_tracks
     model = Trackastra.from_pretrained("general_2d", device="cpu")

@@ -1,4 +1,4 @@
-"""Prompt generators for training (numpy / scipy, on the host).
+"""Prompt generators for training and evaluation (numpy / scipy, on the host).
 
 Counterpart of ``micro_sam_tpu/prompt_generators.py`` (upstream
 micro_sam/prompt_generators.py semantics; the kornia dilation upstream uses is
@@ -26,7 +26,18 @@ def _sample_from_mask(rng, mask, size=1, replace=None):
     return np.stack(coords, axis=-1).astype(np.int64)
 
 
-class PointAndBoxPromptGenerator:
+class PromptGeneratorBase:
+    """The interface of a prompt generator."""
+
+    def __call__(self, segmentation, prediction=None, bbox_coordinates=None,
+                 center_coordinates=None):
+        raise NotImplementedError(
+            "PromptGeneratorBase is just a class template. "
+            "Use a child class that implements the specific generator instead"
+        )
+
+
+class PointAndBoxPromptGenerator(PromptGeneratorBase):
     """Point and / or box prompts from an instance segmentation.
 
     Args:
@@ -112,3 +123,58 @@ class PointAndBoxPromptGenerator:
         if self.get_box_prompts:
             boxes = np.array(bbox_coordinates)[:, [1, 0, 3, 2]]  # yxyx -> xyxy
         return points, labels, boxes, None
+
+
+class IterativePromptGenerator(PromptGeneratorBase):
+    """Corrective point prompts from where a prediction and the truth differ:
+    per object one positive point in the false-negative region and one
+    negative point in the false-positive region, with fallbacks for empty
+    regions; 2d and 3d. The draws are the JAX package's, in its order.
+
+    Args:
+        rng: The random stream (default: numpy's global one).
+    """
+
+    def __init__(self, rng: Optional[np.random.RandomState] = None):
+        self._rng = rng or np.random
+
+    def _pick_one(self, *candidate_regions):
+        """One (y, x[, z]) point from the first non-empty region; the origin
+        as the last resort."""
+        for region in candidate_regions:
+            pt = _sample_from_mask(self._rng, region, size=1)
+            if pt is not None:
+                return pt[0]
+        return np.zeros(candidate_regions[0].ndim, dtype=np.int64)
+
+    @staticmethod
+    def _bbox_ring(true_obj, margin=3):
+        """Background inside the object's bbox grown by ``margin`` (the
+        negative fallback when there is no false-positive region)."""
+        if not true_obj.any():
+            return ~true_obj
+        obj_slices = ndimage.find_objects(true_obj.astype(np.uint8))[0]
+        h, w = true_obj.shape[-2:]
+        window = np.zeros_like(true_obj)
+        window[...,
+               max(obj_slices[-2].start - margin, 0):min(obj_slices[-2].stop + margin, h),
+               max(obj_slices[-1].start - margin, 0):min(obj_slices[-1].stop + margin, w)] = True
+        return window & ~true_obj
+
+    def __call__(self, segmentation: np.ndarray, prediction: np.ndarray, **kwargs):
+        """segmentation / prediction (NUM_OBJECTS, 1, [Z,] H, W), float or
+        bool -> (coords (N, 2, 2 | 3) xy[z], labels (N, 2), None, None)."""
+        segmentation = np.asarray(segmentation) > 0.5
+        prediction = np.asarray(prediction) > 0.5
+        if segmentation.shape != prediction.shape:
+            raise ValueError("The segmentation and prediction tensors should have the same shape.")
+        if segmentation.ndim not in (4, 5):
+            raise ValueError("The segmentation and prediction tensors should have either '4' or "
+                             "'5' dimensions.")
+        coords, labels = [], []
+        for gt, pred in zip(segmentation, prediction):
+            pos = self._pick_one(gt & ~pred, gt & pred)        # missed: a positive point
+            neg = self._pick_one(pred & ~gt, self._bbox_ring(gt), ~gt)  # spurious: negative
+            coords.append([pos[:0:-1], neg[:0:-1]])  # (c, [z,] y, x) -> (x, y[, z])
+            labels.append([1, 0])
+        return np.asarray(coords, dtype=np.int64), np.asarray(labels), None, None

@@ -1,6 +1,13 @@
-"""Synthetic sample data (counterpart of ``micro_sam_tpu/sample_data.py::synthetic_data``)."""
+"""Sample data: the synthetic generator, the cached sample files and the
+napari sample hooks (counterpart of the JAX package's ``sample_data.py``).
+
+There is no download: a ``fetch_*`` helper returns the file or folder that
+the cache (``<cachedir>/sample_data/``) already holds, and raises where it
+does not; the ``sample_data_*`` hooks fall back to synthetic data.
+"""
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,3 +53,122 @@ def synthetic_data(shape: Tuple[int, ...] = (512, 512), radius_range: Tuple[int,
     noise = rng.normal(0, 8, size=shape)
     image = np.clip(image.astype(np.float64) * 0.7 + 40 + noise, 0, 255).astype(np.uint8)
     return image, segmentation
+
+
+def _require_cached(name: str) -> str:
+    from .util import microsam_cachedir
+    path = os.path.join(microsam_cachedir(), "sample_data", name)
+    if not os.path.exists(path):
+        raise RuntimeError(
+            f"Sample dataset {name} is not cached at {path}; it is not downloaded.")
+    return path
+
+
+def fetch_image_series_example_data(save_directory: str) -> str:
+    return _require_cached("image-series.zip.unzip")
+
+
+def fetch_wholeslide_example_data(save_directory: str) -> str:
+    return _require_cached("whole-slide-example-image.tif")
+
+
+def fetch_livecell_example_data(save_directory: str) -> str:
+    return _require_cached("livecell-2d-image.png")
+
+
+def fetch_hela_2d_example_data(save_directory: str) -> str:
+    return _require_cached("hela-2d-image.png")
+
+
+def fetch_3d_example_data(save_directory: str) -> str:
+    return _require_cached("lucchi_pp.zip.unzip")
+
+
+def fetch_tracking_example_data(save_directory: str) -> str:
+    return _require_cached("DIC-C2DH-HeLa.zip.unzip")
+
+
+def fetch_tracking_segmentation_data(save_directory: str) -> str:
+    return _require_cached("hela-ctc-01-gt.zip.unzip")
+
+
+def fetch_nucleus_3d_example_data(save_directory: str) -> str:
+    return _require_cached("3d-nucleus-data.zip.unzip")
+
+
+def fetch_wholeslide_histopathology_example_data(save_directory: str) -> str:
+    return _require_cached("whole-slide-histopathology-example-image.tif")
+
+
+# -----------------------------------------------------------------------------
+# napari sample-data hooks (reference sample_data.py:58-340): each returns
+# napari layer-data tuples. Cached real data is used when present; otherwise a
+# deterministic synthetic sample is generated.
+# -----------------------------------------------------------------------------
+
+def _layer(data, name):
+    return [(data, {"name": name}, "image")]
+
+
+def _cached_or_synthetic(fname: str, shape, seed: int, name: str):
+    from .util import microsam_cachedir
+    path = os.path.join(microsam_cachedir(), "sample_data", fname)
+    if os.path.exists(path):
+        import imageio.v3 as imageio
+        return _layer(imageio.imread(path), name)
+    image, _ = synthetic_data(shape=shape, seed=seed)
+    return _layer(image, name)
+
+
+def sample_data_wholeslide():
+    """Whole-slide sample (reference sample_data.py:104)."""
+    return _cached_or_synthetic(
+        "whole-slide-example-image.tif", (1024, 1024), 10, "wholeslide")
+
+
+def sample_data_livecell():
+    """LIVECell sample (reference sample_data.py:143)."""
+    return _cached_or_synthetic("livecell-2d-image.png", (520, 704), 11, "livecell")
+
+
+def sample_data_hela_2d():
+    """HeLa 2d sample (reference sample_data.py:182)."""
+    return _cached_or_synthetic("hela-2d-image.png", (512, 512), 12, "hela_2d")
+
+
+def sample_data_3d():
+    """3d EM sample (reference sample_data.py:226)."""
+    return _cached_or_synthetic("lucchi_volume.tif", (16, 384, 384), 13, "em_3d")
+
+
+def sample_data_tracking():
+    """Tracking timeseries sample (reference sample_data.py:277)."""
+    frames = [synthetic_data(shape=(256, 256), seed=14 + t)[0] for t in range(8)]
+    return _layer(np.stack(frames), "tracking")
+
+
+def sample_data_segmentation():
+    """Segmented sample with labels (reference sample_data.py:324)."""
+    image, seg = synthetic_data(shape=(512, 512), seed=15)
+    return [(image, {"name": "image"}, "image"),
+            (seg, {"name": "segmentation"}, "labels")]
+
+
+def sample_data_image_series():
+    """Image series sample: one napari image layer per file in the series
+    (reference sample_data.py:58). Falls back to three synthetic images of
+    different sizes when no cached series exists."""
+    from .util import microsam_cachedir
+    base = os.path.join(microsam_cachedir(), "sample_data")
+    try:
+        data_dir = fetch_image_series_example_data(base)
+        import imageio.v3 as imageio
+        layers = []
+        for i, fname in enumerate(sorted(os.listdir(data_dir))):
+            layers.append((imageio.imread(os.path.join(data_dir, fname)),
+                           {"name": f"series_{i}"}, "image"))
+        return layers
+    except Exception:
+        shapes = [(512, 512), (512, 512), (256, 384)]
+        return [(synthetic_data(shape=s, seed=20 + i)[0],
+                 {"name": f"series_{i}"}, "image") for i, s in enumerate(shapes)]

@@ -34,8 +34,145 @@ _DEFAULT_MODEL = "vit_b_lm"
 
 
 # -----------------------------------------------------------------------------
+# Cache directory & registry
+# -----------------------------------------------------------------------------
+
+def microsam_cachedir() -> str:
+    """Cache dir; override with MICROSAM_CACHEDIR (reference util.py:62-86)."""
+    cache_dir = os.environ.get("MICROSAM_CACHEDIR") or os.path.join(
+        os.path.expanduser("~"), ".cache", "micro_sam_tpu"
+    )
+    return cache_dir
+
+
+def get_cache_directory() -> str:
+    """The micro-sam cache directory (reference util.py:62); honors the
+    MICROSAM_CACHEDIR environment variable."""
+    return microsam_cachedir()
+
+
+# Known xxh128 content hashes of the zoo checkpoints (same artifacts the
+# reference distributes; values from micro_sam/util.py:102-141). Used to
+# validate locally cached model files before loading.
+_MODEL_HASHES: Dict[str, str] = {
+    "vit_l": "xxh128:a82beb3c660661e3dd38d999cc860e9a",
+    "vit_h": "xxh128:97698fac30bd929c2e6d8d8cc15933c2",
+    "vit_b": "xxh128:6923c33df3637b6a922d7682bfc9a86b",
+    "vit_t": "xxh128:8eadbc88aeb9d8c7e0b4b60c3db48bd0",
+    "vit_l_lm": "xxh128:017f20677997d628426dec80a8018f9d",
+    "vit_b_lm": "xxh128:fe9252a29f3f4ea53c15a06de471e186",
+    "vit_t_lm": "xxh128:72ec5074774761a6e5c05a08942f981e",
+    "vit_l_em_organelles": "xxh128:810b084b6e51acdbf760a993d8619f2d",
+    "vit_b_em_organelles": "xxh128:f3bf2ed83d691456bae2c3f9a05fb438",
+    "vit_t_em_organelles": "xxh128:253474720c497cce605e57c9b1d18fd9",
+    "vit_b_histopathology": "xxh128:ffd1a2cd84570458b257bd95fdd8f974",
+    "vit_l_histopathology": "xxh128:b591833c89754271023e901281dee3f2",
+    "vit_h_histopathology": "xxh128:bd1856dafc156a43fb3aa705f1a6e92e",
+    "vit_b_medical_imaging": "xxh128:40169f1e3c03a4b67bff58249c176d92",
+    "vit_l_lm_decoder": "xxh128:2faeafa03819dfe03e7c46a44aaac64a",
+    "vit_b_lm_decoder": "xxh128:708b15ac620e235f90bb38612c4929ba",
+    "vit_t_lm_decoder": "xxh128:3e914a5f397b0312cdd36813031f8823",
+    "vit_l_em_organelles_decoder": "xxh128:334877640bfdaaabce533e3252a17294",
+    "vit_b_em_organelles_decoder": "xxh128:bb6398956a6b0132c26b631c14f95ce2",
+    "vit_t_em_organelles_decoder": "xxh128:8f897c7bb93174a4d1638827c4dd6f44",
+    "vit_b_histopathology_decoder": "xxh128:6a66194dcb6e36199cbee2214ecf7213",
+    "vit_l_histopathology_decoder": "xxh128:46aab7765d4400e039772d5a50b55c04",
+    "vit_h_histopathology_decoder": "xxh128:3ed9f87e46ad5e16935bd8d722c8dc47",
+    "vit_b_medical_imaging_decoder": "xxh128:9e498b12f526f119b96c88be76e3b2ed",
+}
+
+_SAM_BASE = "https://dl.fbaipublicfiles.com/segment_anything/"
+_BIOIMAGEIO = "https://uk1s3.embassy.ebi.ac.uk/public-datasets/bioimage.io/"
+_MODEL_URLS: Dict[str, str] = {
+    "vit_h": _SAM_BASE + "sam_vit_h_4b8939.pth",
+    "vit_l": _SAM_BASE + "sam_vit_l_0b3195.pth",
+    "vit_b": _SAM_BASE + "sam_vit_b_01ec64.pth",
+    "vit_t": "https://owncloud.gwdg.de/index.php/s/TuDzuwVDHd1ZDnQ/download",
+    "vit_l_lm": _BIOIMAGEIO + "idealistic-rat/1.2/files/vit_l.pt",
+    "vit_b_lm": _BIOIMAGEIO + "diplomatic-bug/1.2/files/vit_b.pt",
+    "vit_t_lm": _BIOIMAGEIO + "faithful-chicken/1.1/files/vit_t.pt",
+    "vit_l_em_organelles": _BIOIMAGEIO + "humorous-crab/1.2/files/vit_l.pt",
+    "vit_b_em_organelles": _BIOIMAGEIO + "noisy-ox/1.2/files/vit_b.pt",
+    "vit_t_em_organelles": _BIOIMAGEIO + "greedy-whale/1/files/vit_t.pt",
+    "vit_l_lm_decoder": _BIOIMAGEIO + "idealistic-rat/1.2/files/vit_l_decoder.pt",
+    "vit_b_lm_decoder": _BIOIMAGEIO + "diplomatic-bug/1.2/files/vit_b_decoder.pt",
+    "vit_t_lm_decoder": _BIOIMAGEIO + "faithful-chicken/1.1/files/vit_t_decoder.pt",
+    "vit_l_em_organelles_decoder": _BIOIMAGEIO + "humorous-crab/1.2/files/vit_l_decoder.pt",
+    "vit_b_em_organelles_decoder": _BIOIMAGEIO + "noisy-ox/1.2/files/vit_b_decoder.pt",
+    "vit_t_em_organelles_decoder": _BIOIMAGEIO + "greedy-whale/1/files/vit_t_decoder.pt",
+}
+
+
+def models() -> Dict[str, Dict[str, Optional[str]]]:
+    """Model registry: the reference zoo names (micro_sam/util.py:89-181),
+    each entry carrying the download url (unusable offline) and the known
+    xxh128 hash for local-file validation.
+
+    Checkpoints are torch ``.pt`` files converted on load (models/convert.py).
+    """
+    registry: Dict[str, Dict[str, Optional[str]]] = {}
+    for name in _MODEL_HASHES:
+        registry[name] = {
+            "url": _MODEL_URLS.get(name), "hash": _MODEL_HASHES[name],
+        }
+    return registry
+
+
+def _resolve_cached_model(model_type: str) -> Optional[str]:
+    """Locate a pre-seeded zoo checkpoint under <cachedir>/models/<name> and
+    validate its content hash (reference downloads via pooch, which validates
+    the same xxh128 registry at fetch time)."""
+    path = os.path.join(microsam_cachedir(), "models", model_type)
+    if not os.path.exists(path):
+        return None
+    expected = _MODEL_HASHES.get(model_type)
+    if expected is not None:
+        got = f"xxh128:{_xxh128(path)}"
+        if got != expected:
+            raise RuntimeError(
+                f"Cached model file {path} is corrupt: hash {got} does not "
+                f"match the registry entry {expected}. Delete the file and "
+                "re-seed the cache."
+            )
+    return path
+
+
+def get_model_names() -> List[str]:
+    """The registry's model names, in its order."""
+    return list(models().keys())
+
+
+# -----------------------------------------------------------------------------
+# Devices
+# -----------------------------------------------------------------------------
+
+def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The torch device to run on: the GPU for None or "auto" (raising
+    without one), else the device named, "cpu" on request."""
+    return resolve_device(None if device == "auto" else device)
+
+
+# -----------------------------------------------------------------------------
 # Model loading
 # -----------------------------------------------------------------------------
+
+def _xxh128(path: str) -> str:
+    """The xxh128 hex digest of a file, as the registry states it. ``xxhash``
+    is imported here: without it a cached zoo file cannot be checked, and is
+    not loaded."""
+    try:
+        import xxhash
+    except ImportError as e:
+        raise RuntimeError(
+            f"The cached model file {path} is checked against the registry's xxh128 hash "
+            "before it loads, which needs the package 'xxhash'. Install it, or pass the "
+            "file as checkpoint_path.") from e
+    h = xxhash.xxh128()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
 
 def _compute_hash(path: str) -> str:
     h = hashlib.sha256()
@@ -73,11 +210,20 @@ def load_sam(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
     ``.pth``, the JAX package's ``.npz`` / ``.msam``, or a trainer's ``.pkl``),
     else are drawn at random from ``seed``. ``weight_dtype`` as in ``Sam``.
     ``peft_kwargs`` applies a PEFT surgery (``models/peft_sam.apply_peft``)
-    before the checkpoint loads. Every case is built by ``make_sam``."""
+    before the checkpoint loads. Every case is built by ``make_sam``.
+
+    Without ``checkpoint_path`` the zoo cache is looked up first, as in the
+    JAX package: ``<cachedir>/models/<model_type>`` loads once its xxh128
+    hash matches the registry's, and the model hash is then the registry's
+    ``xxh128:...`` string (the JAX package's cache signature)."""
     dev = resolve_device(device)
     if compute_dtype is None:
         compute_dtype = default_compute_dtype(dev)
     state: Dict[str, Any] = {}
+    model_hash = None
+    if checkpoint_path is None:
+        checkpoint_path = _resolve_cached_model(model_type)
+        model_hash = None if checkpoint_path is None else _MODEL_HASHES.get(model_type)
     if checkpoint_path is None:
         cfg = get_config(model_type, compute_dtype)  # validates the name
         return make_sam(cfg, None, seed, weight_dtype, peft_kwargs).to(dev).eval(), state, None
@@ -102,7 +248,7 @@ def load_sam(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
             state["decoder_state"] = decoder_state
     sam = make_sam(replace(cfg, compute_dtype=compute_dtype), sd, seed, weight_dtype, peft_kwargs)
     state["checkpoint_path"] = path
-    return sam.to(dev).eval(), state, f"sha256:{_compute_hash(path)}"
+    return sam.to(dev).eval(), state, model_hash or f"sha256:{_compute_hash(path)}"
 
 
 def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
@@ -680,16 +826,35 @@ def compute_iou(mask1: np.ndarray, mask2: np.ndarray) -> float:
 # Image files
 # -----------------------------------------------------------------------------
 
-def load_image_data(path: str, key: Optional[str] = None):
+def load_image_data(path: str, key: Optional[str] = None, lazy_loading: bool = False):
     """An image from a file: ``imageio`` without ``key``, the dataset ``key``
     of an HDF5 file with it. Both are imported here, at the call; where one is
-    missing its ImportError is raised."""
+    missing its ImportError is raised. With ``lazy_loading=True`` the h5py
+    dataset is returned, its file left open, so that a large volume is not
+    read up front."""
     if key is None:
         import imageio.v3 as imageio
         return imageio.imread(path)
     import h5py
+    if lazy_loading:
+        return h5py.File(path, "r")[key]
     with h5py.File(path, "r") as fh:
         return fh[key][...]
+
+
+def segmentation_to_one_hot(segmentation: np.ndarray,
+                            segmentation_ids: Optional[np.ndarray] = None) -> np.ndarray:
+    """(N, 1, H, W) float32 masks of the objects ``segmentation_ids`` (default:
+    every non-zero id, ascending); ids absent from the segmentation raise."""
+    if segmentation_ids is None:
+        ids = np.unique(segmentation)
+        ids = ids[ids != 0]
+    else:
+        ids = np.asarray(segmentation_ids)
+        matched = np.isin(ids, np.unique(segmentation))
+        if not matched.all():
+            raise RuntimeError(f"Segmentation ids not found: {ids[~matched]}")
+    return (segmentation[None] == ids[:, None, None]).astype(np.float32)[:, None]
 
 
 # -----------------------------------------------------------------------------

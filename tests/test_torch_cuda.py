@@ -1471,3 +1471,62 @@ def test_tiny_chain_functions_on_the_card(dev, dtype, chain):
         assert a.dtype == p.dtype and torch.isfinite(a).all()
         err = float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) + 1e-30)
         assert err <= 1e-3, err
+
+
+def test_sa50_gate_on_the_card(dev, tmp_path):
+    """The SA50 quality gate of finetuning (tests/test_torch_training_quality.py)
+    on the card: the small SAM trained 60 epochs with the port's SamTrainer
+    (f32 weights and compute, the attention through K1 / K4 at head dim 48,
+    staged), exported, reloaded by get_sam_model on the card (bf16) and
+    scored by the iterative-prompting evaluation: SA50 > 0.7 at iteration00."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))  # the gate's module, beside this file
+    from test_torch_training_quality import SA50_BAR, sa50_gate
+    sa50, msa, seconds = sa50_gate(dev, tmp_path)
+    print(f"SA50 per iteration on the card: {[round(s, 4) for s in sa50]}; mSA "
+          f"{[round(m, 4) for m in msa]}; training {seconds:.1f} s")
+    assert sa50[0] > SA50_BAR, sa50
+
+
+def test_iterative_prompting_on_the_card_matches_the_cpu(dev):
+    """The evaluation's iterative loop of the trained fixture SAM (f32) on the
+    card against the same on the CPU, the card fed the CPU's corrective
+    prompts: every object's mask at IoU >= 0.99 in every iteration."""
+    import os
+    import numpy as np
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.evaluation.inference import iterative_prompting_segmentations
+    from micro_sam_tpu_torch.models.convert import params_from_flat_npz
+    from micro_sam_tpu_torch.models.sam import Sam
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.prompt_generators import IterativePromptGenerator
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    cfg, sd = params_from_flat_npz(os.path.join(os.path.dirname(__file__), "fixtures",
+                                                "bench_sam_tiny1024.npz"))
+    image, gt = synthetic_data(shape=(1024, 1024), seed=200, n_objects=20, radius_range=(30, 110))
+    gt = gt.astype(np.uint32)
+    calls, segs = [], {}
+    for device in ("cpu", "cuda"):
+        sam = Sam(cfg)
+        sam.load_state_dict(sd)
+        predictor = SamPredictor(sam.to(device).eval())
+        util.set_precomputed(predictor, util.precompute_image_embeddings(predictor, image,
+                                                                         verbose=False))
+        if device == "cpu":
+            gen = IterativePromptGenerator(np.random.RandomState(0))
+
+            def prompts(*a, **k):
+                calls.append(gen(*a, **k))
+                return calls[-1]
+        else:
+            replay = list(calls)
+
+            def prompts(*a, **k):
+                return replay.pop(0)
+        segs[device] = iterative_prompting_segmentations(predictor, gt, True, n_iterations=4,
+                                                         use_masks=True, prompt_generator=prompts)
+    for got, ref in zip(segs["cuda"], segs["cpu"]):
+        for i in np.unique(gt)[1:]:
+            a, b = got == i, ref == i
+            assert (a & b).sum() / max((a | b).sum(), 1) >= 0.99 or not (a | b).any()

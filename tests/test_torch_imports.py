@@ -82,8 +82,45 @@ def test_importing_every_port_module_loads_no_jax():
         "       'micro_sam_tpu_torch.learned_tracking',\n"
         "       'micro_sam_tpu_torch.training.joint_sam_trainer',\n"
         "       'micro_sam_tpu_torch.training.simple_sam_trainer',\n"
-        "       'micro_sam_tpu_torch.training.semantic_sam_trainer'}\n"
+        "       'micro_sam_tpu_torch.training.semantic_sam_trainer',\n"
+        "       'micro_sam_tpu_torch.evaluation', 'micro_sam_tpu_torch.evaluation.matching',\n"
+        "       'micro_sam_tpu_torch.evaluation.experiments',\n"
+        "       'micro_sam_tpu_torch.evaluation.evaluation',\n"
+        "       'micro_sam_tpu_torch.evaluation.inference',\n"
+        "       'micro_sam_tpu_torch.evaluation.instance_segmentation',\n"
+        "       'micro_sam_tpu_torch.evaluation.multi_dimensional_segmentation',\n"
+        "       'micro_sam_tpu_torch.evaluation.livecell',\n"
+        "       'micro_sam_tpu_torch.evaluation.benchmark_datasets',\n"
+        "       'micro_sam_tpu_torch.evaluation.model_comparison',\n"
+        "       'micro_sam_tpu_torch.visualization', 'micro_sam_tpu_torch.object_classification',\n"
+        "       'micro_sam_tpu_torch.info'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_port_modules_import_without_the_optional_libraries():
+    """The GPU machine has none of pandas, imageio, h5py, sklearn, matplotlib,
+    xxhash or joblib: every module of the port imports with them blocked
+    (the functions that need one import it at the call)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "BLOCK = {'pandas', 'imageio', 'h5py', 'sklearn', 'matplotlib', 'xxhash', 'joblib',\n"
+        "         'jax', 'networkx'}\n"
+        "class Blocker:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCK:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Blocker())\n"
+        "import micro_sam_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'micro_sam_tpu_torch.evaluation.model_comparison' in names, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
