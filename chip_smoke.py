@@ -242,9 +242,28 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     the AMG grid search's best parameters equal, the features within rel
     1e-3, the PCA within 1e-3 once signs are aligned. Prints the phase's
     wall time;
-17. prints one JSON line of details (per-shape rows, chains, end-to-end and
+17. the annotators and model export, headless through the port's FakeViewer
+    (vit_b bf16, seed 0): (a) annotator_2d on a 1024^2 synthetic_data image,
+    initialize_predictor timed (model, encode, resize + in-memory cache
+    write) with the encode's launches asserted, 20 presses of "s" (1-3
+    points, a box, segment(batched=True) over 8 boxes; p50 ms a press split
+    into decode and host), "c", the layer contract; (b) SegmentNDWidget over
+    phase 13's (8, 512, 512) volume from one point (ms a projected slice);
+    (c) track_from_prompts over 4 frames of phase 13's sequence; (d)
+    AutoSegmentWidget in AIS mode (the UNETR at published widths) and the
+    image-series precompute of 2 images into a folder; (e) export (vit_b,
+    f32): export_sam_model then test_model_package on the card,
+    export_bioengine_model, whose TorchScript encoder, loaded onto the
+    card, launches no port kernel and agrees with the kernel path's f32
+    embedding within rel 1e-3, and whose ONNX decoder names its six
+    inputs; (f) the trained fixture's 10 clicks (f32) on the card against
+    the CPU (a process started at the phase's start): every mask at IoU >=
+    0.99, the committed labels equal. The CPU references of phases 4 and 12
+    run in processes started at phases 3 and 9. Prints the phase's wall
+    time;
+18. prints one JSON line of details (per-shape rows, chains, end-to-end and
     training numbers, the tiled routes, the AMG, AIS, multi-dimensional,
-    joint-training, PEFT and evaluation numbers), then the kernels line (one entry
+    joint-training, PEFT, evaluation and annotator numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
@@ -1232,20 +1251,43 @@ def summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, 
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path_phase(counters, model_type="vit_b", chains=None, reference="cpu"):
+def main_path_inputs():
+    """The main path's grey 1024^2 image and (3, 768, 1024) volume, and the
+    image as the encoder's (1, 1024, 1024, 3) float32 pixels."""
+    from micro_sam_tpu_torch.util import _to_image
+    rng = np.random.RandomState(0)
+    image = rng.randint(0, 256, size=(1024, 1024)).astype(np.uint8)
+    volume = rng.randint(0, 256, size=(3, 768, 1024)).astype(np.uint8)
+    return image, volume, _to_image(image)[None].astype(np.float32)
+
+
+def cpu_reference_encode(root, model_type, threads):
+    """The plain f32 encode of ``main_path_inputs``' image on the CPU, seed
+    0 (a process of its own, started before phase 3): (NHWC numpy, seconds)."""
+    sys.path.insert(0, root)
+    torch.set_grad_enabled(False)
+    torch.set_num_threads(threads)
+    from micro_sam_tpu_torch.models.sam import preprocess
+    from micro_sam_tpu_torch.util import get_sam_model
+    t0 = time.perf_counter()
+    px = preprocess(torch.from_numpy(main_path_inputs()[2]))
+    ref = get_sam_model(model_type, seed=0, device="cpu").model.encode_image(px).float()
+    return ref.numpy(), time.perf_counter() - t0
+
+
+def main_path_phase(counters, model_type="vit_b", chains=None, reference="cpu", cpu_ref=None):
     """``model_type``'s serving path: precompute, seven predicts, launch counts
     (``expected_launches``), each chain call's launches (``chains``), encode /
     decode times, the encode replay and the embedding against the plain f32
-    run of the same weights: on the CPU (``reference="cpu"``), or on the card
+    run of the same weights: on the CPU (``reference="cpu"``; ``cpu_ref``, a
+    future of ``cpu_reference_encode``, where one was started), or on the card
     (``"card"``, for vit_l / vit_h, whose f32 encode takes minutes on the
     CPU)."""
-    from micro_sam_tpu_torch.util import (_to_image, get_sam_model,
-                                          precompute_image_embeddings, set_precomputed)
+    from micro_sam_tpu_torch.util import (get_sam_model, precompute_image_embeddings,
+                                          set_precomputed)
     from micro_sam_tpu_torch.models.sam import preprocess
 
-    rng = np.random.RandomState(0)
-    image = rng.randint(0, 256, size=(1024, 1024)).astype(np.uint8)  # a grey 2d image
-    volume = rng.randint(0, 256, size=(3, 768, 1024)).astype(np.uint8)
+    image, volume, x1 = main_path_inputs()
 
     for c in counters.values():
         c.launches = 0
@@ -1302,8 +1344,6 @@ def main_path_phase(counters, model_type="vit_b", chains=None, reference="cpu"):
             f" fg {float(m.mean()):.4f}")
 
     # timing: encode per 1024^2 image at batch 1 and 8, decode p50
-    rgb = _to_image(image)
-    x1 = rgb[None].astype(np.float32)
     xb = np.repeat(x1, ENCODE_BATCH, axis=0)
     t_enc = {}
     for bs, x in ((1, x1), (ENCODE_BATCH, xb)):
@@ -1338,7 +1378,12 @@ def main_path_phase(counters, model_type="vit_b", chains=None, reference="cpu"):
     f32 = get_sam_model(model_type, seed=0, compute_dtype="float32")
     got32 = f32.model.encode_image(px.cuda()).float().cpu()
     t0 = time.perf_counter()
-    if reference == "cpu":
+    if reference == "cpu" and cpu_ref is not None:
+        ref, seconds = cpu_ref.result()
+        ref = torch.from_numpy(ref)
+        where, tol16, drift = "CPU", 3e-2, {}
+        log(f"  (the CPU reference took {seconds:.1f} s in a process of its own)")
+    elif reference == "cpu":
         ref = get_sam_model(model_type, seed=0, device="cpu").model.encode_image(px).float()
         where, tol16, drift = "CPU", 3e-2, {}
     else:  # block by block through the plain versions on the card, f32 and bf16
@@ -3361,8 +3406,10 @@ def amg_phase(counters, root, p10):
 # ---------------------------------------------------------------------------
 
 AIS_REPS = 3
-AIS_CPU_THREADS = 4   # each of the two CPU reference processes (one per upsampler kind)
 AIS_MATCH_IOU, AIS_MATCH_SHARE = 0.8, 0.9
+# each CPU reference started in an earlier phase (phase 4's encode, phase
+# 12's two decoders), beside that phase's card work
+EARLY_CPU_THREADS = 3
 APG_PROMPT_SLACK = 0.1
 TILED_APG_POINTS = 50
 DECODER_F32_TOL = 1e-3
@@ -3780,44 +3827,55 @@ def end_to_end_checks(predictor, state, image, seg, root):
     return out
 
 
-def ais_phase(counters, root, p10):
-    """Phase 12: the UNETR decoder on the card against the CPU, AIS and APG
-    (vit_b bf16, random weights from seed 0, the decoder at published widths
-    with random BN statistics) on phase 11's 1024^2 image, on maps built from
-    its truth, tiled over phase 10's embeddings, and the automatic
-    segmentation entry points end to end."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def start_decoder_references(pool, root):
+    """Phase 12's CPU references of the decoder, submitted to ``pool`` (an
+    earlier phase's start, so that they run beside it): the features of
+    FIXTURE_IMAGE (vit_b bf16, seed 0, on the card) and a future per
+    upsampler kind."""
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings, set_precomputed
+    predictor = get_sam_model("vit_b", seed=0)
+    emb = precompute_image_embeddings(predictor, synthetic_data(**FIXTURE_IMAGE)[0], verbose=False)
+    feats = set_precomputed(predictor, emb).features.float().cpu().numpy()
+    del predictor
+    torch.cuda.empty_cache()
+    return feats, [pool.submit(unetr_cpu_reference, root, feats, use_ct, EARLY_CPU_THREADS)
+                   for use_ct in (True, False)]
+
+
+def ais_phase(counters, root, p10, decoder_refs):
+    """Phase 12: the UNETR decoder on the card against the CPU (its CPU
+    references ``decoder_refs``, from ``start_decoder_references``), AIS and
+    APG (vit_b bf16, random weights from seed 0, the decoder at published
+    widths with random BN statistics) on phase 11's 1024^2 image, on maps
+    built from its truth, tiled over phase 10's embeddings, and the
+    automatic segmentation entry points end to end."""
     from micro_sam_tpu_torch.automatic_segmentation import get_predictor_and_segmenter
     from micro_sam_tpu_torch.instance_segmentation import get_instance_segmentation_generator
     from micro_sam_tpu_torch.sample_data import synthetic_data
-    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings, set_precomputed
-    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
-        predictor = get_sam_model("vit_b", seed=0)
-        image, seg = synthetic_data(**FIXTURE_IMAGE)
-        emb = precompute_image_embeddings(predictor, image, verbose=False)
-        feats = set_precomputed(predictor, emb).features.float().cpu().numpy()
-        cpu_runs = [pool.submit(unetr_cpu_reference, root, feats, use_ct, AIS_CPU_THREADS)
-                    for use_ct in (True, False)]
-        state = {"decoder_state": random_unetr(True).state_dict()}
-        _, ais = get_predictor_and_segmenter("vit_b", predictor=predictor, state=state,
-                                             segmentation_mode="ais")
-        log(f"  (a) AIS, vit_b bf16 on a 1024^2 synthetic_data image (seed "
-            f"{FIXTURE_IMAGE['seed']}), decoder of random weights")
-        a = ais_vit_b(counters, predictor, ais, image)
-        log("  (b) AIS and APG on maps built from the image's truth")
-        apg = get_instance_segmentation_generator(predictor, False, ais._decoder, "apg")
-        truth = truth_checks(predictor, ais, apg, seg, emb)
-        log("  (e) the automatic segmentation entry points (while the CPU references run)")
-        e2e = end_to_end_checks(predictor, state, image, seg, root)
-        log("  (c) the decoder on the card against the CPU (two processes, started after the "
-            "encode)")
-        t0 = time.perf_counter()
-        rows = decoder_checks(feats, cpu_runs)
-        log(f"  (waited {time.perf_counter() - t0:.1f} s for the CPU references and the checks)")
-        log("  (d) tiled AIS and APG over phase 10's tiled embeddings")
-        tiled = tiled_ais_checks(predictor, ais._decoder, p10["amg_inputs"],
-                                 rows["conv-transpose"]["bf16_tol"])
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings
+    feats, cpu_runs = decoder_refs
+    predictor = get_sam_model("vit_b", seed=0)
+    image, seg = synthetic_data(**FIXTURE_IMAGE)
+    emb = precompute_image_embeddings(predictor, image, verbose=False)
+    state = {"decoder_state": random_unetr(True).state_dict()}
+    _, ais = get_predictor_and_segmenter("vit_b", predictor=predictor, state=state,
+                                         segmentation_mode="ais")
+    log(f"  (a) AIS, vit_b bf16 on a 1024^2 synthetic_data image (seed "
+        f"{FIXTURE_IMAGE['seed']}), decoder of random weights")
+    a = ais_vit_b(counters, predictor, ais, image)
+    log("  (b) AIS and APG on maps built from the image's truth")
+    apg = get_instance_segmentation_generator(predictor, False, ais._decoder, "apg")
+    truth = truth_checks(predictor, ais, apg, seg, emb)
+    log("  (e) the automatic segmentation entry points (while the CPU references run)")
+    e2e = end_to_end_checks(predictor, state, image, seg, root)
+    log("  (c) the decoder on the card against the CPU (two processes, started at phase 9)")
+    t0 = time.perf_counter()
+    rows = decoder_checks(feats, cpu_runs)
+    log(f"  (waited {time.perf_counter() - t0:.1f} s for the CPU references and the checks)")
+    log("  (d) tiled AIS and APG over phase 10's tiled embeddings")
+    tiled = tiled_ais_checks(predictor, ais._decoder, p10["amg_inputs"],
+                             rows["conv-transpose"]["bf16_tol"])
     del predictor, ais, apg
     torch.cuda.empty_cache()
     return dict(decoder=rows, ais=a, truth=truth, tiled=tiled, end_to_end=e2e)
@@ -5531,6 +5589,436 @@ def eval_phase(counters, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the annotators and model export
+# ---------------------------------------------------------------------------
+
+ANNOT_IMAGE = dict(shape=(1024, 1024), seed=202, n_objects=20, radius_range=(30, 110))
+ANNOT_PRESSES = 20       # presses of "s": cycles of 1, 2, 3 points, a box, 8 boxes batched
+ANNOT_TRACK_FRAMES = 4
+ANNOT_SERIES = 2         # images of the image-series precompute
+ANNOT_FIXTURE_CLICKS = 10
+ANNOT_CPU_THREADS = 4    # the fixture's CPU clicks, a process started at the phase's start
+TORCHSCRIPT_TOL = 1e-3   # the golden f32 bound
+
+
+def object_points(obj, k, rng):
+    """``k`` pixels of the mask ``obj`` drawn by ``rng``, as (y, x) points."""
+    ys, xs = np.nonzero(obj)
+    pick = rng.choice(len(ys), size=k, replace=False)
+    return np.stack([ys[pick], xs[pick]], axis=1).astype(float)
+
+
+def press(viewer, key, predict):
+    """(wall ms, decode ms) of one key press; ``predict`` is a ``Span`` on
+    the predictor's decode."""
+    n = len(predict.seconds)
+    t0 = time.perf_counter()
+    viewer.press(key)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    return wall, 1e3 * sum(predict.seconds[n:])
+
+
+def set_prompts(viewer, points=(), labels=(), boxes=(), props=None):
+    """The prompt layers hold exactly these points (with labels) and boxes."""
+    pts = viewer.layers["point_prompts"]
+    pts.data = np.asarray(points, dtype=float).reshape(-1, pts.data.shape[1])
+    pts.properties = {"label": np.array(labels, dtype=object), **(props or {})}
+    shp = viewer.layers["prompts"]
+    shp.data = [np.asarray(b, dtype=float) for b in boxes]
+    shp.shape_type = ["rectangle"] * len(boxes)
+
+
+def box_vertices(obj_mask):
+    ys, xs = np.nonzero(obj_mask)
+    return [[ys.min(), xs.min()], [ys.min(), xs.max()], [ys.max(), xs.max()],
+            [ys.max(), xs.min()]]
+
+
+def annotator_2d_checks(counters, out):
+    """(a) annotator_2d on a 1024^2 image: initialize_predictor timed (model,
+    encode, cache write), the encode's launches, ANNOT_PRESSES presses of "s"
+    (decode and host ms each), "c", the layer contract."""
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch._test_util import FakeViewer, check_layer_initialization
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.sam_annotator import _widgets as widgets
+    from micro_sam_tpu_torch.sam_annotator._state import AnnotatorState
+    from micro_sam_tpu_torch.sam_annotator.annotator_2d import annotator_2d
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    image, gt = synthetic_data(**ANNOT_IMAGE)
+    state = AnnotatorState()
+    state.reset_state()
+    for c in counters.values():
+        c.launches = 0
+    with Span(SamPredictor, "encode_batch", counters) as enc, \
+            Timed(util, "get_sam_model") as load, \
+            Timed(util, "precompute_image_embeddings") as pre, \
+            Timed(AnnotatorState, "initialize_predictor") as init:
+        viewer = annotator_2d(image, model_type="vit_b", viewer=FakeViewer(), return_viewer=True)
+    check_launches("annotator_2d (initialize_predictor)", launched(counters), len(enc.seconds),
+                   counters)
+    if len(enc.seconds) != 1:
+        raise AssertionError(f"annotator_2d encoded {len(enc.seconds)} times")
+    check_layer_initialization(viewer, image.shape)
+    ms = {k: 1e3 * sum(t.seconds) for k, t in (("initialize", init), ("model", load),
+                                               ("precompute", pre), ("encode", enc))}
+    ms["cache_write_and_resize"] = ms["precompute"] - ms["encode"]
+    out["initialize_ms"] = ms
+    log(f"  initialize_predictor {ms['initialize']:.1f} ms: model {ms['model']:.1f}, encode "
+        f"{ms['encode']:.1f}, resize + in-memory cache write {ms['cache_write_and_resize']:.1f}")
+    predictor = state.predictor
+    ids = [i for i in np.unique(gt) if i != 0]
+    rng = np.random.RandomState(0)
+    for c in counters.values():
+        c.launches = 0
+    presses = []
+    with Span(predictor, "predict", counters) as dec:
+        for n in range(ANNOT_PRESSES):
+            kind = n % 5
+            obj = gt == ids[n % len(ids)]
+            if kind < 3:
+                set_prompts(viewer, object_points(obj, kind + 1, rng), ["positive"] * (kind + 1))
+                wall, d = press(viewer, "s", dec)
+            elif kind == 3:
+                set_prompts(viewer, boxes=[box_vertices(obj)])
+                wall, d = press(viewer, "s", dec)
+            else:  # segment(viewer, batched=True) over 8 boxes
+                set_prompts(viewer, boxes=[box_vertices(gt == ids[(n + j) % len(ids)])
+                                           for j in range(8)])
+                t0 = time.perf_counter()
+                n0 = len(dec.seconds)
+                widgets.segment(viewer, batched=True)
+                torch.cuda.synchronize()
+                wall, d = 1e3 * (time.perf_counter() - t0), 1e3 * sum(dec.seconds[n0:])
+            seg = viewer.layers["current_object"].data
+            if not (seg.shape == image.shape and seg.max() >= 1):
+                raise AssertionError(f"press {n} ({kind}): no object segmented")
+            presses.append((kind, wall, d))
+    eval_quiet(counters, "the key presses (decodes over the cached embeddings)")
+    walls = [w for _, w, _ in presses]
+    decs = [d for _, _, d in presses]
+    out["press_ms"] = dict(p50=float(np.percentile(walls, 50)),
+                           decode_p50=float(np.percentile(decs, 50)),
+                           host_p50=float(np.percentile([w - d for _, w, d in presses], 50)),
+                           batched_8_boxes=[w for k, w, _ in presses if k == 4],
+                           presses=len(presses))
+    log(f"  {len(presses)} presses of s: p50 {out['press_ms']['p50']:.1f} ms a press (decode "
+        f"{out['press_ms']['decode_p50']:.1f}, host {out['press_ms']['host_p50']:.1f}); "
+        f"segment(batched=True) over 8 boxes {np.round(out['press_ms']['batched_8_boxes'], 1)}")
+    viewer.press("c")
+    committed = viewer.layers["committed_objects"].data
+    if committed.max() < 1 or viewer.layers["current_object"].data.max() != 0:
+        raise AssertionError("commit: nothing committed, or the current object not cleared")
+    check_layer_initialization(viewer, image.shape)
+    out["committed_objects"] = int(len(np.unique(committed)) - 1)
+    return viewer, image
+
+
+def annotator_3d_checks(counters, predictor, out):
+    """(b) SegmentNDWidget over phase 13's (8, 512, 512) volume from one
+    point on the middle slice; (c) track_from_prompts over
+    ANNOT_TRACK_FRAMES frames of phase 13's sequence."""
+    from micro_sam_tpu_torch import learned_tracking as lt
+    from micro_sam_tpu_torch._test_util import FakeViewer
+    from micro_sam_tpu_torch.sam_annotator import util as vutil
+    from micro_sam_tpu_torch.sam_annotator._state import AnnotatorState
+    from micro_sam_tpu_torch.sam_annotator._widgets import SegmentNDWidget
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.util import precompute_image_embeddings
+    vim, vseg = synthetic_data(**VOLUME)
+    volume = rolled(vim, VOLUME_SLICES, VOLUME_SHIFT)
+    truth = rolled(vseg, VOLUME_SLICES, VOLUME_SHIFT)
+    mid = VOLUME_SLICES // 2
+    for c in counters.values():
+        c.launches = 0
+    with Span(predictor, "encode_batch", counters) as enc:
+        emb = precompute_image_embeddings(predictor, volume, verbose=False)
+    check_launches("the volume's embeddings", launched(counters), len(enc.seconds), counters)
+    state = AnnotatorState()
+    state.predictor, state.image_embeddings, state.image_shape = predictor, emb, volume.shape
+    viewer = FakeViewer()
+    viewer.add_labels(np.zeros(volume.shape, dtype="uint32"), name="current_object")
+    obj = clear_objects(truth, mid)[0]
+    y, x = np.argwhere(truth[mid] == obj).mean(0)
+    viewer.add_points(np.array([[mid, y, x]]), name="point_prompts",
+                      properties={"label": np.array(["positive"], dtype=object)})
+    viewer.add_shapes(name="prompts", ndim=3)
+    widget = SegmentNDWidget(viewer, tracking=False)
+    widget.set_param("projection", "single_point")
+    widget.set_param("iou_threshold", 0.0)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    widget.run_button.click()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_quiet(counters, "SegmentNDWidget")
+    z0, z1 = state.z_range
+    seg = viewer.layers["current_object"].data
+    n_slices = int((seg > 0).any(axis=(1, 2)).sum())
+    if seg[mid].max() < 1 or n_slices < 2:
+        raise AssertionError(f"SegmentNDWidget: {n_slices} slices segmented, z range {z0}-{z1}")
+    out["segment_nd"] = dict(ms=1e3 * wall, ms_per_slice=1e3 * wall / (z1 - z0 + 1),
+                             z_range=[int(z0), int(z1)], slices=n_slices)
+    log(f"  SegmentNDWidget ({VOLUME_SLICES}, 512, 512), single point on slice {mid}: "
+        f"{1e3 * wall:.1f} ms, z {z0}-{z1}, {1e3 * wall / (z1 - z0 + 1):.1f} ms a slice")
+
+    images, segs, _ = lt.hela_like_tracking_sequence(**TRACKING)
+    frames, fsegs = images[:ANNOT_TRACK_FRAMES], segs[:ANNOT_TRACK_FRAMES]
+    for c in counters.values():
+        c.launches = 0
+    with Span(predictor, "encode_batch", counters) as enc:
+        femb = precompute_image_embeddings(predictor, frames, ndim=3, verbose=False)
+    check_launches("the frames' embeddings", launched(counters), len(enc.seconds), counters)
+    cell = int(np.unique(fsegs[0])[1])
+    y, x = np.argwhere(fsegs[0] == cell).mean(0)
+    points = vutil.PointData(data=np.array([[0, y, x]]), properties={
+        "label": np.array(["positive"], dtype=object), "track_id": np.array(["1"], dtype=object),
+        "state": np.array(["track"], dtype=object)})
+    boxes = vutil.ShapeData(data=[], shape_type=[])
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    seg, slices, _, stop_upper = vutil.segment_slices_with_prompts(
+        predictor, points, boxes, femb, frames.shape, track_id=1)
+    tracked, division = vutil.track_from_prompts(points, boxes, seg, predictor, slices, femb,
+                                                 stop_upper, threshold=0.0,
+                                                 projection="single_point")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_quiet(counters, "track_from_prompts")
+    n = int((tracked == 1).any(axis=(1, 2)).sum())
+    if n < 2:
+        raise AssertionError(f"track_from_prompts: the track holds {n} frames")
+    out["tracking"] = dict(ms=1e3 * wall, frames=n, division=bool(division))
+    log(f"  track_from_prompts over {ANNOT_TRACK_FRAMES} frames of {TRACKING['shape']}: "
+        f"{1e3 * wall:.1f} ms, the track in {n} frames")
+
+
+def annotator_auto_checks(counters, predictor, viewer, image, store, out):
+    """(d) AutoSegmentWidget in AIS mode (the UNETR at published widths)
+    over (a)'s embeddings; the image-series precompute of ANNOT_SERIES
+    images into a folder (.npy files, read with np.load: the script does not
+    assume the optional imageio)."""
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.instance_segmentation import get_decoder
+    import importlib
+    # the module (the package's attribute of its name is the function)
+    isa = importlib.import_module("micro_sam_tpu_torch.sam_annotator.image_series_annotator")
+    from micro_sam_tpu_torch.sam_annotator._state import AnnotatorState
+    from micro_sam_tpu_torch.sam_annotator._widgets import AutoSegmentWidget
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    state = AnnotatorState()
+    state.amg = None
+    state.decoder = get_decoder(decoder_state=random_unetr(True).state_dict())
+    widget = AutoSegmentWidget(viewer, with_decoder=True, volumetric=False)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    widget.run_button.click()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_quiet(counters, "AutoSegmentWidget (AIS over the cached embeddings)")
+    auto = viewer.layers["auto_segmentation"].data
+    if auto.shape != image.shape:
+        raise AssertionError(f"AutoSegmentWidget: {auto.shape}")
+    out["autosegment_ais"] = dict(ms=1e3 * wall, objects=int(len(np.unique(auto)) - 1))
+    log(f"  AutoSegmentWidget (AIS, the decoder at published widths): {1e3 * wall:.1f} ms, "
+        f"{out['autosegment_ais']['objects']} objects")
+
+    folder = os.path.join(store, "series")
+    os.makedirs(folder, exist_ok=True)
+    files = []
+    for i in range(ANNOT_SERIES):
+        path = os.path.join(folder, f"image-{i}.npy")
+        np.save(path, synthetic_data(shape=(1024, 1024), seed=210 + i)[0])
+        files.append(path)
+    emb_folder = os.path.join(store, "series_embeddings")
+    saved = util.get_sam_model, util.load_image_data
+    util.get_sam_model = lambda *a, **k: (predictor, {}) if k.get("return_state") else predictor
+    util.load_image_data = lambda path, key=None, **k: np.load(path)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        with Span(predictor, "encode_batch", counters) as enc:
+            t0 = time.perf_counter()
+            _, paths = isa._precompute(files, "vit_b", emb_folder, None, None, False)
+            wall = time.perf_counter() - t0
+    finally:
+        util.get_sam_model, util.load_image_data = saved
+    check_launches("the image series' precompute", launched(counters), len(enc.seconds), counters)
+    if len(enc.seconds) != ANNOT_SERIES or not all(os.path.isdir(p) for p in paths):
+        raise AssertionError(f"image series precompute: {paths}")
+    out["image_series_precompute_ms"] = 1e3 * wall
+    log(f"  image series: {ANNOT_SERIES} images precomputed into {emb_folder} in "
+        f"{1e3 * wall:.1f} ms")
+
+
+def export_checks(counters, store, out):
+    """(e) vit_b (f32, random weights, seed 0): export_sam_model, then
+    test_model_package on the card; export_bioengine_model (TorchScript
+    encoder + ONNX decoder): the traced encoder loaded onto the card runs no
+    port kernel and agrees with the kernel path's f32 embedding within
+    TORCHSCRIPT_TOL; the ONNX file names the six inputs."""
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.bioimageio import export_bioengine_model, export_sam_model
+    from micro_sam_tpu_torch.bioimageio.model_export import test_model_package
+    from micro_sam_tpu_torch.models.sam import preprocess
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    image, gt = synthetic_data(shape=(512, 512), seed=203, n_objects=6)
+    predictor = util.get_sam_model("vit_b", seed=0, compute_dtype="float32")
+    saved = util.get_sam_model
+    util.get_sam_model = lambda *a, **k: predictor
+    try:
+        t0 = time.perf_counter()
+        pkg = export_sam_model(image, gt, "vit_b", "chip-smoke-vit-b",
+                               os.path.join(store, "vit_b_package.zip"), predictor=predictor)
+        t1 = time.perf_counter()
+        report = test_model_package(pkg)
+        t2 = time.perf_counter()
+        root = export_bioengine_model("vit_b", os.path.join(store, "bioengine"))
+        t3 = time.perf_counter()
+    finally:
+        util.get_sam_model = saved
+    if not report["passed"]:
+        raise AssertionError(f"test_model_package: {report}")
+    layout = sorted(os.path.relpath(os.path.join(d, f), root)
+                    for d, _, fs in os.walk(root) for f in fs)
+    expect = ["image-encoder/1/model.pt", "image-encoder/config.pbtxt",
+              "vit_b-decoder/1/model.onnx", "vit_b-decoder/config.pbtxt"]
+    if layout != expect:
+        raise AssertionError(f"export_bioengine_model: {layout}")
+    with open(os.path.join(root, "vit_b-decoder", "1", "model.onnx"), "rb") as f:
+        onnx = f.read()
+    names = (b"image_embeddings", b"point_coords", b"point_labels", b"mask_input",
+             b"has_mask_input", b"orig_im_size")
+    if len(onnx) < 10_000 or not all(n in onnx for n in names):
+        raise AssertionError("export_onnx_model: the ONNX file lacks the six inputs")
+    traced = torch.jit.load(os.path.join(root, "image-encoder", "1", "model.pt"),
+                            map_location="cuda")
+    x = torch.from_numpy(np.random.RandomState(1).rand(1, 3, 1024, 768).astype(np.float32) * 255)
+    for c in counters.values():
+        c.launches = 0
+    t4 = time.perf_counter()
+    got = traced(x.cuda())
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    eval_quiet(counters, "the TorchScript encoder")
+    ref = predictor.model.encode_image(preprocess(x.cuda().permute(0, 2, 3, 1)))
+    ref = ref.permute(0, 3, 1, 2).float()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log(f"  export_sam_model {1e3 * (t1 - t0):.1f} ms, test_model_package on the card "
+        f"{1e3 * (t2 - t1):.1f} ms: {report}")
+    log(f"  export_bioengine_model {1e3 * (t3 - t2):.1f} ms: {layout}; the TorchScript "
+        f"encoder on the card {1e3 * (t5 - t4):.1f} ms, no port kernel, vs the kernel path's "
+        f"f32 embedding rel {rel:.3e} (tol {TORCHSCRIPT_TOL:g})")
+    if not (got.shape == (1, 256, 64, 64) and rel <= TORCHSCRIPT_TOL):
+        raise AssertionError(f"TorchScript encoder: {tuple(got.shape)}, rel {rel:.3e}")
+    out["export"] = dict(export_sam_model_ms=1e3 * (t1 - t0), test_model_package_ms=1e3 * (t2 - t1),
+                         package=report, bioengine_ms=1e3 * (t3 - t2),
+                         torchscript_ms=1e3 * (t5 - t4), torchscript_rel=rel,
+                         package_mb=os.path.getsize(pkg) / 2 ** 20)
+    del predictor, traced
+    torch.cuda.empty_cache()
+
+
+def annotator_fixture_clicks(root, device, threads=None):
+    """The trained fixture SAM (f32) in the 2d annotator on ``device``: on a
+    512^2 image of its kind, ANNOT_FIXTURE_CLICKS presses of "s" (one point
+    at an object's centre, or two for the even clicks), each committed.
+    Returns (bit-packed masks, the committed labels, seconds)."""
+    sys.path.insert(0, root)
+    torch.set_grad_enabled(False)
+    if threads:
+        torch.set_num_threads(threads)
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch._test_util import FakeViewer
+    from micro_sam_tpu_torch.models.convert import params_from_flat_npz
+    from micro_sam_tpu_torch.models.sam import Sam
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.sam_annotator._state import AnnotatorState
+    from micro_sam_tpu_torch.sam_annotator.annotator_2d import annotator_2d
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    t0 = time.perf_counter()
+    cfg, sd = params_from_flat_npz(os.path.join(root, FIXTURE), compute_dtype="float32")
+    sam = Sam(cfg)
+    sam.load_state_dict(sd)
+    predictor = SamPredictor(sam.to(device).eval())
+    predictor.model_type = predictor.model_name = "vit_b"
+    image, gt = synthetic_data(**EVAL_FIXTURE_IMAGE)
+    state = AnnotatorState()
+    state.reset_state()
+    emb = util.precompute_image_embeddings(predictor, image, verbose=False)
+    viewer = annotator_2d(image, embedding_path=emb, viewer=FakeViewer(), return_viewer=True,
+                          predictor=predictor)
+    ids = [i for i in np.unique(gt) if i != 0]
+    masks = []
+    for n in range(ANNOT_FIXTURE_CLICKS):
+        obj = gt == ids[n % len(ids)]
+        cy, cx = np.argwhere(obj).mean(0)
+        pts = [[cy, cx]] if n % 2 else [[cy, cx], np.argwhere(obj)[0]]
+        set_prompts(viewer, pts, ["positive"] * len(pts))
+        viewer.press("s")
+        masks.append(np.packbits(viewer.layers["current_object"].data > 0))
+        viewer.press("c")
+    committed = viewer.layers["committed_objects"].data.copy()
+    state.reset_state()
+    return masks, committed, time.perf_counter() - t0
+
+
+def annotator_phase(counters, root):
+    """Phase 17: the annotators and model export on the card (vit_b bf16,
+    random weights, seed 0; export in f32), through the port's FakeViewer;
+    the trained fixture's clicks on the card against the CPU (a process
+    started at the phase's start)."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from micro_sam_tpu_torch.sam_annotator._state import AnnotatorState
+    store = os.path.join(root, "build", "chip_smoke_annotator")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    out = {}
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_clicks = pool.submit(annotator_fixture_clicks, root, "cpu", ANNOT_CPU_THREADS)
+        log(f"  (a) annotator_2d on a {ANNOT_IMAGE['shape'][0]}^2 synthetic_data image: "
+            f"initialize, {ANNOT_PRESSES} presses of s, c")
+        viewer, image = annotator_2d_checks(counters, out)
+        state = AnnotatorState()
+        predictor, emb2d = state.predictor, state.image_embeddings
+        log("  (b) SegmentNDWidget and (c) track_from_prompts")
+        annotator_3d_checks(counters, predictor, out)
+        log("  (d) AutoSegmentWidget (AIS) and the image-series precompute")
+        state.image_embeddings, state.image_shape, state.z_range = emb2d, image.shape, None
+        annotator_auto_checks(counters, predictor, viewer, image, store, out)
+        state.reset_state()
+        del predictor, viewer
+        torch.cuda.empty_cache()
+        log("  (e) export (vit_b, f32)")
+        export_checks(counters, store, out)
+        log(f"  (f) the trained fixture (f32): {ANNOT_FIXTURE_CLICKS} clicks on the card "
+            f"against the CPU")
+        card_masks, card_committed, card_s = annotator_fixture_clicks(root, "cuda")
+        t0 = time.perf_counter()
+        cpu_masks, cpu_committed, cpu_s = cpu_clicks.result()
+        waited = time.perf_counter() - t0
+    ious = []
+    for a, b in zip(card_masks, cpu_masks):
+        a, b = np.unpackbits(a).astype(bool), np.unpackbits(b).astype(bool)
+        ious.append(float((a & b).sum() / max((a | b).sum(), 1)))
+    equal = bool(np.array_equal(card_committed, cpu_committed))
+    log(f"  fixture clicks (card {card_s:.1f} s, CPU {cpu_s:.1f} s, waited {waited:.1f} s): "
+        f"worst mask IoU card vs CPU {min(ious):.6f}, committed labels equal: {equal}")
+    if not (min(ious) >= 0.99 and equal and card_committed.max() >= 1):
+        raise AssertionError(f"fixture clicks: IoUs {ious}, committed labels equal {equal}")
+    out["fixture"] = dict(min_iou=min(ious), committed_equal=equal, card_s=card_s, cpu_s=cpu_s,
+                          waited_s=waited)
+    shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
@@ -5539,13 +6027,6 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from micro_sam_tpu_torch.ops import _cuda
-    from micro_sam_tpu_torch.ops.dwconv import dwconv
-    from micro_sam_tpu_torch.ops.gemm import gemm
-    from micro_sam_tpu_torch.ops.layernorm import layernorm
-    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
-                                                          relpos_attention_backward,
-                                                          relpos_attention_spatial)
-    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention
 
     # phase 1: the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5589,6 +6070,28 @@ def main():
     # nothing: take them on a throwaway measurement
     time_ms(lambda: torch.ones(1024, device="cuda").add_(1), iters=2, warmup=1)
 
+    # CPU references of later phases run beside the card's work in these
+    # processes: phase 4's f32 encode from here, phase 12's decoders from phase 9
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    early = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run_phases(root, card, early)
+    finally:
+        early.shutdown(cancel_futures=True)
+
+
+def run_phases(root, card, early):
+    """Phases 3-17 and the result lines; ``early`` runs CPU references
+    ahead of the phases that read them."""
+    from micro_sam_tpu_torch.ops.dwconv import dwconv
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    from micro_sam_tpu_torch.ops.layernorm import layernorm
+    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                          relpos_attention_backward,
+                                                          relpos_attention_spatial)
+    from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention
+    vit_b_cpu_ref = early.submit(cpu_reference_encode, root, "vit_b", EARLY_CPU_THREADS)
     # phase 3: kernels vs plain
     log("kernels vs plain versions (bf16: plain in f32 on the same bf16 inputs)")
     counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention,
@@ -5600,7 +6103,7 @@ def main():
         shapes["layernorm"] += layernorm_sweep(m)
     host = {"gemm": host_us("gemm"), "layernorm": host_us("layernorm")}
     log("main path: vit_b, 1024^2, random weights (seed 0), bf16")
-    launches, per_encode, e2e = main_path_phase(counters)
+    launches, per_encode, e2e = main_path_phase(counters, cpu_ref=vit_b_cpu_ref)
     torch.cuda.empty_cache()
 
     # phase 5: the backward kernel vs plain
@@ -5656,6 +6159,7 @@ def main():
     log(f"phase 8 (vit_h / vit_l): {time.perf_counter() - t8:.1f} s")
     # phase 9: vit_h / vit_l finetuning
     t9 = time.perf_counter()
+    decoder_refs = start_decoder_references(early, root)
     log("finetuning at vit_h / vit_l width: K4 at head dim 80, K12, the A100 preset (vit_h), "
         "timed vit_h and vit_l steps, bf16 compute")
     ft = finetuning_phase(counters, root)
@@ -5680,7 +6184,7 @@ def main():
     log("decoder-based instance segmentation: the UNETR decoder on the card against the CPU, "
         "AIS and APG, their tiled forms, automatic_instance_segmentation and cache_amg_state "
         "(vit_b, bf16)")
-    p12 = ais_phase(counters, root, p10)
+    p12 = ais_phase(counters, root, p10, decoder_refs)
     p12["wall_s"] = time.perf_counter() - t12
     log(f"phase 12 (decoder-based instance segmentation): {p12['wall_s']:.1f} s")
     # phase 13: multi-dimensional segmentation and tracking
@@ -5717,6 +6221,16 @@ def main():
     p16 = eval_phase(counters, root)
     p16["wall_s"] = time.perf_counter() - t16
     log(f"phase 16 (evaluation): {p16['wall_s']:.1f} s")
+    # phase 17: the annotators and model export
+    t17 = time.perf_counter()
+    log("the annotators and model export: annotator_2d (initialize, key presses, commit), "
+        "SegmentNDWidget, track_from_prompts, AutoSegmentWidget (AIS), the image-series "
+        "precompute (vit_b, bf16); the bioimage.io package, the TorchScript encoder and the "
+        "ONNX decoder (vit_b, f32); the trained fixture's clicks (f32) on the card against the "
+        "CPU")
+    p17 = annotator_phase(counters, root)
+    p17["wall_s"] = time.perf_counter() - t17
+    log(f"phase 17 (the annotators and model export): {p17['wall_s']:.1f} s")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
@@ -5735,7 +6249,7 @@ def main():
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")},
                                 "amg": p11, "ais": p12, "multi_dim": p13, "joint": p14,
-                                "peft": p15, "evaluation": p16}}))
+                                "peft": p15, "evaluation": p16, "annotator": p17}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
                                                                   "plans")
                                   if k in r}

@@ -4,8 +4,8 @@ and the command line ``micro_sam_tpu_torch.automatic_segmentation``.
 Counterpart of ``micro_sam_tpu/automatic_segmentation.py``: 2d images (tiled
 and untiled, with ``mask``), volumes (``ndim=3``: each slice segmented, then
 merged into 3d by ``multi_dimensional_segmentation.automatic_3d_segmentation``)
-and timeseries (``automatic_tracking``). ``annotate=True`` needs the napari
-annotator, which is not ported (ROADMAP Queue 1 item 17).
+and timeseries (``automatic_tracking``). ``annotate=True`` opens the result in
+the port's napari annotator for corrections (it needs napari).
 The entry points run on the GPU unless ``device="cpu"`` (``-d cpu``) is given.
 """
 from __future__ import annotations
@@ -142,10 +142,9 @@ def automatic_instance_segmentation(
     ``embedding_path``), ``initialize``, then ``generate(**generate_kwargs)``;
     a volume (``ndim=3``) slice by slice, merged into 3d. The result goes to
     ``output_path`` as a tif when given; an existing result there is left as
-    it is and None returned."""
-    if annotate:
-        raise NotImplementedError("annotate=True needs the napari annotator, which the port "
-                                  "does not have yet (ROADMAP Queue 1 item 17).")
+    it is and None returned. With ``annotate`` the result (written with the
+    suffix ``_automatic``) opens in the annotator, and what is committed there
+    when it closes is returned (and written to ``output_path``)."""
     if output_path is not None:
         output_path = Path(output_path).with_suffix(".tif")
         if os.path.exists(output_path):
@@ -186,13 +185,40 @@ def automatic_instance_segmentation(
             return_embeddings=True, batch_size=batch_size, **generate_kwargs)
 
     if output_path is not None:
-        _write_tif(output_path, instances)
+        _output_path = (_add_suffix_to_output_path(output_path, "_automatic") if annotate
+                        else output_path)
+        _write_tif(_output_path, instances)
         if verbose:
             print(f"The automatic segmentation results are stored at "
-                  f"'{os.path.abspath(output_path)}'.")
+                  f"'{os.path.abspath(_output_path)}'.")
+    if annotate:
+        instances = _correct_with_annotator(predictor, image_data, image_embeddings, instances,
+                                            ndim, tile_shape, halo)
+        if output_path is not None:
+            _write_tif(output_path, instances)
     if return_embeddings:
         return instances, image_embeddings
     return instances
+
+
+def _correct_with_annotator(predictor, image_data, image_embeddings, instances, ndim,
+                            tile_shape, halo):
+    """Open the annotator on an automatic result for corrections, with the
+    predictor that computed it; what is committed when the viewer closes
+    replaces the result."""
+    try:
+        import napari
+    except ImportError as e:
+        raise RuntimeError("annotate=True needs napari, which is not installed.") from e
+    from .sam_annotator import annotator_2d, annotator_3d
+
+    open_annotator = annotator_2d if ndim == 2 else annotator_3d
+    viewer = open_annotator(image=image_data, model_type=predictor.model_name,
+                            embedding_path=image_embeddings, segmentation_result=instances,
+                            tile_shape=tile_shape, halo=halo, return_viewer=True,
+                            predictor=predictor)
+    napari.run()
+    return viewer.layers["committed_objects"].data
 
 
 def _get_inputs_from_paths(paths, pattern):

@@ -43,7 +43,10 @@ from ..ops.relpos_attention import RelPosAttentionFn
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
     """Per-offset relative positional embeddings: (q_size, k_size, head_dim).
-    Linearly interpolates the table when its length is not 2 * max(q, k) - 1."""
+    Linearly interpolates the table when its length is not 2 * max(q, k) - 1.
+    The sizes are taken as ints (under ``torch.jit.trace`` they arrive as
+    0-dim tensors; the index table is a constant of the trace)."""
+    q_size, k_size = int(q_size), int(k_size)
     max_rel_dist = 2 * max(q_size, k_size) - 1
     if rel_pos.shape[0] != max_rel_dist:
         rel_pos = F.interpolate(rel_pos.float().t()[None], size=max_rel_dist,
@@ -51,7 +54,7 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
     q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
     k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
     rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    idx = torch.as_tensor(rel.astype(np.int64), device=rel_pos.device)
+    idx = torch.from_numpy(rel.astype(np.int64))  # a host index: no device constant in a trace
     return rel_pos[idx]
 
 
@@ -85,7 +88,7 @@ def partition_tokens(x: torch.Tensor, window: int):
     xw, pad_hw = window_partition(x, window)
     valid = None
     if pad_hw != (H, W):
-        ones = torch.ones((B, H, W, 1), device=x.device)
+        ones = torch.ones_like(x[..., :1], dtype=torch.float32)  # no device constant in a trace
         valid = window_partition(ones, window)[0].reshape(-1, window * window, 1)
     return xw.reshape(-1, window * window, C), valid, pad_hw
 

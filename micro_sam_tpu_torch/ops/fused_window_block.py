@@ -123,7 +123,7 @@ def _attn_half(x: torch.Tensor, valid: Optional[torch.Tensor], block, hw: Tuple[
     q5 = _qkv(mm, a, attn, fact).view(Bn, N, 3, num_heads, hd)
     q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))  # (Bn, nH, N, hd) views
     rel_h, rel_w = attn.rel_tables(hw, x.dtype)
-    o = torch.empty((Bn, N, num_heads, hd), device=x.device, dtype=x.dtype)
+    o = x.new_empty((Bn, N, num_heads, hd))  # no device constant in a trace
     att(q, k, v, rel_h, rel_w, hw, out=o.transpose(1, 2))
     x1 = _product(mm, o.view(M, C), attn.proj, "residual", xf)
     return x1.view(Bn, N, C)

@@ -29,6 +29,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -113,9 +114,10 @@ def tiny_attention_plan(B: int, Hp: int, Wp: int, C: int, nH: int,
 def bias_offset_index(window: int, device=None) -> torch.Tensor:
     """(N, N) index of each (query, key) pair's offset (|dy|, |dx|) into the
     (nH, w^2) bias table: |dy| * w + |dx|."""
-    r = torch.arange(window * window, device=device)
+    r = np.arange(window * window)
     y, x = r // window, r % window
-    return (y[:, None] - y[None, :]).abs() * window + (x[:, None] - x[None, :]).abs()
+    idx = np.abs(y[:, None] - y[None, :]) * window + np.abs(x[:, None] - x[None, :])
+    return torch.from_numpy(idx).to(device) if device is not None else torch.from_numpy(idx)
 
 
 def tiny_attention_plain(qkv: torch.Tensor, attention_biases: torch.Tensor,
@@ -129,7 +131,8 @@ def tiny_attention_plain(qkv: torch.Tensor, attention_biases: torch.Tensor,
     ny, nx = Hp // w, Wp // w
     t = qkv.float().view(B, ny, w, nx, w, nH, 3, hd).permute(6, 0, 1, 3, 5, 2, 4, 7)
     q, k, v = t.reshape(3, B * ny * nx, nH, w * w, hd).unbind(0)
-    bias = attention_biases.float()[:, bias_offset_index(w, qkv.device)]  # (nH, N, N)
+    # a host index (no device constant in a trace)
+    bias = attention_biases.float()[:, bias_offset_index(w)]  # (nH, N, N)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * hd ** -0.5 + bias
     o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
     o = o.view(B, ny, nx, nH, w, w, hd).permute(0, 1, 4, 2, 5, 3, 6)

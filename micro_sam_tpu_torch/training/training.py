@@ -154,6 +154,19 @@ class SamDataset:
             return raw, labels, self.label_transform(labels)
         return raw, labels
 
+    def split(self, n_val: int):
+        """(train, val) datasets over the same images, ``n_val`` samples (at
+        least 1, at most all but one) to validation, which draws from seed 1
+        (the training widget's split, as the JAX package's)."""
+        import copy
+        n_val = max(1, min(n_val, len(self) - 1))
+        train = copy.copy(self)
+        val = copy.copy(self)
+        train.n_samples = len(self) - n_val
+        val.n_samples = n_val
+        val._rng = np.random.RandomState(1)
+        return train, val
+
 
 class SamLoader:
     """Mini-batches (raw (B, ...), labels (B, H, W)[, targets (B, C, H, W)])

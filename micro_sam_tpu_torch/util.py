@@ -152,6 +152,12 @@ def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.devic
     return resolve_device(None if device == "auto" else device)
 
 
+def _available_devices() -> List[str]:
+    """The device choices of the annotator widgets: "cuda" where a GPU is
+    present, and "cpu"."""
+    return (["cuda"] if torch.cuda.is_available() else []) + ["cpu"]
+
+
 # -----------------------------------------------------------------------------
 # Model loading
 # -----------------------------------------------------------------------------
@@ -254,8 +260,8 @@ def load_sam(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
 def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None,
                   checkpoint_path: Optional[str] = None, return_sam: bool = False,
                   return_state: bool = False, compute_dtype: Optional[str] = None,
-                  seed: int = 0, peft_kwargs: Optional[Dict[str, Any]] = None
-                  ) -> Union[SamPredictor, Tuple]:
+                  seed: int = 0, peft_kwargs: Optional[Dict[str, Any]] = None,
+                  decoder_path: Optional[str] = None) -> Union[SamPredictor, Tuple]:
     """Build a SamPredictor.
 
     ``device=None`` means the GPU (``"cuda"``); without one this raises. Weights
@@ -265,9 +271,17 @@ def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None
     bfloat16 on the GPU and float32 on the CPU. ``peft_kwargs`` (e.g.
     ``{"rank": 4}``, ``{"peft_module": "fact"}``, ``{"rank": 4, "quantize":
     True}``) applies that PEFT surgery and then loads the checkpoint, its
-    PEFT parameters included where it has them."""
+    PEFT parameters included where it has them. ``decoder_path``: a separate
+    decoder checkpoint (a torch_em UNETR state, or a training checkpoint
+    holding one under ``model_state``), returned as the state's
+    ``decoder_state``."""
     sam, state, model_hash = load_sam(model_type, device, checkpoint_path, compute_dtype, seed,
                                       peft_kwargs=peft_kwargs)
+    if decoder_path is not None:
+        loaded = torch.load(str(decoder_path), map_location="cpu", weights_only=False)
+        if isinstance(loaded, dict) and "model_state" in loaded:
+            loaded = loaded["model_state"]
+        state["decoder_state"] = loaded
     predictor = SamPredictor(sam)
     predictor.model_type = model_type
     predictor.model_name = model_type

@@ -19,7 +19,17 @@ import pytest
 import torch
 
 from tests.torch_port_util import AIS_KW, jax_params, matched_share, port_sam, tiny_jax_config
-from tests.torch_port_util import port_unetr, unetr_jax_params
+from tests.torch_port_util import one_thread, port_unetr, unetr_jax_params
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 FLIP = 1e-3
 TILE, HALO = (128, 128), (32, 32)

@@ -19,7 +19,17 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import jax_params, port_sam, tiny_jax_config
+from tests.torch_port_util import jax_params, one_thread, port_sam, tiny_jax_config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 FLIP = 1e-3
 TOL = 1e-4

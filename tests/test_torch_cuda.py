@@ -1530,3 +1530,87 @@ def test_iterative_prompting_on_the_card_matches_the_cpu(dev):
         for i in np.unique(gt)[1:]:
             a, b = got == i, ref == i
             assert (a & b).sum() / max((a | b).sum(), 1) >= 0.99 or not (a | b).any()
+
+
+# ---------------------------------------------------------------------------
+# the annotators and model export
+# ---------------------------------------------------------------------------
+
+def _fixture_predictor(device):
+    import os
+    from micro_sam_tpu_torch.models.convert import params_from_flat_npz
+    from micro_sam_tpu_torch.models.sam import Sam
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    cfg, sd = params_from_flat_npz(os.path.join(os.path.dirname(__file__), "fixtures",
+                                                "bench_sam_tiny1024.npz"))
+    sam = Sam(cfg)
+    sam.load_state_dict(sd)
+    predictor = SamPredictor(sam.to(device).eval())
+    predictor.model_type = predictor.model_name = "vit_b"
+    return predictor
+
+
+def test_annotator_clicks_on_the_card_match_the_cpu(dev):
+    """The 2d annotator on a FakeViewer with the trained fixture SAM (f32):
+    the same clicks through the segment key give every object's mask at IoU
+    >= 0.99 of the CPU's, and the committed labels are equal."""
+    import numpy as np
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch._test_util import FakeViewer, check_layer_initialization
+    from micro_sam_tpu_torch.sam_annotator._state import AnnotatorState
+    from micro_sam_tpu_torch.sam_annotator.annotator_2d import annotator_2d
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    image, gt = synthetic_data(shape=(512, 512), seed=201, n_objects=8, radius_range=(15, 55))
+    centers = [np.argwhere(gt == i).mean(0) for i in np.unique(gt)[1:]]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        state = AnnotatorState()
+        state.reset_state()
+        predictor = _fixture_predictor(device)
+        emb = util.precompute_image_embeddings(predictor, image, verbose=False)
+        viewer = annotator_2d(image, embedding_path=emb, viewer=FakeViewer(), return_viewer=True,
+                              predictor=predictor)
+        check_layer_initialization(viewer, image.shape)
+        masks = []
+        for y, x in centers:
+            pts = viewer.layers["point_prompts"]
+            pts.data = np.array([[y, x]])
+            pts.properties = {"label": np.array(["positive"], dtype=object)}
+            viewer.press("s")
+            masks.append(viewer.layers["current_object"].data.copy())
+            viewer.press("c")
+        runs[device] = (masks, viewer.layers["committed_objects"].data.copy())
+        state.reset_state()
+    for got, ref in zip(runs["cuda"][0], runs["cpu"][0]):
+        union = np.logical_or(got, ref).sum()
+        assert union > 0 and np.logical_and(got, ref).sum() / union >= 0.99
+    assert np.array_equal(runs["cuda"][1], runs["cpu"][1])
+
+
+def test_torchscript_encoder_on_the_card(dev, tmp_path, monkeypatch):
+    """The exported TorchScript encoder (vit_b, random weights, f32) loaded
+    onto the card runs no port kernel, and its embedding is within rel 1e-3
+    of the kernel path's f32 embedding of the same image."""
+    import numpy as np
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.bioimageio.bioengine_export import export_image_encoder
+    from micro_sam_tpu_torch.models.sam import preprocess
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    from micro_sam_tpu_torch.ops.layernorm import layernorm
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    predictor = util.get_sam_model("vit_b", compute_dtype="float32", seed=0)
+    monkeypatch.setattr(util, "get_sam_model", lambda *a, **k: predictor)
+    path = export_image_encoder("vit_b", str(tmp_path))
+    traced = torch.jit.load(path, map_location="cuda")
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 3, 1024, 768).astype(np.float32) * 255)
+    counts = [k.launches for k in (gemm, layernorm, relpos_attention)]
+    with torch.no_grad():
+        got = traced(x.cuda())
+        torch.cuda.synchronize()
+        assert [k.launches for k in (gemm, layernorm, relpos_attention)] == counts
+        ref = predictor.model.encode_image(preprocess(x.cuda().permute(0, 2, 3, 1), 1024))
+    assert [k.launches for k in (gemm, layernorm, relpos_attention)] != counts
+    ref = ref.permute(0, 3, 1, 2).float()
+    assert got.shape == (1, 256, 64, 64) and got.is_cuda
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-3, err

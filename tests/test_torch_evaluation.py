@@ -22,8 +22,18 @@ import os
 import numpy as np
 import pytest
 
-from tests.torch_port_util import (AIS_KW, jax_params, port_sam, port_unetr, tiny_jax_config,
-                                   unetr_jax_params)
+from tests.torch_port_util import (AIS_KW, jax_params, one_thread, port_sam, port_unetr,
+                                   tiny_jax_config, unetr_jax_params)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 SIZE = 256
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "bench_sam_tiny1024.npz")

@@ -127,3 +127,40 @@ def test_port_modules_import_without_the_optional_libraries():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_export_and_annotator_modules_import_without_gui_or_onnx():
+    """Model export and the annotators import with napari, qtpy, magicgui,
+    onnx and onnxruntime blocked (and the libraries above), and load no JAX:
+    the card's machine has none of them."""
+    code = (
+        "import importlib, sys\n"
+        "BLOCK = {'napari', 'qtpy', 'magicgui', 'onnx', 'onnxruntime', 'pandas', 'imageio',\n"
+        "         'h5py', 'sklearn', 'matplotlib', 'xxhash', 'joblib', 'jax', 'networkx'}\n"
+        "class Blocker:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCK:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Blocker())\n"
+        "names = ['_model_settings', '_test_util', 'bioimageio', 'bioimageio.predictor_adaptor',\n"
+        "         'bioimageio.onnx_decoder', 'bioimageio.model_export',\n"
+        "         'bioimageio.bioengine_export', 'sam_annotator', 'sam_annotator._compat',\n"
+        "         'sam_annotator._tooltips', 'sam_annotator.util', 'sam_annotator._state',\n"
+        "         'sam_annotator._widgets', 'sam_annotator._annotator',\n"
+        "         'sam_annotator.annotator_2d', 'sam_annotator.annotator_3d',\n"
+        "         'sam_annotator.annotator_tracking', 'sam_annotator.image_series_annotator',\n"
+        "         'sam_annotator.object_classifier', 'sam_annotator.training_ui']\n"
+        "for n in names:\n"
+        "    importlib.import_module('micro_sam_tpu_torch.' + n)\n"
+        "from micro_sam_tpu_torch.sam_annotator import _compat\n"
+        "assert not _compat.HAVE_QT\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCK\n"
+        "             or m == 'micro_sam_tpu' or m.startswith('micro_sam_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "20"

@@ -15,7 +15,17 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import jax_params, port_sam, rel_err, tiny_jax_config
+from tests.torch_port_util import jax_params, one_thread, port_sam, rel_err, tiny_jax_config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 TILE, HALO = (128, 128), (32, 32)
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "bench_sam_tiny1024.npz")

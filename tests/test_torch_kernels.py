@@ -12,7 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import abs_err, jax_block, port_block
+from tests.torch_port_util import abs_err, jax_block, one_thread, port_block
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 TOL = 5e-5
 

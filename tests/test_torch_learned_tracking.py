@@ -12,7 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import rel_err
+from tests.torch_port_util import one_thread, rel_err
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 PARAM_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "mu", "sigma")
 

@@ -27,8 +27,18 @@ import sys
 import numpy as np
 import pytest
 
-from tests.torch_port_util import (jax_params, matched_share, port_sam, tiny_jax_config,
+from tests.torch_port_util import (jax_params, matched_share, one_thread, port_sam, tiny_jax_config,
                                    unetr_jax_params)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 SIZE = 128
 Z = 6

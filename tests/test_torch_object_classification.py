@@ -12,7 +12,17 @@ only up to its sign, and the RGB normalisation of a flipped component is
 import numpy as np
 import pytest
 
-from tests.torch_port_util import jax_params, port_sam, rel_err, tiny_jax_config
+from tests.torch_port_util import jax_params, one_thread, port_sam, rel_err, tiny_jax_config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 TILE, HALO = (128, 96), (16, 16)
 

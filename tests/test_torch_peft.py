@@ -28,6 +28,16 @@ import torch
 
 from torch_port_util import jax_params, one_thread, rel_err, tiny_jax_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
+
 SIZE = 128
 TOL = 1e-4
 CASES = {

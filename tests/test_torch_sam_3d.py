@@ -17,6 +17,16 @@ import torch
 
 from torch_port_util import jax_params, one_thread, port_sam, rel_err, tiny_jax_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
+
 SIZE, DEPTH = 128, 2
 TOL = 1e-4
 

@@ -14,7 +14,18 @@ import numpy as np
 import pytest
 
 from tests.make_zarr_fixture import feature_pattern, fixture_input
-from tests.torch_port_util import abs_err, jax_params, port_sam, rel_err, tiny_jax_config
+from tests.torch_port_util import (abs_err, jax_params, one_thread, port_sam, rel_err,
+                                   tiny_jax_config)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 TILE, HALO = (96, 96), (16, 16)  # 160 x 320: 2 x 4 tiles, tiles 1, 2 and 5, 6 of one shape

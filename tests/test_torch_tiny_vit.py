@@ -26,7 +26,17 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import abs_err, rel_err
+from tests.torch_port_util import abs_err, one_thread, rel_err
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 TOL = 1e-4

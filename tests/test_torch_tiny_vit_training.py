@@ -22,6 +22,16 @@ import torch
 from test_torch_tiny_vit import _jax_tree
 from torch_port_util import one_thread, rel_err
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
+
 SIZE = 64
 TOL = 1e-4
 

@@ -11,6 +11,16 @@ import types
 
 import numpy as np
 import pytest
+from tests.torch_port_util import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
 
 
 def _sequence():

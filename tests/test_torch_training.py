@@ -22,6 +22,15 @@ from torch_port_util import (jax_params, jax_step_loss, joint_checkpoint, one_th
                              rel_err)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
+
 def _cfg(img_size=128):
     from micro_sam_tpu.models.sam import SamConfig
     return SamConfig(model_type="vit_b", embed_dim=64, depth=2, num_heads=2,

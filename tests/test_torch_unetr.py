@@ -16,7 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import NARROW_UNETR, port_unetr, unetr_jax_params
+from tests.torch_port_util import NARROW_UNETR, one_thread, port_unetr, unetr_jax_params
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
 
 
 def _features(shape=(2, 8, 8, 256), seed=3):

@@ -24,6 +24,15 @@ from torch_port_util import (jax_params, jax_step_loss, joint_checkpoint, one_th
                              rel_err)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
+
 def _vit_h_class(img_size=128):
     """vit_h's head dim (80) at a CI width: 160 wide, 2 heads, a windowed and
     a global block; at 128 px the 8 x 8 tokens pad to 14 for the 14 x 14

@@ -19,8 +19,18 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import (abs_err, jax_block, jax_params, port_block, port_sam,
+from tests.torch_port_util import (abs_err, jax_block, jax_params, one_thread, port_block, port_sam,
                                    rel_err)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: tier-1's six test processes share the
+    machine's cores, and small tensors gain nothing from more (ROADMAP.md,
+    Budgets)."""
+    with one_thread():
+        yield
+
 
 TOL = 5e-5
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
