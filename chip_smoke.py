@@ -2,6 +2,7 @@
 """Drive micro_sam_tpu_torch on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 18     # phases 1, 2 and 18 only; no result lines
 
 Phases (any fault ends the run with a non-zero exit, and no result line):
  1. the card: CUDA must be available; prints its name and power limit;
@@ -261,9 +262,31 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     0.99, the committed labels equal. The CPU references of phases 4 and 12
     run in processes started at phases 3 and 9. Prints the phase's wall
     time;
-18. prints one JSON line of details (per-shape rows, chains, end-to-end and
+18. multi-GPU execution (``parallel/``), every time marked as two ranks
+    time-sliced on one card (no multi-GPU speed; NCCL across cards
+    unmeasured): (b) a gloo world of two spawned ranks (gloo named, both on
+    cuda:0, the kernels built here first, the data made here once), while
+    this process runs (a) an NCCL world of one, get_sam_model("vit_b",
+    mesh=make_mesh()) (bf16, seed 0) through phase 4's 1024^2 precompute and
+    a predict, bitwise equal to the unmeshed predictor, and the single
+    process's runs of the ranks' work: at data = 2 phase 10's tiled precompute (two tiles a rank; rel 3e-2
+    of the single process's) and the trained fixture's AMG at phase 11's cut
+    (records at the default thresholds and at the floors matched as phase 11
+    matches them, the candidates and each batch's survivors equal on both
+    ranks); at model = 2 one 1024^2
+    encode in bf16 (timed) and f32 with 48 gemm, 12 relpos_attention and 24 layernorm
+    launches a rank (bf16 rel 3e-2, f32 1e-3 of the unsplit run); one f32
+    SamTrainer step of vit_b cut to 6 blocks at data = 2 and at model = 2
+    (every gradient within rel 1e-3 of its max of the single process's on the
+    same global batch); timed bf16 steps at train_sam's defaults at data = 2
+    with the gradient all-reduce's ms and bytes; the multi-process
+    precompute into a shared cache under build/ (equal to the single process,
+    the signature stamped once); then the gemm at vit_b's model = 2 shapes
+    against its plain version, timed with F.linear and its bound. Prints the
+    phase's wall time;
+19. prints one JSON line of details (per-shape rows, chains, end-to-end and
     training numbers, the tiled routes, the AMG, AIS, multi-dimensional,
-    joint-training, PEFT, evaluation and annotator numbers), then the kernels line (one entry
+    joint-training, PEFT, evaluation, annotator and multi-GPU numbers), then the kernels line (one entry
     per kernel, vit_t chain and ViT attention half, the backward at head dim
     80, K12, the spatial mode of relpos_attention, K9 and K11: launches,
     max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for gemm the
@@ -271,7 +294,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     backward its stages, launches per stage variant and head dims; for
     relpos_attention also its launches per forward variant in one vit_b
     encode; phase 15's counts as ``launches_lora_*`` / ``launches_qlora_*``
-    / ``launches_vit_t_training_step``) and, last, the device line.
+    / ``launches_vit_t_training_step``; phase 18's per-rank launches of the
+    model = 2 encode as ``launches_tp_vit_b_encode``) and, last, the device
+    line.
 """
 import json
 import os
@@ -654,11 +679,12 @@ def gemm_plan_label(a):
                                   a[3] if len(a) > 3 else "none"))
 
 
-def gemm_sweep(model, seed=4242):
+def gemm_sweep(model, shapes=None, seed=4242):
     """The bf16 gemm at every distinct shape of ``model``'s encode
-    (``GEMM_SHAPES``): held against the plain version in f32 on the same
-    inputs, timed as the kernel and as F.linear + its epilogue, with its bound
-    and plan; then the sums per encode (each shape times its launches)."""
+    (``GEMM_SHAPES``, or ``shapes``): held against the plain version in f32 on
+    the same inputs, timed as the kernel and as F.linear + its epilogue, with
+    its bound and plan; then the sums per encode (each shape times its
+    launches)."""
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -666,7 +692,7 @@ def gemm_sweep(model, seed=4242):
         return (torch.randn(*shape, generator=g) * scale).to(dev, torch.bfloat16)
 
     cases = []
-    for label, M, N, K, epi, n in GEMM_SHAPES[model]:
+    for label, M, N, K, epi, n in shapes or GEMM_SHAPES[model]:
         a = (rnd(M, K), rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.1).float(), epi)
         if epi in ("residual", "residual_gelu"):
             a += (rnd(M, N),)
@@ -3034,13 +3060,14 @@ AMG_PROFILE_GROUPS = SERVE_PROFILE_GROUPS[:-1] + (
 
 
 def fixture_amg(root, device, prefilters=(FIXTURE_FLOORS,), side=AMG_SIDE, batch=AMG_BATCH,
-                shard=(0, 1)):
+                shard=(0, 1), mesh=None):
     """The trained fixture SAM (f32) on ``device``: AMG ``initialize`` over
     ``side`` x ``side`` points, ``batch`` a batch, on the fixture's synthetic
     image, once per prefilter. ``shard=(k, n)`` takes the k-th of n equal
     parts of the grid, in whole batches, so that n processes share the CPU
     reference (each with its share of the CPU's threads; their states joined
-    in order are the whole grid's). Returns, per prefilter, the state
+    in order are the whole grid's). ``mesh``: the predictor runs on this
+    rank's share of it (phase 18). Returns, per prefilter, the state
     (``get_state``), the survivors of each batch's device decode and the
     seconds ``initialize`` took."""
     sys.path.insert(0, root)
@@ -3057,7 +3084,7 @@ def fixture_amg(root, device, prefilters=(FIXTURE_FLOORS,), side=AMG_SIDE, batch
     cfg, sd = params_from_flat_npz(os.path.join(root, FIXTURE), compute_dtype="float32")
     sam = Sam(cfg)
     sam.load_state_dict(sd)
-    predictor = SamPredictor(sam.to(device).eval())
+    predictor = SamPredictor(sam.to(device).eval(), mesh=mesh)
     image = synthetic_data(**FIXTURE_IMAGE)[0]
     grid = build_point_grid(side)
     part = len(grid) // n
@@ -6019,7 +6046,468 @@ def annotator_phase(counters, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-GPU execution (parallel/): an NCCL world of one, and a gloo
+# world of two ranks time-sliced on the one card
+# ---------------------------------------------------------------------------
+
+PAR_DIR = os.path.join("build", "chip_smoke_parallel")
+PAR_RANKS = 2
+TP_ENCODE_TOL = {"bfloat16": 3e-2, "float32": 1e-3}   # the model = 2 encode against the unsplit
+PAR_STEP_TOL = 1e-3         # every f32 gradient, rel to its tensor's max
+PAR_TIMED = (1, 3)          # warm-up and timed bf16 steps at data = 2
+PAR_ENCODE_REPS = 3
+PAR_DATA_WAIT_S = 600       # a rank's wait for the parent's data
+PAR_NOTE = ("two ranks time-sliced on one card: no multi-GPU speed; NCCL across cards and "
+            "NVLink unmeasured")
+# the four products of a vit_b block split over model = 2, per rank: qkv and lin1
+# on half their output rows, proj and lin2 on half their input columns (epilogue
+# none: the bias and the residual are added after the float32 all-reduce)
+TP_GEMM_SHAPES = tuple(
+    (f"{p} {M}", M, N, K, epi, n)
+    for M, n in ((WIN_ROWS, 8), (GLOB_ROWS, 4))
+    for p, N, K, epi in (("qkv", 3 * C // 2, C, "none"), ("proj", C, C // 2, "none"),
+                         ("lin1", 2 * C, C, "gelu"), ("lin2", C, 2 * C, "none")))
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def nccl_world_of_one(counters):
+    """An NCCL world of one rank: get_sam_model("vit_b", mesh=make_mesh())
+    (bf16, seed 0) precomputes phase 4's 1024^2 image and predicts once; both
+    must equal the unmeshed predictor's, bitwise."""
+    import torch.distributed as dist
+    from micro_sam_tpu_torch.parallel.mesh import make_mesh
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings, set_precomputed
+    image = main_path_inputs()[0]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh()
+        if mesh.backend != "nccl" or mesh.device != torch.device("cuda", 0):
+            raise AssertionError(f"the NCCL world's mesh is {mesh}")
+        runs = {}
+        for name, m in (("meshed", mesh), ("unmeshed", None)):
+            pred = get_sam_model("vit_b", mesh=m)
+            emb, n = counted(counters, lambda: precompute_image_embeddings(pred, image,
+                                                                            verbose=False))
+            check_launches(f"NCCL world of one, {name} precompute", n, 1, counters)
+            set_precomputed(pred, emb)
+            out = pred.predict(point_coords=np.array([[300.0, 420.0], [520.0, 610.0]]),
+                               point_labels=np.array([1, 0]), return_logits=True)
+            runs[name] = (emb["features"], *out, n)
+            del pred
+        same = [bool(np.array_equal(a, b)) for a, b in zip(runs["meshed"][:4], runs["unmeshed"][:4])]
+        log(f"  NCCL world of one ({mesh}): embedding, masks, iou, low-res logits bitwise equal "
+            f"to the unmeshed predictor: {same}")
+        if not all(same):
+            raise AssertionError("the NCCL world of one differs from the unmeshed predictor")
+        return dict(bitwise_equal=all(same), launches=runs["meshed"][4])
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+class GradsKept(torch.optim.AdamW):
+    """AdamW that keeps the gradients its last step saw (after the trainer's
+    all-reduce)."""
+
+    def step(self, closure=None):
+        self.grads = {id(p): p.grad.detach().clone() for g in self.param_groups
+                      for p in g["params"] if p.grad is not None}
+        return super().step(closure)
+
+
+def par_step_grads(mesh, x, y, spans=None):
+    """(loss, {name: whole f32 gradient on the CPU}) of one f32 SamTrainer point
+    step (one round, 4 objects) of vit_b cut to F32_STEP_CUT's 6 blocks on the
+    global batch (x, y): on ``mesh`` each data rank takes its share and the
+    gradients are the trainer's after its all-reduce (gathered over the model
+    group); None is the single process. ``spans`` (a list) gains the host
+    seconds of the model's build, the batch, the step and the gradients'
+    gathering."""
+    from micro_sam_tpu_torch.parallel.mesh import gather_tensors
+    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
+    spans = [] if spans is None else spans
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        spans.append((name, round(time.perf_counter() - t0, 3)))
+        t0 = time.perf_counter()
+
+    depth, globs = F32_STEP_CUT["vit_b"]
+    with CutDepth("vit_b", depth, globs):
+        model = get_trainable_sam_model("vit_b", device="cuda", compute_dtype="float32")
+    lap("build")
+    named = list(model.sam.named_parameters())
+    opt = GradsKept([p for _, p in named], lr=1e-5, betas=(0.9, 0.999), eps=1e-8,
+                    weight_decay=1e-4)
+    trainer = SamTrainer("f32", None, None, model, optimizer=opt, n_sub_iteration=1,
+                         n_objects_per_batch=4, logger=False, mesh=mesh)
+    d, i = (1, 0) if mesh is None else (mesh.shape["data"], mesh.data_index)
+    per = len(x) // d
+    batch = trainer._prepare_batch(x[i * per:(i + 1) * per], y[i * per:(i + 1) * per], True,
+                                   False, 1, 0)
+    lap("batch")
+    with torch.enable_grad():
+        loss, _ = trainer.train_step(batch, True, False, True)
+    lap("step")
+    grads = {n: opt.grads[id(p)] for n, p in named if id(p) in opt.grads}
+    if mesh is not None:
+        grads = gather_tensors(grads, mesh, model.config)
+    grads = {n: g.float().cpu() for n, g in grads.items()}
+    lap("gradients to the host")
+    return float(loss), grads
+
+
+def hold_step_grads(what, got, ref):
+    """Every gradient of ``got`` within PAR_STEP_TOL of its tensor's max in
+    ``ref`` (zero-by-symmetry tensors below 1e-6 of the largest), the loss rel
+    1e-5. Returns (worst rel, loss rel)."""
+    (loss, g), (loss_ref, g_ref) = got, ref
+    g_max = max(float(t.abs().max()) for t in g_ref.values())
+    worst, worst_name = 0.0, ""
+    for name, r in g_ref.items():
+        a = g[name]
+        if float(r.abs().max()) <= 1e-7 * g_max:
+            if float(a.abs().max()) > 1e-6 * g_max:
+                raise AssertionError(f"{what}: {name} should have no gradient")
+            continue
+        rel = float((a - r).abs().max() / r.abs().max())
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+    log(f"  {what}: loss {loss:.6f} vs {loss_ref:.6f} (rel {loss_rel:.2e}), worst gradient rel "
+        f"{worst:.3e} ({worst_name}; tol {PAR_STEP_TOL}) "
+        f"{'ok' if worst <= PAR_STEP_TOL and loss_rel <= 1e-5 else 'FAIL'}")
+    if worst > PAR_STEP_TOL or loss_rel > 1e-5:
+        raise AssertionError(f"{what} differs from the single process")
+    return worst, loss_rel
+
+
+def par_timed_steps(mesh, imgs, segs):
+    """bf16 SamTrainer steps at train_sam's defaults (global batch 2: one
+    image a data rank, 25 objects, 8 rounds, lr 1e-5) on ``mesh``:
+    PAR_TIMED warm-up and timed ``train_step`` calls (forward, backward, the
+    all-reduce, AdamW; the prompt sampling before each is not timed), host
+    clock, the card synchronized around each; the gradient all-reduce's ms
+    and bytes a step (the trainer's ``all_reduce_gradients_``, timed the
+    same way)."""
+    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
+    from micro_sam_tpu_torch.training import sam_trainer
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    model = get_trainable_sam_model("vit_b", device="cuda")
+    trainer = SamTrainer("par", None, None, model, n_sub_iteration=8, n_objects_per_batch=25,
+                         logger=False, mesh=mesh)
+    loader = SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=2 * sum(PAR_TIMED)),
+                       batch_size=2)
+    reduce, spans = sam_trainer.all_reduce_gradients_, []
+
+    def timed_reduce(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = reduce(*a, **kw)
+        torch.cuda.synchronize()
+        spans.append((time.perf_counter() - t0, n))
+        return n
+
+    sam_trainer.all_reduce_gradients_ = timed_reduce
+    steps = []
+    try:
+        i = mesh.data_index
+        for k, (x, y) in enumerate(loader):
+            if k == sum(PAR_TIMED):
+                break
+            choice = trainer._get_prompt_and_multimasking_choices(trainer._iteration)
+            batch = trainer._prepare_batch(x[i:i + 1], y[i:i + 1], *choice[:2], *choice[3:],
+                                           batch_idx=k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.enable_grad():
+                trainer.train_step(batch, *choice[:3])
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+    finally:
+        sam_trainer.all_reduce_gradients_ = reduce
+    w = PAR_TIMED[0]
+    return dict(step_ms=1e3 * statistics.median(steps[w:]),
+                allreduce_ms=1e3 * statistics.median(s for s, _ in spans[w:]),
+                allreduce_bytes=spans[-1][1], steps=len(steps) - w)
+
+
+def parallel_rank(rank, root, workdir, spawned_at):
+    """One rank of the gloo world of PAR_RANKS ranks on cuda:0 (spawned by
+    ``parallel_phase`` at ``spawned_at``, wall clock): its checks on the
+    parent's data (<workdir>/data.npz), its results written to
+    <workdir>/rank<rank>.pt."""
+    import torch.distributed as dist
+    log(f"  [rank {rank}] up {time.time() - spawned_at:.1f} s after the spawn")
+    sys.path.insert(0, root)
+    os.chdir(root)
+    torch.set_grad_enabled(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/gloo.init",
+                            world_size=PAR_RANKS, rank=rank)
+    try:
+        res = parallel_rank_checks(rank, root, workdir)
+        torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_rank_checks(rank, root, workdir):
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    from micro_sam_tpu_torch.ops.layernorm import layernorm
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    from micro_sam_tpu_torch.parallel import distributed
+    from micro_sam_tpu_torch.parallel.mesh import make_mesh
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings
+    from micro_sam_tpu_torch.utils import zarr_lite
+    counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention}
+    t_start = time.perf_counter()
+    say = lambda *a: log(f"  [rank {rank} +{time.perf_counter() - t_start:.1f} s]", *a)  # noqa: E731
+    dp, tp = make_mesh(model_axis=1), make_mesh(model_axis=PAR_RANKS)
+    say(f"meshes {dp.shape} and {tp.shape} over {dp.backend} on {dp.device}")
+    pred = get_sam_model("vit_b", mesh=dp)
+    data = os.path.join(workdir, "data.npz")  # the parent writes it meanwhile
+    while not os.path.exists(data):
+        if time.perf_counter() - t_start > PAR_DATA_WAIT_S:
+            raise TimeoutError(f"no {data} after {PAR_DATA_WAIT_S} s")
+        time.sleep(0.1)
+    with np.load(data) as f:
+        image = f["image"]
+        imgs, segs = list(f["imgs"]), list(f["segs"])
+    say("the model built, the data read")
+    res = {}
+    # data = 2: phase 10's tiled precompute, two tiles a rank
+    precompute_image_embeddings(pred, image[:1024, :1024], verbose=False)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, n = counted(counters, lambda: precompute_image_embeddings(
+        pred, image, tile_shape=TILE, halo=HALO, batch_size=TILE_BATCH, verbose=False))
+    res["tiled_s"] = time.perf_counter() - t0
+    check_launches(f"[rank {rank}] data = 2 tiled precompute ({res['tiled_s']:.3f} s, two "
+                   f"tiles a rank)", n, 1, counters)
+    res["tiled_launches"] = n
+    res["tiled"] = {t: np.asarray(e["features"]) for t, e in emb["features"].items()}
+    # the multi-process precompute into a shared cache: the same weights in an
+    # unmeshed predictor a process
+    stamps, setitem = [], zarr_lite.Attributes.__setitem__
+
+    def stamping(self, key, value):
+        if key == "done":
+            stamps.append(key)
+        return setitem(self, key, value)
+
+    zarr_lite.Attributes.__setitem__ = stamping
+    try:
+        t0 = time.perf_counter()
+        emb = distributed.precompute_image_embeddings_multihost(
+            SamPredictor(pred.model), image, os.path.join(workdir, "multihost.zarr"),
+            tile_shape=TILE, halo=HALO, batch_size=TILE_BATCH)
+        res["multihost_s"] = time.perf_counter() - t0
+    finally:
+        zarr_lite.Attributes.__setitem__ = setitem
+    res["multihost"] = {t: np.asarray(e["features"]) for t, e in emb["features"].items()}
+    res["stamps"] = len(stamps)
+    say(f"multi-process precompute {res['multihost_s']:.3f} s")
+    del pred, emb
+    # data = 2: the trained fixture's AMG at phase 11's cut
+    run = fixture_amg(root, "cuda", mesh=dp)[0]
+    res["amg"] = fixture_records([run])
+    say(f"data = 2 fixture AMG: {res['amg']['candidates']} candidates, "
+        f"{len(res['amg']['records'])} records, initialize {run['initialize_s']:.3f} s")
+    # model = 2: one 1024^2 encode a dtype, bf16 timed
+    x1 = main_path_inputs()[2]
+    res["tp"] = {}
+    for dt in ("bfloat16", "float32"):
+        pred = get_sam_model("vit_b", mesh=tp, compute_dtype=dt)
+        feats, n = counted(counters, lambda: pred.encode_batch(x1).float().cpu().numpy())
+        check_launches(f"[rank {rank}] model = 2 encode {dt} (split widths)", n, 1, counters)
+        res["tp"][dt] = dict(features=feats, launches=n)
+        if dt == "bfloat16":
+            times = []
+            for _ in range(PAR_ENCODE_REPS):
+                t0 = time.perf_counter()
+                pred.encode_batch(x1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            res["tp"][dt]["encode_ms"] = 1e3 * statistics.median(times)
+        say(f"model = 2 encode {dt}: launches {n}"
+            + (f", {res['tp'][dt]['encode_ms']:.3f} ms" if dt == "bfloat16" else ""))
+        del pred
+    torch.cuda.empty_cache()
+    # training: one f32 step at data = 2 and at model = 2 on phase 6's f32 batch
+    x, y = next(iter(SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4),
+                               batch_size=2)))
+    res["step"] = {}
+    for name, m in (("data", dp), ("model", tp)):
+        spans = []
+        res["step"][name] = par_step_grads(m, x, y, spans)
+        say(f"f32 step at {name} = 2, host seconds {spans}")
+    if rank:
+        res["step"] = None  # rank 0's copy is the whole of each
+    torch.cuda.empty_cache()
+    res["timed"] = par_timed_steps(dp, imgs, segs)
+    say(f"data = 2 bf16 steps at train_sam's defaults: {res['timed']}")
+    return res
+
+
+def parallel_phase(counters, root):
+    """Phase 18: the gloo world of PAR_RANKS spawned ranks on the one card
+    (the kernels built here first, the data made here once), and meanwhile
+    the NCCL world of one and this process's single-process runs of the same
+    work, which the ranks are held against; then the gemm at the split shapes
+    against its plain version."""
+    import shutil
+    from micro_sam_tpu_torch.models.sam import preprocess
+    from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings
+    out = {"note": PAR_NOTE}
+    workdir = os.path.join(root, PAR_DIR)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    log(f"  (b) gloo: {PAR_RANKS} ranks on cuda:0 ({PAR_NOTE})")
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(parallel_rank,
+                                                args=(root, workdir, time.time()),
+                                                nprocs=PAR_RANKS, join=False,
+                                                start_method="spawn")
+    try:
+        # meanwhile: the ranks' data (written whole, then renamed), the NCCL
+        # world of one, and the single process's runs
+        image = tiled_data()[0]
+        imgs, segs = training_data()
+        part = os.path.join(workdir, "data.part.npz")
+        np.savez(part, image=image, imgs=np.stack(imgs), segs=np.stack(segs))
+        os.replace(part, os.path.join(workdir, "data.npz"))
+        log(f"  the ranks' data written at +{time.perf_counter() - t0:.1f} s")
+        log("  (a) NCCL, while the gloo world runs")
+        out["nccl"] = nccl_world_of_one(counters)
+        pred = get_sam_model("vit_b")
+        single_tiled = {t: np.asarray(e["features"]) for t, e in precompute_image_embeddings(
+            pred, image, tile_shape=TILE, halo=HALO, batch_size=TILE_BATCH,
+            verbose=False)["features"].items()}
+        del pred
+        single_amg = fixture_records([fixture_amg(root, "cuda")[0]])
+        x1 = torch.from_numpy(main_path_inputs()[2])
+        single_encode = {dt: get_sam_model("vit_b", compute_dtype=dt).model.encode_image(
+            preprocess(x1.cuda())).float().cpu().numpy() for dt in TP_ENCODE_TOL}
+        x, y = next(iter(SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4),
+                                   batch_size=2)))
+        single_step = par_step_grads(None, x, y)
+        torch.cuda.empty_cache()
+        log(f"  the single process's runs done at +{time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        for p in ctx.processes:  # no rank outlives a failed parent
+            p.terminate()
+            p.join()
+        raise
+    while not ctx.join():
+        pass
+    out["world_s"] = time.perf_counter() - t0
+    r0, r1 = (torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+              for r in range(PAR_RANKS))
+    # data = 2
+    tiled_rel = max(rel_max(r0["tiled"][t], single_tiled[t]) for t in single_tiled)
+    log(f"  data = 2 tiled precompute against the single process: {len(r0['tiled'])} tiles, "
+        f"rel {tiled_rel:.3e} (tol 3e-2), {r0['tiled_s']:.3f} s ({PAR_NOTE})")
+    if set(r0["tiled"]) != set(single_tiled) or tiled_rel > 3e-2:
+        raise AssertionError("the data = 2 tiled precompute differs from the single process")
+    # every rank decodes its share of each batch: the survivors of every batch,
+    # and the records at the floors (which rank 1's share reaches), too
+    amg = match_fixture_records(r0["amg"]["records"], single_amg["records"])
+    amg["at_floors"] = match_fixture_records(r0["amg"]["records_at_floors"],
+                                             single_amg["records_at_floors"],
+                                             thresholds=FIXTURE_FLOORS)
+    for r in (r0, r1):
+        if (r["amg"]["candidates"], r["amg"]["survivors"]) != (single_amg["candidates"],
+                                                               single_amg["survivors"]):
+            raise AssertionError(f"data = 2 fixture AMG: candidates {r['amg']['candidates']}, "
+                                 f"survivors {r['amg']['survivors']}; one process "
+                                 f"{single_amg['candidates']}, {single_amg['survivors']}")
+    amg.update(candidates=single_amg["candidates"], survivors=single_amg["survivors"])
+    log(f"  data = 2 fixture AMG against the single process (candidates and survivors per batch "
+        f"equal on both ranks): {amg}")
+    # model = 2
+    tp = {}
+    for dt, tol in TP_ENCODE_TOL.items():
+        rel = rel_max(r0["tp"][dt]["features"], single_encode[dt])
+        same_ranks = bool(np.array_equal(r0["tp"][dt]["features"], r1["tp"][dt]["features"]))
+        tp[dt] = dict(rel=rel, launches_per_rank=r0["tp"][dt]["launches"],
+                      encode_ms=r0["tp"][dt].get("encode_ms"), ranks_equal=same_ranks)
+        log(f"  model = 2 encode {dt}: rel {rel:.3e} to the unsplit run (tol {tol}), ranks equal "
+            f"{same_ranks}, launches a rank {r0['tp'][dt]['launches']}"
+            + (f", {tp[dt]['encode_ms']:.3f} ms ({PAR_NOTE})" if tp[dt]["encode_ms"] else ""))
+        if rel > tol or not same_ranks:
+            raise AssertionError(f"the model = 2 encode ({dt}) differs from the unsplit run")
+    # training
+    steps = {name: hold_step_grads(f"f32 step at {name} = 2 vs one process", got, single_step)
+             for name, got in r0["step"].items()}
+    # the multi-process precompute
+    mh_rel = max(rel_max(r0["multihost"][t], single_tiled[t]) for t in single_tiled)
+    mh_bitwise = all(np.array_equal(r0["multihost"][t], single_tiled[t]) for t in single_tiled)
+    stamps = [r0["stamps"], r1["stamps"]]
+    log(f"  multi-process precompute: rel {mh_rel:.3e} (bitwise {mh_bitwise}), signature "
+        f"stamped {stamps} times by rank, {r0['multihost_s']:.3f} s ({PAR_NOTE})")
+    if mh_rel > 3e-2 or stamps != [1, 0] or set(r0["multihost"]) != set(single_tiled):
+        raise AssertionError("the multi-process precompute differs from the single process")
+    log(f"  data = 2 bf16 steps at train_sam's defaults: rank 0 {r0['timed']}, rank 1 "
+        f"{r1['timed']} ({PAR_NOTE})")
+    out["gloo"] = dict(
+        tiled=dict(rel=tiled_rel, seconds=r0["tiled_s"], launches_rank0=r0["tiled_launches"]),
+        amg=amg, model2_encode=tp,
+        f32_step={k: dict(worst_grad_rel=v[0], loss_rel=v[1]) for k, v in steps.items()},
+        timed_steps=[r0["timed"], r1["timed"]],
+        multihost=dict(rel=mh_rel, bitwise=mh_bitwise, stamps=stamps,
+                       seconds=r0["multihost_s"]))
+    log("  the gemm at vit_b's model = 2 shapes (bf16) against its plain version")
+    out["gemm_model2"] = gemm_sweep("vit_b model=2", TP_GEMM_SHAPES)
+    return out
+
+
+def parallel_phase_alone(root):
+    """``--phase 18``: phase 18 alone after the build, its numbers on one line
+    (and no result lines: the run checks one phase, not the port)."""
+    from micro_sam_tpu_torch.ops.gemm import gemm
+    from micro_sam_tpu_torch.ops.layernorm import layernorm
+    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention}
+    t18 = time.perf_counter()
+    p18 = parallel_phase(counters, root)
+    p18["wall_s"] = time.perf_counter() - t18
+    log(json.dumps({"multi_gpu": p18}))
+    log(f"phase 18 (multi-GPU execution) alone: {p18['wall_s']:.1f} s ({PAR_NOTE})")
+    return 0
+
+
+def add_tp_launches(rows, p18):
+    """Phase 18's per-rank launches of the model = 2 vit_b encode (bf16) on
+    the kernels line."""
+    launches = p18["gloo"]["model2_encode"]["bfloat16"]["launches_per_rank"]
+    for r in rows:
+        if r["name"] in launches:
+            r["launches_tp_vit_b_encode"] = launches[r["name"]]
+
+
 def main():
+    alone = sys.argv[1:] == ["--phase", "18"]
+    if sys.argv[1:] and not alone:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, or with "
+              f"--phase 18 for phase 18 alone", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.",
               file=sys.stderr)
@@ -6069,6 +6557,8 @@ def main():
     # the profiler's first sessions in a process are the ones seen to record
     # nothing: take them on a throwaway measurement
     time_ms(lambda: torch.ones(1024, device="cuda").add_(1), iters=2, warmup=1)
+    if alone:
+        return parallel_phase_alone(root)
 
     # CPU references of later phases run beside the card's work in these
     # processes: phase 4's f32 encode from here, phase 12's decoders from phase 9
@@ -6082,7 +6572,7 @@ def main():
 
 
 def run_phases(root, card, early):
-    """Phases 3-17 and the result lines; ``early`` runs CPU references
+    """Phases 3-18 and the result lines; ``early`` runs CPU references
     ahead of the phases that read them."""
     from micro_sam_tpu_torch.ops.dwconv import dwconv
     from micro_sam_tpu_torch.ops.gemm import gemm
@@ -6231,10 +6721,20 @@ def run_phases(root, card, early):
     p17 = annotator_phase(counters, root)
     p17["wall_s"] = time.perf_counter() - t17
     log(f"phase 17 (the annotators and model export): {p17['wall_s']:.1f} s")
+    # phase 18: multi-GPU execution
+    t18 = time.perf_counter()
+    log(f"multi-GPU execution: an NCCL world of one (vit_b, bf16) against the unmeshed "
+        f"predictor; a gloo world of {PAR_RANKS} ranks on the one card: data = 2 (tiled "
+        f"precompute, the fixture's AMG, bf16 steps), model = 2 (encodes, split gemm shapes), "
+        f"f32 steps, the multi-process precompute, against one process; {card}")
+    p18 = parallel_phase(counters, root)
+    p18["wall_s"] = time.perf_counter() - t18
+    log(f"phase 18 (multi-GPU execution): {p18['wall_s']:.1f} s ({PAR_NOTE})")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)
     add_peft_launches(rows, p15)
+    add_tp_launches(rows, p18)
     # the details first, then the kernels line, short: one entry per kernel
     # and chain with the keys of the contract
     log(json.dumps({"details": {"kernels": rows, "chains": chains + lh_chains, "card": card,
@@ -6249,9 +6749,11 @@ def run_phases(root, card, early):
                                 "tiled": {k: p10[k] for k in ("routes", "cache", "vit_h_k9",
                                                              "costs", "replays")},
                                 "amg": p11, "ais": p12, "multi_dim": p13, "joint": p14,
-                                "peft": p15, "evaluation": p16, "annotator": p17}}))
+                                "peft": p15, "evaluation": p16, "annotator": p17,
+                                "multi_gpu": p18}}))
     log(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS + ("variants", "stages", "head_dims",
-                                                                  "plans")
+                                                                  "plans",
+                                                                  "launches_tp_vit_b_encode")
                                   if k in r}
                                 for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from . import common as cm
 from ..ops import fused_window_block as fwb
 from ..ops.relpos_attention import RelPosAttentionFn
+from ..parallel.mesh import CopyToModel, ReduceFromModel
 
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
@@ -96,8 +97,8 @@ def partition_tokens(x: torch.Tensor, window: int):
 class Attention(cm.KeepsDerived):
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int]):
         super().__init__()
-        self.num_heads = num_heads
-        hd = dim // num_heads
+        self.num_heads = num_heads  # all of the block's heads, split or not
+        self.head_dim = hd = dim // num_heads
         self.qkv = cm.Linear(dim, dim * 3)
         self.proj = cm.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
@@ -167,6 +168,9 @@ class Block(nn.Module):
         # the depth adapters of the 3d wrapper (models/sam_3d_wrapper.py)
         self.register_module("adapter_pre", None)
         self.register_module("adapter_post", None)
+        # the model group of a block split over a mesh's model axis
+        # (parallel/mesh.shard_sam_), None for a whole block
+        self.tp = None
 
     def hold_weights_in_(self, dtype: torch.dtype) -> "Block":
         """Keep the qkv, proj, lin1 and lin2 weights in ``dtype``, the dtype
@@ -225,23 +229,43 @@ def train_block(block: Block, x: torch.Tensor, valid, hw: Tuple[int, int],
     (the JAX package leaves them to XLA in training), each with its PEFT
     terms; the attention is ``RelPosAttentionFn`` on the qkv product's rows
     (plus the LoRA / FacT updates), the tables' gradient flowing back through
-    ``get_rel_pos``."""
+    ``get_rel_pos``. A block split over a model axis (``tp``) runs Megatron's
+    layout: ``CopyToModel`` before the products split on their output rows
+    (and on the shared rel-pos tables), ``ReduceFromModel`` after those split
+    on their input columns (``parallel/mesh.py``)."""
     Bn, N, C = x.shape
     attn = block.attn
-    nH = attn.num_heads
+    tp = block.tp
+    nH = attn.num_heads if tp is None else attn.num_heads // tp.size
     a = block.norm1(x)
     if valid is not None:
         a = a * valid.to(a.dtype)
+    if tp is not None:
+        a = CopyToModel.apply(a, tp.group)
     qkv = attn.qkv(a)
     d = attn.qkv_deltas(a, fact)
     if d is not None:
         qkv = qkv + d
-    qkv = qkv.view(Bn, N, 3, nH, C // nH).permute(0, 2, 3, 1, 4)
+    qkv = qkv.view(Bn, N, 3, nH, attn.head_dim).permute(0, 2, 3, 1, 4)
     rel_h = get_rel_pos(hw[0], hw[0], attn.rel_pos_h)
     rel_w = get_rel_pos(hw[1], hw[1], attn.rel_pos_w)
+    if tp is not None:  # every shard's heads read the tables: their gradients sum
+        rel_h, rel_w = CopyToModel.apply(rel_h, tp.group), CopyToModel.apply(rel_w, tp.group)
     o = RelPosAttentionFn.apply(qkv, rel_h, rel_w, tuple(hw))  # (Bn, nH, N, hd) view
-    x = x + attn.proj(o.transpose(1, 2).reshape(Bn, N, C))
-    return x + block.mlp(block.norm2(x))
+    o = o.transpose(1, 2).reshape(Bn, N, nH * attn.head_dim)
+    if tp is None:
+        x = x + attn.proj(o)
+        return x + block.mlp(block.norm2(x))
+    x = x + _reduced_product(o, attn.proj, tp)
+    b = CopyToModel.apply(block.norm2(x), tp.group)
+    return x + _reduced_product(cm.gelu(block.mlp.lin1(b)), block.mlp.lin2, tp)
+
+
+def _reduced_product(x: torch.Tensor, lin, tp) -> torch.Tensor:
+    """lin(x) for a product split on its input columns: the partial products
+    summed in float32 over the model group, the bias added once to the sum."""
+    part = cm.linear(x, lin.weight, None)
+    return (ReduceFromModel.apply(part, tp.group) + lin.bias).to(x.dtype)
 
 
 class PatchEmbed(nn.Module):

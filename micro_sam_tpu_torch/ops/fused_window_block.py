@@ -58,6 +58,16 @@ updates of the qkv product go onto its rows before the attention (``fact``,
 the encoder's shared FacT core), and an AdaptFormer adapter is added beside
 the MLP. The PEFT terms are PyTorch around the kernels, as the JAX package
 computes them outside its Pallas kernels (``apply_attention``).
+
+A block split over a mesh's model axis (``parallel/mesh.shard_sam_``, which
+sets ``Block.tp``) runs the same launches at its shard's widths: the qkv
+product gives its ``num_heads / m`` heads (the head dim is the block's, not
+C / heads), the attention runs on them, and the proj and lin2 products take
+the shard's input columns with epilogue ``none`` and a zero bias. Their
+partial sums are all-reduced in float32 over the model group (the kernel
+writes each partial in the working type), and the bias and the residual are
+added once to the sum, which is cast once. The JAX package leaves the same
+split to XLA (``micro_sam_tpu/parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -102,6 +112,25 @@ def _product(mm, x: torch.Tensor, lin, epilogue: str = "none",
     return y if residual is None else residual + y
 
 
+def _heads(block, num_heads: int) -> int:
+    """The heads a block runs: all of them, or its shard's under a model axis."""
+    return num_heads if block.tp is None else num_heads // block.tp.size
+
+
+def _out_product(mm, x: torch.Tensor, lin, residual: torch.Tensor, tp) -> torch.Tensor:
+    """residual + lin(x) for the proj and lin2 products. Split over a model
+    axis (``tp``), x holds the shard's input columns: the partial products
+    (epilogue ``none``, a zero bias) are summed in float32 over the model
+    group, then the bias and the residual are added and the sum cast once."""
+    if tp is None:
+        return _product(mm, x, lin, "residual", residual)
+    from ..parallel.mesh import all_reduce_f32
+    w = lin.dense_weight().to(x.dtype)
+    part = mm(x, w, lin.bias.new_zeros(w.shape[0]), "none")
+    acc = all_reduce_f32(part, tp.group)
+    return (acc + lin.bias.float() + residual.float()).to(x.dtype)
+
+
 def _qkv(mm, a: torch.Tensor, attn, fact) -> torch.Tensor:
     """The qkv product of LN1's rows a (M, C), plus the LoRA / FacT updates."""
     qkv = _product(mm, a, attn.qkv)
@@ -114,18 +143,18 @@ def _attn_half(x: torch.Tensor, valid: Optional[torch.Tensor], block, hw: Tuple[
     """Launches 1-4 of a block: x + proj(attn(LN1(x) * valid)), (Bn, N, C)."""
     ln, mm, att, _ = _PLAIN if plain else _KERNELS
     Bn, N, C = x.shape
-    hd = C // num_heads
+    heads, hd = _heads(block, num_heads), block.attn.head_dim
     M = Bn * N
     attn = block.attn
     xf = x.reshape(M, C).contiguous()
     v_rows = None if valid is None else valid.reshape(M)
     a = ln(xf, block.norm1.weight, block.norm1.bias, block.norm1.eps, v_rows)
-    q5 = _qkv(mm, a, attn, fact).view(Bn, N, 3, num_heads, hd)
+    q5 = _qkv(mm, a, attn, fact).view(Bn, N, 3, heads, hd)
     q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))  # (Bn, nH, N, hd) views
     rel_h, rel_w = attn.rel_tables(hw, x.dtype)
-    o = x.new_empty((Bn, N, num_heads, hd))  # no device constant in a trace
+    o = x.new_empty((Bn, N, heads, hd))  # no device constant in a trace
     att(q, k, v, rel_h, rel_w, hw, out=o.transpose(1, 2))
-    x1 = _product(mm, o.view(M, C), attn.proj, "residual", xf)
+    x1 = _out_product(mm, o.view(M, heads * hd), attn.proj, xf, block.tp)
     return x1.view(Bn, N, C)
 
 
@@ -139,7 +168,7 @@ def _mlp_half(x: torch.Tensor, block, plain: bool) -> torch.Tensor:
     b = ln(xf, block.norm2.weight, block.norm2.bias, block.norm2.eps)
     h = _product(mm, b, mlp.lin1, "gelu")
     if mlp.adapter is None:
-        return _product(mm, h, mlp.lin2, "residual", xf).view(shape)
+        return _out_product(mm, h, mlp.lin2, xf, block.tp).view(shape)
     return (xf + _product(mm, h, mlp.lin2) + mlp.adapter(b)).view(shape)
 
 
@@ -207,18 +236,18 @@ def _spatial_block(xp: torch.Tensor, block, window: int, valid_hw: Tuple[int, in
     if Hp % window or Wp % window:
         raise ValueError(f"fused_window_block_spatial: map {(Hp, Wp)} is not whole "
                          f"{window} x {window} windows")
-    hd = C // num_heads
+    heads, hd = _heads(block, num_heads), block.attn.head_dim
     M = B * Hp * Wp
     attn = block.attn
     xf = xp.reshape(M, C).contiguous()
     grid = None if (Hp, Wp) == tuple(valid_hw) else (Hp, Wp, *valid_hw)
     a = ln(xf, block.norm1.weight, block.norm1.bias, block.norm1.eps, None, grid)
-    q6 = _qkv(mm, a, attn, fact).view(B, Hp, Wp, 3, num_heads, hd)
+    q6 = _qkv(mm, a, attn, fact).view(B, Hp, Wp, 3, heads, hd)
     q, k, v = (q6[:, :, :, i] for i in range(3))  # (B, Hp, Wp, nH, hd) map views
     rel_h, rel_w = attn.rel_tables((window, window), xp.dtype)
-    o = torch.empty((B, Hp, Wp, num_heads, hd), device=xp.device, dtype=xp.dtype)
+    o = torch.empty((B, Hp, Wp, heads, hd), device=xp.device, dtype=xp.dtype)
     att(q, k, v, rel_h, rel_w, window, out=o)
-    x1 = _product(mm, o.view(M, C), attn.proj, "residual", xf)
+    x1 = _out_product(mm, o.view(M, heads * hd), attn.proj, xf, block.tp)
     return _mlp_half(x1, block, plain).view(B, Hp, Wp, C)
 
 

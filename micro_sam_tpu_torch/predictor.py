@@ -7,6 +7,13 @@ them: boxes become two points with labels 2 / 3, and one padding point (label
 -1) is appended only when there is no box. No further padding is added: every
 padding token takes part in the two-way transformer's attention and changes
 the result.
+
+On a mesh (``SamPredictor(sam, mesh=)``, ``shard_on_mesh``; ``parallel/mesh.py``)
+the encoder's blocks are split over the model axis, and every encode, prompt
+and AMG batch is padded to a multiple of the data axis (repeating its last
+element, as the JAX package pads) and split over the data ranks: each encodes
+or decodes its contiguous slice, and the slices are all-gathered, so every
+rank holds the whole result. Every rank of the mesh makes the same calls.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from .utils.transforms import ResizeLongestSide, get_preprocess_shape
 
 
 class SamPredictor:
-    def __init__(self, sam: Sam):
+    def __init__(self, sam: Sam, mesh=None):
         self.model = sam
         self.device = next(sam.parameters()).device
         self.transform = ResizeLongestSide(sam.config.img_size)
@@ -29,6 +36,40 @@ class SamPredictor:
         self.model_name: Optional[str] = None
         self._hash: Optional[str] = None
         self.reset_image()
+        self.mesh = None
+        self.batch_multiple = 1  # encode / decode batches pad to a multiple of this
+        if mesh is not None:
+            self.shard_on_mesh(mesh)
+
+    def shard_on_mesh(self, mesh) -> "SamPredictor":
+        """Run this predictor on ``mesh`` (``parallel.mesh.make_mesh``): the
+        encoder's blocks split over its model axis (``shard_sam_``, in place),
+        every encode and decode batch over its data axis. The model must be on
+        the mesh's device."""
+        from .parallel.mesh import shard_sam_
+        if self.mesh is not None:
+            raise ValueError("this predictor is already on a mesh")
+        if self.device != mesh.device:
+            raise ValueError(f"the model is on {self.device}, the mesh's rank on {mesh.device}")
+        shard_sam_(self.model, mesh)
+        self.mesh = mesh
+        self.batch_multiple = int(mesh.shape["data"])
+        return self
+
+    def _pad_batch(self, *arrays):
+        """Pad dim 0 of every array to a multiple of ``batch_multiple``,
+        repeating the last element; returns (*padded, true_n)."""
+        n = arrays[0].shape[0]
+        r = (-n) % self.batch_multiple
+        if r == 0:
+            return (*arrays, n)
+        return (*(np.concatenate([a, np.repeat(a[-1:], r, axis=0)]) for a in arrays), n)
+
+    def _data_slice(self, n: int) -> slice:
+        """This data rank's contiguous share of a padded batch of ``n``."""
+        per = n // self.batch_multiple
+        i = self.mesh.data_index
+        return slice(i * per, (i + 1) * per)
 
     # ------------------------------------------------------------------
     # image side
@@ -41,9 +82,18 @@ class SamPredictor:
 
     @torch.no_grad()
     def encode_batch(self, batch: np.ndarray) -> torch.Tensor:
-        """(B, h, w, 3) resized pixels -> (B, 64, 64, 256) embeddings on the device."""
-        x = torch.as_tensor(np.asarray(batch, dtype=np.float32), device=self.device)
-        return self.model.encode_image(preprocess(x, self.model.config.img_size))
+        """(B, h, w, 3) resized pixels -> (B, 64, 64, 256) embeddings on the
+        device; on a mesh each data rank encodes its slice of the padded batch
+        and the slices are all-gathered."""
+        batch = np.asarray(batch, dtype=np.float32)
+        if self.mesh is None:
+            x = torch.as_tensor(batch, device=self.device)
+            return self.model.encode_image(preprocess(x, self.model.config.img_size))
+        from .parallel.mesh import all_gather_cat
+        batch, n = self._pad_batch(batch)
+        x = torch.as_tensor(batch[self._data_slice(len(batch))], device=self.device)
+        feats = self.model.encode_image(preprocess(x, self.model.config.img_size))
+        return all_gather_cat(feats, self.mesh.data_group)[:n]
 
     def set_image(self, image: np.ndarray, image_format: str = "RGB") -> None:
         """image: (H, W, 3) uint8 (use util._to_image to normalize other inputs)."""
@@ -154,6 +204,12 @@ class SamPredictor:
             raise RuntimeError("An image must be set with .set_image(...) before prediction.")
         points, labels, mi, has_mask = self._pack_prompts(
             point_coords, point_labels, box, mask_input)
+        if self.mesh is not None:  # this data rank's slice of the padded prompts
+            mi_pad = np.zeros((points.shape[0], 1, 1, 1), np.float32) if mi is None else mi
+            points, labels, mi_pad, has_mask, n = self._pad_batch(points, labels, mi_pad, has_mask)
+            sl = self._data_slice(len(points))
+            points, labels, has_mask = points[sl], labels[sl], has_mask[sl]
+            mi = None if mi is None else mi_pad[sl]
         dev = self.device
         low_res, iou = self.model.decode_masks(
             self.features, torch.as_tensor(np.ascontiguousarray(points), device=dev),
@@ -165,6 +221,10 @@ class SamPredictor:
         else:
             low_res, iou = low_res[:, 0:1], iou[:, 0:1]
         low_res, iou = low_res.float(), iou.float()
+        if self.mesh is not None:
+            from .parallel.mesh import all_gather_cat
+            low_res = all_gather_cat(low_res, self.mesh.data_group)[:n]
+            iou = all_gather_cat(iou, self.mesh.data_group)[:n]
         masks = postprocess_masks(low_res, self.input_size, self.original_size,
                                   self.model.config.img_size)
         return masks, iou, low_res
@@ -213,7 +273,8 @@ def packbits(bits: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def amg_decode(predictor: SamPredictor, points_xy, mask_threshold: float = MASK_THRESHOLD,
                stability_offset: float = 1.0,
-               prefilter: Optional[Tuple[float, float]] = None) -> Dict[str, torch.Tensor]:
+               prefilter: Optional[Tuple[float, float]] = None,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """Decode one batch of AMG grid prompts and reduce it on the device.
 
     points_xy: (B, 2) xy points in the encoder's frame (``transform.apply_coords``).
@@ -229,9 +290,37 @@ def amg_decode(predictor: SamPredictor, points_xy, mask_threshold: float = MASK_
 
     Returns the kept rows on the device: ``packed``, ``iou`` (n,),
     ``stability`` (n,), ``boxes`` (n, 4) int32 and ``order`` (n,), each row's
-    index among the B * 3 candidates (point-major)."""
+    index among the B * 3 candidates (point-major).
+
+    On a mesh (``mesh``, default the predictor's) the points are padded to a
+    multiple of its data axis and each data rank decodes and reduces its
+    contiguous share; the kept rows are all-gathered in the points' order,
+    so ``order`` indexes the B * 3 candidates as in one process."""
+    points_xy = np.asarray(points_xy, dtype=np.float32)
+    mesh = predictor.mesh if mesh is None else mesh
+    if mesh is None or len(points_xy) == 0:
+        return _amg_decode_rows(predictor, points_xy, mask_threshold, stability_offset, prefilter)
+    from .parallel.mesh import all_gather_rows
+    B, d = len(points_xy), mesh.shape["data"]
+    pad = (-B) % d
+    if pad:
+        points_xy = np.concatenate([points_xy, np.repeat(points_xy[-1:], pad, axis=0)])
+    per = len(points_xy) // d
+    i = mesh.data_index
+    rows = _amg_decode_rows(predictor, points_xy[i * per:(i + 1) * per], mask_threshold,
+                            stability_offset, prefilter)
+    rows["order"] = rows["order"] + i * per * 3
+    rows = {k: all_gather_rows(v, mesh.data_group) for k, v in rows.items()}
+    keep = rows["order"] < B * 3  # the padding points' rows go
+    return {k: v[keep] for k, v in rows.items()}
+
+
+def _amg_decode_rows(predictor: SamPredictor, points_xy: np.ndarray, mask_threshold: float,
+                     stability_offset: float, prefilter: Optional[Tuple[float, float]]
+                     ) -> Dict[str, torch.Tensor]:
+    """``amg_decode`` of one process's points."""
     dev = predictor.device
-    pts = torch.as_tensor(np.asarray(points_xy, dtype=np.float32), device=dev)
+    pts = torch.as_tensor(points_xy, device=dev)
     B = pts.shape[0]
     points = torch.cat([pts[:, None], torch.zeros(B, 1, 2, device=dev)], dim=1)
     labels = torch.tensor([[1, -1]], dtype=torch.int64, device=dev).expand(B, 2)

@@ -52,6 +52,9 @@ class JointSamTrainer(SamTrainer):
 
     def __init__(self, *args, unetr: Optional[UNETRDecoder] = None, instance_loss=None,
                  instance_metric=None, **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError("the joint trainer's decoder step is not meshed; train "
+                                      "SAM on a mesh with SamTrainer")
         super().__init__(*args, **kwargs)
         if unetr is None:
             raise ValueError("JointSamTrainer needs the decoder: unetr=get_unetr(...)")

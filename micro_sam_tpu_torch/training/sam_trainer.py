@@ -17,6 +17,17 @@ corners), then two points per round, and the one padding point upstream SAM
 appends when there is no box. The JAX trainer instead gives every object a
 fixed-capacity array whose unused slots carry label -1; each such token takes
 part in the decoder's attention, so its rounds differ from these.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``; one process a rank) each data rank
+trains on its share of the global batch: its loader yields that share, the
+encoder's blocks are split over the model axis, and after backward the
+gradients are averaged over the data group in float32 buckets. A step is then
+the single process's step on the global batch: each image's sampling is
+seeded by its global index, the object axis is padded to the data group's
+largest, the loss is normalized by the group's count of objects, and the
+corrective points' Gumbel field and the mask coin are the global batch's draws,
+of which each rank keeps its rows. The checkpoint holds the whole tensors
+under the single-process keys, written by mesh rank 0 alone.
 """
 from __future__ import annotations
 
@@ -33,6 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.convert import params_from_jax, params_to_jax
 from ..ops.amg_utils import batched_mask_to_box
+from ..parallel.mesh import (all_gather_cat, all_reduce_f32, all_reduce_gradients_,
+                             gather_state_dict, shard_params, shard_sam_)
 from .trainable_sam import TrainableSAM, resize_bilinear
 from .util import ConvertToSamInputs
 
@@ -119,19 +132,25 @@ class SamTrainer:
         logger: "tensorboard" or None (TensorBoard when
             ``torch.utils.tensorboard`` imports), a ``SamLogger`` (class or
             instance) whose writer takes the scalars, or False for none.
+        mesh: a ``parallel.mesh.Mesh`` to train on (the model on its device);
+            each rank's loaders yield its data rank's share of every batch.
     """
 
     def __init__(self, name: str, train_loader, val_loader, model: TrainableSAM, optimizer=None,
                  n_sub_iteration: int = 8, n_objects_per_batch: Optional[int] = 25,
                  convert_inputs: Optional[ConvertToSamInputs] = None,
                  mse_loss_weight: float = 1.0, mask_prob: float = 0.5,
-                 save_root: Optional[str] = None, lr: float = 1e-5, seed: int = 0, logger=None):
+                 save_root: Optional[str] = None, lr: float = 1e-5, seed: int = 0, logger=None,
+                 mesh=None):
         if n_sub_iteration < 1:
             raise ValueError(f"n_sub_iteration must be >= 1, got {n_sub_iteration}")
         self.name = name
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.model = model
+        self.mesh = None
+        if mesh is not None:
+            self._setup_mesh(mesh)
         self.optimizer = optimizer or make_optimizer(model, lr)
         self.n_sub_iteration = n_sub_iteration
         self.n_objects_per_batch = n_objects_per_batch or 25
@@ -153,6 +172,24 @@ class SamTrainer:
             self._tb = logger.tb
         elif logger in ("tensorboard", None):
             self._tb = _summary_writer(os.path.join(self.save_root, self.name, "logs"))
+        if not self._writes:
+            self._tb = None
+
+    def _setup_mesh(self, mesh) -> None:
+        """Split the encoder over the mesh's model axis (in place: an
+        optimizer given keeps its Parameters, and AdamW's moments take the
+        local shards' shapes at the first step); batches go over its data
+        axis."""
+        if self.model.device != mesh.device:
+            raise ValueError(f"the model is on {self.model.device}, the mesh's rank on "
+                             f"{mesh.device}")
+        shard_sam_(self.model.sam, mesh)
+        self.mesh = mesh
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the run's files (mesh rank 0 does)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # ------------------------------------------------------------------
     # prompt schedule (upstream sam_trainer.py)
@@ -179,7 +216,7 @@ class SamTrainer:
     # ------------------------------------------------------------------
     # one step
     # ------------------------------------------------------------------
-    def _round(self, feats, points, labels, mask_input, has_mask, gt_c, gt_bin, valid,
+    def _round(self, feats, points, labels, mask_input, has_mask, gt_c, gt_bin, valid, denom,
                first_multimask: bool):
         """Decode, upscale and score one round. Returns (round loss, mean
         predicted IoU, selected upscaled logits, selected low-res logits); the
@@ -208,7 +245,6 @@ class SamTrainer:
             actual_iou = inter / union.clamp_min(1e-7)
         iou_sel = iou_pred[rows, sel]
         iou_loss = (iou_sel - actual_iou) ** 2
-        denom = valid.sum().clamp_min(1.0)
         loss = ((mask_loss + self.mse_loss_weight * iou_loss) * valid).sum() / denom
         miou = (iou_sel.detach() * valid).sum() / denom
         return loss, miou, up_sel.detach(), low_res[rows, sel].detach()
@@ -244,6 +280,11 @@ class SamTrainer:
         new_lbl = torch.tensor([[1, 0]], device=dev).expand(N, 2)
         ring = _bbox_ring(gt_flat)
         neg_fallback = torch.where(ring.any(dim=(1, 2))[:, None, None], ring, ~gt_bin)
+        d = 1 if self.mesh is None else self.mesh.shape["data"]
+        if d == 1:
+            denom = valid.sum().clamp_min(1.0)
+        else:  # the global batch's count of objects, shared out over the data ranks
+            denom = all_reduce_f32(valid.sum(), self.mesh.data_group).clamp_min(1.0) / d
 
         mask_input = has_mask = None
         losses, ious = [], []
@@ -252,7 +293,7 @@ class SamTrainer:
             if not use_box:  # upstream SAM's one padding point
                 p_in, l_in = torch.cat([p_in, pad_pt], 1), torch.cat([l_in, pad_lbl], 1)
             loss, miou, up_sel, low_sel = checkpoint(
-                self._round, feats, p_in, l_in, mask_input, has_mask, gt_c, gt_bin, valid,
+                self._round, feats, p_in, l_in, mask_input, has_mask, gt_c, gt_bin, valid, denom,
                 multimask and r == 0, use_reentrant=False)
             losses.append(loss)
             ious.append(miou)
@@ -266,8 +307,10 @@ class SamTrainer:
                                       gt_bin & pred)
                 neg_src = torch.where(neg_region.any(dim=(1, 2))[:, None, None], neg_region,
                                       neg_fallback)
-                pos_xy, neg_xy = _gumbel_pick2(gumbel_noise((N, S1 * S2), self.generator),
-                                               pos_src, neg_src)
+                # the global batch's field; a data rank keeps its rows
+                gumbel = gumbel_noise((N * d, S1 * S2), self.generator)
+                i = 0 if self.mesh is None else self.mesh.data_index
+                pos_xy, neg_xy = _gumbel_pick2(gumbel[i * N:(i + 1) * N], pos_src, neg_src)
                 points = torch.cat([points, torch.stack([pos_xy, neg_xy], dim=1) * scale], 1)
                 labels = torch.cat([labels, new_lbl], 1)
                 use_mask = torch.rand((), generator=self.generator, device=dev) < self.mask_prob
@@ -282,15 +325,66 @@ class SamTrainer:
         (seed, train / val, epoch, batch, sample) as in the JAX trainer; the
         tensors moved to the model's device."""
         kwargs = {}
+        local_b = np.asarray(labels).shape[0]
+        offset = 0 if self.mesh is None else self.mesh.data_index * local_b
         if getattr(self.convert_inputs, "supports_sample_seeds", False):
             base = (self.seed, 0 if train else 1, self._epoch, batch_idx)
-            kwargs["sample_seeds"] = [np.random.SeedSequence(base + (b,)).generate_state(1)[0]
-                                      for b in range(np.asarray(labels).shape[0])]
+            kwargs["sample_seeds"] = [
+                np.random.SeedSequence(base + (offset + b,)).generate_state(1)[0]
+                for b in range(local_b)]
         batch = self.convert_inputs(image, labels, n_objects=self.n_objects_per_batch, n_pos=n_pos,
                                     n_neg=n_neg, get_points=use_points, get_boxes=use_box, **kwargs)
+        if self.mesh is not None:
+            batch = self._global_batch_share(batch, image, local_b,
+                                             (max(n_pos, 1) if use_points else 1) + n_neg)
         if batch is None:
             return None
         return tuple(t.to(self.device) for t in batch)
+
+    def _global_batch_share(self, batch, image, local_b: int, n_prompt_points: int):
+        """This data rank's share of the global batch, its object axis padded
+        to the data group's largest (invalid objects; None when no rank has
+        one). Raises when the shares differ in size or the global batch does
+        not divide by the data axis."""
+        d = self.mesh.shape["data"]
+        n_obj = 0 if batch is None else batch[1].shape[1]
+        sizes = all_gather_cat(torch.tensor([[local_b, n_obj]], device=self.device),
+                               self.mesh.data_group).tolist()
+        global_b = sum(b for b, _ in sizes)
+        if global_b % d:
+            raise ValueError(f"Global batch size {global_b} must be divisible by the mesh data "
+                             f"axis ({d}) — size your loader batches to the mesh.")
+        if any(b != local_b for b, _ in sizes):
+            raise ValueError(f"the data ranks' batches differ in size ({[b for b, _ in sizes]}); "
+                             "each data rank feeds an equal share of the global batch")
+        O = max(o for _, o in sizes)
+        if O == 0:
+            return None
+        if batch is None:
+            x = torch.from_numpy(self.convert_inputs.images(image).astype(np.float32))
+            H, W = x.shape[1], x.shape[2]
+            P = n_prompt_points
+            batch = (x, torch.zeros((local_b, 0, H, W)), torch.zeros((local_b, 0), dtype=torch.bool),
+                     torch.zeros((local_b, 0, P, 2)), torch.zeros((local_b, 0, P), dtype=torch.int32),
+                     torch.zeros((local_b, 0, 4)))
+        images, gt, valid, points, plabels, boxes = batch
+        pad = O - gt.shape[1]
+        if pad:
+            def grow(t, fill=0):
+                return torch.cat([t, t.new_full((t.shape[0], pad) + tuple(t.shape[2:]), fill)], 1)
+            gt, valid, points, boxes = grow(gt), grow(valid, False), grow(points), grow(boxes)
+            plabels = grow(plabels, -1)
+        return images, gt, valid, points, plabels, boxes
+
+    def _over_data(self, loss: torch.Tensor, miou: torch.Tensor):
+        """The global batch's loss and mean IoU: each rank's share averaged
+        over the data group (a rank's share is normalized by the global
+        count, shared out)."""
+        if self.mesh is None:
+            return loss, miou
+        both = all_reduce_f32(torch.stack([loss.detach().float(), miou.float()]),
+                              self.mesh.data_group) / self.mesh.shape["data"]
+        return both[0], both[1]
 
     def train_step(self, batch, use_points: bool, use_box: bool, multimask: bool):
         """One optimizer step on a prepared batch; returns (loss, mean IoU)
@@ -303,9 +397,11 @@ class SamTrainer:
             self.optimizer.zero_grad(set_to_none=True)
             loss, miou = self._loss(*batch, use_points, use_box, multimask)
             loss.backward()
+            if self.mesh is not None:
+                all_reduce_gradients_(self.model.sam.parameters(), self.mesh.data_group)
             self.optimizer.step()
         self._iteration += 1
-        return loss.detach(), miou
+        return self._over_data(loss.detach(), miou)
 
     def _after_train_step(self, prepared, batch) -> None:
         """Called after each training step with the prepared batch and the
@@ -333,7 +429,8 @@ class SamTrainer:
                 self._after_train_step(batch, loader_batch)
             else:
                 with torch.no_grad():
-                    loss, miou = self._loss(*batch, use_points, use_box, multimask)
+                    loss, miou = self._over_data(*self._loss(*batch, use_points, use_box,
+                                                             multimask))
             losses.append(float(loss))
             ious.append(float(miou))
         return (float(np.mean(losses)) if losses else np.inf,
@@ -366,11 +463,13 @@ class SamTrainer:
                 for tag, val in (("train/loss", train_loss), ("validation/loss", val_loss),
                                  ("train/model_iou", train_iou), ("validation/model_iou", val_iou)):
                     self._tb.add_scalar(tag, val, self._iteration)
-            with open(os.path.join(self.save_root, self.name, "metrics.csv"), "w", newline="") as f:
-                w = csv.DictWriter(f, fieldnames=list(self.train_metrics[0]))
-                w.writeheader()
-                w.writerows(self.train_metrics)
-            if verbose:
+            if self._writes:
+                with open(os.path.join(self.save_root, self.name, "metrics.csv"), "w",
+                          newline="") as f:
+                    w = csv.DictWriter(f, fieldnames=list(self.train_metrics[0]))
+                    w.writeheader()
+                    w.writerows(self.train_metrics)
+            if verbose and self._writes:
                 print(f"[{self.name}] epoch {epoch + 1}/{epochs}: train_loss={train_loss:.4f} "
                       f"val_loss={val_loss:.4f} model_iou={val_iou:.3f} ({time.time() - t0:.1f}s)")
             self.save_checkpoint("latest")
@@ -387,21 +486,32 @@ class SamTrainer:
         return os.path.join(self.save_root, self.name, f"{name}.pkl")
 
     def _checkpoint_state(self) -> Dict:
+        """The checkpoint; on a mesh with a model axis the shards are gathered
+        into whole tensors first (a collective: every rank calls it)."""
         cfg = self.model.config
-        return {"model_state": params_to_jax(self.model.sam.state_dict(), cfg),
+        sd = (self.model.sam.state_dict() if self.mesh is None
+              else gather_state_dict(self.model.sam, self.mesh))
+        return {"model_state": params_to_jax(sd, cfg),
                 "model_type": cfg.model_type, "model_config": dataclasses.asdict(cfg),
                 "iteration": self._iteration, "epoch": self._epoch,
                 "metrics": self.train_metrics}
 
     def save_checkpoint(self, name: str) -> None:
-        with open(self._checkpoint_path(name), "wb") as f:
-            pickle.dump(self._checkpoint_state(), f)
+        state = self._checkpoint_state()
+        if self._writes:
+            with open(self._checkpoint_path(name), "wb") as f:
+                pickle.dump(state, f)
+        if self.mesh is not None:
+            self.mesh.barrier()  # the file is whole when any rank returns
 
     def load_checkpoint(self, name: str = "latest") -> Dict:
         """Load one of this run's own checkpoints (a trusted pickle)."""
         with open(self._checkpoint_path(name), "rb") as f:
             state = pickle.load(f)
-        self.model.sam.load_state_dict(params_from_jax(state["model_state"], self.model.config))
+        sd = params_from_jax(state["model_state"], self.model.config)
+        if self.mesh is not None:
+            sd = shard_params(sd, self.mesh, self.model.config)
+        self.model.sam.load_state_dict(sd)
         self._iteration = state.get("iteration", 0)
         self._epoch = state.get("epoch", 0)
         return state

@@ -40,6 +40,8 @@ class SemanticSamTrainer(SamTrainer):
 
     def __init__(self, *args, num_classes: int = 3, convert_inputs=None,
                  dice_weight: float = 0.5, **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError("SemanticSamTrainer is not meshed; use SamTrainer(mesh=)")
         kwargs.setdefault("n_objects_per_batch", 1)
         super().__init__(*args, **kwargs)
         if num_classes < 2:

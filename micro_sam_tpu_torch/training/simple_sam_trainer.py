@@ -17,6 +17,8 @@ class SimpleSamTrainer(SamTrainer):
     alternates, a point on even iterations."""
 
     def __init__(self, *args, use_points: bool = True, use_box: bool = True, **kwargs):
+        if kwargs.get("mesh") is not None:  # each rank would draw its own prompt kind
+            raise NotImplementedError("SimpleSamTrainer is not meshed; use SamTrainer(mesh=)")
         kwargs.setdefault("n_sub_iteration", 1)
         kwargs.setdefault("mask_prob", 0.0)
         super().__init__(*args, **kwargs)

@@ -213,17 +213,24 @@ class ConvertToSamInputs:
             box_prompts = np.array(bboxes)[:, [1, 0, 3, 2]]
         return cell_ids, object_masks[:, 0], point_coords, point_labels, box_prompts
 
-    def __call__(self, x, y, n_pos: int = 1, n_neg: int = 0, get_boxes: bool = False,
-                 n_samples: Optional[int] = None, n_objects: Optional[int] = None,
-                 get_points: bool = True, sample_seeds: Optional[Sequence[int]] = None):
-        n_samples = n_objects if n_samples is None else n_samples
-        x, y = np.asarray(x), np.asarray(y)
+    @staticmethod
+    def images(x) -> np.ndarray:
+        """A batch of images as (B, H, W, 3): a channel axis added, NCHW moved
+        to NHWC, one channel repeated to three."""
+        x = np.asarray(x)
         if x.ndim == 3:
             x = x[..., None]
         if x.shape[1] in (1, 3) and x.shape[-1] not in (1, 3):
             x = np.moveaxis(x, 1, -1)  # NCHW -> NHWC
         if x.shape[-1] == 1:
             x = np.repeat(x, 3, axis=-1)
+        return x
+
+    def __call__(self, x, y, n_pos: int = 1, n_neg: int = 0, get_boxes: bool = False,
+                 n_samples: Optional[int] = None, n_objects: Optional[int] = None,
+                 get_points: bool = True, sample_seeds: Optional[Sequence[int]] = None):
+        n_samples = n_objects if n_samples is None else n_samples
+        x, y = self.images(x), np.asarray(y)
         B, H, W = y.shape[0], y.shape[-2], y.shape[-1]
         y2d = y.reshape(B, H, W)
         if sample_seeds is not None and len(sample_seeds) != B:

@@ -261,7 +261,7 @@ def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None
                   checkpoint_path: Optional[str] = None, return_sam: bool = False,
                   return_state: bool = False, compute_dtype: Optional[str] = None,
                   seed: int = 0, peft_kwargs: Optional[Dict[str, Any]] = None,
-                  decoder_path: Optional[str] = None) -> Union[SamPredictor, Tuple]:
+                  decoder_path: Optional[str] = None, mesh=None) -> Union[SamPredictor, Tuple]:
     """Build a SamPredictor.
 
     ``device=None`` means the GPU (``"cuda"``); without one this raises. Weights
@@ -274,7 +274,12 @@ def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None
     PEFT parameters included where it has them. ``decoder_path``: a separate
     decoder checkpoint (a torch_em UNETR state, or a training checkpoint
     holding one under ``model_state``), returned as the state's
-    ``decoder_state``."""
+    ``decoder_state``. ``mesh`` (``parallel.mesh.make_mesh``): the predictor
+    runs on this rank's share of the mesh (``SamPredictor.shard_on_mesh``),
+    on the mesh's device unless ``device`` names it; the returned state then
+    holds this rank's shards."""
+    if mesh is not None and device is None:
+        device = mesh.device
     sam, state, model_hash = load_sam(model_type, device, checkpoint_path, compute_dtype, seed,
                                       peft_kwargs=peft_kwargs)
     if decoder_path is not None:
@@ -282,7 +287,7 @@ def get_sam_model(model_type: str = _DEFAULT_MODEL, device: Optional[str] = None
         if isinstance(loaded, dict) and "model_state" in loaded:
             loaded = loaded["model_state"]
         state["decoder_state"] = loaded
-    predictor = SamPredictor(sam)
+    predictor = SamPredictor(sam, mesh=mesh)
     predictor.model_type = model_type
     predictor.model_name = model_type
     predictor._hash = model_hash  # rides the embedding-cache signature
@@ -522,30 +527,42 @@ def precompute_image_embeddings(
     if tile_subset is not None and tile_shape is None:
         raise ValueError("tile_subset requires a tiled computation (tile_shape).")
     zarr_format = int(os.environ.get("MICROSAM_ZARR_FORMAT", "2"))
-    if save_path is None:
+    # a meshed predictor in a world of several ranks: every rank encodes its
+    # share of each batch, mesh rank 0 alone reads and writes save_path (the
+    # others keep their copy in memory), and a partial cache is recomputed,
+    # not resumed, so that every rank makes the same encode calls
+    mesh = getattr(predictor, "mesh", None)
+    shared = save_path is not None and mesh is not None and mesh.world is not None \
+        and mesh.size > 1
+    if save_path is None or (shared and mesh.rank != 0):
         f = zarr_lite.open(zarr_lite.MemoryStore(), zarr_format=zarr_format)
     else:
         f = zarr_lite.open(str(save_path), mode="a", zarr_format=zarr_format)
 
     signature = _embedding_signature(predictor, input_, tile_shape, halo)
-    if _check_saved_embeddings(f, signature):
+    if _agreed_cache_check(f, signature, mesh if shared else None):
+        if shared and mesh.rank != 0:
+            f = zarr_lite.open(str(save_path), mode="r")
         return _load_cached_embeddings(f, tile_shape, lazy_loading)
 
     pbar_init, pbar_update, pbar_close = handle_pbar(verbose, pbar_init, pbar_update)
     tiled_args = (tile_shape, halo, batch_size, mask, pbar_init, pbar_update, tile_subset,
-                  signature)
+                  None if shared else signature)
     if ndim == 2 and tile_shape is None:
         embeddings = _compute_2d(predictor, input_, f, pbar_init, pbar_update)
     elif ndim == 2:
         embeddings = _compute_tiled_2d(predictor, input_, f, *tiled_args)
     elif ndim == 3 and tile_shape is None:
-        embeddings = _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update)
+        embeddings = _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update,
+                                 resume=not shared)
     elif ndim == 3:
         embeddings = _compute_tiled_3d(predictor, input_, f, *tiled_args)
     else:
         raise ValueError(f"Invalid dimensionality {ndim}; expected 2 or 3.")
     if not finalize:
         pbar_close()
+        if shared:
+            mesh.barrier()
         return embeddings
     f.attrs.update(signature)
     f.attrs["input_size"] = (list(embeddings["input_size"]) if embeddings["input_size"]
@@ -554,9 +571,30 @@ def precompute_image_embeddings(
                                 if embeddings["original_size"] else None)
     f.attrs["done"] = True
     pbar_close()
+    if shared:
+        mesh.barrier()  # save_path is complete when any rank returns
+        if lazy_loading and mesh.rank != 0:
+            f = zarr_lite.open(str(save_path), mode="r")
     if lazy_loading and save_path is not None:
         return _load_cached_embeddings(f, tile_shape, lazy_loading)
     return embeddings
+
+
+def _agreed_cache_check(f, signature: Dict[str, Any], mesh) -> bool:
+    """``_check_saved_embeddings``; on a ``mesh`` its rank 0 reads the cache and
+    every rank takes its verdict, or raises its error."""
+    if mesh is None:
+        return _check_saved_embeddings(f, signature)
+    verdict = None
+    if mesh.rank == 0:
+        try:
+            verdict = _check_saved_embeddings(f, signature)
+        except RuntimeError as e:
+            verdict = e
+    verdict = mesh.broadcast_object(verdict)
+    if isinstance(verdict, Exception):
+        raise verdict
+    return verdict
 
 
 def _compute_2d(predictor, input_, f, pbar_init, pbar_update) -> ImageEmbeddings:
@@ -569,7 +607,8 @@ def _compute_2d(predictor, input_, f, pbar_init, pbar_update) -> ImageEmbeddings
             "original_size": tuple(input_.shape[:2])}
 
 
-def _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update) -> ImageEmbeddings:
+def _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update,
+                resume: bool = True) -> ImageEmbeddings:
     cfg = predictor.model.config
     n_slices = input_.shape[0]
     C, E = cfg.prompt_embed_dim, cfg.embedding_size
@@ -579,7 +618,7 @@ def _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update) -> Ima
     ds = f.require_dataset("features", shape=(n_slices, 1, C, E, E), chunks=(1, 1, C, E, E),
                            dtype="float32")
     out = np.zeros((n_slices, 1, C, E, E), dtype=np.float32)
-    done = set(f.attrs.get("slices_done", []))  # resume: skip slices already written
+    done = set(f.attrs.get("slices_done", []) if resume else [])  # skip slices already written
     pending = []
 
     def flush():

@@ -1614,3 +1614,55 @@ def test_torchscript_encoder_on_the_card(dev, tmp_path, monkeypatch):
     assert got.shape == (1, 256, 64, 64) and got.is_cuda
     err = float((got - ref).abs().max()) / float(ref.abs().max())
     assert err <= 1e-3, err
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU execution (parallel/): two gloo ranks on the one card, and an NCCL
+# world of one
+# ---------------------------------------------------------------------------
+
+def test_split_block_chains_match_plain(dev, tmp_path):
+    """A vit_b block split over model = 2 (gloo, both ranks on the card): the
+    attention and MLP halves launch their kernels at the split widths (qkv
+    N 1152, proj K 384, lin1 N 1536, lin2 K 1536, 6 heads of 64), 2 layernorm,
+    4 gemm and 1 relpos_attention a rank, and the block equals the unsplit
+    plain chain in f32 on the same inputs (f32 1e-4, bf16 2e-2 of max)."""
+    import torch_parallel_worlds as w
+    w.wait(w.start("run_split_chains", 2, str(tmp_path)))
+    got = torch.load(tmp_path / "split.pt", weights_only=False)
+    assert len(got) == 4
+    for (kind, dtype), r in got.items():
+        assert r["launches"] == [2, 4, 1], (kind, dtype)
+        _held(r["out"], r["ref"], torch.float32 if dtype == str(torch.float32)
+              else torch.bfloat16)
+
+
+def test_nccl_world_of_one_equals_unmeshed(dev):
+    """get_sam_model(mesh=make_mesh()) in an NCCL world of one: the encode
+    (its batch all-gathered through NCCL) and a predict bitwise equal to the
+    unmeshed predictor's."""
+    import socket
+    import numpy as np
+    import torch.distributed as dist
+    from micro_sam_tpu_torch.parallel.mesh import make_mesh
+    from micro_sam_tpu_torch.util import get_sam_model
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.backend == "nccl" and mesh.shape == {"data": 1, "model": 1}
+        img = np.random.RandomState(0).randint(0, 255, (1024, 1024, 3)).astype(np.uint8)
+        outs = []
+        for m in (mesh, None):
+            pred = get_sam_model("vit_b", mesh=m)
+            pred.set_image(img)
+            outs.append((pred.features.float().cpu().numpy(),) + tuple(pred.predict(
+                point_coords=np.array([[300.0, 420.0]]), point_labels=np.array([1]),
+                return_logits=True)))
+        for a, b in zip(*outs):
+            assert np.array_equal(a, b)
+    finally:
+        dist.destroy_process_group()

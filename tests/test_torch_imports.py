@@ -93,7 +93,11 @@ def test_importing_every_port_module_loads_no_jax():
         "       'micro_sam_tpu_torch.evaluation.benchmark_datasets',\n"
         "       'micro_sam_tpu_torch.evaluation.model_comparison',\n"
         "       'micro_sam_tpu_torch.visualization', 'micro_sam_tpu_torch.object_classification',\n"
-        "       'micro_sam_tpu_torch.info'}\n"
+        "       'micro_sam_tpu_torch.info', 'micro_sam_tpu_torch.parallel',\n"
+        "       'micro_sam_tpu_torch.parallel.mesh', 'micro_sam_tpu_torch.parallel.embed',\n"
+        "       'micro_sam_tpu_torch.parallel.decode',\n"
+        "       'micro_sam_tpu_torch.parallel.train_step',\n"
+        "       'micro_sam_tpu_torch.parallel.distributed'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )
