@@ -121,9 +121,10 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     routes: launches per 4-tile batch (84; K9: 8 spatial attention launches
     in 8 calls of 7) and per chain call, every tile against the untiled
     precompute of its crop (3e-2 of max) and the opt-in routes against the
-    default (2e-2), a tiled prompt, tiles/s; a tiled cache under build/
-    reloaded lazily and a tile_subset call resumed with no launch; one
-    encode of each opt-in route replayed per kernel and per chain; vit_h (full
+    default (2e-2), a tiled prompt, tiles/s (not of K11, the default route's
+    launches); a tiled cache under build/ reloaded lazily and a tile_subset
+    call resumed with no launch; one K9 encode replayed per kernel and per
+    chain (K11's row times one call of its kernel check); vit_h (full
     width, 8 blocks) through K9 against its default route. Prints the
     phase's wall time;
 11. the prompt layer and AMG: (a) get_sam_model("vit_b") (bf16, seed 0) on a
@@ -268,7 +269,9 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     cuda:0, the kernels built here first, the data made here once), while
     this process runs (a) an NCCL world of one, get_sam_model("vit_b",
     mesh=make_mesh()) (bf16, seed 0) through phase 4's 1024^2 precompute and
-    a predict, bitwise equal to the unmeshed predictor, and the single
+    a predict, bitwise equal to the unmeshed predictor, and one f32 step each
+    of JointSamTrainer, SimpleSamTrainer and SemanticSamTrainer (vit_b cut
+    to 6 blocks) bitwise equal to the unmeshed trainer's, and the single
     process's runs of the ranks' work: at data = 2 phase 10's tiled precompute (two tiles a rank; rel 3e-2
     of the single process's) and the trained fixture's AMG at phase 11's cut
     (records at the default thresholds and at the floors matched as phase 11
@@ -278,8 +281,15 @@ Phases (any fault ends the run with a non-zero exit, and no result line):
     launches a rank (bf16 rel 3e-2, f32 1e-3 of the unsplit run); one f32
     SamTrainer step of vit_b cut to 6 blocks at data = 2 and at model = 2
     (every gradient within rel 1e-3 of its max of the single process's on the
-    same global batch); timed bf16 steps at train_sam's defaults at data = 2
-    with the gradient all-reduce's ms and bytes; the multi-process
+    same global batch), and at data = 2 one f32 step each of JointSamTrainer
+    (the SAM's and the decoder's gradients; a second step timed),
+    MedSAMTrainer and SemanticSamTrainer held the same way; at model = 2 the
+    LoRA and QLoRA vit_b encodes (bf16, the LoRA one timed, and f32; the same
+    launches a rank and tolerances), one f32 LoRA step (its K1 / K4 launches
+    counted, held the same way) and the f32 vit_t predict (whole on the model
+    axis; IoU within 2e-4, masks equal on > 0.999); timed bf16 steps at
+    train_sam's defaults at data = 2 with the gradient all-reduce's ms and
+    bytes; the multi-process
     precompute into a shared cache under build/ (equal to the single process,
     the signature stamped once); then the gemm at vit_b's model = 2 shapes
     against its plain version, timed with F.linear and its bound. Prints the
@@ -2775,14 +2785,15 @@ def rel_max(got, ref):
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
-def tiled_route_run(predictor, counters, route, image, volume, crops, default=None):
+def tiled_route_run(predictor, counters, route, image, volume, crops, default=None,
+                    timed=True):
     """One route's tiled path: ``image`` 2d and ``volume`` 3d at TILE / HALO,
     TILE_BATCH tiles (slices) an encode, counted from zero (kernels and, by
     ChainLaunches, each chain call). Checks the launches per 4-tile batch,
     every tile against its untiled crop (``crops``, within 3e-2 of max) and,
     off the default route, against the default route's tiles (``default``,
-    within 2e-2 of max). Then a tiled prompt, and tiles/s of the 2d image
-    (host clock, median of TILE_REPS after a warm-up)."""
+    within 2e-2 of max). Then a tiled prompt, and with ``timed`` tiles/s of
+    the 2d image (host clock, median of TILE_REPS after a warm-up)."""
     from micro_sam_tpu_torch.util import precompute_image_embeddings, set_precomputed
     chains = ROUTES[route][1]
     n_win = 8  # vit_b's windowed blocks
@@ -2846,19 +2857,22 @@ def tiled_route_run(predictor, counters, route, image, volume, crops, default=No
             raise AssertionError(f"{route}: a tiled prompt did not predict")
         log(f"  {route}: set_precomputed(tile_id=3) -> predict: masks {m.shape}, iou "
             f"{np.round(iou, 4).tolist()}; 3d tile 1 slice 2: masks {m3.shape}")
-        precompute_image_embeddings(predictor, image, tile_shape=TILE, halo=HALO,
-                                    batch_size=TILE_BATCH, verbose=False)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(TILE_REPS):
+        ts, tps = [], None
+        if timed:
+            precompute_image_embeddings(predictor, image, tile_shape=TILE, halo=HALO,
+                                        batch_size=TILE_BATCH, verbose=False)
+            torch.cuda.synchronize()
+        for _ in range(TILE_REPS if timed else 0):
             t0 = time.perf_counter()
             precompute_image_embeddings(predictor, image, tile_shape=TILE, halo=HALO,
                                         batch_size=TILE_BATCH, verbose=False)
             torch.cuda.synchronize()
             ts.append(time.perf_counter() - t0)
-        tps = 4 / statistics.median(ts)
-        log(f"  {route}: tiles/s at batch {TILE_BATCH} (4 tiles of 1280^2 -> 1024^2, host clock "
-            f"incl. resize, median of {TILE_REPS}): {tps:.3f} (all {[round(t, 4) for t in ts]} s)")
+        if timed:
+            tps = 4 / statistics.median(ts)
+            log(f"  {route}: tiles/s at batch {TILE_BATCH} (4 tiles of 1280^2 -> 1024^2, host "
+                f"clock incl. resize, median of {TILE_REPS}): {tps:.3f} (all "
+                f"{[round(t, 4) for t in ts]} s)")
     feats = {2: {t: v["features"] for t, v in emb2["features"].items()},
              3: {t: v["features"] for t, v in emb3["features"].items()}}
     return feats, emb2, dict(launches=launches, launches_per_batch=l2, chain_launches=dict(cc.launches),
@@ -2968,15 +2982,16 @@ def tiled_phase(counters, root):
                      verbose=False)["features"] for t in range(len(blocking3))}}
     log(f"  untiled crops of every tile encoded ({time.perf_counter() - t0:.1f} s)")
     feats, runs, embs = {}, {}, {}
-    for route in ROUTES:
+    for route in ROUTES:  # K11 runs the default route's launches: checked, not timed
         feats[route], embs[route], runs[route] = tiled_route_run(
-            predictor, counters, route, image, volume, crops, feats.get("default"))
+            predictor, counters, route, image, volume, crops, feats.get("default"),
+            timed=route != "K11")
     cache = tiled_cache_checks(predictor, counters, image, root)
     # the 2d path's one batch: its 4 tiles resized to 1024^2, as _compute_tiled_2d encodes them
     x4 = np.stack([_resize_for_encoder(predictor, image[blocking.get_block_with_halo(
         t, HALO).outer_block.slicing]) for t in range(len(blocking))]).astype(np.float32)
     replays = {}
-    for route in ("K9", "K11"):
+    for route in ("K9",):  # K11's launches are the default route's: its row times one call
         log(f"  the tiled path's 4-tile batch {x4.shape} through the {route} route, replayed "
             f"per kernel and chain:")
         with Route(route):
@@ -2999,9 +3014,12 @@ def tiled_phase(counters, root):
 def summarize_tiled(p10):
     """The kernels line's rows of phase 10: the spatial mode of
     relpos_attention, K9 and K11. launches: the count of the route's tiled
-    path (2d and 3d, from zero); ms, plain_ms, library_ms, bound_ms: the
-    launches (a chain's calls) of one vit_b encode of the tiled path's 4-tile
-    batch through the route, replayed back to back."""
+    path (2d and 3d, from zero); ms, plain_ms, library_ms, bound_ms: for K9
+    and the spatial mode, the launches (a chain's calls) of one vit_b encode
+    of the tiled path's 4-tile batch through the route, replayed back to
+    back; for K11 (the default route's launches with its arguments) one call
+    at the tiled path's shape, (100, 196, 768) bf16, from the routes' kernel
+    checks."""
     routes, rp = p10["routes"], p10["replays"]
     per = ("all {} of one vit_b bf16 encode of the tiled 2d path's batch (4 tiles of 1280^2 "
            "resized to 1024^2) through the {} route, back to back")
@@ -3026,8 +3044,13 @@ def summarize_tiled(p10):
             ("K11", "fused_window_stack", "micro_sam_tpu/ops/fused_window_block.py:1331 "
              "(fused_window_stack -> _fused_window_stack_forward :1338, pallas_call :1396, "
              "kernel _fused_window_stack_kernel :1168)")):
-        e = rp[route]["chains"][name]
         rows = [r for r in p10["window_routes"] if r["name"] == name]
+        if route in rp:
+            e = rp[route]["chains"][name]
+            calls, what = e["calls_per_encode"], per.format("calls", route)
+        else:
+            e = next(r for r in rows if r["dtype"] == "bfloat16")
+            calls, what = None, f"one call, {e['shape']}, bf16 (the default route's launches)"
         out.append({
             "name": f"{name} chain ({route})", "route": "cuda",
             "source": "micro_sam_tpu_torch/ops/fused_window_block.py (csrc/layernorm.cu, "
@@ -3036,8 +3059,7 @@ def summarize_tiled(p10):
             "max_abs_err": max([e["max_abs_err"]] + [r["max_abs_err"] for r in rows]),
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
-            "calls_per_encode": e["calls_per_encode"], "per": per.format("calls", route),
-            "shapes": rows,
+            "calls_per_encode": calls, "per": what, "shapes": rows,
         })
     return out
 
@@ -6060,6 +6082,10 @@ PAR_ENCODE_REPS = 3
 PAR_DATA_WAIT_S = 600       # a rank's wait for the parent's data
 PAR_NOTE = ("two ranks time-sliced on one card: no multi-GPU speed; NCCL across cards and "
             "NVLink unmeasured")
+DERIVED_GLOO = ("joint", "medsam", "semantic")   # f32 steps at data = 2 against one process
+DERIVED_NCCL = ("joint", "simple", "semantic")   # the NCCL world of one, bitwise
+VIT_T_IOU_ATOL = 2e-4       # the JAX package's meshed vit_t test's bounds
+VIT_T_MASK_SHARE = 0.999
 # the four products of a vit_b block split over model = 2, per rank: qkv and lin1
 # on half their output rows, proj and lin2 on half their input columns (epilogue
 # none: the bias and the residual are added after the float32 all-reduce)
@@ -6079,10 +6105,14 @@ def free_port():
     return port
 
 
-def nccl_world_of_one(counters):
+def nccl_world_of_one(counters, batch, models):
     """An NCCL world of one rank: get_sam_model("vit_b", mesh=make_mesh())
     (bf16, seed 0) precomputes phase 4's 1024^2 image and predicts once; both
-    must equal the unmeshed predictor's, bitwise."""
+    must equal the unmeshed predictor's, bitwise. Then one f32 step each of
+    JointSamTrainer, SimpleSamTrainer and SemanticSamTrainer on the mesh and
+    off it (``derived_step`` on ``batch`` with ``models``), bitwise equal.
+    Returns (the results, the unmeshed steps: the single process's
+    references)."""
     import torch.distributed as dist
     from micro_sam_tpu_torch.parallel.mesh import make_mesh
     from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings, set_precomputed
@@ -6109,7 +6139,11 @@ def nccl_world_of_one(counters):
             f"to the unmeshed predictor: {same}")
         if not all(same):
             raise AssertionError("the NCCL world of one differs from the unmeshed predictor")
-        return dict(bitwise_equal=all(same), launches=runs["meshed"][4])
+        steps, single = {}, {}
+        for kind in DERIVED_NCCL:
+            got, single[kind] = (derived_step(kind, m, *batch, models) for m in (mesh, None))
+            steps[kind] = derived_bitwise(kind, got, single[kind])
+        return dict(bitwise_equal=all(same), launches=runs["meshed"][4], derived=steps), single
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
@@ -6169,16 +6203,17 @@ def par_step_grads(mesh, x, y, spans=None):
     return float(loss), grads
 
 
-def hold_step_grads(what, got, ref):
+def hold_step_grads(what, got, ref, zero=1e-7):
     """Every gradient of ``got`` within PAR_STEP_TOL of its tensor's max in
-    ``ref`` (zero-by-symmetry tensors below 1e-6 of the largest), the loss rel
-    1e-5. Returns (worst rel, loss rel)."""
+    ``ref`` (zero-by-symmetry tensors, ``zero`` of the largest or less in
+    ``ref``, below 1e-6 of the largest), the loss rel 1e-5. Returns (worst
+    rel, loss rel)."""
     (loss, g), (loss_ref, g_ref) = got, ref
     g_max = max(float(t.abs().max()) for t in g_ref.values())
     worst, worst_name = 0.0, ""
     for name, r in g_ref.items():
         a = g[name]
-        if float(r.abs().max()) <= 1e-7 * g_max:
+        if float(r.abs().max()) <= zero * g_max:
             if float(a.abs().max()) > 1e-6 * g_max:
                 raise AssertionError(f"{what}: {name} should have no gradient")
             continue
@@ -6244,6 +6279,196 @@ def par_timed_steps(mesh, imgs, segs):
                 allreduce_bytes=spans[-1][1], steps=len(steps) - w)
 
 
+def joint_targets(y):
+    """The joint trainer's (B, 3, H, W) distance targets of labels ``y``."""
+    from micro_sam_tpu_torch.training import PerObjectDistanceTransform
+    return np.stack([PerObjectDistanceTransform()(np.asarray(s))[-3:] for s in y])
+
+
+def derived_models():
+    """The f32 vit_b cut to F32_STEP_CUT's 6 blocks and a UNETR decoder at
+    published widths, built once a process, with their initial states:
+    ``derived_step`` reloads them before each step."""
+    from micro_sam_tpu_torch.instance_segmentation import get_unetr
+    from micro_sam_tpu_torch.training import get_trainable_sam_model
+    depth, globs = F32_STEP_CUT["vit_b"]
+    with CutDepth("vit_b", depth, globs):
+        model = get_trainable_sam_model("vit_b", device="cuda", compute_dtype="float32")
+    unetr = get_unetr(device="cuda")
+    return model, unetr, {k: v.clone() for k, v in model.sam.state_dict().items()}, \
+        {k: v.clone() for k, v in unetr.state_dict().items()}
+
+
+def derived_step(kind, mesh, x, y, t, models, timed=False):
+    """One f32 step of the trainer ``kind`` ("joint", "medsam", "simple",
+    "semantic") on ``derived_models``' models, reloaded first (one round, 4
+    objects, lr 1e-5; the joint trainer's SAM AdamW at lr 0, so that its
+    decoder step reads the SAM every run started from) on the global batch
+    (x, y, joint targets t): on a data ``mesh`` each data rank takes its
+    share. Returns {"loss", "grads" (whole f32 gradients on the CPU, after
+    the trainer's all-reduce), "decoder_grads", "decoder_loss", "launches"
+    (K1 / K4 of the step), "step_ms" (a second step, host clock, with
+    ``timed``)}."""
+    import random
+    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                          relpos_attention_backward)
+    from micro_sam_tpu_torch.training import (JointSamTrainer, MedSAMTrainer,
+                                              SemanticSamTrainer, SimpleSamTrainer)
+    model, unetr, sam0, unetr0 = models
+    model.sam.load_state_dict(sam0)
+    unetr.load_state_dict(unetr0)
+    named = list(model.sam.named_parameters())
+    adam = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    opt = GradsKept([p for _, p in named], lr=0.0 if kind == "joint" else 1e-5, **adam)
+    kw = dict(optimizer=opt, n_sub_iteration=1, n_objects_per_batch=4, logger=False, mesh=mesh)
+    if kind == "joint":
+        trainer = JointSamTrainer(kind, None, None, model, unetr=unetr, **kw)
+        trainer.unetr_optimizer = GradsKept(list(unetr.parameters()), lr=1e-5, **adam)
+    else:
+        cls = {"medsam": MedSAMTrainer, "simple": SimpleSamTrainer,
+               "semantic": SemanticSamTrainer}[kind]
+        trainer = cls(kind, None, None, model, **({"num_classes": 3} if kind == "semantic"
+                                                  else {}), **kw)
+    d, i = (1, 0) if mesh is None else (mesh.shape["data"], mesh.data_index)
+    per = len(x) // d
+    xs, ys, ts = x[i * per:(i + 1) * per], y[i * per:(i + 1) * per], t[i * per:(i + 1) * per]
+    counters = {"relpos_attention": relpos_attention,
+                "relpos_attention_backward": relpos_attention_backward}
+
+    def step():
+        out = {}
+        with torch.enable_grad():
+            if kind == "semantic":
+                images, targets = trainer.convert_inputs(xs, np.asarray(ys) % 3)
+                out["loss"] = trainer._step(images.cuda(), targets.cuda(), True)
+            else:
+                random.seed(0)  # SimpleSamTrainer's draw: mesh rank 0's, as one process's
+                choice = trainer._get_prompt_and_multimasking_choices(trainer._iteration)
+                batch = trainer._prepare_batch(xs, ys, *choice[:2], *choice[3:])
+                out["loss"], _ = trainer.train_step(batch, *choice[:3])
+                if kind == "joint":
+                    out["decoder_loss"] = trainer.instance_step(batch[0], ts)
+        return out
+
+    out, launches = counted(counters, step)
+    depth = model.config.depth  # the joint step's decoder step encodes once more
+    expect_launches(f"f32 {kind} step ({'one process' if mesh is None else mesh})", launches,
+                    {"relpos_attention": (3 if kind == "joint" else 2) * depth,
+                     "relpos_attention_backward": 4 * depth})
+    res = {"loss": float(out["loss"]), "launches": launches,
+           "decoder_loss": float(out["decoder_loss"]) if "decoder_loss" in out else None}
+    res["grads"] = {n: opt.grads[id(p)].float().cpu() for n, p in named if id(p) in opt.grads}
+    res["decoder_grads"] = None if kind != "joint" else {
+        n: trainer.unetr_optimizer.grads[id(p)].cpu() for n, p in unetr.named_parameters()}
+    if timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        res["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    return res
+
+
+def derived_bitwise(kind, got, ref):
+    """The NCCL world of one's step of ``kind`` bitwise equal to the
+    unmeshed trainer's: loss, every gradient, the decoder's."""
+    parts = {"loss": got["loss"] == ref["loss"],
+             "gradients": all(torch.equal(v, ref["grads"][k]) for k, v in got["grads"].items())}
+    if got["decoder_grads"] is not None:
+        parts["decoder loss"] = got["decoder_loss"] == ref["decoder_loss"]
+        parts["decoder gradients"] = all(torch.equal(v, ref["decoder_grads"][k])
+                                         for k, v in got["decoder_grads"].items())
+    same = all(parts.values())
+    log(f"  NCCL world of one, {kind} step (f32, vit_b cut to 6 blocks): loss {got['loss']:.6f}"
+        f"{'' if got['decoder_loss'] is None else ', decoder loss %.6f' % got['decoder_loss']}, "
+        f"{len(got['grads'])} gradients, launches {got['launches']}; bitwise equal to the "
+        f"unmeshed trainer: {parts}")
+    if not same or set(got["grads"]) != set(ref["grads"]):
+        raise AssertionError(f"the NCCL world of one's {kind} step differs from the unmeshed "
+                             f"trainer")
+    return dict(bitwise_equal=same, launches=got["launches"])
+
+
+def hold_derived(kind, got, ref):
+    """A data = 2 step of ``kind`` against one process: ``hold_step_grads``
+    on the SAM's gradients and, for the joint trainer, the decoder's."""
+    out = {"sam": hold_step_grads(f"f32 {kind} step at data = 2 vs one process",
+                                  (got["loss"], got["grads"]), (ref["loss"], ref["grads"]))}
+    if got["decoder_grads"] is not None:
+        # a decoder gradient at or below 1e-6 of the largest is float noise
+        # (tests/test_torch_joint_training.py::_grads_held)
+        out["decoder"] = hold_step_grads(
+            f"f32 {kind} step at data = 2, the decoder, vs one process",
+            (got["decoder_loss"], got["decoder_grads"]),
+            (ref["decoder_loss"], ref["decoder_grads"]), zero=1e-6)
+    return {k: dict(worst_grad_rel=v[0], loss_rel=v[1]) for k, v in out.items()}
+
+
+def peft_predictors():
+    """{(name, dtype): unmeshed predictor} of the LoRA and QLoRA vit_b in bf16
+    and f32: get_sam_model("vit_b", compute_dtype="float32",
+    peft_kwargs=PEFT) (seed 0), its LoRA ``b`` drawn non-zero
+    (``redraw_lora_``), and the other three made from its weights (``make_sam``
+    with QLORA quantizes the loaded float32 base, as get_sam_model does)."""
+    from micro_sam_tpu_torch.models.build_sam import get_config, make_sam
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    from micro_sam_tpu_torch.util import get_sam_model
+    base = get_sam_model("vit_b", compute_dtype="float32", peft_kwargs=PEFT)
+    redraw_lora_(base.model)
+    sd = {k: v.cpu() for k, v in base.model.state_dict().items()}
+    preds = {}
+    for name, peft in (("lora", PEFT), ("qlora", QLORA)):
+        for dt in ("bfloat16", "float32"):
+            preds[(name, dt)] = base if (name, dt) == ("lora", "float32") else SamPredictor(
+                make_sam(get_config("vit_b", dt), sd, 0, None, peft_kwargs=peft).cuda().eval())
+    return preds
+
+
+def peft_step_grads(mesh, x, y):
+    """(loss, whole f32 gradients) of one f32 SamTrainer point step of the
+    LoRA vit_b (F32_STEP_CUT's 6 blocks, LoRA ``b`` drawn non-zero, the base
+    encoder frozen as ``train_sam(peft_kwargs=)`` freezes it) on the global
+    batch; on ``mesh`` each data rank its share, the blocks split over the
+    model axis."""
+    from micro_sam_tpu_torch.parallel.mesh import gather_tensors
+    from micro_sam_tpu_torch.training import SamTrainer, get_trainable_sam_model
+    depth, globs = F32_STEP_CUT["vit_b"]
+    with CutDepth("vit_b", depth, globs):
+        model = get_trainable_sam_model("vit_b", device="cuda", compute_dtype="float32",
+                                        peft_kwargs=PEFT)
+    redraw_lora_(model.sam)
+    named = [(n, p) for n, p in model.sam.named_parameters() if p.requires_grad]
+    opt = GradsKept([p for _, p in named], lr=1e-5, betas=(0.9, 0.999), eps=1e-8,
+                    weight_decay=1e-4)
+    trainer = SamTrainer("lora", None, None, model, optimizer=opt, n_sub_iteration=1,
+                         n_objects_per_batch=4, logger=False, mesh=mesh)
+    d, i = (1, 0) if mesh is None else (mesh.shape["data"], mesh.data_index)
+    per = len(x) // d
+    batch = trainer._prepare_batch(x[i * per:(i + 1) * per], y[i * per:(i + 1) * per], True,
+                                   False, 1, 0)
+    with torch.enable_grad():
+        loss, _ = trainer.train_step(batch, True, False, True)
+    grads = {n: opt.grads[id(p)] for n, p in named if id(p) in opt.grads}
+    if mesh is not None:
+        grads = gather_tensors(grads, mesh, model.config)
+    if not any(".lora." in n for n in grads) or any(
+            n.startswith("image_encoder.") and n.endswith(".qkv.weight") for n in grads):
+        raise AssertionError("the LoRA step did not train the LoRA terms alone in the encoder")
+    return float(loss), {n: g.float().cpu() for n, g in grads.items()}
+
+
+def vit_t_predict(mesh):
+    """get_sam_model("vit_t") (f32, seed 0) on ``mesh`` or unmeshed: phase
+    4's image precomputed, one point predicted; (masks, iou predictions)."""
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings, set_precomputed
+    pred = get_sam_model("vit_t", compute_dtype="float32", mesh=mesh)
+    set_precomputed(pred, precompute_image_embeddings(pred, main_path_inputs()[0],
+                                                      verbose=False))
+    masks, ious, _ = pred.predict(point_coords=np.array([[300.0, 420.0]]),
+                                  point_labels=np.array([1]))
+    return np.asarray(masks), np.asarray(ious)
+
+
 def parallel_rank(rank, root, workdir, spawned_at):
     """One rank of the gloo world of PAR_RANKS ranks on cuda:0 (spawned by
     ``parallel_phase`` at ``spawned_at``, wall clock): its checks on the
@@ -6268,7 +6493,8 @@ def parallel_rank(rank, root, workdir, spawned_at):
 def parallel_rank_checks(rank, root, workdir):
     from micro_sam_tpu_torch.ops.gemm import gemm
     from micro_sam_tpu_torch.ops.layernorm import layernorm
-    from micro_sam_tpu_torch.ops.relpos_attention import relpos_attention
+    from micro_sam_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                          relpos_attention_backward)
     from micro_sam_tpu_torch.parallel import distributed
     from micro_sam_tpu_torch.parallel.mesh import make_mesh
     from micro_sam_tpu_torch.predictor import SamPredictor
@@ -6281,6 +6507,7 @@ def parallel_rank_checks(rank, root, workdir):
     dp, tp = make_mesh(model_axis=1), make_mesh(model_axis=PAR_RANKS)
     say(f"meshes {dp.shape} and {tp.shape} over {dp.backend} on {dp.device}")
     pred = get_sam_model("vit_b", mesh=dp)
+    import torch._dynamo  # noqa: F401  a first AdamW step imports it: here, while the data comes
     data = os.path.join(workdir, "data.npz")  # the parent writes it meanwhile
     while not os.path.exists(data):
         if time.perf_counter() - t_start > PAR_DATA_WAIT_S:
@@ -6357,8 +6584,52 @@ def parallel_rank_checks(rank, root, workdir):
         spans = []
         res["step"][name] = par_step_grads(m, x, y, spans)
         say(f"f32 step at {name} = 2, host seconds {spans}")
-    if rank:
-        res["step"] = None  # rank 0's copy is the whole of each
+    # the derived trainers at data = 2 (f32, 6 blocks), the joint step timed
+    t = joint_targets(y)
+    res["derived"], models = {}, derived_models()
+    for kind in DERIVED_GLOO:
+        res["derived"][kind] = derived_step(kind, dp, x, y, t, models, timed=kind == "joint")
+        say(f"f32 {kind} step at data = 2: loss {res['derived'][kind]['loss']:.6f}, launches "
+            f"{res['derived'][kind]['launches']}"
+            + (f", {res['derived'][kind]['step_ms']:.3f} ms (a second step)"
+               if kind == "joint" else ""))
+    # model = 2: the LoRA and QLoRA encodes (K1 and the split chains), a LoRA
+    # step (K1 / K4 at the shard's heads), the meshed vit_t predict
+    del models
+    torch.cuda.empty_cache()
+    res["peft"], preds = {}, peft_predictors()
+    for name, dt in list(preds):
+        pred = preds.pop((name, dt)).shard_on_mesh(tp)
+        feats, n = counted(counters, lambda: pred.encode_batch(x1).float().cpu().numpy())
+        check_launches(f"[rank {rank}] model = 2 {name} encode {dt} (split widths; the "
+                       f"{name} terms PyTorch around the kernels)", n, 1, counters)
+        entry = dict(features=feats, launches=n)
+        if name == "lora" and dt == "bfloat16":
+            times = []
+            for _ in range(PAR_ENCODE_REPS):
+                t0 = time.perf_counter()
+                pred.encode_batch(x1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            entry["encode_ms"] = 1e3 * statistics.median(times)
+        res["peft"][(name, dt)] = entry
+        del pred
+    say(f"model = 2 LoRA bf16 encode {res['peft'][('lora', 'bfloat16')]['encode_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    res["lora_step"], k4 = counted({"relpos_attention": relpos_attention,
+                                    "relpos_attention_backward": relpos_attention_backward},
+                                   lambda: peft_step_grads(tp, x, y))
+    depth = F32_STEP_CUT["vit_b"][0]
+    expect_launches(f"[rank {rank}] f32 LoRA step at model = 2", k4,
+                    {"relpos_attention": 2 * depth, "relpos_attention_backward": 4 * depth})
+    res["lora_step_launches"] = k4
+    say(f"f32 LoRA step at model = 2: loss {res['lora_step'][0]:.6f}, launches {k4}")
+    res["vit_t"] = vit_t_predict(tp)
+    if rank:  # rank 0's copy is the whole of each
+        res["step"] = None
+        for r in res["derived"].values():
+            r["grads"] = r["decoder_grads"] = None
+        res["lora_step"] = None
     torch.cuda.empty_cache()
     res["timed"] = par_timed_steps(dp, imgs, segs)
     say(f"data = 2 bf16 steps at train_sam's defaults: {res['timed']}")
@@ -6375,7 +6646,9 @@ def parallel_phase(counters, root):
     from micro_sam_tpu_torch.models.sam import preprocess
     from micro_sam_tpu_torch.training.training import SamDataset, SamLoader
     from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings
-    out = {"note": PAR_NOTE}
+    out = {"note": PAR_NOTE, "card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]}
     workdir = os.path.join(root, PAR_DIR)
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -6394,8 +6667,18 @@ def parallel_phase(counters, root):
         np.savez(part, image=image, imgs=np.stack(imgs), segs=np.stack(segs))
         os.replace(part, os.path.join(workdir, "data.npz"))
         log(f"  the ranks' data written at +{time.perf_counter() - t0:.1f} s")
+        x, y = next(iter(SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4),
+                                   batch_size=2)))
+        t = joint_targets(y)
         log("  (a) NCCL, while the gloo world runs")
-        out["nccl"] = nccl_world_of_one(counters)
+        models = derived_models()
+        out["nccl"], single_derived = nccl_world_of_one(counters, (x, y, t), models)
+        single_derived["medsam"] = derived_step("medsam", None, x, y, t, models)
+        del models
+        single_peft = {key: pred.encode_batch(main_path_inputs()[2]).float().cpu().numpy()
+                       for key, pred in peft_predictors().items()}
+        single_lora_step = peft_step_grads(None, x, y)
+        single_vit_t = vit_t_predict(None)
         pred = get_sam_model("vit_b")
         single_tiled = {t: np.asarray(e["features"]) for t, e in precompute_image_embeddings(
             pred, image, tile_shape=TILE, halo=HALO, batch_size=TILE_BATCH,
@@ -6405,8 +6688,6 @@ def parallel_phase(counters, root):
         x1 = torch.from_numpy(main_path_inputs()[2])
         single_encode = {dt: get_sam_model("vit_b", compute_dtype=dt).model.encode_image(
             preprocess(x1.cuda())).float().cpu().numpy() for dt in TP_ENCODE_TOL}
-        x, y = next(iter(SamLoader(SamDataset(imgs[:4], segs[:4], (512, 512), n_samples=4),
-                                   batch_size=2)))
         single_step = par_step_grads(None, x, y)
         torch.cuda.empty_cache()
         log(f"  the single process's runs done at +{time.perf_counter() - t0:.1f} s")
@@ -6456,6 +6737,37 @@ def parallel_phase(counters, root):
     # training
     steps = {name: hold_step_grads(f"f32 step at {name} = 2 vs one process", got, single_step)
              for name, got in r0["step"].items()}
+    derived = {kind: hold_derived(kind, r0["derived"][kind], single_derived[kind])
+               for kind in DERIVED_GLOO}
+    joint_ms = [r["derived"]["joint"]["step_ms"] for r in (r0, r1)]
+    log(f"  f32 joint step (vit_b cut to 6 blocks, one image a rank) at data = 2: "
+        f"{[round(v, 3) for v in joint_ms]} ms by rank ({PAR_NOTE}; {out['card']})")
+    # model = 2: the PEFT encodes, the LoRA step, vit_t
+    peft = {}
+    for (name, dt), ref in single_peft.items():
+        tol = TP_ENCODE_TOL[dt]
+        rel = rel_max(r0["peft"][(name, dt)]["features"], ref)
+        same_ranks = bool(np.array_equal(r0["peft"][(name, dt)]["features"],
+                                         r1["peft"][(name, dt)]["features"]))
+        peft[f"{name} {dt}"] = dict(rel=rel, ranks_equal=same_ranks,
+                                    launches_per_rank=r0["peft"][(name, dt)]["launches"],
+                                    encode_ms=r0["peft"][(name, dt)].get("encode_ms"))
+        log(f"  model = 2 {name} encode {dt}: rel {rel:.3e} to the unsplit run (tol {tol}), "
+            f"ranks equal {same_ranks}, launches a rank {r0['peft'][(name, dt)]['launches']}"
+            + (f", {peft[f'{name} {dt}']['encode_ms']:.3f} ms a rank ({PAR_NOTE}; "
+               f"{out['card']})" if name == "lora" and dt == "bfloat16" else ""))
+        if rel > tol or not same_ranks:
+            raise AssertionError(f"the model = 2 {name} encode ({dt}) differs from the unsplit run")
+    lora_step = hold_step_grads("f32 LoRA step at model = 2 vs one process", r0["lora_step"],
+                                single_lora_step)
+    log(f"  f32 LoRA step at model = 2: K1 / K4 launches a rank {r0['lora_step_launches']}")
+    (masks, ious), (s_masks, s_ious) = r0["vit_t"], single_vit_t
+    vt = dict(iou_max_abs=float(np.abs(ious - s_ious).max()),
+              mask_equal_share=float((masks == s_masks).mean()))
+    log(f"  meshed vit_t predict at model = 2 (f32, whole on the model axis) vs one process: {vt} "
+        f"(tol: iou {VIT_T_IOU_ATOL}, masks > {VIT_T_MASK_SHARE})")
+    if vt["iou_max_abs"] > VIT_T_IOU_ATOL or vt["mask_equal_share"] <= VIT_T_MASK_SHARE:
+        raise AssertionError("the meshed vit_t predict differs from one process")
     # the multi-process precompute
     mh_rel = max(rel_max(r0["multihost"][t], single_tiled[t]) for t in single_tiled)
     mh_bitwise = all(np.array_equal(r0["multihost"][t], single_tiled[t]) for t in single_tiled)
@@ -6470,6 +6782,10 @@ def parallel_phase(counters, root):
         tiled=dict(rel=tiled_rel, seconds=r0["tiled_s"], launches_rank0=r0["tiled_launches"]),
         amg=amg, model2_encode=tp,
         f32_step={k: dict(worst_grad_rel=v[0], loss_rel=v[1]) for k, v in steps.items()},
+        derived=derived, joint_step_ms=joint_ms, peft_model2_encode=peft,
+        lora_step_model2=dict(worst_grad_rel=lora_step[0], loss_rel=lora_step[1],
+                              launches_per_rank=r0["lora_step_launches"]),
+        vit_t_model2=vt,
         timed_steps=[r0["timed"], r1["timed"]],
         multihost=dict(rel=mh_rel, bitwise=mh_bitwise, stamps=stamps,
                        seconds=r0["multihost_s"]))
@@ -6500,6 +6816,9 @@ def add_tp_launches(rows, p18):
     for r in rows:
         if r["name"] in launches:
             r["launches_tp_vit_b_encode"] = launches[r["name"]]
+
+
+T_START = time.perf_counter()
 
 
 def main():
@@ -6583,6 +6902,7 @@ def run_phases(root, card, early):
     from micro_sam_tpu_torch.ops.tiny_attention import tiny_attention
     vit_b_cpu_ref = early.submit(cpu_reference_encode, root, "vit_b", EARLY_CPU_THREADS)
     # phase 3: kernels vs plain
+    t3 = time.perf_counter()
     log("kernels vs plain versions (bf16: plain in f32 on the same bf16 inputs)")
     counters = {"layernorm": layernorm, "gemm": gemm, "relpos_attention": relpos_attention,
                 "dwconv": dwconv, "tiny_attention": tiny_attention}
@@ -6592,11 +6912,15 @@ def run_phases(root, card, early):
     for m in ("vit_b", "vit_b K9", "vit_b K9 4-tile batch"):
         shapes["layernorm"] += layernorm_sweep(m)
     host = {"gemm": host_us("gemm"), "layernorm": host_us("layernorm")}
+    log(f"phase 3 (kernels vs plain): {time.perf_counter() - t3:.1f} s")
+    t4 = time.perf_counter()
     log("main path: vit_b, 1024^2, random weights (seed 0), bf16")
     launches, per_encode, e2e = main_path_phase(counters, cpu_ref=vit_b_cpu_ref)
     torch.cuda.empty_cache()
+    log(f"phase 4 (the vit_b main path): {time.perf_counter() - t4:.1f} s")
 
     # phase 5: the backward kernel vs plain
+    t5 = time.perf_counter()
     log("backward kernel vs plain backward (bf16: within 3e-2 of the f32 plain result)")
     with torch.enable_grad():
         bwd_rows = backward_phase()
@@ -6605,12 +6929,16 @@ def run_phases(root, card, early):
     large_fwd, large_bwd = large_grid_phase()
     shapes["relpos_attention"] += large_fwd
     bwd_rows += large_bwd
+    log(f"phase 5 (the backward kernel, large grids): {time.perf_counter() - t5:.1f} s")
     # phase 6: finetuning
+    t6 = time.perf_counter()
     log("training path: train_sam / SamTrainer, vit_b, 512^2 patches -> 1024^2, bf16 compute")
     counters["relpos_attention_backward"] = relpos_attention_backward
     train_launches, k4, training = training_phase(counters, root)
     torch.cuda.empty_cache()
+    log(f"phase 6 (vit_b finetuning): {time.perf_counter() - t6:.1f} s")
     # phase 7: vit_t
+    t7 = time.perf_counter()
     log("vit_t kernels and chains vs plain versions (bf16: plain in f32 on the same bf16 inputs)")
     tiny_shapes, tiny_chains = tiny_kernel_phase(counters)
     log("dwconv at every depthwise shape of the vit_t encode (bf16) against cuDNN")
@@ -6627,6 +6955,7 @@ def run_phases(root, card, early):
     tiny = dict(shapes=tiny_shapes, chains=tiny_chains, launches=t_launches,
                 per_encode=t_per_encode)
     torch.cuda.empty_cache()
+    log(f"phase 7 (vit_t): {time.perf_counter() - t7:.1f} s")
     # phase 8: vit_h / vit_l
     t8 = time.perf_counter()
     log(f"vit_h kernels (head dim {1280 // 16}; relpos_attention also at vit_l's 16 heads of "
@@ -6730,6 +7059,7 @@ def run_phases(root, card, early):
     p18 = parallel_phase(counters, root)
     p18["wall_s"] = time.perf_counter() - t18
     log(f"phase 18 (multi-GPU execution): {p18['wall_s']:.1f} s ({PAR_NOTE})")
+    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - T_START:.1f} s of wall time")
     rows = summarize(shapes, launches, per_encode, bwd_rows, train_launches, k4, tiny, lh, ft,
                      host)
     rows += summarize_tiled(p10)

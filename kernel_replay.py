@@ -13,6 +13,7 @@ compared on one card:
     python3 kernel_replay.py . --layernorm-plans [--out FILE]
     python3 kernel_replay.py . --tiny-attention-plans [--out FILE]
     python3 kernel_replay.py OLD NEW NEW OLD --encode [--model ...] [--out FILE]
+    python3 kernel_replay.py OLD NEW NEW OLD --train-step [--out FILE]
 
 Each argument is the root of a checkout (``.`` for this one). Its process
 imports that checkout's ``micro_sam_tpu_torch`` and builds its kernels into
@@ -57,7 +58,17 @@ call costs (``host_us``) and the sums per encode. ``--layernorm-plans`` and
 ``--encode`` times, instead of any kernel, ``SamPredictor.encode_batch`` of
 ``--model`` on a host clock that ends in a synchronize (1024 x 1024 pixels
 at batch 1 and 8, ``ENCODE_REPS`` runs after two warm-ups, the median per
-image): the serving metric with the host's work in it. Needs one CUDA card.
+image): the serving metric with the host's work in it. ``--train-step``
+times vit_b ``JointSamTrainer`` steps at train_sam's defaults (batch 2 of
+phase 6's 512 x 512 patches, 25 objects, 8 rounds, bf16 compute, f32
+weights from seed 0), each split as phase 14 splits it into the SAM step
+(phase 6's step) and the decoder step: host clock (the card synchronized)
+and device busy time (torch.profiler) per step. In a checkout whose models
+have the repeatable forms (``models/common.py::conv2d_nchw``) it also times
+them undone one at a time in the same process (``plain_forms``:
+``F.interpolate``, cuDNN's transposed and stride-1 convolutions), the
+variants taken in turns, and prints the kernels whose device time differs
+most between all forms and none. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -86,7 +97,8 @@ def smoke_module():
 
 # the sweeps that replace the replays, one flag each (a child runs one)
 SWEEPS = ("gemm-shapes", "gemm-plans", "dwconv-shapes", "dwconv-plans", "layernorm-shapes",
-          "layernorm-plans", "tiny-attention-shapes", "tiny-attention-plans", "encode")
+          "layernorm-plans", "tiny-attention-shapes", "tiny-attention-plans", "encode",
+          "train-step")
 ENCODE_REPS = 10
 
 
@@ -280,6 +292,8 @@ def child(root: str, model: str, sweep: str = "") -> dict:
         raise RuntimeError(f"imported {pkg}, not the package of {root}")
     if sweep == "encode":
         return encode_child(root, model)
+    if sweep == "train-step":
+        return train_step_child(root, smoke)
     if sweep:
         return sweep_child(root, smoke, sweep)
     import importlib
@@ -348,6 +362,206 @@ def encode_child(root: str, model: str) -> dict:
             ts.append((time.perf_counter() - t0) * 1e3 / bs)
         out["encode_ms"][str(bs)] = statistics.median(ts)
         out.setdefault("all_ms", {})[str(bs)] = ts
+    return out
+
+
+STEP_ROUNDS, STEP_REPS = 2, 3
+
+
+def plain_forms() -> dict:
+    """The forms that ``models/common.py``'s repeatable rewrites replaced, by
+    rewrite: ``F.interpolate`` for the bilinear resizes, cuDNN's transposed
+    convolution (kernel == stride) and cuDNN's stride-1 convolution, each a
+    tuple of (object, attribute, replacement)."""
+    import torch.nn.functional as F
+    from micro_sam_tpu_torch.models import common, unetr
+    from micro_sam_tpu_torch.training import joint_sam_trainer, sam_trainer, trainable_sam
+
+    def cast(x, t):
+        return None if t is None else t.to(x.dtype)
+
+    def resize(x, out_hw, antialias=True):
+        if tuple(x.shape[-2:]) == tuple(out_hw):
+            return x
+        down = out_hw[0] < x.shape[-2] or out_hw[1] < x.shape[-1]
+        return F.interpolate(x, tuple(out_hw), mode="bilinear", align_corners=False,
+                             antialias=down and antialias)
+
+    def upsample2x(x):
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+    def conv_transpose2d(x, weight, bias=None, stride=2):
+        return F.conv_transpose2d(x.permute(0, 3, 1, 2), cast(x, weight), cast(x, bias),
+                                  stride=stride).permute(0, 2, 3, 1)
+
+    def conv_transpose(x, weight, bias, stride):
+        return F.conv_transpose2d(x, cast(x, weight), cast(x, bias), stride=stride)
+
+    def conv2d_forward(self, x):
+        return common.conv2d(x, self.weight, self.bias, self.stride[0], self.padding[0],
+                             self.groups)
+
+    def conv(x, weight, bias, padding):
+        return F.conv2d(x, cast(x, weight), cast(x, bias), padding=padding)
+
+    return {"resize": ((trainable_sam, "resize_bilinear", resize),
+                       (sam_trainer, "resize_bilinear", resize),
+                       (joint_sam_trainer, "resize_bilinear", resize),
+                       (unetr, "upsample2x", upsample2x)),
+            "conv_transpose": ((common, "conv_transpose2d", conv_transpose2d),
+                               (unetr, "conv_transpose", conv_transpose)),
+            "conv": ((common.Conv2d, "forward", conv2d_forward), (unetr, "conv", conv))}
+
+
+class Swapped:
+    """Puts the plain forms of the rewrites ``names`` in place, and back."""
+
+    def __init__(self, forms, names):
+        self.patches = [p for n in names for p in forms[n]]
+
+    def __enter__(self):
+        self.saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in self.patches]
+        for obj, attr, new in self.patches:
+            setattr(obj, attr, new)
+
+    def __exit__(self, *exc):
+        for obj, attr, old in self.saved:
+            setattr(obj, attr, old)
+
+
+def device_kernels(fn) -> tuple:
+    """(host ms, {kernel name: device ms}) of ``fn()`` under torch.profiler."""
+    import time
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, {e.key[:120]: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0}
+
+
+def train_step_child(root: str, smoke) -> dict:
+    """``--train-step``: vit_b JointSamTrainer steps, the SAM step and the
+    decoder step timed apart (host clock, the card synchronized; device busy
+    from one profiled step of each), under every variant of the rewrites in
+    turns: STEP_ROUNDS rounds of STEP_REPS timed steps and one profiled step
+    a part, after a warm-up of each variant; with the warm-up, whether each
+    variant's gradients of one step repeat bit for bit (``repeats``)."""
+    import time
+    import numpy as np
+    import torch
+    from micro_sam_tpu_torch.instance_segmentation import get_unetr
+    from micro_sam_tpu_torch.models import common
+    from micro_sam_tpu_torch.ops import _cuda
+    from micro_sam_tpu_torch.training import JointSamTrainer, get_trainable_sam_model
+    from micro_sam_tpu_torch.training.joint_sam_trainer import unetr_loss
+    _cuda.build()
+    imgs, segs = smoke.training_data()
+    batches = list(smoke.joint_loaders(imgs, segs)[0])
+    model = get_trainable_sam_model("vit_b", device="cuda", seed=0)
+    trainer = JointSamTrainer("timing", None, None, model, unetr=get_unetr(device="cuda"),
+                              n_sub_iteration=8, n_objects_per_batch=25, lr=1e-5, logger=False)
+    prepared = []
+    for i, (x, y, t) in enumerate(batches):
+        choice = trainer._get_prompt_and_multimasking_choices(i)
+        prepared.append((trainer._prepare_batch(x, y, *choice[:2], *choice[3:], batch_idx=i),
+                         choice, t))
+
+    def sam_step(i):
+        b, (use_points, use_box, multimask, _, _), _ = prepared[i % len(prepared)]
+        with torch.enable_grad():
+            trainer.train_step(b, use_points, use_box, multimask)
+        torch.cuda.synchronize()
+
+    def decoder_step(i):
+        b, _, t = prepared[i % len(prepared)]
+        trainer.instance_step(b[0], t)
+        torch.cuda.synchronize()
+
+    def grads(params, loss_fn):
+        """Each parameter's gradient of ``loss_fn()``, the trainer's generator
+        put back first: the same draws every time."""
+        trainer.generator.set_state(gen_state)
+        for p in params:
+            p.grad = None
+        with torch.enable_grad():
+            loss_fn().backward()
+        return [p.grad.clone() for p in params if p.grad is not None]
+
+    def sam_loss():
+        b, (use_points, use_box, multimask, _, _), _ = prepared[0]
+        return trainer._loss(*b, use_points, use_box, multimask)[0]
+
+    def decoder_loss():
+        b, _, t = prepared[0]
+        with torch.no_grad():
+            feats = model.image_embeddings_oft(b[0])
+        t = torch.as_tensor(np.asarray(t)[:, -3:], dtype=torch.float32).to(feats.device)
+        return unetr_loss(trainer.unetr, feats, t)
+
+    def repeats() -> dict:
+        """Of STEP_REPS gradient computations from the same weights and draws,
+        the tensors that differ from the first's, per part."""
+        out = {}
+        for part, params, fn in (("sam", list(model.sam.parameters()), sam_loss),
+                                 ("decoder", list(trainer.unetr.parameters()), decoder_loss)):
+            first = grads(params, fn)
+            out[part] = [sum(not torch.equal(a, b) for a, b in zip(first, grads(params, fn)))
+                         for _ in range(STEP_REPS - 1)] + [len(first)]
+        return out
+
+    gen_state = trainer.generator.get_state()
+    repeatable = hasattr(common, "conv2d_nchw")
+    forms = plain_forms() if repeatable else {}
+    variants = {"as is": ()}
+    if repeatable:
+        variants.update({f"{n} undone": (n,) for n in forms})
+        variants["all undone"] = tuple(forms)
+    out = {"root": root, "repeatable_forms": repeatable, "variants": {}}
+    for name, undo in variants.items():  # warm-up: each form's first call
+        with Swapped(forms, undo):
+            for i in range(len(prepared)):
+                sam_step(i)
+                decoder_step(i)
+            differ = repeats()
+        print(f"  {name}: gradient tensors differing from the first of {STEP_REPS} computations "
+              f"(the last number: tensors compared): {differ}", flush=True)
+        out["variants"][name] = {"sam_ms": [], "decoder_ms": [], "sam_busy_ms": [],
+                                 "decoder_busy_ms": [], "differing_gradients": differ}
+    for r in range(STEP_ROUNDS):
+        for name, undo in variants.items():
+            row = out["variants"][name]
+            with Swapped(forms, undo):
+                for part, fn in (("sam", sam_step), ("decoder", decoder_step)):
+                    for i in range(STEP_REPS):
+                        t0 = time.perf_counter()
+                        fn(i)
+                        row[f"{part}_ms"].append((time.perf_counter() - t0) * 1e3)
+                    _, kernels = device_kernels(lambda: fn(r))
+                    row[f"{part}_busy_ms"].append(sum(kernels.values()))
+                    row[f"{part}_kernels"] = kernels
+            print(f"  round {r} {name}: SAM step {row['sam_ms'][-STEP_REPS:]} ms (device busy "
+                  f"{row['sam_busy_ms'][-1]:.3f}), decoder step {row['decoder_ms'][-STEP_REPS:]} "
+                  f"ms (device busy {row['decoder_busy_ms'][-1]:.3f})", flush=True)
+    for name, row in out["variants"].items():
+        print(f"  {name}: median SAM step {statistics.median(row['sam_ms']):.3f} ms, device busy "
+              f"{statistics.median(row['sam_busy_ms']):.3f}; decoder step "
+              f"{statistics.median(row['decoder_ms']):.3f} ms, device busy "
+              f"{statistics.median(row['decoder_busy_ms']):.3f}", flush=True)
+    if repeatable:
+        for part in ("sam", "decoder"):
+            new, old = (out["variants"][v][f"{part}_kernels"] for v in ("as is", "all undone"))
+            diff = sorted(((new.get(k, 0.0) - old.get(k, 0.0), k) for k in set(new) | set(old)),
+                          key=lambda d: -abs(d[0]))[:12]
+            print(f"  {part} step, device ms as is minus all undone, by kernel (one profiled "
+                  f"step each):", flush=True)
+            for d, k in diff:
+                print(f"    {d:+9.3f} ms  as is {new.get(k, 0.0):8.3f}  undone "
+                      f"{old.get(k, 0.0):8.3f}  {k[:100]}", flush=True)
     return out
 
 
@@ -450,6 +664,17 @@ def main():
     for root in dict.fromkeys(r["root"] for r in runs):
         mine = [r for r in runs if r["root"] == root]
         if args.sweep.endswith("plans"):
+            continue
+        if args.sweep == "train-step":
+            summary[root] = {v: {k: statistics.median(x for r in mine for x in r["variants"][v][k])
+                                 for k in ("sam_ms", "decoder_ms", "sam_busy_ms",
+                                           "decoder_busy_ms")}
+                             for v in mine[0]["variants"]}
+            print(f"{root}: vit_b joint step parts, medians over its runs: "
+                  f"{json.dumps(summary[root])}", flush=True)
+            for r in mine:
+                for row in r["variants"].values():
+                    row.pop("sam_kernels", None), row.pop("decoder_kernels", None)
             continue
         if args.sweep == "encode":
             summary[root] = {bs: statistics.median(r["encode_ms"][bs] for r in mine)

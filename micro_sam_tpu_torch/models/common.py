@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -44,12 +45,146 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     return y.permute(0, 2, 3, 1)
 
 
+def conv2d_product(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                   stride: int = 1) -> torch.Tensor:
+    """NHWC convolution whose kernel is its stride (no overlap, no padding)
+    as one product of the (k k I) patches, a reshape of x, with the (O, k k I)
+    weight, the bias in its epilogue. Its backward is products, which repeat
+    bit for bit."""
+    O, I, k, _ = weight.shape
+    B, H, W, C = x.shape
+    Ho, Wo = H // k, W // k
+    patches = x[:, :Ho * k, :Wo * k].reshape(B, Ho, k, Wo, k, C)
+    patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(B, Ho, Wo, k * k * C)
+    w = weight.permute(0, 2, 3, 1).reshape(O, k * k * I).to(x.dtype)
+    return F.linear(patches, w, None if bias is None else bias.to(x.dtype))
+
+
+class RepeatableConv2d(torch.autograd.Function):
+    """cuDNN's stride-1 NCHW convolution forward, with a backward that
+    repeats bit for bit: the input gradient is the forward convolution of
+    the output gradient with the kernel flipped and its channels swapped
+    (cuDNN's forward algorithms are deterministic, its backward ones need
+    not be: on the H100 its data gradient of the SAM neck's 3 x 3
+    convolution at a 8 x 8 grid differed from run to run); the weight
+    gradient is kh kw products of the output gradient with the shifted
+    input, channels last."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.padding, ctx.has_bias = padding, bias is not None
+        return F.conv2d(x, weight, bias, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        p = ctx.padding
+        O, I, kh, kw = w.shape
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = F.conv2d(g, w.flip(2, 3).transpose(0, 1), padding=kh - 1 - p)
+        if ctx.needs_input_grad[1]:
+            N, _, H, W = g.shape
+            g2 = g.permute(0, 2, 3, 1).reshape(N * H * W, O)
+            xp = F.pad(x, (p, p, p, p)).permute(0, 2, 3, 1)
+            gw = torch.stack([g2.t() @ xp[:, dy:dy + H, dx:dx + W].reshape(N * H * W, I)
+                              for dy in range(kh) for dx in range(kw)], dim=-1)
+            gw = gw.view(O, I, kh, kw)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = g.sum(dim=(0, 2, 3))
+        return gx, gw, gb, None
+
+
+def conv2d_nchw(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                padding: int) -> torch.Tensor:
+    """Stride-1 NCHW convolution in x's dtype: ``RepeatableConv2d``, whose
+    backward repeats bit for bit. A ``torch.jit`` trace records the plain
+    convolution instead (the same forward), as a saved trace cannot hold a
+    Python autograd function."""
+    w, b = weight.to(x.dtype), None if bias is None else bias.to(x.dtype)
+    if torch.jit.is_tracing():
+        return F.conv2d(x, w, b, padding=padding)
+    return RepeatableConv2d.apply(x, w, b, padding)
+
+
 def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                      stride: int = 2) -> torch.Tensor:
-    """NHWC transposed convolution with an (I, O, kh, kw) kernel."""
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                           None if bias is None else bias.to(x.dtype), stride=stride)
-    return y.permute(0, 2, 3, 1)
+    """NHWC transposed convolution with an (I, O, k, k) kernel whose size is
+    its stride. The outputs of such a kernel do not overlap, so it is one
+    product (I -> O k k, the bias in its epilogue) and a pixel shuffle; its
+    backward is products too, which repeat bit for bit (cuDNN's
+    weight-gradient algorithms for it may add with atomics)."""
+    cin, cout, k, k2 = weight.shape
+    if k != stride or k2 != stride:
+        raise ValueError(f"conv_transpose2d: kernel {(k, k2)} is not the stride {stride}")
+    B, H, W, _ = x.shape
+    b = None if bias is None else bias.to(x.dtype).repeat_interleave(k * k)
+    y = F.linear(x, weight.reshape(cin, cout * k * k).t().to(x.dtype), b)
+    y = y.view(B, H, W, cout, k, k).permute(0, 1, 4, 2, 5, 3)
+    return y.reshape(B, H * k, W * k, cout)
+
+
+_RESIZE_MATRICES: dict = {}
+
+
+def resize_matrix(n_in: int, n_out: int, antialias: bool = True, device=None,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (n_in, n_out) weights of a bilinear resize along one axis with
+    half-pixel centres: ``jax.image.resize``'s ``compute_weight_mat`` with
+    the triangle kernel, widened by n_in / n_out when it shrinks and
+    ``antialias``, each column normalized; computed in float32, then cast to
+    ``dtype`` on ``device``, and kept per (size, device, dtype)."""
+    key = (n_in, n_out, antialias, str(torch.device(device or "cpu")), dtype)
+    w = _RESIZE_MATRICES.get(key)
+    if w is None:
+        f32 = np.float32
+        inv_scale = f32(1.0 / (n_out / n_in))  # jax: a Python float, then float32
+        kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
+        sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+        x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+        weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+        total = weights.sum(axis=0, keepdims=True)
+        weights = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                           weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+        inside = (sample >= -0.5) & (sample <= f32(n_in) - f32(0.5))
+        w = torch.from_numpy(np.where(inside[None, :], weights, f32(0.0)).astype(f32))
+        w = w.to(device or "cpu", dtype)
+        _RESIZE_MATRICES[key] = w
+    return w
+
+
+def resize_bilinear(x: torch.Tensor, out_hw, antialias: bool = True) -> torch.Tensor:
+    """(..., h, w) -> (..., H, W), bilinear with half-pixel centres, as
+    ``jax.image.resize(..., "bilinear")`` (antialiased where it shrinks,
+    unless ``antialias`` is False): two products with the fixed weights of
+    ``resize_matrix`` in x's dtype (float32 for integer input), one along
+    W, then one along H. Its backward is two products, so it repeats bit for
+    bit (``F.interpolate``'s CUDA backward adds with atomics)."""
+    H, W = int(out_hw[0]), int(out_hw[1])
+    h, w = x.shape[-2], x.shape[-1]
+    if (h, w) == (H, W):
+        return x
+    dt = x.dtype if x.is_floating_point() else torch.float32
+    x = x.to(dt)
+    if w != W:
+        x = x @ resize_matrix(w, W, antialias, x.device, dt)
+    if h != H:
+        x = resize_matrix(h, H, antialias, x.device, dt).t() @ x
+    return x
+
+
+def resize_bilinear_hwc(x: torch.Tensor, out_hw, antialias: bool = True) -> torch.Tensor:
+    """``resize_bilinear`` of channel-last (N, h, w, C) -> (N, H, W, C): the
+    same two products, over W then over H, without a layout copy."""
+    H, W = int(out_hw[0]), int(out_hw[1])
+    N, h, w, C = x.shape
+    if w != W:
+        x = resize_matrix(w, W, antialias, x.device, x.dtype).t() @ x
+    if h != H:
+        x = (resize_matrix(h, H, antialias, x.device, x.dtype).t()
+             @ x.reshape(N, h, W * C)).view(N, H, W, C)
+    return x
 
 
 def kaiming_uniform_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
@@ -118,8 +253,8 @@ class Linear(nn.Linear):
         self.register_parameter("ssf_scale", None)
         self.register_parameter("ssf_shift", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.peft_terms(x, linear(x, self.dense_weight(), self.bias))
+    def forward(self, x: torch.Tensor, shared=None) -> torch.Tensor:
+        return self.peft_terms(x, linear(x, self.dense_weight(), self.bias), shared)
 
     @property
     def quantized(self) -> bool:
@@ -132,15 +267,19 @@ class Linear(nn.Linear):
             return dequantize_packed(self.w_q4, self.w_scale)
         return self.weight
 
-    def peft_terms(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def peft_terms(self, x: torch.Tensor, y: torch.Tensor, shared=None) -> torch.Tensor:
         """y (the product of x and the weight, plus the bias) with the LoRA
         update added and the SSF scale and shift applied, in float32, back in
-        y's dtype (``micro_sam_tpu/models/common.py::linear``)."""
+        y's dtype (``micro_sam_tpu/models/common.py::linear``). ``shared``
+        wraps LoRA's ``a`` where the product is split on its output rows over
+        a model axis and every shard reads ``a`` whole (``CopyToModel`` in
+        training, so that its gradient sums the shards')."""
         if self.lora is None and self.ssf_scale is None:
             return y
         out = y.float()
         if self.lora is not None:
-            out = out + self.lora(x).float()
+            a = self.lora.a if shared is None else shared(self.lora.a)
+            out = out + ((x @ a.to(x.dtype)) @ self.lora.b.to(x.dtype)).float()
         if self.ssf_scale is not None:
             out = out * self.ssf_scale + self.ssf_shift
         return out.to(y.dtype)
@@ -202,11 +341,21 @@ class LayerNorm(nn.Module):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d over channel-last input, in its input's dtype."""
+    """nn.Conv2d over channel-last input, in its input's dtype, in a form
+    whose backward repeats bit for bit: a stride-1 kernel (1 x 1 included)
+    is ``conv2d_nchw``, cuDNN's forward; a larger kernel that is its stride
+    ``conv2d_product``. The port's models build no other (TinyViT's
+    ``Conv2dBN`` calls ``conv2d`` itself)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pad = self.padding[0] if isinstance(self.padding, tuple) else self.padding
-        return conv2d(x, self.weight, self.bias, self.stride[0], pad, self.groups)
+        k, stride = self.kernel_size[0], self.stride[0]
+        if self.groups == 1 and stride == 1:
+            return conv2d_nchw(x.permute(0, 3, 1, 2), self.weight, self.bias, pad).permute(0, 2, 3, 1)
+        if self.groups == 1 and k == stride and pad == 0:
+            return conv2d_product(x, self.weight, self.bias, k)
+        raise ValueError(f"Conv2d: kernel {k}, stride {stride}, groups {self.groups} has no "
+                         f"repeatable form")
 
     def init_(self, g: torch.Generator) -> None:
         fan_in = self.in_channels // self.groups * self.kernel_size[0] * self.kernel_size[1]

@@ -23,7 +23,8 @@ AdaptFormer adapter, int4 storage) runs the same chains in every route, the
 PEFT terms added around their products (``ops/fused_window_block.py``); in
 training ``train_block`` adds the same terms around ``RelPosAttentionFn``
 (K1 / K4). The encoder's shared FacT core (``fact_u`` / ``fact_v``) is handed
-to every block.
+to every block. Split over a model axis, the PEFT terms split with their
+products (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -108,26 +109,32 @@ class Attention(cm.KeepsDerived):
         self.register_module("lora", None)
         self.register_module("fact", None)
 
-    def qkv_deltas(self, a: torch.Tensor, fact) -> Optional[torch.Tensor]:
+    def qkv_deltas(self, a: torch.Tensor, fact, shared=None) -> Optional[torch.Tensor]:
         """The PEFT updates of the qkv product of ``a`` (..., C): LoRA's on
         q / k / v, FacT's ``(a (u * s)) v`` on q and v with the encoder's
         shared core ``fact`` = (u, v), placed in the [q | k | v] thirds of the
-        3C columns; None without either (``micro_sam_tpu/models/
-        image_encoder.py::apply_attention``)."""
+        qkv columns; None without either (``micro_sam_tpu/models/
+        image_encoder.py::apply_attention``). Split over a model axis, each
+        ``b`` and ``v`` hold the shard's heads' columns, so the updates are
+        the shard's; ``shared`` wraps the factors every shard reads whole
+        (LoRA's ``a``, ``u * s``: ``CopyToModel`` in training)."""
+        dt = a.dtype
+        keep = (lambda t: t) if shared is None else shared
         parts = [None, None, None]
         if self.lora is not None:
             for i, name in enumerate("qkv"):
                 if name in self.lora:
-                    parts[i] = self.lora[name](a)
+                    lora = self.lora[name]
+                    parts[i] = (a @ keep(lora.a).to(dt)) @ lora.b.to(dt)
         if self.fact is not None:
             u, v = fact
-            dt = a.dtype
             for i, s in ((0, self.fact.q_scale), (2, self.fact.v_scale)):
-                d = (a @ (u * s).to(dt)) @ v.to(dt)
+                d = (a @ keep(u * s).to(dt)) @ v.to(dt)
                 parts[i] = d if parts[i] is None else parts[i] + d
-        if all(p is None for p in parts):
+        given = [p for p in parts if p is not None]
+        if not given:
             return None
-        zero = a.new_zeros(a.shape)
+        zero = a.new_zeros(a.shape[:-1] + given[0].shape[-1:])
         return torch.cat([zero if p is None else p for p in parts], dim=-1)
 
     def rel_tables(self, hw: Tuple[int, int], dtype: torch.dtype):
@@ -231,19 +238,22 @@ def train_block(block: Block, x: torch.Tensor, valid, hw: Tuple[int, int],
     (plus the LoRA / FacT updates), the tables' gradient flowing back through
     ``get_rel_pos``. A block split over a model axis (``tp``) runs Megatron's
     layout: ``CopyToModel`` before the products split on their output rows
-    (and on the shared rel-pos tables), ``ReduceFromModel`` after those split
-    on their input columns (``parallel/mesh.py``)."""
+    (and on the shared rel-pos tables and the PEFT factors every shard reads
+    whole), ``ReduceFromModel`` after those split on their input columns
+    (``parallel/mesh.py``); an AdaptFormer adapter reads LN2's output before
+    the copy, as it runs whole on every rank."""
     Bn, N, C = x.shape
     attn = block.attn
     tp = block.tp
     nH = attn.num_heads if tp is None else attn.num_heads // tp.size
+    shared = None if tp is None else (lambda t: CopyToModel.apply(t, tp.group))
     a = block.norm1(x)
     if valid is not None:
         a = a * valid.to(a.dtype)
     if tp is not None:
         a = CopyToModel.apply(a, tp.group)
-    qkv = attn.qkv(a)
-    d = attn.qkv_deltas(a, fact)
+    qkv = attn.qkv(a, shared)
+    d = attn.qkv_deltas(a, fact, shared)
     if d is not None:
         qkv = qkv + d
     qkv = qkv.view(Bn, N, 3, nH, attn.head_dim).permute(0, 2, 3, 1, 4)
@@ -257,15 +267,27 @@ def train_block(block: Block, x: torch.Tensor, valid, hw: Tuple[int, int],
         x = x + attn.proj(o)
         return x + block.mlp(block.norm2(x))
     x = x + _reduced_product(o, attn.proj, tp)
-    b = CopyToModel.apply(block.norm2(x), tp.group)
-    return x + _reduced_product(cm.gelu(block.mlp.lin1(b)), block.mlp.lin2, tp)
+    ln2 = block.norm2(x)
+    b = CopyToModel.apply(ln2, tp.group)
+    y = _reduced_product(cm.gelu(block.mlp.lin1(b, shared)), block.mlp.lin2, tp)
+    if block.mlp.adapter is not None:
+        y = y + block.mlp.adapter(ln2)
+    return x + y
 
 
 def _reduced_product(x: torch.Tensor, lin, tp) -> torch.Tensor:
     """lin(x) for a product split on its input columns: the partial products
-    summed in float32 over the model group, the bias added once to the sum."""
-    part = cm.linear(x, lin.weight, None)
-    return (ReduceFromModel.apply(part, tp.group) + lin.bias).to(x.dtype)
+    (the shard's LoRA term added, its ``a`` rows the shard's, ``b`` read whole)
+    summed in float32 over the model group, the bias added once to the sum,
+    then the SSF scale and shift."""
+    part = cm.linear(x, lin.dense_weight(), None)
+    if lin.lora is not None:
+        b = CopyToModel.apply(lin.lora.b, tp.group)
+        part = part.float() + ((x @ lin.lora.a.to(x.dtype)) @ b.to(x.dtype)).float()
+    out = ReduceFromModel.apply(part, tp.group) + lin.bias
+    if lin.ssf_scale is not None:
+        out = out * lin.ssf_scale + lin.ssf_shift
+    return out.to(x.dtype)
 
 
 class PatchEmbed(nn.Module):

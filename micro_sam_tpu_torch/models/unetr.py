@@ -56,19 +56,23 @@ _CONV_BLOCK_PREFIXES = ("base.", "decoder.blocks.", "decoder_head.")
 
 def conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
          padding: int) -> torch.Tensor:
-    return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
-                    padding=padding)
+    """Stride-1 convolution, ``common.conv2d_nchw`` (its backward repeats)."""
+    return common.conv2d_nchw(x, weight, bias, padding)
 
 
 def conv_transpose(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                    stride: int) -> torch.Tensor:
-    return F.conv_transpose2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
-                              stride=stride)
+    """NCHW transposed convolution, kernel == stride: ``common.conv_transpose2d``
+    (one product and a pixel shuffle) on the channels-last view."""
+    y = common.conv_transpose2d(x.permute(0, 2, 3, 1), weight, bias, stride)
+    return y.permute(0, 3, 1, 2)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Bilinear x2, half-pixel centers (torch_em's ``Upsampler2d``)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    """Bilinear x2, half-pixel centers (torch_em's ``Upsampler2d``), as the
+    two products of ``common.resize_bilinear_hwc`` on the channels-last view."""
+    y = common.resize_bilinear_hwc(x.permute(0, 2, 3, 1), (2 * x.shape[-2], 2 * x.shape[-1]))
+    return y.permute(0, 3, 1, 2)
 
 
 def instance_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,

@@ -66,8 +66,11 @@ C / heads), the attention runs on them, and the proj and lin2 products take
 the shard's input columns with epilogue ``none`` and a zero bias. Their
 partial sums are all-reduced in float32 over the model group (the kernel
 writes each partial in the working type), and the bias and the residual are
-added once to the sum, which is cast once. The JAX package leaves the same
-split to XLA (``micro_sam_tpu/parallel/mesh.py``).
+added once to the sum, which is cast once. The PEFT terms split with their
+products: a row-split product's LoRA / SSF / int4 tensors hold the shard's
+output columns, so ``_product`` takes them as they are; a column-split
+product's LoRA term joins the partial sum and its SSF is applied after it.
+The JAX package leaves the same split to XLA (``micro_sam_tpu/parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -120,15 +123,21 @@ def _heads(block, num_heads: int) -> int:
 def _out_product(mm, x: torch.Tensor, lin, residual: torch.Tensor, tp) -> torch.Tensor:
     """residual + lin(x) for the proj and lin2 products. Split over a model
     axis (``tp``), x holds the shard's input columns: the partial products
-    (epilogue ``none``, a zero bias) are summed in float32 over the model
-    group, then the bias and the residual are added and the sum cast once."""
+    (epilogue ``none``, a zero bias; plus the shard's LoRA term, its ``a``
+    rows the shard's) are summed in float32 over the model group, then the
+    bias, the SSF scale and shift and the residual are applied and the sum
+    cast once."""
     if tp is None:
         return _product(mm, x, lin, "residual", residual)
     from ..parallel.mesh import all_reduce_f32
     w = lin.dense_weight().to(x.dtype)
     part = mm(x, w, lin.bias.new_zeros(w.shape[0]), "none")
-    acc = all_reduce_f32(part, tp.group)
-    return (acc + lin.bias.float() + residual.float()).to(x.dtype)
+    if lin.lora is not None:
+        part = part.float() + lin.lora(x).float()
+    out = all_reduce_f32(part, tp.group) + lin.bias.float()
+    if lin.ssf_scale is not None:
+        out = out * lin.ssf_scale + lin.ssf_shift
+    return (out + residual.float()).to(x.dtype)
 
 
 def _qkv(mm, a: torch.Tensor, attn, fact) -> torch.Tensor:
@@ -169,6 +178,8 @@ def _mlp_half(x: torch.Tensor, block, plain: bool) -> torch.Tensor:
     h = _product(mm, b, mlp.lin1, "gelu")
     if mlp.adapter is None:
         return _out_product(mm, h, mlp.lin2, xf, block.tp).view(shape)
+    if block.tp is not None:
+        return (_out_product(mm, h, mlp.lin2, xf, block.tp) + mlp.adapter(b)).view(shape)
     return (xf + _product(mm, h, mlp.lin2) + mlp.adapter(b)).view(shape)
 
 

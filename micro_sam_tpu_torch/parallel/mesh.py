@@ -17,6 +17,16 @@ where the shards meet.
   all-reduced in float32 over the model group, and the bias and the residual
   are added once, after the sum. Everything else is replicated.
 
+PEFT and int4 blocks split with their base products (``_SPLIT``): a LoRA
+``b`` (and FacT's shared ``v``) on its output columns, with the heads or
+rows of the product it adds to; a LoRA ``a`` on a column-split product on
+its input rows; an SSF scale and shift of a row-split product with its
+rows; int4 storage as its dense twin (``w_q4`` rows and ``w_scale``
+columns on a row-split product, the packed columns and the scale rows on a
+column-split one). What the shards read whole (a LoRA ``a`` before a
+row-split product, FacT's ``u`` and scales, the SSF of proj / lin2, applied
+after the sum, AdaptFormer and the depth adapters) is replicated.
+
 The layout is JAX's ``make_mesh``: the world reshaped to (n // m, m), rank =
 data_index * m + model_index, so a model group is a run of adjacent ranks
 (adjacent GPUs of a node). The ranks communicate only through ``broadcast``,
@@ -30,12 +40,21 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-#: state-dict suffix of an encoder block's tensor -> (dim it splits on, by heads)
+#: state-dict suffix of an encoder block's tensor -> (dim it splits on, by
+#: heads): the four products, their int4 storage, SSF and LoRA terms
 _SPLIT = {
-    "attn.qkv.weight": (0, True), "attn.qkv.bias": (0, True),
-    "mlp.lin1.weight": (0, False), "mlp.lin1.bias": (0, False),
-    "attn.proj.weight": (1, False), "mlp.lin2.weight": (1, False),
+    **{f"{lin}.{leaf}": rule for lin, heads in (("attn.qkv", True), ("mlp.lin1", False))
+       for leaf, rule in (("weight", (0, heads)), ("bias", (0, heads)), ("w_q4", (0, heads)),
+                          ("w_scale", (1, heads)), ("ssf_scale", (0, heads)),
+                          ("ssf_shift", (0, heads)), ("lora.b", (1, heads)))},
+    **{f"{lin}.{leaf}": rule for lin in ("attn.proj", "mlp.lin2")
+       for leaf, rule in (("weight", (1, False)), ("w_q4", (1, False)), ("w_scale", (0, False)),
+                          ("lora.a", (0, False)))},
+    **{f"attn.lora.{p}.b": (1, False) for p in "qkv"},
 }
+#: encoder tensors outside the blocks that split: FacT's shared v, on the
+#: columns of the q / v heads
+_SPLIT_ENCODER = {"image_encoder.fact_v": (1, False)}
 #: the gradient all-reduce's bucket size (DDP's default)
 BUCKET_BYTES = 25 * 1024 * 1024
 
@@ -296,6 +315,8 @@ def split_rule(name: str, config=None) -> Optional[Tuple[int, bool]]:
     whole: its chains are not split."""
     if config is not None and getattr(config, "encoder", "vit") != "vit":
         return None
+    if name in _SPLIT_ENCODER:
+        return _SPLIT_ENCODER[name]
     if not name.startswith("image_encoder.blocks."):
         return None
     for suffix, rule in _SPLIT.items():
@@ -306,11 +327,11 @@ def split_rule(name: str, config=None) -> Optional[Tuple[int, bool]]:
 
 def shard_tensor(t: torch.Tensor, rule: Tuple[int, bool], size: int, index: int) -> torch.Tensor:
     """Shard ``index`` of ``size`` of ``t`` under ``rule``; by heads, the q, k
-    and v rows of the shard's heads, in that order."""
+    and v parts of the shard's heads along the dim, in that order."""
     dim, by_heads = rule
     if by_heads:
-        parts = t.reshape(3, t.shape[0] // 3, *t.shape[1:]).chunk(size, dim=1)[index]
-        return parts.reshape(-1, *t.shape[1:]).contiguous()
+        thirds = t.unflatten(dim, (3, t.shape[dim] // 3))
+        return thirds.chunk(size, dim=dim + 1)[index].flatten(dim, dim + 1).contiguous()
     return t.chunk(size, dim=dim)[index].contiguous()
 
 
@@ -318,26 +339,21 @@ def unshard_tensor(parts: List[torch.Tensor], rule: Tuple[int, bool]) -> torch.T
     """The whole tensor from its shards in rank order (``shard_tensor``'s inverse)."""
     dim, by_heads = rule
     if by_heads:
-        thirds = [p.reshape(3, p.shape[0] // 3, *p.shape[1:]) for p in parts]
-        whole = torch.cat(thirds, dim=1)
-        return whole.reshape(-1, *whole.shape[2:])
+        thirds = [p.unflatten(dim, (3, p.shape[dim] // 3)) for p in parts]
+        return torch.cat(thirds, dim=dim + 1).flatten(dim, dim + 1)
     return torch.cat(parts, dim=dim)
 
 
-def _refuse_peft(sam) -> None:
-    from ..models.common import Linear
-    enc = sam.image_encoder
-    peft = getattr(enc, "fact_u", None) is not None
+def _check_int4_split(enc, m: int) -> None:
+    """int4 storage splits with a column-split product's input only in whole
+    scale blocks: a shard's input width must be a multiple of QUANT_BLOCK."""
+    from ..models.common import QUANT_BLOCK
     for blk in enc.blocks:
-        peft |= blk.attn.lora is not None or blk.attn.fact is not None
-        peft |= blk.mlp.adapter is not None
-        peft |= blk.adapter_pre is not None or blk.adapter_post is not None
-        for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.lin1, blk.mlp.lin2):
-            assert isinstance(lin, Linear)
-            peft |= lin.lora is not None or lin.ssf_scale is not None or lin.quantized
-    if peft:
-        raise NotImplementedError("PEFT and int4 encoder blocks are not split over a model "
-                                  "axis; run them on the data axis (model_axis=1)")
+        for lin in (blk.attn.proj, blk.mlp.lin2):
+            if lin.quantized and (lin.w_q4.shape[1] * 2 // m) % QUANT_BLOCK:
+                raise ValueError(f"an int4 product of {lin.w_q4.shape[1] * 2} inputs split over "
+                                 f"the model axis {m} gives shards of {lin.w_q4.shape[1] * 2 // m} "
+                                 f"inputs, not whole int4 blocks of {QUANT_BLOCK}")
 
 
 def shard_sam_(sam, mesh: Mesh):
@@ -346,8 +362,9 @@ def shard_sam_(sam, mesh: Mesh):
     holds them), and hand each block the model group (``Block.tp``).
     ``sam_param_shardings`` + ``device_put`` of the JAX package. A vit_t, or
     a mesh whose model axis is 1, stays whole. Raises when the heads or the
-    MLP width do not divide by the model axis, for a PEFT / int4 encoder
-    under a model axis, and for a SAM already split."""
+    MLP width do not divide by the model axis, when an int4 shard's input
+    is not whole int4 blocks (``_check_int4_split``), and for a SAM already
+    split. PEFT and int4 tensors split under ``split_rule`` like the rest."""
     m = mesh.shape["model"]
     cfg = sam.config
     if m == 1 or cfg.encoder != "vit":
@@ -359,11 +376,11 @@ def shard_sam_(sam, mesh: Mesh):
     if enc.num_heads % m or hidden % m:
         raise ValueError(f"{enc.num_heads} heads and an MLP of {hidden} must both divide by "
                          f"the model axis {m}")
-    _refuse_peft(sam)
-    for name, p in sam.named_parameters():
+    _check_int4_split(enc, m)
+    for name, t in list(sam.named_parameters()) + list(sam.named_buffers()):
         rule = split_rule(name, cfg)
         if rule is not None:
-            p.data = shard_tensor(p.data, rule, m, mesh.model_index)
+            t.data = shard_tensor(t.data, rule, m, mesh.model_index)
     for blk in enc.blocks:
         blk.tp = mesh.model_shard
     return sam

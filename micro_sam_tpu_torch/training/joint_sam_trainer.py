@@ -11,6 +11,13 @@ AdamW (lr 1e-5, optax's defaults) updates the decoder's parameters; the
 decoder's BatchNorm statistics are buffers and stay as they are. Validation
 runs the SAM loss only, which also picks ``best``.
 
+On a mesh (``mesh=``) the SAM step is ``SamTrainer``'s; the decoder step
+encodes the rank's share through the split encoder, the decoder is
+replicated, its share's loss is the share's mean (the shares are equal), and
+its gradients are averaged over the data group before its AdamW, so each
+rank holds the single process's decoder. Mesh rank 0 writes
+``decoder_state``; ``load_checkpoint`` gives every rank the whole decoder.
+
 The checkpoints add ``decoder_state``, the decoder as the JAX package's
 parameter tree, so either package's ``get_predictor_and_decoder`` loads them.
 """
@@ -52,19 +59,20 @@ class JointSamTrainer(SamTrainer):
 
     def __init__(self, *args, unetr: Optional[UNETRDecoder] = None, instance_loss=None,
                  instance_metric=None, **kwargs):
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError("the joint trainer's decoder step is not meshed; train "
-                                      "SAM on a mesh with SamTrainer")
         super().__init__(*args, **kwargs)
         if unetr is None:
             raise ValueError("JointSamTrainer needs the decoder: unetr=get_unetr(...)")
+        dev = next(unetr.parameters()).device
+        if self.mesh is not None and dev != self.mesh.device:
+            raise ValueError(f"the decoder is on {dev}, the mesh's rank on {self.mesh.device}")
         self.unetr = unetr
         self.unetr_optimizer = adamw(list(unetr.parameters()), DECODER_LR)
         self._instance_losses: list = []
 
     def instance_step(self, images: torch.Tensor, targets) -> torch.Tensor:
         """One decoder update on (B, h, w, 3) images (the prepared batch's)
-        and (B, 3 or 4, H, W) distance targets; returns the loss."""
+        and (B, 3 or 4, H, W) distance targets; returns the loss (on a mesh,
+        the global batch's)."""
         targets = torch.as_tensor(np.asarray(targets)[:, -3:], dtype=torch.float32)
         with torch.no_grad():
             features = self.model.image_embeddings_oft(images)
@@ -72,8 +80,9 @@ class JointSamTrainer(SamTrainer):
         with torch.enable_grad():
             loss = unetr_loss(self.unetr, features, targets.to(features.device))
             loss.backward()
+        self._reduce_gradients(self.unetr.parameters())
         self.unetr_optimizer.step()
-        return loss.detach()
+        return self._over_data(loss.detach())[0]
 
     def _after_train_step(self, prepared, batch) -> None:
         if len(batch) > 2:

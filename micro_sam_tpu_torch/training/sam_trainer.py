@@ -346,17 +346,8 @@ class SamTrainer:
         to the data group's largest (invalid objects; None when no rank has
         one). Raises when the shares differ in size or the global batch does
         not divide by the data axis."""
-        d = self.mesh.shape["data"]
         n_obj = 0 if batch is None else batch[1].shape[1]
-        sizes = all_gather_cat(torch.tensor([[local_b, n_obj]], device=self.device),
-                               self.mesh.data_group).tolist()
-        global_b = sum(b for b, _ in sizes)
-        if global_b % d:
-            raise ValueError(f"Global batch size {global_b} must be divisible by the mesh data "
-                             f"axis ({d}) — size your loader batches to the mesh.")
-        if any(b != local_b for b, _ in sizes):
-            raise ValueError(f"the data ranks' batches differ in size ({[b for b, _ in sizes]}); "
-                             "each data rank feeds an equal share of the global batch")
+        sizes = self._share_sizes(local_b, n_obj)
         O = max(o for _, o in sizes)
         if O == 0:
             return None
@@ -376,15 +367,38 @@ class SamTrainer:
             plabels = grow(plabels, -1)
         return images, gt, valid, points, plabels, boxes
 
-    def _over_data(self, loss: torch.Tensor, miou: torch.Tensor):
-        """The global batch's loss and mean IoU: each rank's share averaged
-        over the data group (a rank's share is normalized by the global
-        count, shared out)."""
+    def _share_sizes(self, local_b: int, *extra: int) -> list:
+        """Every data rank's [batch, *extra] (a collective over the data
+        group). Raises when the global batch does not divide by the data axis
+        or the shares differ in size."""
+        d = self.mesh.shape["data"]
+        sizes = all_gather_cat(torch.tensor([[local_b, *extra]], device=self.device),
+                               self.mesh.data_group).tolist()
+        global_b = sum(row[0] for row in sizes)
+        if global_b % d:
+            raise ValueError(f"Global batch size {global_b} must be divisible by the mesh data "
+                             f"axis ({d}) — size your loader batches to the mesh.")
+        if any(row[0] != local_b for row in sizes):
+            raise ValueError(f"the data ranks' batches differ in size ({[r[0] for r in sizes]}); "
+                             "each data rank feeds an equal share of the global batch")
+        return sizes
+
+    def _over_data(self, *values: torch.Tensor):
+        """The global batch's values (a loss, a mean IoU): each rank's share
+        averaged over the data group (a rank's share is a mean over its equal
+        share, or normalized by the global count shared out)."""
         if self.mesh is None:
-            return loss, miou
-        both = all_reduce_f32(torch.stack([loss.detach().float(), miou.float()]),
+            return values
+        both = all_reduce_f32(torch.stack([v.detach().float() for v in values]),
                               self.mesh.data_group) / self.mesh.shape["data"]
-        return both[0], both[1]
+        return tuple(both)
+
+    def _reduce_gradients(self, params) -> None:
+        """On a mesh, the gradients of ``params`` averaged over the data group
+        (the global batch's gradient, each share's loss being its part of the
+        global mean)."""
+        if self.mesh is not None:
+            all_reduce_gradients_(params, self.mesh.data_group)
 
     def train_step(self, batch, use_points: bool, use_box: bool, multimask: bool):
         """One optimizer step on a prepared batch; returns (loss, mean IoU)
@@ -397,8 +411,7 @@ class SamTrainer:
             self.optimizer.zero_grad(set_to_none=True)
             loss, miou = self._loss(*batch, use_points, use_box, multimask)
             loss.backward()
-            if self.mesh is not None:
-                all_reduce_gradients_(self.model.sam.parameters(), self.mesh.data_group)
+            self._reduce_gradients(self.model.sam.parameters())
             self.optimizer.step()
         self._iteration += 1
         return self._over_data(loss.detach(), miou)

@@ -36,12 +36,12 @@ class SemanticSamTrainer(SamTrainer):
     """Trains SAM for class maps: the promptless decode's logits
     ``[:, :num_classes]`` at the patch size, loss ``dice_weight`` x softmax
     dice + (1 - ``dice_weight``) x cross-entropy. Loaders yield (image,
-    class map) batches."""
+    class map) batches. On a mesh each data rank's loader yields its equal
+    share of the global batch; a share's loss is its mean, the gradients are
+    averaged over the data group, so the step is the global batch's."""
 
     def __init__(self, *args, num_classes: int = 3, convert_inputs=None,
                  dice_weight: float = 0.5, **kwargs):
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError("SemanticSamTrainer is not meshed; use SamTrainer(mesh=)")
         kwargs.setdefault("n_objects_per_batch", 1)
         super().__init__(*args, **kwargs)
         if num_classes < 2:
@@ -78,16 +78,19 @@ class SemanticSamTrainer(SamTrainer):
             self.optimizer.zero_grad(set_to_none=True)
             loss = self.semantic_loss(images, targets)
             loss.backward()
+            self._reduce_gradients(self.model.sam.parameters())
             self.optimizer.step()
         if train:
             self._iteration += 1
-        return loss.detach()
+        return self._over_data(loss.detach())[0]
 
     def _run_epoch(self, train: bool = True):
         loader = self.train_loader if train else self.val_loader
         losses = []
         for batch in loader:
             images, targets = self.convert_inputs(batch[0], batch[1])
+            if self.mesh is not None:
+                self._share_sizes(images.shape[0])
             losses.append(float(self._step(images.to(self.device), targets.to(self.device),
                                            train)))
         return (float(np.mean(losses)) if losses else np.inf), 0.0

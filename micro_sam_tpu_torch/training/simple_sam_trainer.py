@@ -14,11 +14,11 @@ class SimpleSamTrainer(SamTrainer):
     """One round per step (``n_sub_iteration`` 1, no mask prompt by default),
     prompted by one point or one box: with both allowed, training draws the
     kind from Python's ``random`` (a point below 0.5) and validation
-    alternates, a point on even iterations."""
+    alternates, a point on even iterations. On a mesh the kind is drawn once
+    a step for the whole world: mesh rank 0 draws it and broadcasts it, so a
+    mesh whose rank 0 is seeded like one process takes its branches."""
 
     def __init__(self, *args, use_points: bool = True, use_box: bool = True, **kwargs):
-        if kwargs.get("mesh") is not None:  # each rank would draw its own prompt kind
-            raise NotImplementedError("SimpleSamTrainer is not meshed; use SamTrainer(mesh=)")
         kwargs.setdefault("n_sub_iteration", 1)
         kwargs.setdefault("mask_prob", 0.0)
         super().__init__(*args, **kwargs)
@@ -27,7 +27,11 @@ class SimpleSamTrainer(SamTrainer):
 
     def _get_prompt_and_multimasking_choices(self, iteration):
         if self.use_points and self.use_box:
-            return _POINT if random.random() < 0.5 else _BOX
+            mesh = getattr(self, "mesh", None)
+            if mesh is None:
+                return _POINT if random.random() < 0.5 else _BOX
+            point = mesh.broadcast_object(random.random() < 0.5 if mesh.rank == 0 else None)
+            return _POINT if point else _BOX
         return _POINT if self.use_points else _BOX
 
     def _get_prompt_and_multimasking_choices_for_val(self, iteration):

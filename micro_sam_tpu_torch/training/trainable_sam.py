@@ -9,18 +9,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..models.common import resize_bilinear
 from ..models.sam import Sam, preprocess
-
-
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """(N, C, h, w) -> (N, C, H, W), bilinear with half-pixel centres, as
-    ``jax.image.resize(..., "bilinear")``: antialiased when it shrinks."""
-    if tuple(x.shape[-2:]) == tuple(out_hw):
-        return x
-    down = out_hw[0] < x.shape[-2] or out_hw[1] < x.shape[-1]
-    return F.interpolate(x, tuple(out_hw), mode="bilinear", align_corners=False, antialias=down)
 
 
 class TrainableSAM:

@@ -1489,6 +1489,30 @@ def test_sa50_gate_on_the_card(dev, tmp_path):
     assert sa50[0] > SA50_BAR, sa50
 
 
+def test_gate_training_repeats_on_the_card(dev, tmp_path):
+    """Two one-epoch trainings of the SA50 gate's SAM on the card (24 steps,
+    f32) give bitwise-equal weights: the resizes and the transposed
+    convolutions of the SAM step are products and its convolutions
+    ``conv2d_product`` / ``conv2d_nchw`` (``models/common.py``), whose
+    backward repeats, where cuDNN's data gradient of the neck's 3 x 3
+    convolution and ``F.interpolate``'s backward did not."""
+    import os
+    import sys
+    import time
+    sys.path.insert(0, os.path.dirname(__file__))  # the gate's module, beside this file
+    from test_torch_training_quality import train_gate
+    states, seconds = [], []
+    for k in range(2):
+        t0 = time.perf_counter()
+        trainer, _ = train_gate(dev, tmp_path / str(k), epochs=1)
+        seconds.append(time.perf_counter() - t0)
+        states.append({n: v.detach().clone() for n, v in trainer.model.sam.state_dict().items()})
+    differ = [n for n, v in states[0].items() if not torch.equal(v, states[1][n])]
+    print(f"the gate's one-epoch training, twice: {[round(t, 2) for t in seconds]} s; "
+          f"{len(differ)} of {len(states[0])} tensors differ")
+    assert not differ, differ[:8]
+
+
 def test_iterative_prompting_on_the_card_matches_the_cpu(dev):
     """The evaluation's iterative loop of the trained fixture SAM (f32) on the
     card against the same on the CPU, the card fed the CPU's corrective

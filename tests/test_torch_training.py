@@ -156,12 +156,82 @@ def test_gumbel_pick_ring_dice_and_boxes_match_jax():
 
 @pytest.mark.parametrize("src,dst", [(512, 1024), (256, 512), (64, 128)])
 def test_bilinear_resize_matches_jax_image_resize(src, dst):
-    """F.interpolate with half-pixel centres equals jax.image.resize for the
-    trainer's upsamplings (patch -> model input, low-res logits -> patch)."""
+    """The resize (two products with fixed weights) equals jax.image.resize
+    for the trainer's upsamplings (patch -> model input, low-res logits ->
+    patch)."""
     from micro_sam_tpu_torch.training.trainable_sam import resize_bilinear
     x = np.random.RandomState(src).randn(2, 3, src, src).astype(np.float32)
     ref = jax.image.resize(jnp.asarray(x), (2, 3, dst, dst), method="bilinear")
     assert rel_err(resize_bilinear(torch.from_numpy(x), (dst, dst)), ref) <= 1e-6
+
+
+@pytest.mark.parametrize("src,dst,layout", [(32, 128, "nchw"), (128, 64, "nchw"),
+                                             (100, 37, "nchw"), (37, 100, "nchw"),
+                                             (20, 40, "nhwc"), (48, 20, "nhwc")])
+def test_resize_rewrite_matches_jax_both_ways(src, dst, layout):
+    """``resize_bilinear`` (NCHW) and ``resize_bilinear_hwc`` (NHWC), up and
+    down (antialiased), against jax.image.resize forward and its VJP (rel
+    1e-5: both compute the weights in float32, the sample positions rounded
+    apart at odd ratios): the backward is the transposed products."""
+    from micro_sam_tpu_torch.models.common import resize_bilinear, resize_bilinear_hwc
+    rng = np.random.RandomState(src + dst)
+    shape = (2, 3, src, src + 5) if layout == "nchw" else (2, src, src + 5, 3)
+    out = (dst, dst + 3)
+    x = rng.randn(*shape).astype(np.float32)
+    full = shape[:2] + out if layout == "nchw" else (shape[0],) + out + (shape[-1],)
+    g = rng.randn(*full).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a: jax.image.resize(a, full, method="bilinear"), jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = (resize_bilinear if layout == "nchw" else resize_bilinear_hwc)(xt, out)
+    got.backward(torch.from_numpy(g))
+    assert rel_err(got.detach(), ref) <= 1e-5
+    assert rel_err(xt.grad, vjp(jnp.asarray(g))[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["transposed", "2x2_stride2", "1x1", "3x3_stride1",
+                                  "1x1_stride1"])
+def test_conv_rewrites_match_jax(kind):
+    """The forms whose backward replaces cuDNN's: ``conv_transpose2d``
+    (kernel == stride: one product and a pixel shuffle; the mask decoder's
+    upscaling, the UNETR's deconvolutions), ``conv2d_product`` (kernel ==
+    stride: the prompt encoder's mask convolutions; and 1 x 1) and
+    ``conv2d_nchw`` (stride 1, NCHW, ``RepeatableConv2d``: the neck's 1 x 1
+    and 3 x 3, the UNETR's convolutions) against the JAX package's
+    ``conv_transpose2d`` / ``conv2d``, forward and VJP, f32 rel 1e-5."""
+    import micro_sam_tpu.models.common as jc
+    from micro_sam_tpu_torch.models.common import conv2d_nchw, conv2d_product, conv_transpose2d
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 8, 10, 16).astype(np.float32)
+    b = rng.randn(12).astype(np.float32)
+    if kind == "transposed":
+        wj = rng.randn(2, 2, 12, 16).astype(np.float32)          # (kh, kw, out, in)
+        fj = lambda xx, ww, bb: jc.conv_transpose2d({"w": ww, "b": bb}, xx, 2)  # noqa: E731
+        wt = torch.from_numpy(wj.transpose(3, 2, 0, 1).copy())    # (in, out, kh, kw)
+        fp = lambda xx, ww, bb: conv_transpose2d(xx, ww, bb, 2)   # noqa: E731
+    else:
+        k, stride, pad = {"2x2_stride2": (2, 2, 0), "1x1": (1, 1, 0), "3x3_stride1": (3, 1, 1),
+                          "1x1_stride1": (1, 1, 0)}[kind]
+        wj = rng.randn(k, k, 16, 12).astype(np.float32)            # HWIO
+        fj = lambda xx, ww, bb: jc.conv2d({"w": ww, "b": bb}, xx, stride, pad)  # noqa: E731
+        wt = torch.from_numpy(wj.transpose(3, 2, 0, 1).copy())    # (out, in, kh, kw)
+        if kind.endswith("stride1"):
+            def fp(xx, ww, bb):
+                y = conv2d_nchw(xx.permute(0, 3, 1, 2), ww, bb, pad)
+                return y.permute(0, 2, 3, 1)
+        else:
+            def fp(xx, ww, bb):
+                return conv2d_product(xx, ww, bb, stride)
+    ref, vjp = jax.vjp(fj, jnp.asarray(x), jnp.asarray(wj), jnp.asarray(b))
+    g = rng.randn(*ref.shape).astype(np.float32)
+    dx, dw, db = vjp(jnp.asarray(g))
+    xt, bt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(b).requires_grad_()
+    wt.requires_grad_()
+    got = fp(xt, wt, bt)
+    got.backward(torch.from_numpy(g))
+    assert rel_err(got.detach(), ref) <= 1e-5
+    assert rel_err(xt.grad, dx) <= 1e-5 and rel_err(bt.grad, db) <= 1e-5
+    perm = (3, 2, 0, 1)
+    assert rel_err(wt.grad, np.asarray(dw).transpose(perm)) <= 1e-5
 
 
 def test_adamw_matches_optax():

@@ -48,21 +48,17 @@ class ScheduledAdamW(torch.optim.AdamW):
         return super().step(closure)
 
 
-def sa50_gate(device, root, epochs=60):
-    """Train, export, reload on ``device`` and score; returns (SA50 per
-    iteration, mSA per iteration, training seconds)."""
-    from micro_sam_tpu_torch import util
-    from micro_sam_tpu_torch.evaluation import mean_segmentation_accuracy
-    from micro_sam_tpu_torch.evaluation.inference import iterative_prompting_segmentations
+def train_gate(device, root, epochs=60, seed=0):
+    """The gate's training on ``device``: returns (the trainer, training
+    seconds). ``seed`` seeds the initial weights (the gate's is 0)."""
     from micro_sam_tpu_torch.models.sam import Sam, SamConfig
     from micro_sam_tpu_torch.sample_data import synthetic_data
     from micro_sam_tpu_torch.training.sam_trainer import SamTrainer
     from micro_sam_tpu_torch.training.trainable_sam import TrainableSAM
-    from micro_sam_tpu_torch.training.training import (default_sam_loader,
-                                                       export_instance_segmentation_model)
+    from micro_sam_tpu_torch.training.training import default_sam_loader
     cfg = SamConfig(model_type="vit_b", embed_dim=96, depth=2, num_heads=2,
                     global_attn_indexes=(1,), img_size=S, window_size=8)
-    sam = Sam(cfg).init_(torch.Generator().manual_seed(0)).to(device)
+    sam = Sam(cfg).init_(torch.Generator().manual_seed(seed)).to(device)
     model = TrainableSAM(sam)
     train = [synthetic_data(shape=(S, S), seed=i, n_objects=6) for i in range(8)]
     loader = default_sam_loader(raw_paths=[im for im, _ in train], raw_key=None,
@@ -83,8 +79,18 @@ def sa50_gate(device, root, epochs=60):
         trainer.fit(epochs=epochs, verbose=False)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    return trainer, time.perf_counter() - t0
 
+
+def sa50_gate(device, root, epochs=60, seed=0):
+    """Train (``train_gate``), export, reload on ``device`` and score;
+    returns (SA50 per iteration, mSA per iteration, training seconds)."""
+    from micro_sam_tpu_torch import util
+    from micro_sam_tpu_torch.evaluation import mean_segmentation_accuracy
+    from micro_sam_tpu_torch.evaluation.inference import iterative_prompting_segmentations
+    from micro_sam_tpu_torch.sample_data import synthetic_data
+    from micro_sam_tpu_torch.training.training import export_instance_segmentation_model
+    _, seconds = train_gate(device, root, epochs, seed)
     exported = str(root / "exported.pkl")
     export_instance_segmentation_model(str(root / "quality" / "best.pkl"), exported)
     predictor = util.get_sam_model(checkpoint_path=exported, device=str(device))

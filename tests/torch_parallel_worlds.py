@@ -16,6 +16,19 @@ CFG128 = dict(CFG256, img_size=128)
 ENCODE_BATCH = 4
 TRAIN_BATCH = 4
 GUARD_BATCHES = (2, 1)   # data ranks' shares that sum to an odd global batch
+#: the PEFT encoders: 128 wide, so that an int4 shard at model = 2 holds
+#: whole blocks of 64 inputs (proj's 64 of 128)
+CFG_PEFT = dict(CFG128, embed_dim=128)
+PEFT_CASES = {
+    "lora_mlp": dict(rank=3, update_matrices=("q", "v", "mlp")),
+    "fact": dict(rank=4, peft_module="fact"),
+    "ssf": dict(peft_module="ssf"),
+    "ssf_proj": dict(peft_module="ssf"),   # proj's SSF drawn too: the JAX forward ignores it
+    "adaptformer": dict(peft_module="adaptformer", projection_size=16),
+    "qlora": dict(rank=4, quantize=True),
+}
+PEFT_BATCH = 4
+SIMPLE_DRAWS = 8   # SimpleSamTrainer's prompt kinds drawn on the mesh
 
 
 def encode_input():
@@ -36,6 +49,20 @@ def trainer_data():
             y, x = rng.randint(0, 100, 2)
             labels[b, y:y + 24, x:x + 24] = i + 1
     return imgs, labels
+
+
+def distance_targets(labels):
+    """The joint trainer's (B, 3, H, W) targets of ``trainer_data``'s labels."""
+    from micro_sam_tpu_torch.training import PerObjectDistanceTransform
+    return np.stack([PerObjectDistanceTransform(min_size=10)(lab)[-3:] for lab in labels])
+
+
+def peft_input():
+    """Raw (PEFT_BATCH, 128, 128, 3) pixels and the weights of the scalar
+    sum(embedding * w) whose gradients the PEFT checks compare."""
+    rng = np.random.RandomState(31)
+    px = (rng.rand(PEFT_BATCH, 128, 128, 3) * 255).astype(np.float32)
+    return px, rng.randn(PEFT_BATCH, 8, 8, 256).astype(np.float32)
 
 
 def step_input(cfg):
@@ -93,6 +120,249 @@ def trainer_run(cfg_kw, sd_path, mesh, imgs, labels, root, name="m"):
         grads = gather_tensors(grads, mesh, model.config)
     return (trainer.train_metrics, {k: v.detach().numpy().copy() for k, v in params.items()},
             {k: v.numpy() for k, v in grads.items()})
+
+
+def _share(a, mesh):
+    d, i = (1, 0) if mesh is None else (mesh.shape["data"], mesh.data_index)
+    per = len(a) // d
+    return a[i * per:(i + 1) * per]
+
+
+def _trainer_kwargs(root, name, mesh):
+    from micro_sam_tpu_torch.training.util import ConvertToSamInputs
+    return dict(name=name, n_sub_iteration=1, n_objects_per_batch=2, save_root=root, mesh=mesh,
+                seed=0, logger=False,
+                convert_inputs=ConvertToSamInputs(box_distortion_factor=0.025,
+                                                  rng=np.random.RandomState(17)))
+
+
+def _whole(named, mesh, config):
+    from micro_sam_tpu_torch.parallel.mesh import gather_tensors
+    if mesh is not None:
+        named = gather_tensors(named, mesh, config)
+    return {k: v.detach().numpy().copy() for k, v in named.items()}
+
+
+def _reloaded(trainer, modules):
+    """Zero ``modules``' parameters, load the trainer's latest checkpoint and
+    check that every parameter came back."""
+    kept = [{k: p.detach().clone() for k, p in m.named_parameters()} for m in modules]
+    with torch.no_grad():
+        for m in modules:
+            for p in m.parameters():
+                p.zero_()
+    trainer.load_checkpoint("latest")
+    for m, before in zip(modules, kept):
+        if not all(torch.equal(p, before[k]) for k, p in m.named_parameters()):
+            raise AssertionError("the reloaded checkpoint differs from the trained parameters")
+
+
+def joint_run(cfg_kw, sd_path, unetr_path, mesh, imgs, labels, targets, root, frozen=False):
+    """One JointSamTrainer epoch (SamTrainer's settings above, the decoder on
+    its share's targets); returns (metrics, instance loss, whole SAM
+    gradients, decoder gradients, decoder parameters after). The SAM's AdamW
+    has lr 0, so that the decoder step encodes with the SAM every run
+    started from: a first AdamW step moves each element whose gradient is
+    rounding noise by up to 2 lr, and the decoder's gradients amplify that.
+    ``frozen``: the SAM frozen and no SAM optimizer, as
+    ``train_instance_segmentation`` builds it (checked unchanged)."""
+    from micro_sam_tpu_torch.models.unetr import decoder_from_state
+    from micro_sam_tpu_torch.training.joint_sam_trainer import JointSamTrainer
+    from micro_sam_tpu_torch.training.trainable_sam import TrainableSAM
+    model = TrainableSAM(load_sam(cfg_kw, sd_path, train=True))
+    unetr = decoder_from_state(torch.load(unetr_path, weights_only=True))
+    names = [n for n, _ in model.sam.named_parameters()]
+    before = {k: v.clone() for k, v in model.sam.state_dict().items()}
+    opt = None
+    if frozen:
+        model.sam.requires_grad_(False)
+    else:
+        opt = RecordedAdamW([p for _, p in model.sam.named_parameters()], lr=0.0)
+    trainer = JointSamTrainer(train_loader=[(imgs, labels, targets)], val_loader=[(imgs, labels)],
+                              model=model, optimizer=opt, unetr=unetr,
+                              **_trainer_kwargs(root, "joint", mesh))
+    dec_names = [n for n, _ in unetr.named_parameters()]
+    trainer.unetr_optimizer = RecordedAdamW([p for _, p in unetr.named_parameters()])
+    losses = []
+    step = trainer.instance_step
+    trainer.instance_step = lambda *a: losses.append(float(step(*a))) or losses[-1]
+    trainer.fit(epochs=1, verbose=False)
+    if frozen:
+        from micro_sam_tpu_torch.parallel.mesh import gather_state_dict
+        after = model.sam.state_dict() if mesh is None else gather_state_dict(model.sam, mesh)
+        if not all(torch.equal(v, before[k]) for k, v in after.items()):
+            raise AssertionError("the frozen SAM moved")
+    _reloaded(trainer, (model.sam, unetr))
+    grads = {} if frozen else {k: g for k, g in zip(names, opt.grads) if g is not None}
+    dec_grads = dict(zip(dec_names, trainer.unetr_optimizer.grads))
+    return (trainer.train_metrics, losses, _whole(grads, mesh, model.config),
+            {k: g.numpy() for k, g in dec_grads.items()},
+            {k: p.detach().numpy().copy() for k, p in unetr.named_parameters()})
+
+
+def medsam_run(cfg_kw, sd_path, mesh, imgs, labels, root):
+    """One MedSAMTrainer epoch (a box round); returns (metrics, whole gradients)."""
+    from micro_sam_tpu_torch.training.simple_sam_trainer import MedSAMTrainer
+    from micro_sam_tpu_torch.training.trainable_sam import TrainableSAM
+    model = TrainableSAM(load_sam(cfg_kw, sd_path, train=True))
+    names = [n for n, _ in model.sam.named_parameters()]
+    opt = RecordedAdamW([p for _, p in model.sam.named_parameters()])
+    trainer = MedSAMTrainer(train_loader=[(imgs, labels)], val_loader=[(imgs, labels)],
+                            model=model, optimizer=opt, **_trainer_kwargs(root, "medsam", mesh))
+    trainer.fit(epochs=1, verbose=False)
+    _reloaded(trainer, (model.sam,))
+    grads = {k: g for k, g in zip(names, opt.grads) if g is not None}
+    return trainer.train_metrics, _whole(grads, mesh, model.config)
+
+
+def semantic_run(cfg_kw, sd_path, mesh, imgs, classes, root):
+    """One SemanticSamTrainer epoch on class maps; returns (metrics, whole
+    gradients)."""
+    from micro_sam_tpu_torch.training.semantic_sam_trainer import SemanticSamTrainer
+    from micro_sam_tpu_torch.training.trainable_sam import TrainableSAM
+    model = TrainableSAM(load_sam(cfg_kw, sd_path, train=True))
+    names = [n for n, _ in model.sam.named_parameters()]
+    opt = RecordedAdamW([p for _, p in model.sam.named_parameters()])
+    trainer = SemanticSamTrainer(name="semantic", train_loader=[(imgs, classes)],
+                                 val_loader=[(imgs, classes)], model=model, optimizer=opt,
+                                 num_classes=3, save_root=root, mesh=mesh, logger=False)
+    trainer.fit(epochs=1, verbose=False)
+    _reloaded(trainer, (model.sam,))
+    grads = {k: g for k, g in zip(names, opt.grads) if g is not None}
+    return trainer.train_metrics, _whole(grads, mesh, model.config)
+
+
+def simple_draws(mesh):
+    """SimpleSamTrainer's prompt kinds of SIMPLE_DRAWS training steps, every
+    rank's Python ``random`` seeded apart but mesh rank 0's as one process's
+    (seed 123)."""
+    import random
+    from micro_sam_tpu_torch.training.simple_sam_trainer import SimpleSamTrainer
+    trainer = SimpleSamTrainer.__new__(SimpleSamTrainer)
+    trainer.mesh, trainer.use_points, trainer.use_box = mesh, True, True
+    random.seed(123 + (0 if mesh is None else mesh.rank))
+    return [trainer._get_prompt_and_multimasking_choices(i) for i in range(SIMPLE_DRAWS)]
+
+
+def load_peft(name, workdir):
+    """The PEFT encoder ``name`` as the test wrote it (f32 weights)."""
+    from micro_sam_tpu_torch.models.build_sam import make_sam
+    from micro_sam_tpu_torch.models.sam import SamConfig
+    sd = torch.load(os.path.join(workdir, f"peft_{name}.pt"), weights_only=True)
+    return make_sam(SamConfig(**CFG_PEFT), sd, 0, torch.float32,
+                    peft_kwargs=PEFT_CASES[name]).eval()
+
+
+def peft_checks(mesh, workdir):
+    """Each PEFT encoder split over the mesh: its encode of ``peft_input`` and
+    the gradients of sum(embedding * w) over the global batch (each data
+    rank's share, summed over the data group), gathered whole."""
+    from micro_sam_tpu_torch.parallel.embed import ShardedEncoder
+    from micro_sam_tpu_torch.parallel.mesh import all_reduce_gradients_, gather_state_dict
+    from micro_sam_tpu_torch.training.trainable_sam import TrainableSAM
+    px, w = peft_input()
+    out = {}
+    for name in PEFT_CASES:
+        sam = load_peft(name, workdir)
+        enc = ShardedEncoder(sam, mesh=mesh, batch_size=PEFT_BATCH)
+        feats = enc.encode_batch(px)
+        with torch.enable_grad():
+            emb = TrainableSAM(sam).image_embeddings_oft(torch.from_numpy(_share(px, mesh)))
+            (emb * torch.from_numpy(_share(w, mesh))).sum().backward()
+        if mesh is not None:
+            all_reduce_gradients_(sam.parameters(), mesh.data_group, op="sum")
+        grads = {k: p.grad for k, p in sam.named_parameters() if p.grad is not None}
+        out[name] = dict(encode=feats, grads=_whole(grads, mesh, sam.config),
+                         state={k: v.clone() for k, v in
+                                gather_state_dict(sam, enc.mesh).items()})
+    return out
+
+
+def lora_trainer_run(mesh, workdir, imgs, labels, root):
+    """One SamTrainer epoch of the LoRA SAM (``lora_mlp``; the PEFT mask
+    freezing the base encoder, as ``train_sam(peft_kwargs=)`` does); returns
+    (metrics, whole gradients, the names of the parameters that train)."""
+    from micro_sam_tpu_torch.models.peft_sam import freeze_peft_, get_peft_mask
+    from micro_sam_tpu_torch.training.sam_trainer import SamTrainer
+    from micro_sam_tpu_torch.training.trainable_sam import TrainableSAM
+    sam = load_peft("lora_mlp", workdir).train()
+    freeze_peft_(sam, get_peft_mask(sam, "lora"))
+    model = TrainableSAM(sam)
+    named = [(n, p) for n, p in sam.named_parameters() if p.requires_grad]
+    opt = RecordedAdamW([p for _, p in named])
+    trainer = SamTrainer(train_loader=[(imgs, labels)], val_loader=[(imgs, labels)], model=model,
+                         optimizer=opt, **_trainer_kwargs(root, "lora", mesh))
+    frozen = {n: p.detach().clone() for n, p in sam.named_parameters() if not p.requires_grad}
+    trainer.fit(epochs=1, verbose=False)
+    if not all(torch.equal(p, frozen[n]) for n, p in sam.named_parameters() if n in frozen):
+        raise AssertionError("a frozen parameter of the LoRA SAM moved")
+    grads = {n: g for (n, _), g in zip(named, opt.grads) if g is not None}
+    return trainer.train_metrics, _whole(grads, mesh, sam.config), sorted(n for n, _ in named)
+
+
+def qlora_export_run(mesh, workdir, imgs, labels, root):
+    """One SamTrainer epoch of the QLoRA SAM (the PEFT mask freezing its int4
+    base; AdamW at lr 0, so that the weights stay as loaded), then
+    ``export_custom_qlora_model`` of the checkpoint mesh rank 0 wrote:
+    {flattened key: array} of the export (on every rank, read from the
+    file)."""
+    import pickle
+    from micro_sam_tpu_torch.models.peft_sam import freeze_peft_, get_peft_mask
+    from micro_sam_tpu_torch.training.sam_trainer import SamTrainer
+    from micro_sam_tpu_torch.training.trainable_sam import TrainableSAM
+    from micro_sam_tpu_torch.util import export_custom_qlora_model
+    sam = load_peft("qlora", workdir).train()
+    freeze_peft_(sam, get_peft_mask(sam, "lora"))
+    opt = RecordedAdamW([p for p in sam.parameters() if p.requires_grad], lr=0.0)
+    trainer = SamTrainer(train_loader=[(imgs, labels)], val_loader=[(imgs, labels)],
+                         model=TrainableSAM(sam), optimizer=opt,
+                         **_trainer_kwargs(root, "qlora", mesh))
+    trainer.fit(epochs=1, verbose=False)
+    out = os.path.join(root, "qlora_export.pkl")
+    if trainer._writes:
+        export_custom_qlora_model(None, trainer._checkpoint_path("latest"), "vit_b", out)
+    if mesh is not None:
+        mesh.barrier()
+    with open(out, "rb") as f:
+        state = pickle.load(f)["model_state"]
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}/{i}")
+        else:
+            flat[prefix] = np.asarray(node)
+    walk(state, "")
+    return flat
+
+
+VIT_T_IMAGE = dict(shape=(256, 256), seed=3)   # the JAX meshed vit_t test's image
+
+
+def vit_t_predict(mesh):
+    """get_sam_model("vit_t") (f32, random weights of seed 0, cut to 256 px
+    input) on ``mesh``: one point's predict on the JAX meshed vit_t test's
+    image."""
+    import dataclasses
+    from micro_sam_tpu_torch.models import build_sam
+    from micro_sam_tpu_torch.util import get_sam_model, precompute_image_embeddings, set_precomputed
+    saved = build_sam.SAM_CONFIGS["vit_t"]
+    build_sam.SAM_CONFIGS["vit_t"] = dataclasses.replace(saved, img_size=256)
+    try:
+        pred = get_sam_model("vit_t", compute_dtype="float32", mesh=mesh,
+                             device="cpu" if mesh is None else str(mesh.device))
+        rng = np.random.RandomState(VIT_T_IMAGE["seed"])
+        image = (rng.rand(*VIT_T_IMAGE["shape"]) * 255).astype(np.uint8)
+        set_precomputed(pred, precompute_image_embeddings(pred, image, verbose=False))
+        masks, ious, _ = pred.predict(point_coords=np.array([[128.0, 128.0]]),
+                                      point_labels=np.array([1]))
+    finally:
+        build_sam.SAM_CONFIGS["vit_t"] = saved
+    return np.asarray(masks), np.asarray(ious)
 
 
 def step_run(cfg_kw, sd_path, mesh):
@@ -201,6 +471,26 @@ def world_checks(model_axis, workdir):
                                  imgs[i * per:(i + 1) * per], labels[i * per:(i + 1) * per],
                                  os.path.join(workdir, f"ckpt{model_axis}_{mesh.size}"))
     out["step"] = step_run(CFG128, os.path.join(workdir, "sd128.pt"), mesh)
+    sd128 = os.path.join(workdir, "sd128.pt")
+    imgs_i, labels_i = _share(imgs, mesh), _share(labels, mesh)
+    out["joint"] = joint_run(CFG128, sd128, os.path.join(workdir, "unetr.pt"), mesh, imgs_i,
+                             labels_i, _share(distance_targets(labels), mesh),
+                             os.path.join(workdir, f"joint{model_axis}_{mesh.size}"))
+    out["instance"] = joint_run(CFG128, sd128, os.path.join(workdir, "unetr.pt"), mesh, imgs_i,
+                                labels_i, _share(distance_targets(labels), mesh),
+                                os.path.join(workdir, f"instance{model_axis}_{mesh.size}"),
+                                frozen=True)
+    out["medsam"] = medsam_run(CFG128, sd128, mesh, imgs_i, labels_i,
+                               os.path.join(workdir, f"medsam{model_axis}_{mesh.size}"))
+    out["semantic"] = semantic_run(CFG128, sd128, mesh, imgs_i, labels_i % 3,
+                                   os.path.join(workdir, f"semantic{model_axis}_{mesh.size}"))
+    out["simple_draws"] = simple_draws(mesh)
+    out["peft"] = peft_checks(mesh, workdir)
+    out["lora_trainer"] = lora_trainer_run(mesh, workdir, imgs_i, labels_i,
+                                           os.path.join(workdir, f"lora{model_axis}_{mesh.size}"))
+    out["qlora_export"] = qlora_export_run(mesh, workdir, imgs_i, labels_i, os.path.join(
+        workdir, f"qlora{model_axis}_{mesh.size}"))
+    out["vit_t"] = vit_t_predict(mesh)
     if d == 2:  # the shares of an odd global batch
         k = GUARD_BATCHES[i]
         try:

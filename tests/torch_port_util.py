@@ -125,6 +125,40 @@ def jax_step_loss(cfg, params, batch, prompt_pad: int):
     return loss_fn
 
 
+def jax_box_step_loss(cfg, params, batch):
+    """The JAX reference of one box round (single mask, n_sub_iteration 1, no
+    mask prompt) of the port's trainer on a prepared ``batch``, as a function
+    of the params: the box corners (labels 2, 3) and no padding point, the
+    first mask's dice + IoU loss over the valid objects."""
+    import jax
+    import jax.numpy as jnp
+    from micro_sam_tpu.models.sam import Sam
+    from micro_sam_tpu.training.sam_trainer import dice_score
+    from micro_sam_tpu.training.trainable_sam import TrainableSAM
+    images, gt, valid, _, _, boxes0 = (jnp.asarray(t.numpy()) for t in batch)
+    model = TrainableSAM(Sam(cfg, params))
+    B, O, S1, S2 = gt.shape
+    N = B * O
+    scale = cfg.img_size / max(S1, S2)
+
+    def loss_fn(p):
+        feats = jnp.repeat(model.image_embeddings_oft(p, images), O, axis=0)
+        pts = boxes0.reshape(N, 2, 2) * scale
+        lbl = jnp.tile(jnp.asarray([[2, 3]], jnp.int32), (N, 1))
+        low, iou = model.forward_decoder(p, feats, pts, lbl)
+        gt_c = gt.reshape(N, S1, S2)
+        up = model.upscale_masks(low[:, :1], (S1, S2))[:, 0]
+        d = 1.0 - dice_score(jax.nn.sigmoid(up), gt_c)
+        inter = jnp.sum((up > 0) & (gt_c > 0.5), axis=(-2, -1), dtype=jnp.float32)
+        union = jnp.sum((up > 0) | (gt_c > 0.5), axis=(-2, -1), dtype=jnp.float32)
+        actual = jax.lax.stop_gradient(inter / jnp.maximum(union, 1e-7))
+        v = valid.reshape(N).astype(jnp.float32)
+        per = d + (iou[:, 0] - actual) ** 2
+        return jnp.sum(per * v) / jnp.maximum(v.sum(), 1)
+
+    return loss_fn
+
+
 # ---------------------------------------------------------------------------
 # the UNETR decoder of AIS (tests/test_torch_unetr.py, test_torch_ais.py,
 # test_torch_automatic_segmentation.py)
