@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .models.sam import MASK_THRESHOLD, Sam, postprocess_masks, preprocess
 from .ops.amg_utils import batched_mask_to_box, calculate_stability_score
 from .utils.transforms import ResizeLongestSide, get_preprocess_shape
@@ -85,15 +86,23 @@ class SamPredictor:
         """(B, h, w, 3) resized pixels -> (B, 64, 64, 256) embeddings on the
         device; on a mesh each data rank encodes its slice of the padded batch
         and the slices are all-gathered."""
-        batch = np.asarray(batch, dtype=np.float32)
-        if self.mesh is None:
-            x = torch.as_tensor(batch, device=self.device)
-            return self.model.encode_image(preprocess(x, self.model.config.img_size))
-        from .parallel.mesh import all_gather_cat
-        batch, n = self._pad_batch(batch)
-        x = torch.as_tensor(batch[self._data_slice(len(batch))], device=self.device)
-        feats = self.model.encode_image(preprocess(x, self.model.config.img_size))
-        return all_gather_cat(feats, self.mesh.data_group)[:n]
+        with tracing.span("encode_batch", images=len(batch)):
+            with tracing.span("encode_batch.cast") as cast:
+                made = np.asarray(batch, dtype=np.float32)
+                cast.count(bytes=0 if made is batch else made.nbytes)
+            if self.mesh is None:
+                with tracing.span("encode_batch.copy_in", bytes=made.nbytes):
+                    x = torch.as_tensor(made, device=self.device)
+                with tracing.span("encode_batch.launch"):
+                    return self.model.encode_image(preprocess(x, self.model.config.img_size))
+            from .parallel.mesh import all_gather_cat
+            made, n = self._pad_batch(made)
+            part = made[self._data_slice(len(made))]
+            with tracing.span("encode_batch.copy_in", bytes=part.nbytes):
+                x = torch.as_tensor(part, device=self.device)
+            with tracing.span("encode_batch.launch"):
+                feats = self.model.encode_image(preprocess(x, self.model.config.img_size))
+                return all_gather_cat(feats, self.mesh.data_group)[:n]
 
     def set_image(self, image: np.ndarray, image_format: str = "RGB") -> None:
         """image: (H, W, 3) uint8 (use util._to_image to normalize other inputs)."""

@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import __version__
+from . import __version__, tracing
 from .models.build_sam import default_compute_dtype, get_config, make_sam, resolve_device
 from .models.convert import (load_native_checkpoint, load_torch_checkpoint, params_from_jax,
                              params_to_jax)
@@ -411,8 +411,10 @@ def _compute_data_signature(input_: np.ndarray) -> str:
 
 def _embedding_signature(predictor: SamPredictor, input_: np.ndarray,
                          tile_shape=None, halo=None) -> Dict[str, Any]:
+    with tracing.span("precompute.signature", bytes=input_.nbytes):
+        data_signature = _compute_data_signature(input_)
     sig = {
-        "data_signature": _compute_data_signature(input_),
+        "data_signature": data_signature,
         "model_type": predictor.model_type,
         "model_name": predictor.model_name or predictor.model_type,
         "micro_sam_version": __version__,
@@ -464,11 +466,17 @@ def handle_pbar(verbose: bool, pbar_init=None, pbar_update=None):
 
 def _features_to_cache_layout(feats: torch.Tensor) -> np.ndarray:
     """(B, 64, 64, 256) NHWC -> (B, 256, 64, 64) float32 numpy (cache layout)."""
-    return feats.permute(0, 3, 1, 2).float().cpu().numpy()
+    with tracing.span("copy_out") as span:
+        out = feats.permute(0, 3, 1, 2).float().cpu().numpy()
+        span.count(bytes=out.nbytes)
+        return out
 
 
 def _resize_for_encoder(predictor: SamPredictor, image: np.ndarray) -> np.ndarray:
-    return predictor.transform.apply_image(_to_image(image))
+    with tracing.span("precompute.to_image"):
+        image = _to_image(image)
+    with tracing.span("precompute.resize"):
+        return predictor.transform.apply_image(image)
 
 
 def get_block_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -522,62 +530,63 @@ def precompute_image_embeddings(
     the JAX package (data signature, model type and name, version, model
     hash; tile shape and halo for tiles)."""
     ndim = input_.ndim if ndim is None else ndim
-    if tile_shape is not None and halo is None:
-        halo = tuple(0 for _ in tile_shape)
-    if tile_subset is not None and tile_shape is None:
-        raise ValueError("tile_subset requires a tiled computation (tile_shape).")
-    zarr_format = int(os.environ.get("MICROSAM_ZARR_FORMAT", "2"))
-    # a meshed predictor in a world of several ranks: every rank encodes its
-    # share of each batch, mesh rank 0 alone reads and writes save_path (the
-    # others keep their copy in memory), and a partial cache is recomputed,
-    # not resumed, so that every rank makes the same encode calls
-    mesh = getattr(predictor, "mesh", None)
-    shared = save_path is not None and mesh is not None and mesh.world is not None \
-        and mesh.size > 1
-    if save_path is None or (shared and mesh.rank != 0):
-        f = zarr_lite.open(zarr_lite.MemoryStore(), zarr_format=zarr_format)
-    else:
-        f = zarr_lite.open(str(save_path), mode="a", zarr_format=zarr_format)
+    with tracing.span("precompute", slices=input_.shape[0] if ndim == 3 else 1):
+        if tile_shape is not None and halo is None:
+            halo = tuple(0 for _ in tile_shape)
+        if tile_subset is not None and tile_shape is None:
+            raise ValueError("tile_subset requires a tiled computation (tile_shape).")
+        zarr_format = int(os.environ.get("MICROSAM_ZARR_FORMAT", "2"))
+        # a meshed predictor in a world of several ranks: every rank encodes its
+        # share of each batch, mesh rank 0 alone reads and writes save_path (the
+        # others keep their copy in memory), and a partial cache is recomputed,
+        # not resumed, so that every rank makes the same encode calls
+        mesh = getattr(predictor, "mesh", None)
+        shared = save_path is not None and mesh is not None and mesh.world is not None \
+            and mesh.size > 1
+        if save_path is None or (shared and mesh.rank != 0):
+            f = zarr_lite.open(zarr_lite.MemoryStore(), zarr_format=zarr_format)
+        else:
+            f = zarr_lite.open(str(save_path), mode="a", zarr_format=zarr_format)
 
-    signature = _embedding_signature(predictor, input_, tile_shape, halo)
-    if _agreed_cache_check(f, signature, mesh if shared else None):
-        if shared and mesh.rank != 0:
-            f = zarr_lite.open(str(save_path), mode="r")
-        return _load_cached_embeddings(f, tile_shape, lazy_loading)
+        signature = _embedding_signature(predictor, input_, tile_shape, halo)
+        if _agreed_cache_check(f, signature, mesh if shared else None):
+            if shared and mesh.rank != 0:
+                f = zarr_lite.open(str(save_path), mode="r")
+            return _load_cached_embeddings(f, tile_shape, lazy_loading)
 
-    pbar_init, pbar_update, pbar_close = handle_pbar(verbose, pbar_init, pbar_update)
-    tiled_args = (tile_shape, halo, batch_size, mask, pbar_init, pbar_update, tile_subset,
-                  None if shared else signature)
-    if ndim == 2 and tile_shape is None:
-        embeddings = _compute_2d(predictor, input_, f, pbar_init, pbar_update)
-    elif ndim == 2:
-        embeddings = _compute_tiled_2d(predictor, input_, f, *tiled_args)
-    elif ndim == 3 and tile_shape is None:
-        embeddings = _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update,
-                                 resume=not shared)
-    elif ndim == 3:
-        embeddings = _compute_tiled_3d(predictor, input_, f, *tiled_args)
-    else:
-        raise ValueError(f"Invalid dimensionality {ndim}; expected 2 or 3.")
-    if not finalize:
+        pbar_init, pbar_update, pbar_close = handle_pbar(verbose, pbar_init, pbar_update)
+        tiled_args = (tile_shape, halo, batch_size, mask, pbar_init, pbar_update, tile_subset,
+                      None if shared else signature)
+        if ndim == 2 and tile_shape is None:
+            embeddings = _compute_2d(predictor, input_, f, pbar_init, pbar_update)
+        elif ndim == 2:
+            embeddings = _compute_tiled_2d(predictor, input_, f, *tiled_args)
+        elif ndim == 3 and tile_shape is None:
+            embeddings = _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update,
+                                     resume=not shared)
+        elif ndim == 3:
+            embeddings = _compute_tiled_3d(predictor, input_, f, *tiled_args)
+        else:
+            raise ValueError(f"Invalid dimensionality {ndim}; expected 2 or 3.")
+        if not finalize:
+            pbar_close()
+            if shared:
+                mesh.barrier()
+            return embeddings
+        f.attrs.update(signature)
+        f.attrs["input_size"] = (list(embeddings["input_size"]) if embeddings["input_size"]
+                                 else None)
+        f.attrs["original_size"] = (list(embeddings["original_size"])
+                                    if embeddings["original_size"] else None)
+        f.attrs["done"] = True
         pbar_close()
         if shared:
-            mesh.barrier()
+            mesh.barrier()  # save_path is complete when any rank returns
+            if lazy_loading and mesh.rank != 0:
+                f = zarr_lite.open(str(save_path), mode="r")
+        if lazy_loading and save_path is not None:
+            return _load_cached_embeddings(f, tile_shape, lazy_loading)
         return embeddings
-    f.attrs.update(signature)
-    f.attrs["input_size"] = (list(embeddings["input_size"]) if embeddings["input_size"]
-                             else None)
-    f.attrs["original_size"] = (list(embeddings["original_size"])
-                                if embeddings["original_size"] else None)
-    f.attrs["done"] = True
-    pbar_close()
-    if shared:
-        mesh.barrier()  # save_path is complete when any rank returns
-        if lazy_loading and mesh.rank != 0:
-            f = zarr_lite.open(str(save_path), mode="r")
-    if lazy_loading and save_path is not None:
-        return _load_cached_embeddings(f, tile_shape, lazy_loading)
-    return embeddings
 
 
 def _agreed_cache_check(f, signature: Dict[str, Any], mesh) -> bool:
@@ -626,10 +635,11 @@ def _compute_3d(predictor, input_, f, batch_size, pbar_init, pbar_update,
             return
         feats = _features_to_cache_layout(
             predictor.encode_batch(np.stack([b for _, b in pending])))
-        for j, (z, _) in enumerate(pending):
-            out[z, 0] = feats[j]
-            ds[z, 0] = feats[j]
-            pbar_update(1)
+        with tracing.span("precompute.store", bytes=feats.nbytes):
+            for j, (z, _) in enumerate(pending):
+                out[z, 0] = feats[j]
+                ds[z, 0] = feats[j]
+                pbar_update(1)
         pending.clear()
 
     for z in range(n_slices):

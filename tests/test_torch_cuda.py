@@ -1690,3 +1690,34 @@ def test_nccl_world_of_one_equals_unmeshed(dev):
             assert np.array_equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# tracing: the port's spans under the benchmark's profiler session
+# ---------------------------------------------------------------------------
+
+def test_a_cuda_only_profiler_session_records_the_spans(dev):
+    """The benchmark traces its window with CUDA activities alone: the port's
+    spans are on in such a session, and they add no device event of their
+    own to the card's busy time."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from micro_sam_tpu_torch import tracing
+    from micro_sam_tpu_torch.models.sam import Sam, SamConfig
+    from micro_sam_tpu_torch.predictor import SamPredictor
+    cfg = SamConfig(embed_dim=64, depth=2, num_heads=2, global_attn_indexes=(1,), img_size=128)
+    predictor = SamPredictor(Sam(cfg).init_(torch.Generator().manual_seed(5)).eval().to(dev))
+    batch = np.zeros((2, 128, 128, 3), np.uint8)
+    predictor.encode_batch(batch)
+    torch.cuda.synchronize()
+    last = max((s.id for s in tracing.spans()), default=0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        predictor.encode_batch(batch)
+        torch.cuda.synchronize()
+    names = sorted(s.name for s in tracing.spans() if s.id > last)
+    assert names == ["encode_batch", "encode_batch.cast", "encode_batch.copy_in",
+                     "encode_batch.launch"]
+    device = {e.name() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA}
+    assert device and not device & set(names), sorted(device)
